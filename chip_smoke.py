@@ -29,7 +29,6 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -38,6 +37,18 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "hlsjs_p2p_wrapper_tpu_torch"
+
+#: the kernel-vs-plain check: the production sweep width (bench.py:753),
+#: from a state the plain path reached after CHECK_WARM_STEPS steps
+CHECK_PEERS = 1_048_576
+CHECK_WARM_STEPS = 300
+#: the main path: bench.py's accelerator headline (bench.py:169-188)
+PEERS = 262_144
+SEGMENTS = 256
+STEPS = 2_400
+#: steps in each timed window: a kernels' window of CUDA events must fit
+#: in the launch queue while the card sleeps (~15 entries per step)
+WINDOW = 40
 
 #: H100 SXM device memory rate, bytes/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -177,7 +188,7 @@ def phase_build():
             log(f"    {src}: {line.strip()}")
 
 
-def make_case(sim, P, S, n_steps_plain, device):
+def make_case(sim, sk, P, S, n_steps_plain, device):
     """A config and scenario at P × S, and a state the plain path
     reached after ``n_steps_plain`` steps."""
     import numpy as np
@@ -189,14 +200,14 @@ def make_case(sim, P, S, n_steps_plain, device):
                                  device=device)
     state = sim.init_swarm(config, device=device)
     for _ in range(n_steps_plain):
-        state = sim.swarm_step(config, scenario, state, plain=True)
+        state = sk.plain_step(config, scenario, state)
     return config, scenario, state
 
 
 def phase_kernels_vs_plain(sim, sk, P, S, warm_steps):
     import torch
     t0 = time.perf_counter()
-    config, scenario, state = make_case(sim, P, S, warm_steps, "cuda")
+    config, scenario, state = make_case(sim, sk, P, S, warm_steps, "cuda")
     torch.cuda.synchronize()
     log(f"[3] {P:,} peers x {S} segments: plain path warmed "
         f"{warm_steps} steps in {time.perf_counter() - t0:.2f} s")
@@ -212,22 +223,28 @@ def _ratios(sim, state, n_steps, dt_s, join):
 
 
 def time_window(sim, sk, config, scenario, state0, n_steps, plain):
-    """Mean device time of each pass over ``n_steps`` consecutive steps
-    from ``state0`` (a clone is stepped), each pass bracketed by CUDA
-    events.  A GPU sleep ahead of the window lets the host queue the
-    launches, so the events time the device, not the host."""
+    """Device time over ``n_steps`` consecutive steps from ``state0`` (a
+    clone is stepped), each step as ``_scan_swarm`` runs it: the three
+    passes, the clock add and the offload-series write.  CUDA events
+    bracket each pass and the step's tail.  A GPU sleep ahead of the
+    window lets the host queue the launches, so the events time the
+    device, not the host.  The kernels' window fails if the host did
+    not stay ahead.  The plain passes launch hundreds of small ops a
+    step, more than the launch queue holds, so their times are the
+    passes as the host drives them, launch gaps included.  Returns
+    ``({kernel: mean ms per pass}, mean ms per whole step)``."""
     import torch
     st = sim.clone_state(state0)
-    names = list(KERNELS)
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    series = torch.empty((n_steps,), dtype=torch.float32, device="cuda")
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
           for _ in range(n_steps)]
     passes = ((sk.elig_select_plain, sk.admit_service_plain,
                sk.peer_update_plain) if plain
               else (sk.elig_select, sk.admit_service, sk.peer_update))
     torch.cuda.synchronize()
-    sleep = getattr(torch.cuda, "_sleep", None)
-    if sleep is not None:
-        sleep(int(2e8 if plain else 1e8))
+    torch.cuda._sleep(int(3e8))
+    slept = torch.cuda.Event()
+    slept.record()
     for s in range(n_steps):
         e = ev[s]
         e[0].record()
@@ -238,10 +255,84 @@ def time_window(sim, sk, config, scenario, state0, n_steps, plain):
         passes[2](config, scenario, st, flags, req, service, adm)
         e[3].record()
         st = st._replace(t_s=st.t_s + config.dt_ms / 1000.0)
+        series[s] = sim.offload_ratio(st)
+        e[4].record()
+    queued_ahead = not slept.query()
     torch.cuda.synchronize()
-    return {name: sum(ev[s][i].elapsed_time(ev[s][i + 1])
-                      for s in range(n_steps)) / n_steps
-            for i, name in enumerate(names)}
+    check(plain or queued_ahead,
+          f"timing window: the host did not queue {n_steps} steps within "
+          f"the GPU sleep, so the events would time the host")
+    per_pass = {name: sum(ev[s][i].elapsed_time(ev[s][i + 1])
+                          for s in range(n_steps)) / n_steps
+                for i, name in enumerate(KERNELS)}
+    return per_pass, ev[0][0].elapsed_time(ev[-1][4]) / n_steps
+
+
+def trace_main_path(sim, config, scenario, state0, n_steps):
+    """``n_steps`` steps of the main path's loop under ``torch.profiler``
+    (CUPTI): the device time of every op on the card, summed per step,
+    and each kernel's launches and mean device time in the trace.
+    Returns ``(busy ms per step, {kernel: (launches, mean ms)})``; the
+    busy time is None where the trace holds no device op."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    st = sim.clone_state(state0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim._scan_swarm(config, scenario, st, n_steps)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in ops)
+    per_kernel = {}
+    for name in KERNELS:
+        durs = [e.time_range.elapsed_us() for e in ops
+                if f"{name}_kernel" in e.name]
+        per_kernel[name] = (len(durs),
+                            sum(durs) / len(durs) / 1e3 if durs else None)
+    return (busy_us / n_steps / 1e3 if ops else None), per_kernel
+
+
+def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
+                 state_after):
+    """Bytes each kernel must move for one step on these inputs: every
+    input read once and every output written once, counting a
+    data-dependent read or write only where this step's data needs it
+    (the neighbours' map words that requesters ask for, the slot record
+    of peers that start, the cache word and estimator of peers that
+    complete).  A kernel's bound is these bytes over the card's memory
+    rate."""
+    import torch
+    g = sk.geometry(config)
+    P, K = g.P, len(g.offs)
+    tg = sk.slot_targets(config, scenario, state_before)
+    a0 = int(tg["a0"].sum())
+    may = int(((slot_flags & 1) != 0).sum())
+    # distinct (holder row, word) pairs that TK1's requesters read
+    peer = torch.arange(P, device=req.device)
+    wi = (tg["gi_flat"] >> 5).to(torch.int64)
+    keys = torch.stack([((peer + o) % P) * g.W + wi for o in g.offs_mod])
+    words = int(torch.unique(keys).numel()) if K else 0
+    tk1 = (4 * 13 * P          # 13 per-peer arrays read by every thread
+           + 4 * 3 * a0        # dl_seg, dl_level, dl_holder_off (active)
+           + 4 * words         # neighbours' wanted map words
+           + 4 * (g.L + 5)     # ladder, t_s, four policy scalars
+           + 4 * 2 * P         # slot_flags, req
+           + 4 * (P - a0)      # dl_holder_off of idle slots
+           + 4 * 7 * may)      # the slot record of starts
+    tk2 = 4 * 4 * P + 4        # req, uplink in; service, adm out; eff
+    placed = int((req >= 0).sum())
+    # slot 0 only turns inactive by completing
+    completed = int(((slot_flags & 2) != 0).sum()
+                    - ((state_after.dl_flags & 1) != 0).sum())
+    tk3 = (4 * 5 * P           # join, leave, cdn_bps, slot_flags, req
+           + 4 * 2 * placed    # adm word and service of the holder
+           + 4 * 10 * P        # 10 state arrays read
+           + 4 * 9 * P         # 9 state arrays written
+           + 4 * 2             # t_s, p2p_setup_ms
+           + (8 + 8 + 32) * completed)  # seg/level, map word, EWMA
+    return {"elig_select": float(tk1), "admit_service": float(tk2),
+            "peer_update": float(tk3)}
 
 
 def window_bytes(sim, sk, config, scenario, state0, n_steps):
@@ -255,8 +346,8 @@ def window_bytes(sim, sk, config, scenario, state0, n_steps):
         flags, req = sk.elig_select(config, scenario, st)
         service, adm = sk.admit_service(config, scenario, req)
         sk.peer_update(config, scenario, st, flags, req, service, adm)
-        for name, b in sk.kernel_bytes(config, scenario, before, flags,
-                                       req, adm, st).items():
+        for name, b in kernel_bytes(sk, config, scenario, before, flags,
+                                    req, adm, st).items():
             total[name] += b
         st = st._replace(t_s=st.t_s + config.dt_ms / 1000.0)
     return {name: b / n_steps for name, b in total.items()}
@@ -304,27 +395,45 @@ def phase_main(sim, sk, P, S, T, window):
                                  device="cuda")
     errs = compare_kernels(sim, sk, config, scenario, final,
                            f"{P:,} peers")
-    ms = time_window(sim, sk, config, scenario, final, window, False)
-    plain_ms = time_window(sim, sk, config, scenario, final,
-                           max(window // 5, 5), True)
+    ms, step_ms = time_window(sim, sk, config, scenario, final, window,
+                              False)
+    plain_ms, plain_step_ms = time_window(sim, sk, config, scenario, final,
+                                          max(window // 5, 5), True)
     nbytes = window_bytes(sim, sk, config, scenario, final, window)
+    busy_ms, traced = trace_main_path(sim, config, scenario, final, window)
 
+    # the same run on the plain path, stepped as _scan_swarm steps
+    st = sim.clone_state(state0)
+    series_p = torch.empty((T,), dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    final_p, _ = sim.run_swarm(config, BITRATES, None, cdn, state0, T,
-                               join, device="cuda", plain=True)
+    for s in range(T):
+        st = sk.plain_step(config, scenario, st)
+        series_p[s] = sim.offload_ratio(st)
     torch.cuda.synchronize()
     wall_p = time.perf_counter() - t0
-    offload_p, rebuffer_p = _ratios(sim, final_p, T, dt_s, join)
+    offload_p, rebuffer_p = _ratios(sim, st, T, dt_s, join)
     log(f"    plain path on the card: {wall_p:.3f} s "
         f"({P * T / wall_p:,.0f} peer-steps/s) vs kernels {wall:.3f} s; "
         f"offload {offload_p!r}, rebuffer ratio {rebuffer_p!r}")
     check(abs(offload_p - offload) <= RUN_TOL
           and abs(rebuffer_p - rebuffer) <= RUN_TOL,
           "kernels and plain path disagree on the main path's ratios")
-    step_ms = sum(ms.values())
-    log(f"    step (sum of the three kernels' device time) "
-        f"{step_ms:.4f} ms; host wall per step {wall / T * 1e3:.4f} ms")
+    host_ms = wall / T * 1e3
+    log(f"    device time per whole step (three kernels, clock add, "
+        f"offload-series write; {window}-step window queued ahead, CUDA "
+        f"events) {step_ms!r} ms, of which the three kernels "
+        f"{sum(ms.values())!r} ms; plain passes {plain_step_ms!r} ms; "
+        f"host wall per step on the main path {host_ms!r} ms")
+    if busy_ms is None:
+        log("    trace: torch.profiler recorded no device op; device busy "
+            "time and idle share not measured")
+    else:
+        log(f"    trace ({window} main-path steps, torch.profiler): device "
+            f"busy {busy_ms!r} ms per step, i.e. idle "
+            f"{1.0 - busy_ms / host_ms!r} of the main path's host wall "
+            f"per step; per kernel (launches, mean ms) "
+            f"{json.dumps(traced)}")
     return launches, errs, ms, plain_ms, nbytes
 
 
@@ -351,16 +460,7 @@ def phase_fixture(sim):
           <= RUN_TOL, "the port disagrees with the JAX fixture")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--check-peers", type=int, default=1_048_576)
-    ap.add_argument("--check-warm-steps", type=int, default=300)
-    ap.add_argument("--peers", type=int, default=262_144)
-    ap.add_argument("--segments", type=int, default=256)
-    ap.add_argument("--steps", type=int, default=2_400)
-    ap.add_argument("--window", type=int, default=100)
-    args = ap.parse_args(argv)
-
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -376,11 +476,10 @@ def main(argv=None) -> int:
     try:
         smi = phase_card()
         phase_build()
-        errs_1m = phase_kernels_vs_plain(sim, sk, args.check_peers,
-                                         args.segments,
-                                         args.check_warm_steps)
+        errs_1m = phase_kernels_vs_plain(sim, sk, CHECK_PEERS, SEGMENTS,
+                                         CHECK_WARM_STEPS)
         launches, errs, ms, plain_ms, nbytes = phase_main(
-            sim, sk, args.peers, args.segments, args.steps, args.window)
+            sim, sk, PEERS, SEGMENTS, STEPS, WINDOW)
         phase_fixture(sim)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -22,8 +22,8 @@
 // whole carry.  Here the state is updated in place and the packed map is
 // touched only where it is needed: TK1 reads one word of its own row and
 // one of each of its K neighbours' rows, TK3 rewrites one word of a row
-// only where a transfer completed.  Per-kernel counts are in
-// ops/swarm_kernels.py (kernel_bytes) and in chip_smoke.py's report.
+// only where a transfer completed.  Per-kernel counts are computed by
+// chip_smoke.py (kernel_bytes) and printed in its report.
 //
 // Numerics: built with --fmad=false and without --use_fast_math, so every
 // multiply and add rounds on its own, like the separate PyTorch ops of the

@@ -19,6 +19,7 @@ import torch
 
 from ..core.abr import (DEFAULT_ESTIMATE_BPS, DEFAULT_FAST_HALF_LIFE_S,
                         DEFAULT_SLOW_HALF_LIFE_S, MIN_SAMPLE_DURATION_MS)
+from ..core.device import resolve_device
 
 
 class EwmaState(NamedTuple):
@@ -31,7 +32,9 @@ class EwmaState(NamedTuple):
 
 
 def init_state(batch: int, dtype=torch.float32, device=None) -> EwmaState:
-    return EwmaState(*(torch.zeros((batch,), dtype=dtype, device=device)
+    """Zero state on ``device`` — the card when None."""
+    dev = resolve_device(device)
+    return EwmaState(*(torch.zeros((batch,), dtype=dtype, device=dev)
                        for _ in range(4)))
 
 

@@ -343,6 +343,17 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     state.dl_cooldown_ms[:, 0].copy_(cooled)
 
 
+def plain_step(config: SwarmConfig, scenario: SwarmScenario,
+               state: SwarmState) -> SwarmState:
+    """One step through the three plain versions on any device: the
+    oracle a kernel step is held against.  Updates ``state`` in place
+    and returns it with the clock advanced, as ``swarm_step`` does."""
+    flags, req = elig_select_plain(config, scenario, state)
+    service, adm = admit_service_plain(config, scenario, req)
+    peer_update_plain(config, scenario, state, flags, req, service, adm)
+    return state._replace(t_s=state.t_s + config.dt_ms / 1000.0)
+
+
 # ---- the kernels ----------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -571,48 +582,3 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         min_sample_ms=MIN_SAMPLE_DURATION_MS, offs=_offs_array(g.offs_mod))
     _launch("peer_update", args, dev)
-
-
-# ---- what each kernel must move -------------------------------------------
-
-def kernel_bytes(config: SwarmConfig, scenario: SwarmScenario,
-                 state_before: SwarmState, slot_flags: torch.Tensor,
-                 req: torch.Tensor, adm: torch.Tensor,
-                 state_after: SwarmState) -> dict:
-    """Bytes each kernel must move for one step on these inputs: every
-    input read once and every output written once, counting a
-    data-dependent read or write only where this step's data needs it
-    (the neighbours' map words that requesters ask for, the slot record
-    of peers that start, the cache word and estimator of peers that
-    complete).  The kernels' bound is these bytes over the card's
-    memory rate."""
-    g = geometry(config)
-    P, K = g.P, len(g.offs)
-    tg = slot_targets(config, scenario, state_before)
-    a0 = int(tg["a0"].sum())
-    may = int(((slot_flags & 1) != 0).sum())
-    # distinct (holder row, word) pairs that TK1's requesters read
-    peer = torch.arange(P, device=req.device)
-    wi = (tg["gi_flat"] >> 5).to(torch.int64)
-    keys = torch.stack([((peer + o) % P) * g.W + wi for o in g.offs_mod])
-    words = int(torch.unique(keys).numel()) if K else 0
-    tk1 = (4 * 13 * P          # 13 per-peer arrays read by every thread
-           + 4 * 3 * a0        # dl_seg, dl_level, dl_holder_off (active)
-           + 4 * words         # neighbours' wanted map words
-           + 4 * (g.L + 5)     # ladder, t_s, four policy scalars
-           + 4 * 2 * P         # slot_flags, req
-           + 4 * (P - a0)      # dl_holder_off of idle slots
-           + 4 * 7 * may)      # the slot record of starts
-    tk2 = 4 * 4 * P + 4        # req, uplink in; service, adm out; eff
-    placed = int((req >= 0).sum())
-    # slot 0 only turns inactive by completing
-    completed = int(((slot_flags & 2) != 0).sum()
-                    - ((state_after.dl_flags & 1) != 0).sum())
-    tk3 = (4 * 5 * P           # join, leave, cdn_bps, slot_flags, req
-           + 4 * 2 * placed    # adm word and service of the holder
-           + 4 * 10 * P        # 10 state arrays read
-           + 4 * 9 * P         # 9 state arrays written
-           + 4 * 2             # t_s, p2p_setup_ms
-           + (8 + 8 + 32) * completed)  # seg/level, map word, EWMA
-    return {"elig_select": float(tk1), "admit_service": float(tk2),
-            "peer_update": float(tk3)}

@@ -42,6 +42,7 @@ import torch
 
 from ..core.abr import (BANDWIDTH_SAFETY, DEFAULT_FAST_HALF_LIFE_S,
                         DEFAULT_SLOW_HALF_LIFE_S)
+from ..core.device import resolve_device
 from .ewma import EwmaState, init_state
 
 NEVER_S = 1e18  # "leave" time of a peer that never departs
@@ -150,21 +151,6 @@ class SwarmState(NamedTuple):
     fg_wait_ms: torch.Tensor      # [P] f32
     holder_penalty_ms: torch.Tensor  # [P, K] f32 (K = 0 unless adaptive)
     dl_holder_off: torch.Tensor   # [P, C] i32
-
-
-# ---- devices ------------------------------------------------------------
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Without one, raise and say how to ask
-    for the CPU; never fall back silently."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the card by default; "
-                "pass device=\"cpu\" to run the plain PyTorch path on "
-                "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 # ---- int32 storage of u32 bit patterns ------------------------------------
@@ -493,12 +479,11 @@ def check_slice(config: SwarmConfig) -> None:
 
 
 def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
-               state: SwarmState, *, plain: bool = False) -> SwarmState:
+               state: SwarmState) -> SwarmState:
     """One ``dt_ms`` tick for every peer.  Three passes: eligibility
     and holder selection, admission and service, the per-peer update
     (``ops/swarm_kernels.py``).  On a CUDA state each pass launches its
-    kernel; on a CPU state, or with ``plain=True``, the plain PyTorch
-    versions run.
+    kernel; on a CPU state the plain PyTorch versions run.
 
     The state's tensors are updated IN PLACE and the returned state
     carries them with the clock advanced: clone a state
@@ -510,21 +495,14 @@ def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
             f"state.holder_penalty_ms is sized for "
             f"{state.holder_penalty_ms.shape[1]} neighbors but "
             f"\"spread\" carries a zero-width field")
-    if plain:
-        flags, req = sk.elig_select_plain(config, scenario, state)
-        service, adm = sk.admit_service_plain(config, scenario, req)
-        sk.peer_update_plain(config, scenario, state, flags, req,
-                             service, adm)
-    else:
-        flags, req = sk.elig_select(config, scenario, state)
-        service, adm = sk.admit_service(config, scenario, req)
-        sk.peer_update(config, scenario, state, flags, req, service, adm)
+    flags, req = sk.elig_select(config, scenario, state)
+    service, adm = sk.admit_service(config, scenario, req)
+    sk.peer_update(config, scenario, state, flags, req, service, adm)
     return state._replace(t_s=state.t_s + config.dt_ms / 1000.0)
 
 
 def _scan_swarm(config: SwarmConfig, scenario: SwarmScenario,
-                state: SwarmState, n_steps: int, record_every: int = 0,
-                *, plain: bool = False):
+                state: SwarmState, n_steps: int, record_every: int = 0):
     """``n_steps`` steps as a Python loop; returns ``(final state,
     offload series [n_steps])``.  The series is filled on the device,
     so the loop never waits on the host.  Updates ``state`` in place."""
@@ -535,7 +513,7 @@ def _scan_swarm(config: SwarmConfig, scenario: SwarmScenario,
     series = torch.empty((n_steps,), dtype=torch.float32,
                          device=state.t_s.device)
     for s in range(n_steps):
-        state = swarm_step(config, scenario, state, plain=plain)
+        state = swarm_step(config, scenario, state)
         series[s] = offload_ratio(state)
     return state, series
 
@@ -551,12 +529,10 @@ def run_swarm(config: SwarmConfig, bitrates, neighbors, cdn_bps,
               holder_penalty_ms=None, live_sync_s=None,
               p2p_ok=None, abr_cap_level=None,
               urgent_margin_off_s=None, cohort_id=None,
-              record_every: int = 0, device=None, plain: bool = False):
+              record_every: int = 0, device=None):
     """Step ``n_steps`` ticks; returns (final state, offload-over-time
     ``[n_steps]``).  Runs on ``device`` — the card when None — and
-    leaves the caller's ``state`` untouched (it steps a copy).  With
-    ``plain=True`` the plain PyTorch passes run instead of the kernels,
-    on whatever device."""
+    leaves the caller's ``state`` untouched (it steps a copy)."""
     dev = resolve_device(device)
     check_slice(config)
     scenario = make_scenario(
@@ -579,7 +555,7 @@ def run_swarm(config: SwarmConfig, bitrates, neighbors, cdn_bps,
                          else f.to(dev, copy=True) for f in state))
     state = ensure_penalty_width(config, scenario, state)
     return _scan_swarm(config, scenario, state, n_steps,
-                       record_every=record_every, plain=plain)
+                       record_every=record_every)
 
 
 def ensure_penalty_width(config: SwarmConfig, scenario: SwarmScenario,

@@ -15,6 +15,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..ops.ewma import EwmaState
 from ..ops.swarm_sim import SwarmScenario, SwarmState
 
@@ -30,10 +31,10 @@ def _tensor(value, device, u32: bool = False) -> torch.Tensor:
         arr = arr.astype(np.float32)
     elif arr.dtype == np.int64:
         arr = arr.astype(np.int32)
-    return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr).to(resolve_device(device))
 
 
-def state_from_numpy(fields: Mapping, device="cpu") -> SwarmState:
+def state_from_numpy(fields: Mapping, device) -> SwarmState:
     """A port ``SwarmState`` from the reference's fields as numpy
     arrays (``fields["ewma"]`` a dict of the four estimator fields)."""
     ewma = fields["ewma"]
@@ -62,7 +63,7 @@ def state_to_numpy(state: SwarmState) -> dict:
     return out
 
 
-def scenario_from_numpy(fields: Mapping, device="cpu") -> SwarmScenario:
+def scenario_from_numpy(fields: Mapping, device) -> SwarmScenario:
     """A port ``SwarmScenario`` from the reference's fields as numpy
     arrays (per-peer arrays and 0-dim policy scalars alike)."""
     return SwarmScenario(**{name: _tensor(fields[name], device)

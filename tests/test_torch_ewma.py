@@ -36,9 +36,9 @@ def test_scan_matches_reference(seed):
     r_state, r_est = ref.scan_samples(ref.init_state(batch),
                                       jnp.asarray(durations),
                                       jnp.asarray(nbytes))
-    p_state, p_est = port.scan_samples(port.init_state(batch),
-                                       torch.from_numpy(durations),
-                                       torch.from_numpy(nbytes))
+    p_state, p_est = port.scan_samples(
+        port.init_state(batch, device="cpu"), torch.from_numpy(durations),
+        torch.from_numpy(nbytes))
     np.testing.assert_allclose(p_est.numpy(), np.asarray(r_est),
                                rtol=EST_RTOL)
     for f in ("fast_estimate", "slow_estimate"):
@@ -52,7 +52,7 @@ def test_scan_matches_reference(seed):
 
 
 def test_default_estimate_before_any_sample():
-    est = port.get_estimate(port.init_state(4))
+    est = port.get_estimate(port.init_state(4, device="cpu"))
     assert est.dtype == torch.float32
     np.testing.assert_array_equal(est.numpy(), np.full(4, 5e5, np.float32))
 
@@ -60,7 +60,7 @@ def test_default_estimate_before_any_sample():
 def test_abr_contract_estimate():
     """128,000 B in 1 s reads back as 1,024,000 bps ± 4,000
     (tests/test_abr_contract.py, hls.js's controller contract)."""
-    state = port.update(port.init_state(1), torch.tensor([1000.0]),
-                        torch.tensor([128_000.0]))
+    state = port.update(port.init_state(1, device="cpu"),
+                        torch.tensor([1000.0]), torch.tensor([128_000.0]))
     est = float(port.get_estimate(state)[0])
     assert abs(est - 1_024_000.0) <= 4_000.0

@@ -2,9 +2,10 @@
 
 On the CPU: the ctypes mirrors of the kernels' argument structs against
 the C source (field for field, since nothing compiles the source here),
-the wrappers' dispatch to the plain versions, and the byte counts the
-kernels' bounds are computed from.  On the card (marker ``gpu``, skipped
-without one): each kernel against its plain version."""
+the wrappers' dispatch to the plain versions, and the byte counts
+``chip_smoke.py`` computes the kernels' bounds from.  On the card
+(marker ``gpu``, skipped without one): each kernel against its plain
+version."""
 
 import ctypes
 import os
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hlsjs_p2p_wrapper_tpu_torch.ops import _build
 from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_kernels as sk
 from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_sim as port
@@ -86,8 +88,8 @@ def test_kernel_bytes_counts():
     flags, req = sk.elig_select(config, scenario, state)
     service, adm = sk.admit_service(config, scenario, req)
     sk.peer_update(config, scenario, state, flags, req, service, adm)
-    nbytes = sk.kernel_bytes(config, scenario, before, flags, req, adm,
-                             state)
+    nbytes = chip_smoke.kernel_bytes(sk, config, scenario, before, flags,
+                                     req, adm, state)
     P, K = config.n_peers, 8
     assert nbytes["admit_service"] == 16 * P + 4
     # TK1 reads at most one word of each neighbour per requester
@@ -112,6 +114,15 @@ def test_wrappers_run_plain_on_cpu_and_match():
         for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
             assert torch.equal(u, v)
     assert sk.LAUNCHES == {name: 0 for name in sk.LAUNCHES}
+
+
+def test_plain_step_is_swarm_step_on_cpu():
+    config, scenario, state = _case(steps=30)
+    a = port.swarm_step(config, scenario, port.clone_state(state))
+    b = sk.plain_step(config, scenario, port.clone_state(state))
+    for x, y in zip(a, b):
+        for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+            assert torch.equal(u, v)
 
 
 def test_admission_never_exceeds_the_cap():
@@ -143,12 +154,12 @@ def test_kernels_match_plain_on_the_card(cuda_device):
                                   device=cuda_device)
     state = port.init_swarm(config, device=cuda_device)
     for _ in range(60):
-        state = port.swarm_step(config, scenario, state, plain=True)
+        state = sk.plain_step(config, scenario, state)
     a, b = port.clone_state(state), port.clone_state(state)
     sk.reset_launch_counts()
     for _ in range(20):
         a = port.swarm_step(config, scenario, a)
-        b = port.swarm_step(config, scenario, b, plain=True)
+        b = sk.plain_step(config, scenario, b)
     torch.cuda.synchronize()
     assert sk.LAUNCHES == {name: 20 for name in sk.LAUNCHES}
     for x, y in zip(a, b):

@@ -16,6 +16,7 @@ import torch
 
 from hlsjs_p2p_wrapper_tpu.ops import swarm_sim as ref
 from hlsjs_p2p_wrapper_tpu.testing import kpass_eligibility
+from hlsjs_p2p_wrapper_tpu_torch.ops import ewma as port_ewma
 from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_kernels as sk
 from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_sim as port
 from hlsjs_p2p_wrapper_tpu_torch.testing.convert import (
@@ -222,8 +223,8 @@ def test_one_step_matches_reference(P, S, window_s, cdn_bps):
     want = _tree_np(jax.jit(ref.swarm_step, static_argnums=0)(
         cr, scen_r, st_r))
     got = state_to_numpy(port.swarm_step(
-        cp, scenario_from_numpy(_tree_np(scen_r)),
-        state_from_numpy(_tree_np(st_r))))
+        cp, scenario_from_numpy(_tree_np(scen_r), "cpu"),
+        state_from_numpy(_tree_np(st_r), "cpu")))
     for k, v in want.items():
         if k == "ewma":
             for f in v:
@@ -286,6 +287,11 @@ def test_no_device_without_cuda_raises(monkeypatch):
         port.init_swarm(cp)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         port.staggered_joins(16)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        port_ewma.init_state(16)
+    fields = _tree_np(ref.init_swarm(ref.SwarmConfig(*cp)))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        state_from_numpy(fields, None)
 
 
 def test_cpu_path_launches_no_kernel():
