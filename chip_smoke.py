@@ -11,13 +11,18 @@ exits nonzero:
 3. each kernel against its plain PyTorch version on the card, at
    1,048,576 peers × 256 segments, from a state the plain path reached
    after 300 steps;
-4. the main path — ``run_swarm`` at 262,144 peers × 256 segments ×
+4. the routes of ``select_admit`` away from the main path: the fused
+   kernel where its tiles wrap the ring (16 peers with the ring of 8,
+   96 peers with a ring of 12) and the TK1 + TK2 route of a wide
+   offset tuple, each stepped beside the plain step, launches checked;
+5. the main path — ``run_swarm`` at 262,144 peers × 256 segments ×
    2,400 steps, the configuration of ``bench.py``'s headline — through
-   the kernels, with the launch counts checked; then each kernel's time
-   beside its bound and its plain version's time, the same check of
-   each kernel against its plain version at these shapes, and the same
-   run on the plain path;
-5. the port at the committed reference fixture's shape and joins,
+   ``select_admit`` and ``peer_update``, with the launch counts checked;
+   then, from its final state, each kernel against its plain version,
+   the step timed with CUDA events and traced with ``torch.profiler``
+   on the main path's route and on the TK1 + TK2 route, the fused
+   kernel's timed designs, and the same run on the plain path;
+6. the port at the committed reference fixture's shape and joins,
    against the JAX reference's final offload and rebuffer ratio.
 
 The last line of standard output is one JSON object
@@ -65,10 +70,28 @@ RTOL, ATOL = 1e-6, 1e-6
 RUN_TOL = 1e-4
 
 KERNELS = {
+    "select_admit": "hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py:681 + :1259",
     "elig_select": "hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py:681",
     "admit_service": "hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py:1259",
     "peer_update": "hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py:1351",
 }
+#: the kernels the main path launches, once a step each; the other two
+#: are the route of offset tuples too wide for select_admit's tile
+MAIN_PATH = ("select_admit", "peer_update")
+#: shapes where select_admit's tiles wrap the ring: (peers, ring degree)
+WRAP_CASES = ((16, 8), (96, 12))
+#: an offset tuple too wide for select_admit's tile, and its shape
+WIDE_OFFSETS = (1, -1, 2, -2, 97, -97, 300, -300)
+WIDE_PEERS, WIDE_SEGMENTS = 65_536, 64
+ROUTE_STEPS = 20
+#: back-to-back launches per timed design of the fused kernel; the
+#: designs are timed on the main path's final state and on a state the
+#: plain path reached after EARLY_STEPS steps, while peers still join
+VARIANT_LAUNCHES = 200
+EARLY_STEPS = 120
+#: steps per host-clock run of each route, run in turns fused, pair,
+#: pair, fused
+HOST_STEPS = 400
 SOURCE = f"{PACKAGE}/csrc/swarm_step.cu"
 
 
@@ -129,24 +152,35 @@ def compare(what, named_a, named_b):
     return worst
 
 
-def compare_kernels(sim, sk, config, scenario, state, label):
-    """One step's three kernels against their plain versions on the
-    same inputs; returns ``{kernel: max abs float error}``."""
+SELECT_OUT = ("slot_flags", "req", "service", "adm")
+
+
+def compare_select_admit(sim, sk, config, scenario, state, label):
+    """``select_admit`` against ``select_admit_plain`` on the same
+    inputs, outputs and the state it writes; returns the max float
+    error."""
     import torch
     a, b = sim.clone_state(state), sim.clone_state(state)
-    fk, rk = sk.elig_select(config, scenario, a)
-    fp, rp = sk.elig_select_plain(config, scenario, b)
+    out_k = sk.select_admit(config, scenario, a)
+    out_p = sk.select_admit_plain(config, scenario, b)
     torch.cuda.synchronize()
-    errs = {"elig_select": compare(
-        f"{label} elig_select",
-        {"slot_flags": fk, "req": rk, **a._asdict()},
-        {"slot_flags": fp, "req": rp, **b._asdict()})}
-    sv_k, adm_k = sk.admit_service(config, scenario, rp)
-    sv_p, adm_p = sk.admit_service_plain(config, scenario, rp)
-    torch.cuda.synchronize()
-    errs["admit_service"] = compare(f"{label} admit_service",
-                                    {"service": sv_k, "adm": adm_k},
-                                    {"service": sv_p, "adm": adm_p})
+    return compare(f"{label} select_admit",
+                   {**dict(zip(SELECT_OUT, out_k)), **a._asdict()},
+                   {**dict(zip(SELECT_OUT, out_p)), **b._asdict()})
+
+
+def compare_kernels(sim, sk, config, scenario, state, label):
+    """One step's kernels against their plain versions on the same
+    inputs: ``select_admit`` (on its fused route), then TK1, TK2 and TK3
+    called directly; returns ``{kernel: max abs float error}``."""
+    import torch
+    check(sk.fused_route(config), f"{label}: not on the fused route")
+    errs = {"select_admit": compare_select_admit(sim, sk, config, scenario,
+                                                 state, label)}
+    errs.update(compare_kernels_pair(sim, sk, config, scenario, state,
+                                     label))
+    b = sim.clone_state(state)
+    fp, rp, sv_p, adm_p = sk.select_admit_plain(config, scenario, b)
     c, d = sim.clone_state(b), sim.clone_state(b)
     sk.peer_update(config, scenario, c, fp, rp, sv_p, adm_p)
     sk.peer_update_plain(config, scenario, d, fp, rp, sv_p, adm_p)
@@ -154,10 +188,29 @@ def compare_kernels(sim, sk, config, scenario, state, label):
     errs["peer_update"] = compare(f"{label} peer_update", c._asdict(),
                                   d._asdict())
     n_active = int((b.dl_flags & 1).sum())
-    log(f"  {label}: all three kernels agree with their plain versions "
+    log(f"  {label}: all four kernels agree with their plain versions "
         f"({n_active} transfers in flight); max float err "
         f"{json.dumps(errs)}")
     return errs
+
+
+def compare_kernels_pair(sim, sk, config, scenario, state, label):
+    """TK1 then TK2, called directly, against their plain versions (TK2
+    on the plain TK1's req)."""
+    import torch
+    a, b = sim.clone_state(state), sim.clone_state(state)
+    fk, rk = sk.elig_select(config, scenario, a)
+    fp, rp = sk.elig_select_plain(config, scenario, b)
+    sv_k, adm_k = sk.admit_service(config, scenario, rp)
+    sv_p, adm_p = sk.admit_service_plain(config, scenario, rp)
+    torch.cuda.synchronize()
+    return {"elig_select": compare(
+                f"{label} elig_select",
+                {"slot_flags": fk, "req": rk, **a._asdict()},
+                {"slot_flags": fp, "req": rp, **b._asdict()}),
+            "admit_service": compare(
+                f"{label} admit_service", {"service": sv_k, "adm": adm_k},
+                {"service": sv_p, "adm": adm_p})}
 
 
 # ---- the phases -----------------------------------------------------------
@@ -188,13 +241,16 @@ def phase_build():
             log(f"    {src}: {line.strip()}")
 
 
-def make_case(sim, sk, P, S, n_steps_plain, device):
-    """A config and scenario at P × S, and a state the plain path
-    reached after ``n_steps_plain`` steps."""
+def make_case(sim, sk, P, S, n_steps_plain, device, offsets=None,
+              window_s=60.0):
+    """A config and scenario at P × S (the ring of DEGREE unless
+    ``offsets``), joins spread over ``window_s``, and a state the plain
+    path reached after ``n_steps_plain`` steps."""
     import numpy as np
-    config = sim.SwarmConfig(n_peers=P, n_segments=S, n_levels=3,
-                             neighbor_offsets=sim.ring_offsets(DEGREE))
-    join = sim.staggered_joins(P, 60.0, device=device)
+    config = sim.SwarmConfig(
+        n_peers=P, n_segments=S, n_levels=3,
+        neighbor_offsets=offsets or sim.ring_offsets(DEGREE))
+    join = sim.staggered_joins(P, window_s, device=device)
     scenario = sim.make_scenario(config, BITRATES, None,
                                  np.full((P,), 8e6, np.float32), join,
                                  device=device)
@@ -217,30 +273,101 @@ def phase_kernels_vs_plain(sim, sk, P, S, warm_steps):
                            f"{P:,} peers")
 
 
+def phase_routes(sim, sk):
+    """select_admit's fused kernel where its tiles wrap the ring, and
+    the TK1 + TK2 route of a wide offset tuple: each stepped
+    ROUTE_STEPS times through ``swarm_step`` beside ``plain_step``, the
+    launches of each kernel counted.  Returns the max float error of
+    select_admit, TK1 and TK2."""
+    errs = {"select_admit": 0.0, "elig_select": 0.0, "admit_service": 0.0}
+    cases = [(P, sim.ring_offsets(d), 16, 20.0, 80) for P, d in WRAP_CASES]
+    cases.append((WIDE_PEERS, WIDE_OFFSETS, WIDE_SEGMENTS, 10.0, 60))
+    for P, offsets, S, window_s, warm in cases:
+        config, scenario, state = make_case(sim, sk, P, S, warm, "cuda",
+                                            offsets, window_s)
+        fused = sk.fused_route(config)
+        label = f"{P:,} peers, offsets {offsets}"
+        check(fused is (offsets != WIDE_OFFSETS),
+              f"{label}: fused route {fused}")
+        check(int((state.dl_flags & 1).sum()) > 0,
+              f"{label}: no transfer in flight")
+        sk.reset_launch_counts()
+        if fused:
+            errs["select_admit"] = max(errs["select_admit"],
+                                       compare_select_admit(
+                                           sim, sk, config, scenario,
+                                           state, label))
+        else:
+            e = compare_kernels_pair(sim, sk, config, scenario, state, label)
+            for name in e:
+                errs[name] = max(errs[name], e[name])
+        direct = dict(sk.LAUNCHES)
+        a, b = sim.clone_state(state), sim.clone_state(state)
+        sk.reset_launch_counts()
+        placed = 0
+        for _ in range(ROUTE_STEPS):
+            placed += int((sk.select_admit_plain(
+                config, scenario, sim.clone_state(b))[1] >= 0).sum())
+            a = sim.swarm_step(config, scenario, a)
+            b = sk.plain_step(config, scenario, b)
+        launches = dict(sk.LAUNCHES)
+        n = ROUTE_STEPS
+        want = ({"select_admit": n, "elig_select": 0, "admit_service": 0,
+                 "peer_update": n} if fused else
+                {"select_admit": 0, "elig_select": n, "admit_service": n,
+                 "peer_update": n})
+        check(launches == want, f"{label}: launches {launches}, not {want}")
+        check(placed > 0, f"{label}: no transfer placed demand")
+        err = compare(f"{label} {n} steps", a._asdict(), b._asdict())
+        log(f"[4] {label}: {'fused' if fused else 'TK1 + TK2'} route; "
+            f"one call equals its plain version (launches {direct}); "
+            f"{n} steps equal the plain step (launches {launches}, "
+            f"{placed} demands placed; max float err {err!r})")
+    return errs
+
+
 def _ratios(sim, state, n_steps, dt_s, join):
     return (float(sim.offload_ratio(state)),
             float(sim.rebuffer_ratio(state, n_steps * dt_s, join)))
 
 
-def time_window(sim, sk, config, scenario, state0, n_steps, plain):
+def _stages(sk, config, scenario, route):
+    """The passes of one step on ``route`` as ``[(kernel, fn)]``, each
+    ``fn(state, outputs so far) -> outputs``: ``"fused"`` is the main
+    path (select_admit, TK3), ``"pair"`` TK1, TK2 and TK3 called
+    directly, ``"plain"`` their plain versions."""
+    if route == "fused":
+        first = [("select_admit",
+                  lambda st, o: sk.select_admit(config, scenario, st))]
+    else:
+        es, ad = ((sk.elig_select, sk.admit_service) if route == "pair"
+                  else (sk.elig_select_plain, sk.admit_service_plain))
+        first = [("elig_select", lambda st, o: es(config, scenario, st)),
+                 ("admit_service",
+                  lambda st, o: o + ad(config, scenario, o[1]))]
+    pu = sk.peer_update_plain if route == "plain" else sk.peer_update
+    return first + [("peer_update",
+                     lambda st, o: pu(config, scenario, st, *o))]
+
+
+def time_window(sim, sk, config, scenario, state0, n_steps, route):
     """Device time over ``n_steps`` consecutive steps from ``state0`` (a
-    clone is stepped), each step as ``_scan_swarm`` runs it: the three
-    passes, the clock add and the offload-series write.  CUDA events
-    bracket each pass and the step's tail.  A GPU sleep ahead of the
-    window lets the host queue the launches, so the events time the
-    device, not the host.  The kernels' window fails if the host did
-    not stay ahead.  The plain passes launch hundreds of small ops a
-    step, more than the launch queue holds, so their times are the
-    passes as the host drives them, launch gaps included.  Returns
-    ``({kernel: mean ms per pass}, mean ms per whole step)``."""
+    clone is stepped) on ``route`` (see :func:`_stages`), each step as
+    ``_scan_swarm`` runs it: the passes, the clock add and the
+    offload-series write.  CUDA events bracket each pass and the step's
+    tail.  A GPU sleep ahead of the window lets the host queue the
+    launches, so the events time the device, not the host.  A kernels'
+    window fails if the host did not stay ahead.  The plain passes
+    launch hundreds of small ops a step, more than the launch queue
+    holds, so their times are the passes as the host drives them,
+    launch gaps included.  Returns ``({kernel: mean ms per pass}, mean
+    ms per whole step)``."""
     import torch
+    stages = _stages(sk, config, scenario, route)
     st = sim.clone_state(state0)
     series = torch.empty((n_steps,), dtype=torch.float32, device="cuda")
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
-          for _ in range(n_steps)]
-    passes = ((sk.elig_select_plain, sk.admit_service_plain,
-               sk.peer_update_plain) if plain
-              else (sk.elig_select, sk.admit_service, sk.peer_update))
+    ev = [[torch.cuda.Event(enable_timing=True)
+           for _ in range(len(stages) + 2)] for _ in range(n_steps)]
     torch.cuda.synchronize()
     torch.cuda._sleep(int(3e8))
     slept = torch.cuda.Event()
@@ -248,38 +375,68 @@ def time_window(sim, sk, config, scenario, state0, n_steps, plain):
     for s in range(n_steps):
         e = ev[s]
         e[0].record()
-        flags, req = passes[0](config, scenario, st)
-        e[1].record()
-        service, adm = passes[1](config, scenario, req)
-        e[2].record()
-        passes[2](config, scenario, st, flags, req, service, adm)
-        e[3].record()
+        out = ()
+        for n, (_name, fn) in enumerate(stages):
+            out = fn(st, out)
+            e[n + 1].record()
         st = st._replace(t_s=st.t_s + config.dt_ms / 1000.0)
         series[s] = sim.offload_ratio(st)
-        e[4].record()
+        e[-1].record()
     queued_ahead = not slept.query()
     torch.cuda.synchronize()
-    check(plain or queued_ahead,
+    check(route == "plain" or queued_ahead,
           f"timing window: the host did not queue {n_steps} steps within "
           f"the GPU sleep, so the events would time the host")
-    per_pass = {name: sum(ev[s][i].elapsed_time(ev[s][i + 1])
+    per_pass = {name: sum(ev[s][n].elapsed_time(ev[s][n + 1])
                           for s in range(n_steps)) / n_steps
-                for i, name in enumerate(KERNELS)}
-    return per_pass, ev[0][0].elapsed_time(ev[-1][4]) / n_steps
+                for n, (name, _fn) in enumerate(stages)}
+    return per_pass, ev[0][0].elapsed_time(ev[-1][-1]) / n_steps
 
 
-def trace_main_path(sim, config, scenario, state0, n_steps):
-    """``n_steps`` steps of the main path's loop under ``torch.profiler``
-    (CUPTI): the device time of every op on the card, summed per step,
-    and each kernel's launches and mean device time in the trace.
-    Returns ``(busy ms per step, {kernel: (launches, mean ms)})``; the
-    busy time is None where the trace holds no device op."""
+def host_wall(sim, sk, config, scenario, state0, n_steps, route):
+    """Host wall per step (ms) of ``n_steps`` steps on ``route`` from a
+    clone of ``state0``, stepped as ``_scan_swarm`` steps (passes, clock
+    add, offload-series write), ending in a synchronize."""
+    import torch
+    stages = _stages(sk, config, scenario, route)
+    st = sim.clone_state(state0)
+    series = torch.empty((n_steps,), dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(n_steps):
+        out = ()
+        for _name, fn in stages:
+            out = fn(st, out)
+        st = st._replace(t_s=st.t_s + config.dt_ms / 1000.0)
+        series[s] = sim.offload_ratio(st)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n_steps * 1e3
+
+
+def trace_steps(sim, sk, config, scenario, state0, n_steps, route):
+    """``n_steps`` steps under ``torch.profiler`` (CUPTI): the main
+    path's loop (``_scan_swarm``) for ``route == "fused"``, else the
+    same loop over the passes of :func:`_stages`.  Returns ``(device
+    busy ms per step, {kernel: (launches, mean ms)})`` over the kernels
+    of :data:`KERNELS` that the trace holds; the busy time is None where
+    the trace holds no device op."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    stages = _stages(sk, config, scenario, route)
     st = sim.clone_state(state0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sim._scan_swarm(config, scenario, st, n_steps)
+        if route == "fused":
+            sim._scan_swarm(config, scenario, st, n_steps)
+        else:
+            series = torch.empty((n_steps,), dtype=torch.float32,
+                                 device="cuda")
+            for s in range(n_steps):
+                out = ()
+                for _name, fn in stages:
+                    out = fn(st, out)
+                st = st._replace(t_s=st.t_s + config.dt_ms / 1000.0)
+                series[s] = sim.offload_ratio(st)
         torch.cuda.synchronize()
     ops = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -288,9 +445,91 @@ def trace_main_path(sim, config, scenario, state0, n_steps):
     for name in KERNELS:
         durs = [e.time_range.elapsed_us() for e in ops
                 if f"{name}_kernel" in e.name]
-        per_kernel[name] = (len(durs),
-                            sum(durs) / len(durs) / 1e3 if durs else None)
+        if durs:
+            per_kernel[name] = (len(durs), sum(durs) / len(durs) / 1e3)
     return (busy_us / n_steps / 1e3 if ops else None), per_kernel
+
+
+def time_variants(sim, sk, config, scenario, state0):
+    """The fused kernel's designs (``sk.select_admit_variants()``), the
+    port's ``select_admit`` and the TK1 + TK2 pair, each launched
+    VARIANT_LAUNCHES times back to back on one clone of ``state0`` (the
+    selection only writes slot fields it does not read, so every launch
+    repeats the same work), queued behind a GPU sleep and bracketed by
+    two CUDA events.  Each design's outputs are first held to the plain
+    version.  Returns ``({label: mean ms per launch}, {label: phases})``
+    where a timed design's phases (:func:`phase_split`) come from its
+    first launch."""
+    import torch
+    ref = sk.select_admit_plain(config, scenario, sim.clone_state(state0))
+    calls, stamps = {}, {}
+    for v, (kt, tile, mode, minb, rows) in enumerate(
+            sk.select_admit_variants()):
+        label = (f"K={kt or 'runtime'} tile={tile} {mode} regs for {minb} "
+                 f"blocks/SM, neighbours by {'rows' if rows else 'requester'}")
+        if mode == "timed":
+            stamps[label] = torch.zeros(
+                (-(-config.n_peers // tile), sk.SELECT_ADMIT_STAMPS),
+                dtype=torch.int64, device="cuda")
+        calls[label] = (lambda st, v=v, buf=stamps.get(label):
+                        sk.launch_select_admit_variant(config, scenario, st,
+                                                       v, buf))
+    calls["select_admit (the port's)"] = (
+        lambda st: sk.select_admit(config, scenario, st))
+
+    def pair(st):
+        flags, req = sk.elig_select(config, scenario, st)
+        return (flags, req) + sk.admit_service(config, scenario, req)
+    calls["elig_select + admit_service"] = pair
+    port = calls["select_admit (the port's)"]
+    calls["select_admit (the port's), map held in L2"] = port
+    out, phases = {}, {}
+    for label, fn in calls.items():
+        st = sim.clone_state(state0)
+        if label.endswith("map held in L2"):
+            held = sk.l2_window(st.avail)
+            label = f"{label} ({held:,} of {st.avail.nbytes:,} B)"
+        got = fn(st)
+        torch.cuda.synchronize()
+        compare(f"variant {label}", dict(zip(SELECT_OUT, got)),
+                dict(zip(SELECT_OUT, ref)))
+        if label in stamps:
+            phases[label] = phase_split(stamps[label])
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda._sleep(int(3e8))
+        slept = torch.cuda.Event()
+        slept.record()
+        start.record()
+        for _ in range(VARIANT_LAUNCHES):
+            fn(st)
+        end.record()
+        queued_ahead = not slept.query()
+        torch.cuda.synchronize()
+        check(queued_ahead, f"variant {label}: launches not queued ahead")
+        out[label] = start.elapsed_time(end) / VARIANT_LAUNCHES
+        if "held in L2" in label:
+            sk.l2_window(None)
+    return out, phases
+
+
+#: the phases between a timed select_admit block's clocks 1..6
+PHASES = ("serve bits", "targets", "gather", "finish", "holders")
+
+
+def phase_split(stamps):
+    """One timed launch's per-block clocks -> the kernel's span and mean
+    block time (global timer, µs), how many blocks ran at once on
+    average (sum of block times over the span), and each phase's share
+    of a block's SM clocks."""
+    st = stamps.double().cpu()
+    start, end = st[:, 0], st[:, 7]
+    span_us = float(end.max() - start.min()) / 1e3
+    block_us = (end - start) / 1e3
+    cycles = st[:, 2:7] - st[:, 1:6]
+    share = cycles.sum(0) / cycles.sum()
+    return {"span_us": span_us, "mean_block_us": float(block_us.mean()),
+            "blocks_at_once": float(block_us.sum()) / span_us,
+            "phase_share": {n: float(x) for n, x in zip(PHASES, share)}}
 
 
 def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
@@ -331,20 +570,35 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
            + 4 * 9 * P         # 9 state arrays written
            + 4 * 2             # t_s, p2p_setup_ms
            + (8 + 8 + 32) * completed)  # seg/level, map word, EWMA
-    return {"elig_select": float(tk1), "admit_service": float(tk2),
-            "peer_update": float(tk3)}
+    # select_admit: TK1's traffic plus uplink in, service and adm out,
+    # the efficiency scalar (req stays in shared memory)
+    fused = tk1 + 4 * 3 * P + 4
+    return {"select_admit": float(fused), "elig_select": float(tk1),
+            "admit_service": float(tk2), "peer_update": float(tk3)}
+
+
+def map_sector_bytes(sk, config, scenario, state):
+    """Bytes of the distinct 32-byte sectors of the map that one step's
+    requesters read: what the memory system moves for those words at
+    its finest grain, against the 4 bytes a word that the bound counts."""
+    import torch
+    g = sk.geometry(config)
+    tg = sk.slot_targets(config, scenario, state)
+    peer = torch.arange(g.P, device=state.avail.device)
+    wi = (tg["gi_flat"] >> 5).to(torch.int64)
+    keys = torch.stack([((peer + o) % g.P) * g.W + wi for o in g.offs_mod])
+    return 32 * int(torch.unique(keys // 8).numel()) if g.offs else 0
 
 
 def window_bytes(sim, sk, config, scenario, state0, n_steps):
     """Mean bytes each kernel must move over the same window as
-    :func:`time_window` (the kernels are deterministic, so a second
-    pass over a clone repeats the same work)."""
+    :func:`time_window` (the kernels are deterministic, and both routes
+    give the same outputs, so a pass over a clone repeats the work)."""
     st = sim.clone_state(state0)
     total = {name: 0.0 for name in KERNELS}
     for _ in range(n_steps):
         before = sim.clone_state(st)
-        flags, req = sk.elig_select(config, scenario, st)
-        service, adm = sk.admit_service(config, scenario, req)
+        flags, req, service, adm = sk.select_admit(config, scenario, st)
         sk.peer_update(config, scenario, st, flags, req, service, adm)
         for name, b in kernel_bytes(sk, config, scenario, before, flags,
                                     req, adm, st).items():
@@ -373,12 +627,13 @@ def phase_main(sim, sk, P, S, T, window):
     wall = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[4] main path {P:,} peers x {S} segments x {T} steps through "
+    log(f"[5] main path {P:,} peers x {S} segments x {T} steps through "
         f"the kernels: {wall:.3f} s, {P * T / wall:,.0f} peer-steps/s; "
         f"launches {json.dumps(launches)}; peak memory {peak:,} B")
     for name in KERNELS:
-        check(launches[name] == T, f"{name} launched {launches[name]} "
-                                   f"times on the main path, not {T}")
+        want = T if name in MAIN_PATH else 0
+        check(launches[name] == want, f"{name} launched {launches[name]} "
+                                      f"times on the main path, not {want}")
     check(tuple(series.shape) == (T,), f"series shape {series.shape}")
     check(bool(torch.isfinite(series).all()), "offload series not finite")
     for name, t in final._asdict().items():
@@ -395,12 +650,31 @@ def phase_main(sim, sk, P, S, T, window):
                                  device="cuda")
     errs = compare_kernels(sim, sk, config, scenario, final,
                            f"{P:,} peers")
-    ms, step_ms = time_window(sim, sk, config, scenario, final, window,
-                              False)
+    # both routes from the same final state, in turns
+    fused_ms, fused_step_ms = time_window(sim, sk, config, scenario, final,
+                                          window, "fused")
+    pair_ms, pair_step_ms = time_window(sim, sk, config, scenario, final,
+                                        window, "pair")
     plain_ms, plain_step_ms = time_window(sim, sk, config, scenario, final,
-                                          max(window // 5, 5), True)
+                                          max(window // 5, 5), "plain")
+    ms = {**pair_ms, **fused_ms}
+    plain_ms["select_admit"] = (plain_ms["elig_select"]
+                                + plain_ms["admit_service"])
     nbytes = window_bytes(sim, sk, config, scenario, final, window)
-    busy_ms, traced = trace_main_path(sim, config, scenario, final, window)
+    busy_ms, traced = trace_steps(sim, sk, config, scenario, final, window,
+                                  "fused")
+    pair_busy_ms, pair_traced = trace_steps(sim, sk, config, scenario,
+                                            final, window, "pair")
+    walls = {"fused": [], "pair": []}
+    for route in ("fused", "pair", "pair", "fused"):
+        walls[route].append(host_wall(sim, sk, config, scenario, final,
+                                      HOST_STEPS, route))
+    variants, phases = time_variants(sim, sk, config, scenario, final)
+    _c, _s, early = make_case(sim, sk, P, S, EARLY_STEPS, "cuda")
+    variants_early, phases_early = time_variants(sim, sk, config, scenario,
+                                                 early)
+    sectors = map_sector_bytes(sk, config, scenario, final)
+    sectors_early = map_sector_bytes(sk, config, scenario, early)
 
     # the same run on the plain path, stepped as _scan_swarm steps
     st = sim.clone_state(state0)
@@ -420,21 +694,43 @@ def phase_main(sim, sk, P, S, T, window):
           and abs(rebuffer_p - rebuffer) <= RUN_TOL,
           "kernels and plain path disagree on the main path's ratios")
     host_ms = wall / T * 1e3
-    log(f"    device time per whole step (three kernels, clock add, "
-        f"offload-series write; {window}-step window queued ahead, CUDA "
-        f"events) {step_ms!r} ms, of which the three kernels "
-        f"{sum(ms.values())!r} ms; plain passes {plain_step_ms!r} ms; "
-        f"host wall per step on the main path {host_ms!r} ms")
-    if busy_ms is None:
+    log(f"    device time per whole step ({window}-step windows queued "
+        f"ahead, CUDA events; kernels, clock add, offload-series write): "
+        f"main path {fused_step_ms!r} ms (select_admit + peer_update "
+        f"{sum(fused_ms.values())!r} ms), TK1 + TK2 + TK3 route "
+        f"{pair_step_ms!r} ms (kernels {sum(pair_ms.values())!r} ms); "
+        f"plain passes {plain_step_ms!r} ms; host wall per step on the "
+        f"main path {host_ms!r} ms")
+    log(f"    host wall per step over {HOST_STEPS} steps from the final "
+        f"state, routes in turns (ms): select_admit + peer_update "
+        f"{walls['fused']}, TK1 + TK2 + TK3 {walls['pair']}")
+    log(f"    per pass, CUDA events (ms): main path {json.dumps(fused_ms)}; "
+        f"TK1 + TK2 + TK3 {json.dumps(pair_ms)}")
+    if busy_ms is None or pair_busy_ms is None:
         log("    trace: torch.profiler recorded no device op; device busy "
             "time and idle share not measured")
     else:
-        log(f"    trace ({window} main-path steps, torch.profiler): device "
-            f"busy {busy_ms!r} ms per step, i.e. idle "
+        log(f"    trace ({window} steps each, torch.profiler): main path "
+            f"device busy {busy_ms!r} ms per step, i.e. idle "
             f"{1.0 - busy_ms / host_ms!r} of the main path's host wall "
             f"per step; per kernel (launches, mean ms) "
-            f"{json.dumps(traced)}")
-    return launches, errs, ms, plain_ms, nbytes
+            f"{json.dumps(traced)}.  TK1 + TK2 + TK3 route: busy "
+            f"{pair_busy_ms!r} ms per step; per kernel "
+            f"{json.dumps(pair_traced)}")
+    log(f"    map words the requesters read: {sectors:,} B of distinct "
+        f"32-byte sectors at the final state, {sectors_early:,} B at the "
+        f"state {EARLY_STEPS} plain steps in (the bound counts 4 B a "
+        f"distinct word)")
+    for when, v, ph in (("final state", variants, phases),
+                        (f"state {EARLY_STEPS} plain steps in",
+                         variants_early, phases_early)):
+        log(f"    select_admit designs at the {when}, {VARIANT_LAUNCHES} "
+            f"launches back to back (mean ms per launch, CUDA events): "
+            f"{json.dumps(v)}; phases of the timed designs' first launch: "
+            f"{json.dumps(ph)}")
+    traced_ms = {**{k: v[1] for k, v in pair_traced.items()},
+                 **{k: v[1] for k, v in traced.items()}}
+    return launches, errs, ms, traced_ms, plain_ms, nbytes
 
 
 def phase_fixture(sim):
@@ -454,7 +750,7 @@ def phase_fixture(sim):
     offload, rebuffer = _ratios(sim, final, T, config.dt_ms / 1000.0,
                                 d["join_s"])
     ref_o, ref_r = float(d["offload"]), float(d["rebuffer"])
-    log(f"[5] fixture {P} x {S} x {T}: offload {offload!r} (JAX "
+    log(f"[6] fixture {P} x {S} x {T}: offload {offload!r} (JAX "
         f"{ref_o!r}), rebuffer ratio {rebuffer!r} (JAX {ref_r!r})")
     check(abs(offload - ref_o) <= RUN_TOL and abs(rebuffer - ref_r)
           <= RUN_TOL, "the port disagrees with the JAX fixture")
@@ -478,7 +774,8 @@ def main() -> int:
         phase_build()
         errs_1m = phase_kernels_vs_plain(sim, sk, CHECK_PEERS, SEGMENTS,
                                          CHECK_WARM_STEPS)
-        launches, errs, ms, plain_ms, nbytes = phase_main(
+        errs_routes = phase_routes(sim, sk)
+        launches, errs, ms, traced_ms, plain_ms, nbytes = phase_main(
             sim, sk, PEERS, SEGMENTS, STEPS, WINDOW)
         phase_fixture(sim)
     except SmokeFailure as exc:
@@ -490,8 +787,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(errs[name], errs_1m[name]),
-            "ms": ms[name], "plain_ms": plain_ms[name],
+            "max_abs_err": max(errs[name], errs_1m[name],
+                               errs_routes.get(name, 0.0)),
+            "ms": ms[name], "traced_ms": traced_ms.get(name),
+            "plain_ms": plain_ms[name],
             "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "bytes": nbytes[name],
             "library_ms": None})

@@ -1,17 +1,24 @@
-"""The three kernels of one circulant VOD step, with their plain
-PyTorch versions and the wrappers that choose between them.
+"""The kernels of one circulant VOD step, with their plain PyTorch
+versions and the wrappers that choose between them.
 
-====================  ==========================================
-kernel                replaces (reference ``ops/swarm_sim.py``)
-====================  ==========================================
-TK1 ``elig_select``   ``circulant_eligibility`` :681-772,
-                      ``spread_holder_only`` :959-991, the start
-                      decision :1053-1175, pinning :1207-1228
-TK2 ``admit_service`` circulant admission and service, :1259-1303
-                      (the ``cap > 0`` branch)
-TK3 ``peer_update``   the service readback and the slot-0 update
-                      :1351-1525 with ``ewma.update``
-====================  ==========================================
+=====================  ==========================================
+kernel                 replaces (reference ``ops/swarm_sim.py``)
+=====================  ==========================================
+TK1 ``elig_select``    ``circulant_eligibility`` :681-772,
+                       ``spread_holder_only`` :959-991, the start
+                       decision :1053-1175, pinning :1207-1228
+TK2 ``admit_service``  circulant admission and service, :1259-1303
+                       (the ``cap > 0`` branch)
+``select_admit``       TK1 then TK2 in one launch, over tiles of
+                       peers with a halo of requesters
+TK3 ``peer_update``    the service readback and the slot-0 update
+                       :1351-1525 with ``ewma.update``
+=====================  ==========================================
+
+A step is :func:`select_admit` then :func:`peer_update`.  The route of
+``select_admit`` is chosen from the offsets before launch
+(:func:`fused_route`): the fused kernel where the halo fits its tile
+(the main path), else TK1 then TK2.
 
 The sources are ``csrc/swarm_step.cu`` (CUDA C++ for ``sm_90a``, built
 by ``ops/_build.py`` and bound with ``ctypes``).  Each wrapper checks
@@ -19,20 +26,24 @@ device, dtype, shape and contiguity; for CUDA tensors it launches its
 kernel or raises, for CPU tensors it runs the plain version.  There is
 no fallback from a failed build or launch to the plain version.
 
-Data flow of a step, and why it takes three launches: TK1 decides
-every requester's transfer and selected holder; TK2 needs every
-requester's demand to admit per holder; TK3 needs every holder's
-service.  Between them travel four ``[P]`` scratch words:
-``slot_flags`` (bit 0 may, bit 1 active, bit 2 is_p2p, bit 3 have_n),
-``req`` (the offset index of the selected holder of a transfer that
-places demand, else -1), ``service`` and ``adm`` (per holder, a bit
-mask of the admitted offset indices).
+Data flow of a step: TK1 decides every requester's transfer and
+selected holder; TK2 needs every requester's demand to admit per
+holder; TK3 needs every holder's service.  ``select_admit`` does TK1
+and TK2 in one launch by recomputing, in each block, the selection of
+the requesters its holders serve.  Between the passes travel four
+``[P]`` scratch words: ``slot_flags`` (bit 0 may, bit 1 active, bit 2
+is_p2p, bit 3 have_n), ``req`` (the offset index of the selected
+holder of a transfer that places demand, else -1), ``service`` and
+``adm`` (per holder, a bit mask of the admitted offset indices).
 
-In place: TK1 writes the slot record into its own row of the state
-and TK3 updates its own row of every field.  Each thread writes only
-its own peer's row, and TK1 has finished reading neighbours' rows
-before TK3 writes them, so the passes are race-free.  The plain
-versions update the state in place too.  Callers that compare two
+In place: TK1 (and ``select_admit``) writes the slot record into its
+own row of the state and TK3 updates its own row of every field.  Each
+peer's row has one writer, and the selection has finished reading
+neighbours' rows before TK3 writes them.  Inside ``select_admit`` a
+block reads requester fields of halo peers that another block writes;
+that is sound because each such field is read only when the slot is
+active and written only when it is not (``csrc/swarm_step.cu``).  The
+plain versions update the state in place too.  Callers that compare two
 steps clone the state first.
 
 Every launch adds one to :data:`LAUNCHES`; plain calls add nothing.
@@ -43,7 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +71,8 @@ SOURCE = "swarm_step.cu"
 MAX_OFFS = 32
 
 #: kernel launches since the last :func:`reset_launch_counts`
-LAUNCHES = {"elig_select": 0, "admit_service": 0, "peer_update": 0}
+LAUNCHES = {"select_admit": 0, "elig_select": 0, "admit_service": 0,
+            "peer_update": 0}
 
 
 def reset_launch_counts() -> None:
@@ -77,6 +89,8 @@ class Geometry(NamedTuple):
     W: int
     offs: Tuple[int, ...]       # normalized offsets, as given (signed)
     offs_mod: Tuple[int, ...]   # the same reduced mod P, in [0, P)
+    o_hi: int                   # max(offs, 0)
+    o_lo: int                   # min(offs, 0)
     seg: float
     end_s: float
     dt_ms: float
@@ -94,12 +108,36 @@ def geometry(config: SwarmConfig) -> Geometry:
         P=P, S=config.n_segments, L=config.n_levels,
         W=packed_words(config), offs=offs,
         offs_mod=tuple(o % P for o in offs),
+        o_hi=max((0, *offs)), o_lo=min((0, *offs)),
         seg=config.seg_duration_s,
         end_s=config.n_segments * config.seg_duration_s,
         dt_ms=config.dt_ms, dt_s=config.dt_ms / 1000.0,
         fast_alpha=math.exp(math.log(0.5) / config.fast_half_life_s),
         slow_alpha=math.exp(math.log(0.5) / config.slow_half_life_s),
         cap=config.max_total_serves)
+
+
+#: peers per block of ``select_admit`` (``SA_TILE`` in the CUDA source)
+SELECT_ADMIT_TILE = 128
+#: clocks a timed design of ``select_admit`` records per block
+SELECT_ADMIT_STAMPS = 8
+#: how a design of ``select_admit`` gets a tile's inputs, by the value of
+#: its mode in the CUDA source (``SA_DIRECT`` ... ``SA_TIMED``)
+SELECT_ADMIT_MODES = ("direct", "cp.async", "cp.async persistent", "timed")
+#: the widest halo, ``o_hi - o_lo``, that ``select_admit`` takes.  Each
+#: block recomputes the selection of ``span`` requesters beyond its tile,
+#: so a quarter of the tile caps that recompute at 25% of the requester
+#: work (6% on the main path's ring of 8), and one thread per requester
+#: keeps the block within 160 threads; its shared memory is a few hundred
+#: bytes either way.  A wider halo goes to TK1 + TK2.
+MAX_FUSED_SPAN = SELECT_ADMIT_TILE // 4
+
+
+def fused_route(config: SwarmConfig) -> bool:
+    """Whether :func:`select_admit` runs its fused kernel for
+    ``config`` (else TK1 then TK2): decided from the offsets alone."""
+    g = geometry(config)
+    return g.o_hi - g.o_lo <= MAX_FUSED_SPAN
 
 
 # ---- plain versions -------------------------------------------------------
@@ -250,6 +288,15 @@ def admit_service_plain(config: SwarmConfig, scenario: SwarmScenario,
     return service, adm
 
 
+def select_admit_plain(config: SwarmConfig, scenario: SwarmScenario,
+                       state: SwarmState):
+    """Plain ``select_admit``: :func:`elig_select_plain` then
+    :func:`admit_service_plain`.  Writes the slot record into ``state``
+    in place; returns ``(slot_flags, req, service, adm)``."""
+    flags, req = elig_select_plain(config, scenario, state)
+    return (flags, req) + admit_service_plain(config, scenario, req)
+
+
 def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
                       state: SwarmState, slot_flags: torch.Tensor,
                       req: torch.Tensor, service: torch.Tensor,
@@ -345,11 +392,10 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
 
 def plain_step(config: SwarmConfig, scenario: SwarmScenario,
                state: SwarmState) -> SwarmState:
-    """One step through the three plain versions on any device: the
-    oracle a kernel step is held against.  Updates ``state`` in place
-    and returns it with the clock advanced, as ``swarm_step`` does."""
-    flags, req = elig_select_plain(config, scenario, state)
-    service, adm = admit_service_plain(config, scenario, req)
+    """One step through the plain versions on any device: the oracle a
+    kernel step is held against.  Updates ``state`` in place and returns
+    it with the clock advanced, as ``swarm_step`` does."""
+    flags, req, service, adm = select_admit_plain(config, scenario, state)
     peer_update_plain(config, scenario, state, flags, req, service, adm)
     return state._replace(t_s=state.t_s + config.dt_ms / 1000.0)
 
@@ -386,6 +432,14 @@ class _AdmitArgs(ctypes.Structure):
         ("cap", ctypes.c_float), ("offs", ctypes.c_int * MAX_OFFS)]
 
 
+class _SelectAdmitArgs(ctypes.Structure):
+    _fields_ = [("sel", _SelectArgs)] + [(name, _P) for name in (
+        "uplink_bps", "uplink_efficiency", "service", "adm_mask")] + [
+        ("cap", ctypes.c_float), ("o_max", ctypes.c_int),
+        ("o_min", ctypes.c_int), ("soffs", ctypes.c_int * MAX_OFFS),
+        ("stamps", _P)]
+
+
 class _UpdateArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "t_s", "join_s", "leave_s", "cdn_bps", "p2p_setup_ms", "slot_flags",
@@ -404,7 +458,8 @@ class _UpdateArgs(ctypes.Structure):
 
 _ENTRY = {"elig_select": ("swarm_elig_select", _SelectArgs),
           "admit_service": ("swarm_admit_service", _AdmitArgs),
-          "peer_update": ("swarm_peer_update", _UpdateArgs)}
+          "peer_update": ("swarm_peer_update", _UpdateArgs),
+          "select_admit": ("swarm_select_admit", _SelectAdmitArgs)}
 
 
 @functools.lru_cache(maxsize=1)
@@ -417,9 +472,18 @@ def _lib() -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         f.restype = ctypes.c_int
+    lib.swarm_select_admit_variant.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib.swarm_select_admit_variant.restype = ctypes.c_int
+    lib.swarm_select_admit_variant_info.argtypes = [ctypes.c_int,
+                                                    ctypes.c_void_p]
+    lib.swarm_select_admit_variant_info.restype = ctypes.c_int
+    lib.swarm_l2_window.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_longlong, ctypes.c_void_p]
+    lib.swarm_l2_window.restype = ctypes.c_int
     lib.swarm_args_sizes.argtypes = [ctypes.c_void_p]
     lib.swarm_args_sizes.restype = ctypes.c_int
-    sizes = (ctypes.c_longlong * 3)()
+    sizes = (ctypes.c_longlong * len(_ENTRY))()
     lib.swarm_args_sizes(sizes)
     want = [ctypes.sizeof(a) for _fn, a in _ENTRY.values()]
     if list(sizes) != want:
@@ -481,12 +545,10 @@ def _scenario_ptrs(scenario: SwarmScenario, names, P, L, dev) -> dict:
     return out
 
 
-def elig_select(config: SwarmConfig, scenario: SwarmScenario,
-                state: SwarmState):
-    """TK1.  Same signature and outputs as :func:`elig_select_plain`."""
-    dev = state.avail.device
-    if dev.type != "cuda":
-        return elig_select_plain(config, scenario, state)
+def _select_args(config: SwarmConfig, scenario: SwarmScenario,
+                 state: SwarmState, dev):
+    """TK1's arguments (also the selection half of ``select_admit``'s),
+    checked, with fresh ``slot_flags`` and ``req`` outputs."""
     g = geometry(config)
     P = g.P
     slot_flags = torch.empty((P,), dtype=_I, device=dev)
@@ -519,8 +581,111 @@ def elig_select(config: SwarmConfig, scenario: SwarmScenario,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         default_estimate_bps=DEFAULT_ESTIMATE_BPS,
         bandwidth_safety=BANDWIDTH_SAFETY, offs=_offs_array(g.offs_mod))
+    return args, slot_flags, req
+
+
+def elig_select(config: SwarmConfig, scenario: SwarmScenario,
+                state: SwarmState):
+    """TK1.  Same signature and outputs as :func:`elig_select_plain`."""
+    dev = state.avail.device
+    if dev.type != "cuda":
+        return elig_select_plain(config, scenario, state)
+    args, slot_flags, req = _select_args(config, scenario, state, dev)
     _launch("elig_select", args, dev)
     return slot_flags, req
+
+
+def _select_admit_args(config: SwarmConfig, scenario: SwarmScenario,
+                       state: SwarmState, dev):
+    g = geometry(config)
+    sel, slot_flags, req = _select_args(config, scenario, state, dev)
+    service = torch.empty((g.P,), dtype=_F, device=dev)
+    adm = torch.empty((g.P,), dtype=_I, device=dev)
+    args = _SelectAdmitArgs(
+        sel=sel,
+        uplink_bps=_check("uplink_bps", scenario.uplink_bps, _F, (g.P,),
+                          dev),
+        uplink_efficiency=_check("uplink_efficiency",
+                                 scenario.uplink_efficiency, _F, (), dev),
+        service=service.data_ptr(), adm_mask=adm.data_ptr(),
+        cap=float(g.cap), o_max=g.o_hi, o_min=g.o_lo,
+        soffs=_offs_array(g.offs))
+    return args, (slot_flags, req, service, adm)
+
+
+def select_admit(config: SwarmConfig, scenario: SwarmScenario,
+                 state: SwarmState):
+    """TK1 and TK2 of one step: same signature and outputs as
+    :func:`select_admit_plain`.  On a CUDA state it launches the fused
+    kernel where :func:`fused_route` holds, else TK1 then TK2."""
+    dev = state.avail.device
+    if dev.type != "cuda":
+        return select_admit_plain(config, scenario, state)
+    if not fused_route(config):
+        flags, req = elig_select(config, scenario, state)
+        return (flags, req) + admit_service(config, scenario, req)
+    args, out = _select_admit_args(config, scenario, state, dev)
+    _launch("select_admit", args, dev)
+    return out
+
+
+def select_admit_variants() -> list:
+    """The fused kernel's designs that ``chip_smoke.py`` times against
+    each other, by index: ``(K template or 0 for a runtime K, peers per
+    block, input mode, blocks per SM the registers are sized for,
+    neighbours tested by rows across the block)``, the mode one of
+    :data:`SELECT_ADMIT_MODES`.  A ``"timed"`` design records
+    :data:`SELECT_ADMIT_STAMPS` clocks per block (see the CUDA
+    source)."""
+    lib = _lib()
+    out, info = [], (ctypes.c_int * 6)()
+    while lib.swarm_select_admit_variant_info(len(out), info) == 0:
+        out.append((info[0], info[1], SELECT_ADMIT_MODES[info[2]],
+                    info[3], bool(info[4])))
+        if info[5] != SELECT_ADMIT_STAMPS:
+            raise RuntimeError(f"the library records {info[5]} stamps a "
+                               f"block, not {SELECT_ADMIT_STAMPS}")
+    return out
+
+
+def l2_window(t: Optional[torch.Tensor]) -> int:
+    """Measurement only: hold CUDA tensor ``t`` in the L2 cache for the
+    kernels on the current stream (as much of it as the card allows), or
+    with None remove the window.  Returns the window's bytes."""
+    dev = torch.device("cuda") if t is None else t.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    window = ctypes.c_longlong(0)
+    rc = _lib().swarm_l2_window(
+        ctypes.c_void_p(stream),
+        ctypes.c_void_p(0 if t is None else t.data_ptr()),
+        0 if t is None else t.numel() * t.element_size(),
+        ctypes.byref(window))
+    if rc != 0:
+        raise RuntimeError(f"L2 access-policy window failed: CUDA error "
+                           f"{rc}")
+    return window.value
+
+
+def launch_select_admit_variant(config: SwarmConfig,
+                                scenario: SwarmScenario,
+                                state: SwarmState, variant: int,
+                                stamps: Optional[torch.Tensor] = None):
+    """Launch design ``variant`` of the fused kernel on a CUDA state, for
+    timing it; same outputs as :func:`select_admit`.  A timed design
+    writes its clocks into ``stamps``, int64 ``[blocks,
+    SELECT_ADMIT_STAMPS]``.  It is not counted in :data:`LAUNCHES`: no
+    step calls it."""
+    dev = state.avail.device
+    args, out = _select_admit_args(config, scenario, state, dev)
+    if stamps is not None:
+        args.stamps = stamps.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().swarm_select_admit_variant(
+        ctypes.byref(args), ctypes.c_void_p(stream), variant)
+    if rc != 0:
+        raise RuntimeError(f"select_admit variant {variant} launch failed: "
+                           f"CUDA error {rc}")
+    return out
 
 
 def admit_service(config: SwarmConfig, scenario: SwarmScenario,

@@ -6,10 +6,11 @@ VOD grid run.  Per peer: playhead, buffer, quality level, a dual-EWMA
 estimator, one foreground transfer slot and a bit-packed
 ``[P, ceil(L·S/32)]`` per-(level, segment) cache map, stepped every
 ``dt_ms`` on a degree-K circulant overlay (peer i's neighbours are
-``(i + o) mod P``).  A step is three passes (``ops/swarm_kernels.py``):
-eligibility and holder selection per requester, admission and uplink
-share per holder, then the per-peer update.  On the card each pass is
-a hand-written kernel; on the CPU each is its plain PyTorch version.
+``(i + o) mod P``).  A step is two passes (``ops/swarm_kernels.py``):
+eligibility, holder selection and admission with uplink share
+(``select_admit``), then the per-peer update.  On the card each pass is
+hand-written kernels (one launch each on the main path); on the CPU
+each is its plain PyTorch version.
 
 What this slice covers, and what raises instead:
 
@@ -480,10 +481,11 @@ def check_slice(config: SwarmConfig) -> None:
 
 def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
                state: SwarmState) -> SwarmState:
-    """One ``dt_ms`` tick for every peer.  Three passes: eligibility
-    and holder selection, admission and service, the per-peer update
-    (``ops/swarm_kernels.py``).  On a CUDA state each pass launches its
-    kernel; on a CPU state the plain PyTorch versions run.
+    """One ``dt_ms`` tick for every peer.  Two passes: eligibility,
+    holder selection, admission and service (``select_admit``), then
+    the per-peer update (``ops/swarm_kernels.py``).  On a CUDA state
+    each pass launches its kernels; on a CPU state the plain PyTorch
+    versions run.
 
     The state's tensors are updated IN PLACE and the returned state
     carries them with the clock advanced: clone a state
@@ -495,8 +497,7 @@ def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
             f"state.holder_penalty_ms is sized for "
             f"{state.holder_penalty_ms.shape[1]} neighbors but "
             f"\"spread\" carries a zero-width field")
-    flags, req = sk.elig_select(config, scenario, state)
-    service, adm = sk.admit_service(config, scenario, req)
+    flags, req, service, adm = sk.select_admit(config, scenario, state)
     sk.peer_update(config, scenario, state, flags, req, service, adm)
     return state._replace(t_s=state.t_s + config.dt_ms / 1000.0)
 

@@ -2,10 +2,11 @@
 
 On the CPU: the ctypes mirrors of the kernels' argument structs against
 the C source (field for field, since nothing compiles the source here),
-the wrappers' dispatch to the plain versions, and the byte counts
+the wrappers' dispatch to the plain versions, ``select_admit``'s route
+and the index arithmetic of its tiles, and the byte counts
 ``chip_smoke.py`` computes the kernels' bounds from.  On the card
-(marker ``gpu``, skipped without one): each kernel against its plain
-version."""
+(marker ``gpu``, skipped without one): each route against the plain
+step."""
 
 import ctypes
 import os
@@ -23,12 +24,24 @@ from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_sim as port
 BITRATES = [300_000.0, 800_000.0, 2_000_000.0]
 C_TYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
            "uint32_t*": ctypes.c_void_p, "long long": ctypes.c_longlong,
-           "int": ctypes.c_int, "float": ctypes.c_float}
+           "int": ctypes.c_int, "float": ctypes.c_float,
+           "SelectArgs": sk._SelectArgs, "long long*": ctypes.c_void_p}
+#: offset tuples at which the fused kernel's tiles wrap the ring: the
+#: main path's ring at P = 16 (< one tile), a degree-12 ring at P = 96,
+#: and a tuple with an offset beyond P and no negative offset
+WRAPS = [(16, port.ring_offsets(8)), (96, port.ring_offsets(12)),
+         (16, (1, 2, 20))]
+#: a tuple whose halo is too wide for the fused kernel's tile
+WIDE = (1, -1, 2, -2, 97, -97, 300, -300)
+
+
+def _source():
+    with open(os.path.join(_build.CSRC_DIR, sk.SOURCE)) as fh:
+        return fh.read()
 
 
 def _c_struct(name):
-    with open(os.path.join(_build.CSRC_DIR, sk.SOURCE)) as fh:
-        src = fh.read()
+    src = _source()
     body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
     fields = []
     for line in body.splitlines():
@@ -45,7 +58,7 @@ def _c_struct(name):
 
 @pytest.mark.parametrize("c_name,mirror", [
     ("SelectArgs", sk._SelectArgs), ("AdmitArgs", sk._AdmitArgs),
-    ("UpdateArgs", sk._UpdateArgs)])
+    ("UpdateArgs", sk._UpdateArgs), ("SelectAdmitArgs", sk._SelectAdmitArgs)])
 def test_ctypes_mirrors_match_the_c_structs(c_name, mirror):
     c_fields = _c_struct(c_name)
     assert [f for f, _t, _a in c_fields] == [f for f, _t in mirror._fields_]
@@ -58,8 +71,7 @@ def test_ctypes_mirrors_match_the_c_structs(c_name, mirror):
 
 
 def test_c_source_flags_and_no_torch_headers():
-    with open(os.path.join(_build.CSRC_DIR, sk.SOURCE)) as fh:
-        src = fh.read()
+    src = _source()
     assert "torch/" not in src and "ATen" not in src
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--fmad=false" in _build.NVCC_FLAGS
@@ -67,11 +79,40 @@ def test_c_source_flags_and_no_torch_headers():
     assert _build.BUILD_DIR.endswith(os.path.join("build", "torch_kernels"))
 
 
-def _case(P=64, S=16, steps=60):
+def test_select_admit_tile_and_variants_match_the_source():
+    """The tile the route helper assumes is the one the C launch uses,
+    and each timed design's switch case launches the design its table
+    row names."""
+    src = _source()
+    assert f"#define SA_TILE {sk.SELECT_ADMIT_TILE}\n" in src
+    assert f"#define SA_STAMPS {sk.SELECT_ADMIT_STAMPS}\n" in src
+    modes = ["SA_DIRECT", "SA_STAGED", "SA_PERSIST", "SA_TIMED"]
+    for value, name in enumerate(modes):
+        assert f"#define {name} {value}\n" in src
+    assert len(modes) == len(sk.SELECT_ADMIT_MODES)
+    rows = re.search(r"SA_VARIANTS\[\]\[5\] = \{(.*?)\};", src, re.S)
+    table = re.findall(r"\{(\d+), (\d+), (SA_\w+), (\d+), ([01])\}",
+                       rows.group(1))
+    assert f"#define SA_N_VARIANTS {len(table)}" in src
+    cases = re.findall(r"(?:case (\d+)|default): return launch_select_admit"
+                       r"<(\d+), (\d+), (SA_\w+), (\d+), (true|false)>",
+                       src)
+    assert [c[1:5] + ("1" if c[5] == "true" else "0",)
+            for c in cases] == table
+    assert [c[0] for c in cases] == [str(v) for v in
+                                     range(len(table) - 1)] + [""]
+    for kt, tile, mode, minb, _rows in table:
+        threads = -(-(int(tile) + int(tile) // 4) // 32) * 32
+        assert mode in modes and threads <= 1024
+        assert int(minb) * threads <= 2048   # threads an SM holds
+
+
+def _case(P=64, S=16, steps=60, offsets=None):
     """A small swarm mid-run: staggered joins over 20 s, so that some
     transfers ride peers (and place demand) 15 s in."""
-    config = port.SwarmConfig(n_peers=P, n_segments=S, n_levels=3,
-                              neighbor_offsets=port.ring_offsets(8))
+    config = port.SwarmConfig(
+        n_peers=P, n_segments=S, n_levels=3,
+        neighbor_offsets=offsets or port.ring_offsets(8))
     join = port.staggered_joins(P, 20.0, device="cpu")
     scenario = port.make_scenario(config, BITRATES, None,
                                   np.full(P, 4e6, np.float32), join,
@@ -92,6 +133,7 @@ def test_kernel_bytes_counts():
                                      req, adm, state)
     P, K = config.n_peers, 8
     assert nbytes["admit_service"] == 16 * P + 4
+    assert nbytes["select_admit"] == nbytes["elig_select"] + 12 * P + 4
     # TK1 reads at most one word of each neighbour per requester
     assert 4 * 15 * P < nbytes["elig_select"] <= 4 * (22 + K) * P + 64
     assert 4 * 24 * P < nbytes["peer_update"] <= 4 * 38 * P + 8
@@ -134,6 +176,120 @@ def test_admission_never_exceeds_the_cap():
     assert int(load.max()) <= config.max_total_serves
 
 
+@pytest.mark.parametrize("P,offsets", [(64, None)] + WRAPS)
+def test_select_admit_on_cpu_is_the_two_plain_passes(P, offsets):
+    config, scenario, state = _case(P=P, offsets=offsets, steps=80)
+    a, b = port.clone_state(state), port.clone_state(state)
+    sk.reset_launch_counts()
+    out = sk.select_admit(config, scenario, a)
+    fb, rb = sk.elig_select_plain(config, scenario, b)
+    sb, mb = sk.admit_service_plain(config, scenario, rb)
+    for x, y in zip(out, (fb, rb, sb, mb)):
+        assert torch.equal(x, y)
+    assert bool((rb >= 0).any())   # some transfers place demand
+    for x, y in zip(a, b):
+        for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+            assert torch.equal(u, v)
+    assert sk.LAUNCHES == {name: 0 for name in sk.LAUNCHES}
+
+
+@pytest.mark.parametrize("P,offsets,fused", [
+    (262_144, port.ring_offsets(8), True),
+    (262_144, WIDE, False),
+    (16, port.ring_offsets(8), True),
+    (96, port.ring_offsets(12), True),
+    (262_144, (1, -(sk.MAX_FUSED_SPAN - 1)), True),
+    (262_144, (1, -sk.MAX_FUSED_SPAN), False)])
+def test_route_is_chosen_from_the_offsets(P, offsets, fused):
+    config = port.SwarmConfig(n_peers=P, n_segments=16, n_levels=3,
+                              neighbor_offsets=offsets)
+    assert sk.fused_route(config) is fused
+
+
+def _tiled_select_admit(config, scenario, state, req, tile):
+    """The fused kernel's index arithmetic, block by block, on the
+    inputs of one step (``req`` from the plain selection): the requester
+    range of each tile with its halo (indices mod P), which requester
+    positions own their peer, the (neighbour row, offset) pairs that
+    set each requester's eligibility bits, and each holder's walk over
+    the block's copy of req.  Returns ``(owners per peer, eligibility
+    bits per requester position as {peer: set of values}, service,
+    adm)``."""
+    g = sk.geometry(config)
+    P = g.P
+    tg = sk.slot_targets(config, scenario, state)
+    wi = (tg["gi_flat"] >> 5).numpy()
+    bit = (tg["gi_flat"] & 31).numpy()
+    avail = port.i32_to_u32(state.avail).numpy()
+    serve = (tg["present"] & (scenario.p2p_ok > 0.0)).numpy()
+    req = req.numpy()
+    up = scenario.uplink_bps.numpy()
+    eff = np.float32(scenario.uplink_efficiency.numpy())
+    owners = np.zeros(P, np.int64)
+    elig = {}
+    service = np.zeros(P, np.float32)
+    adm = np.zeros(P, np.int32)
+    span = g.o_hi - g.o_lo
+    R, H = tile + span, tile + 2 * span
+    for b in range(0, P, tile):
+        q0 = b - g.o_hi
+        h0 = q0 + g.o_lo
+        peer = (q0 + np.arange(R)) % P
+        bits = np.zeros(R, np.int64)
+        for h in range(H):
+            row = (h0 + h) % P
+            for k, o in enumerate(g.offs):
+                q = h + g.o_lo - o
+                if 0 <= q < R and serve[row]:
+                    r = peer[q]
+                    if (avail[row, wi[r]] >> bit[r]) & 1:
+                        bits[q] |= 1 << k
+        for q in range(R):
+            elig.setdefault(int(peer[q]), set()).add(int(bits[q]))
+            u = q - g.o_hi
+            if 0 <= u < tile and b + u < P:
+                owners[peer[q]] += 1
+        req_s = req[peer]
+        for jl in range(min(tile, P - b)):
+            cum, mask = np.float32(0.0), 0
+            for k, o in enumerate(g.offs):
+                if req_s[jl - o + g.o_hi] == k and cum < g.cap:
+                    cum += np.float32(1.0)
+                    mask |= 1 << k
+            service[b + jl] = up[b + jl] * eff / max(cum, np.float32(1.0))
+            adm[b + jl] = mask
+    return owners, elig, service, adm
+
+
+@pytest.mark.parametrize("P,offsets,tile", [
+    (64, port.ring_offsets(8), 16), (200, port.ring_offsets(8), 64)]
+    + [(P, o, sk.SELECT_ADMIT_TILE) for P, o in WRAPS])
+def test_fused_tiles_cover_the_ring_and_match_tk1_tk2(P, offsets, tile):
+    """Every peer is owned by exactly one requester position; every
+    position of a peer, halo copies included, gathers the circulant
+    eligibility of that peer; and the holders' walk over a block's copy
+    of req gives TK2's result, also where the ring wraps inside one
+    tile."""
+    config, scenario, state = _case(P=P, offsets=offsets, steps=80)
+    g = sk.geometry(config)
+    tg = sk.slot_targets(config, scenario, state)
+    serve = tg["present"] & (scenario.p2p_ok > 0.0)
+    ref, _n, _own = port.circulant_eligibility(
+        state.avail, serve, list(g.offs), [tg["gi_flat"]], impl="kpass")[0]
+    ref_bits = sum((e > 0).to(torch.int64) << k for k, e in enumerate(ref))
+    _flags, req = sk.elig_select_plain(config, scenario,
+                                       port.clone_state(state))
+    assert bool((req >= 0).any())
+    owners, elig, service, adm = _tiled_select_admit(config, scenario,
+                                                     state, req, tile)
+    assert (owners == 1).all()
+    assert elig == {p: {int(ref_bits[p])} for p in range(P)}
+    assert int(ref_bits.count_nonzero()) > 0
+    sv, ad = sk.admit_service_plain(config, scenario, req)
+    np.testing.assert_array_equal(adm, ad.numpy())
+    np.testing.assert_array_equal(service, sv.numpy())
+
+
 # ---- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -144,10 +300,11 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-def test_kernels_match_plain_on_the_card(cuda_device):
+@pytest.mark.parametrize("offsets", [port.ring_offsets(8), WIDE])
+def test_kernels_match_plain_on_the_card(cuda_device, offsets):
     P, S = 4096, 64
     config = port.SwarmConfig(n_peers=P, n_segments=S, n_levels=3,
-                              neighbor_offsets=port.ring_offsets(8))
+                              neighbor_offsets=offsets)
     join = port.staggered_joins(P, 10.0, device=cuda_device)
     scenario = port.make_scenario(config, BITRATES, None,
                                   np.full(P, 8e6, np.float32), join,
@@ -161,7 +318,12 @@ def test_kernels_match_plain_on_the_card(cuda_device):
         a = port.swarm_step(config, scenario, a)
         b = sk.plain_step(config, scenario, b)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == {name: 20 for name in sk.LAUNCHES}
+    fused = sk.fused_route(config)
+    assert fused is (offsets == port.ring_offsets(8))
+    assert sk.LAUNCHES == {"select_admit": 20 if fused else 0,
+                           "elig_select": 0 if fused else 20,
+                           "admit_service": 0 if fused else 20,
+                           "peer_update": 20}
     for x, y in zip(a, b):
         for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
             if u.is_floating_point():
