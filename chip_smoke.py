@@ -13,15 +13,19 @@ exits nonzero:
    after 300 steps;
 4. the routes of ``select_admit`` away from the main path: the fused
    kernel where its tiles wrap the ring (16 peers with the ring of 8,
-   96 peers with a ring of 12) and the TK1 + TK2 route of a wide
-   offset tuple, each stepped beside the plain step, launches checked;
+   96 peers with a ring of 12, 1,000 peers with the ring of 8, whose
+   last tile is partial) and the TK1 + TK2 route of a wide offset
+   tuple, each stepped beside the plain step, launches checked; then,
+   at the main path's size, the fused kernel at halos of 8, 16, 24 and
+   32 peers (the widest it takes) against its plain version and timed
+   against TK1 + TK2, which sets the route's span limit;
 5. the main path — ``run_swarm`` at 262,144 peers × 256 segments ×
    2,400 steps, the configuration of ``bench.py``'s headline — through
    ``select_admit`` and ``peer_update``, with the launch counts checked;
    then, from its final state, each kernel against its plain version,
    the step timed with CUDA events and traced with ``torch.profiler``
-   on the main path's route and on the TK1 + TK2 route, the fused
-   kernel's timed designs, and the same run on the plain path;
+   on the main path's route and on the TK1 + TK2 route, and the same
+   run on the plain path;
 6. the port at the committed reference fixture's shape and joins,
    against the JAX reference's final offload and rebuffer ratio.
 
@@ -78,17 +82,23 @@ KERNELS = {
 #: the kernels the main path launches, once a step each; the other two
 #: are the route of offset tuples too wide for select_admit's tile
 MAIN_PATH = ("select_admit", "peer_update")
-#: shapes where select_admit's tiles wrap the ring: (peers, ring degree)
-WRAP_CASES = ((16, 8), (96, 12))
+#: shapes where select_admit's tiles wrap the ring, (peers, ring
+#: degree); at 1,000 peers the last tile is partial
+WRAP_CASES = ((16, 8), (96, 12), (1000, 8))
 #: an offset tuple too wide for select_admit's tile, and its shape
 WIDE_OFFSETS = (1, -1, 2, -2, 97, -97, 300, -300)
 WIDE_PEERS, WIDE_SEGMENTS = 65_536, 64
 ROUTE_STEPS = 20
-#: back-to-back launches per timed design of the fused kernel; the
-#: designs are timed on the main path's final state and on a state the
-#: plain path reached after EARLY_STEPS steps, while peers still join
-VARIANT_LAUNCHES = 200
-EARLY_STEPS = 120
+#: K = 8 offset tuples with halos (max(o, 0) - min(o, 0)) of 8 (the main
+#: path's ring), 16, 24 and 32 peers, at which the fused kernel is timed
+#: against TK1 + TK2 at the main path's size, each from the state its
+#: own STEPS-step run reached
+SPAN_OFFSETS = ((1, 2, 3, 4, -1, -2, -3, -4),
+                (1, 2, 3, 8, -1, -2, -3, -8),
+                (1, 2, 3, 12, -1, -2, -3, -12),
+                (1, 2, 3, 16, -1, -2, -3, -16))
+#: launches back to back per timing of one route
+BACK_TO_BACK = 200
 #: steps per host-clock run of each route, run in turns fused, pair,
 #: pair, fused
 HOST_STEPS = 400
@@ -230,10 +240,9 @@ def phase_card():
 
 
 def phase_build():
-    from hlsjs_p2p_wrapper_tpu_torch.ops import _build, swarm_kernels as sk
+    from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_kernels as sk
     t0 = time.perf_counter()
-    info = _build.build(force=True)
-    sk.build_kernels()
+    info = sk.build_kernels(force=True)
     log(f"[2] built {len(info)} source(s) in "
         f"{time.perf_counter() - t0:.2f} s")
     for src, rec in info.items():
@@ -326,6 +335,67 @@ def phase_routes(sim, sk):
     return errs
 
 
+def back_to_back(fn, state):
+    """Mean device ms per call of ``fn(state)`` over BACK_TO_BACK calls
+    on ``state``, queued behind a GPU sleep and bracketed by two CUDA
+    events.  The selection writes only slot fields it does not read
+    back, so every call repeats the same work."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(3e8))
+    slept = torch.cuda.Event()
+    slept.record()
+    start.record()
+    for _ in range(BACK_TO_BACK):
+        fn(state)
+    end.record()
+    queued_ahead = not slept.query()
+    torch.cuda.synchronize()
+    check(queued_ahead, "back-to-back launches not queued ahead")
+    return start.elapsed_time(end) / BACK_TO_BACK
+
+
+def phase_spans(sim, sk, P, S, T):
+    """The fused kernel at each halo of SPAN_OFFSETS, at P × S from the
+    final state of a T-step ``run_swarm``: against its plain version,
+    then timed against TK1 + TK2 on the same state (routes in turns
+    fused, pair, pair, fused).  Returns the max float error."""
+    import numpy as np
+    err = 0.0
+    for offsets in SPAN_OFFSETS:
+        config = sim.SwarmConfig(n_peers=P, n_segments=S, n_levels=3,
+                                 neighbor_offsets=offsets)
+        g = sk.geometry(config)
+        span = g.o_hi - g.o_lo
+        label = f"{P:,} peers, halo {span}, offsets {offsets}"
+        check(sk.fused_route(config), f"{label}: not on the fused route")
+        cdn = np.full((P,), 8e6, np.float32)
+        join = sim.staggered_joins(P, 60.0, device="cuda")
+        final, _series = sim.run_swarm(config, BITRATES, None, cdn,
+                                       sim.init_swarm(config, device="cuda"),
+                                       T, join, device="cuda")
+        scenario = sim.make_scenario(config, BITRATES, None, cdn, join,
+                                     device="cuda")
+        err = max(err, compare_select_admit(sim, sk, config, scenario,
+                                            final, label))
+
+        def pair(st):
+            flags, req = sk.elig_select(config, scenario, st)
+            return sk.admit_service(config, scenario, req)
+        fused = lambda st: sk.select_admit(config, scenario, st)  # noqa: E731
+        st = sim.clone_state(final)
+        runs = {"fused": [], "pair": []}
+        for route in ("fused", "pair", "pair", "fused"):
+            runs[route].append(back_to_back(
+                fused if route == "fused" else pair, st))
+        log(f"[4] {label}: select_admit equals its plain version; "
+            f"{BACK_TO_BACK} launches back to back, mean ms per launch: "
+            f"select_admit {runs['fused']}, TK1 + TK2 {runs['pair']}; "
+            f"fused / pair {sum(runs['fused']) / sum(runs['pair'])!r}")
+    return err
+
+
 def _ratios(sim, state, n_steps, dt_s, join):
     return (float(sim.offload_ratio(state)),
             float(sim.rebuffer_ratio(state, n_steps * dt_s, join)))
@@ -335,17 +405,20 @@ def _stages(sk, config, scenario, route):
     """The passes of one step on ``route`` as ``[(kernel, fn)]``, each
     ``fn(state, outputs so far) -> outputs``: ``"fused"`` is the main
     path (select_admit, TK3), ``"pair"`` TK1, TK2 and TK3 called
-    directly, ``"plain"`` their plain versions."""
-    if route == "fused":
+    directly, ``"plain"`` and ``"plain_pair"`` the plain versions of
+    the one and the other."""
+    if route in ("fused", "plain"):
+        sa = sk.select_admit if route == "fused" else sk.select_admit_plain
         first = [("select_admit",
-                  lambda st, o: sk.select_admit(config, scenario, st))]
+                  lambda st, o: sa(config, scenario, st))]
     else:
         es, ad = ((sk.elig_select, sk.admit_service) if route == "pair"
                   else (sk.elig_select_plain, sk.admit_service_plain))
         first = [("elig_select", lambda st, o: es(config, scenario, st)),
                  ("admit_service",
                   lambda st, o: o + ad(config, scenario, o[1]))]
-    pu = sk.peer_update_plain if route == "plain" else sk.peer_update
+    pu = (sk.peer_update_plain if route.startswith("plain")
+          else sk.peer_update)
     return first + [("peer_update",
                      lambda st, o: pu(config, scenario, st, *o))]
 
@@ -384,7 +457,7 @@ def time_window(sim, sk, config, scenario, state0, n_steps, route):
         e[-1].record()
     queued_ahead = not slept.query()
     torch.cuda.synchronize()
-    check(route == "plain" or queued_ahead,
+    check(route.startswith("plain") or queued_ahead,
           f"timing window: the host did not queue {n_steps} steps within "
           f"the GPU sleep, so the events would time the host")
     per_pass = {name: sum(ev[s][n].elapsed_time(ev[s][n + 1])
@@ -450,88 +523,6 @@ def trace_steps(sim, sk, config, scenario, state0, n_steps, route):
     return (busy_us / n_steps / 1e3 if ops else None), per_kernel
 
 
-def time_variants(sim, sk, config, scenario, state0):
-    """The fused kernel's designs (``sk.select_admit_variants()``), the
-    port's ``select_admit`` and the TK1 + TK2 pair, each launched
-    VARIANT_LAUNCHES times back to back on one clone of ``state0`` (the
-    selection only writes slot fields it does not read, so every launch
-    repeats the same work), queued behind a GPU sleep and bracketed by
-    two CUDA events.  Each design's outputs are first held to the plain
-    version.  Returns ``({label: mean ms per launch}, {label: phases})``
-    where a timed design's phases (:func:`phase_split`) come from its
-    first launch."""
-    import torch
-    ref = sk.select_admit_plain(config, scenario, sim.clone_state(state0))
-    calls, stamps = {}, {}
-    for v, (kt, tile, mode, minb, rows) in enumerate(
-            sk.select_admit_variants()):
-        label = (f"K={kt or 'runtime'} tile={tile} {mode} regs for {minb} "
-                 f"blocks/SM, neighbours by {'rows' if rows else 'requester'}")
-        if mode == "timed":
-            stamps[label] = torch.zeros(
-                (-(-config.n_peers // tile), sk.SELECT_ADMIT_STAMPS),
-                dtype=torch.int64, device="cuda")
-        calls[label] = (lambda st, v=v, buf=stamps.get(label):
-                        sk.launch_select_admit_variant(config, scenario, st,
-                                                       v, buf))
-    calls["select_admit (the port's)"] = (
-        lambda st: sk.select_admit(config, scenario, st))
-
-    def pair(st):
-        flags, req = sk.elig_select(config, scenario, st)
-        return (flags, req) + sk.admit_service(config, scenario, req)
-    calls["elig_select + admit_service"] = pair
-    port = calls["select_admit (the port's)"]
-    calls["select_admit (the port's), map held in L2"] = port
-    out, phases = {}, {}
-    for label, fn in calls.items():
-        st = sim.clone_state(state0)
-        if label.endswith("map held in L2"):
-            held = sk.l2_window(st.avail)
-            label = f"{label} ({held:,} of {st.avail.nbytes:,} B)"
-        got = fn(st)
-        torch.cuda.synchronize()
-        compare(f"variant {label}", dict(zip(SELECT_OUT, got)),
-                dict(zip(SELECT_OUT, ref)))
-        if label in stamps:
-            phases[label] = phase_split(stamps[label])
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        torch.cuda._sleep(int(3e8))
-        slept = torch.cuda.Event()
-        slept.record()
-        start.record()
-        for _ in range(VARIANT_LAUNCHES):
-            fn(st)
-        end.record()
-        queued_ahead = not slept.query()
-        torch.cuda.synchronize()
-        check(queued_ahead, f"variant {label}: launches not queued ahead")
-        out[label] = start.elapsed_time(end) / VARIANT_LAUNCHES
-        if "held in L2" in label:
-            sk.l2_window(None)
-    return out, phases
-
-
-#: the phases between a timed select_admit block's clocks 1..6
-PHASES = ("serve bits", "targets", "gather", "finish", "holders")
-
-
-def phase_split(stamps):
-    """One timed launch's per-block clocks -> the kernel's span and mean
-    block time (global timer, µs), how many blocks ran at once on
-    average (sum of block times over the span), and each phase's share
-    of a block's SM clocks."""
-    st = stamps.double().cpu()
-    start, end = st[:, 0], st[:, 7]
-    span_us = float(end.max() - start.min()) / 1e3
-    block_us = (end - start) / 1e3
-    cycles = st[:, 2:7] - st[:, 1:6]
-    share = cycles.sum(0) / cycles.sum()
-    return {"span_us": span_us, "mean_block_us": float(block_us.mean()),
-            "blocks_at_once": float(block_us.sum()) / span_us,
-            "phase_share": {n: float(x) for n, x in zip(PHASES, share)}}
-
-
 def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
                  state_after):
     """Bytes each kernel must move for one step on these inputs: every
@@ -575,19 +566,6 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
     fused = tk1 + 4 * 3 * P + 4
     return {"select_admit": float(fused), "elig_select": float(tk1),
             "admit_service": float(tk2), "peer_update": float(tk3)}
-
-
-def map_sector_bytes(sk, config, scenario, state):
-    """Bytes of the distinct 32-byte sectors of the map that one step's
-    requesters read: what the memory system moves for those words at
-    its finest grain, against the 4 bytes a word that the bound counts."""
-    import torch
-    g = sk.geometry(config)
-    tg = sk.slot_targets(config, scenario, state)
-    peer = torch.arange(g.P, device=state.avail.device)
-    wi = (tg["gi_flat"] >> 5).to(torch.int64)
-    keys = torch.stack([((peer + o) % g.P) * g.W + wi for o in g.offs_mod])
-    return 32 * int(torch.unique(keys // 8).numel()) if g.offs else 0
 
 
 def window_bytes(sim, sk, config, scenario, state0, n_steps):
@@ -657,9 +635,10 @@ def phase_main(sim, sk, P, S, T, window):
                                         window, "pair")
     plain_ms, plain_step_ms = time_window(sim, sk, config, scenario, final,
                                           max(window // 5, 5), "plain")
+    plain_pair_ms, _ = time_window(sim, sk, config, scenario, final,
+                                   max(window // 5, 5), "plain_pair")
     ms = {**pair_ms, **fused_ms}
-    plain_ms["select_admit"] = (plain_ms["elig_select"]
-                                + plain_ms["admit_service"])
+    plain_ms = {**plain_pair_ms, **plain_ms}
     nbytes = window_bytes(sim, sk, config, scenario, final, window)
     busy_ms, traced = trace_steps(sim, sk, config, scenario, final, window,
                                   "fused")
@@ -669,12 +648,6 @@ def phase_main(sim, sk, P, S, T, window):
     for route in ("fused", "pair", "pair", "fused"):
         walls[route].append(host_wall(sim, sk, config, scenario, final,
                                       HOST_STEPS, route))
-    variants, phases = time_variants(sim, sk, config, scenario, final)
-    _c, _s, early = make_case(sim, sk, P, S, EARLY_STEPS, "cuda")
-    variants_early, phases_early = time_variants(sim, sk, config, scenario,
-                                                 early)
-    sectors = map_sector_bytes(sk, config, scenario, final)
-    sectors_early = map_sector_bytes(sk, config, scenario, early)
 
     # the same run on the plain path, stepped as _scan_swarm steps
     st = sim.clone_state(state0)
@@ -705,7 +678,8 @@ def phase_main(sim, sk, P, S, T, window):
         f"state, routes in turns (ms): select_admit + peer_update "
         f"{walls['fused']}, TK1 + TK2 + TK3 {walls['pair']}")
     log(f"    per pass, CUDA events (ms): main path {json.dumps(fused_ms)}; "
-        f"TK1 + TK2 + TK3 {json.dumps(pair_ms)}")
+        f"TK1 + TK2 + TK3 {json.dumps(pair_ms)}; plain versions "
+        f"{json.dumps(plain_ms)}")
     if busy_ms is None or pair_busy_ms is None:
         log("    trace: torch.profiler recorded no device op; device busy "
             "time and idle share not measured")
@@ -717,17 +691,6 @@ def phase_main(sim, sk, P, S, T, window):
             f"{json.dumps(traced)}.  TK1 + TK2 + TK3 route: busy "
             f"{pair_busy_ms!r} ms per step; per kernel "
             f"{json.dumps(pair_traced)}")
-    log(f"    map words the requesters read: {sectors:,} B of distinct "
-        f"32-byte sectors at the final state, {sectors_early:,} B at the "
-        f"state {EARLY_STEPS} plain steps in (the bound counts 4 B a "
-        f"distinct word)")
-    for when, v, ph in (("final state", variants, phases),
-                        (f"state {EARLY_STEPS} plain steps in",
-                         variants_early, phases_early)):
-        log(f"    select_admit designs at the {when}, {VARIANT_LAUNCHES} "
-            f"launches back to back (mean ms per launch, CUDA events): "
-            f"{json.dumps(v)}; phases of the timed designs' first launch: "
-            f"{json.dumps(ph)}")
     traced_ms = {**{k: v[1] for k, v in pair_traced.items()},
                  **{k: v[1] for k, v in traced.items()}}
     return launches, errs, ms, traced_ms, plain_ms, nbytes
@@ -775,6 +738,9 @@ def main() -> int:
         errs_1m = phase_kernels_vs_plain(sim, sk, CHECK_PEERS, SEGMENTS,
                                          CHECK_WARM_STEPS)
         errs_routes = phase_routes(sim, sk)
+        errs_routes["select_admit"] = max(
+            errs_routes["select_admit"],
+            phase_spans(sim, sk, PEERS, SEGMENTS, STEPS))
         launches, errs, ms, traced_ms, plain_ms, nbytes = phase_main(
             sim, sk, PEERS, SEGMENTS, STEPS, WINDOW)
         phase_fixture(sim)

@@ -115,8 +115,8 @@ __device__ __forceinline__ bool is_present(float t, const float* join_s,
   return (t >= join_s[i]) && (t < leave_s[i]);
 }
 
-// A requester's own inputs to the selection.  TK1 reads them from global
-// memory; select_admit from global memory or from the tile it staged.
+// A requester's own inputs to the selection, which TK1 and select_admit
+// each load from global memory.
 struct PeerIn {
   bool present;
   float p2p_req;
@@ -347,13 +347,13 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
 // for offset tuples whose halo is too wide for a tile (the wrapper in
 // ops/swarm_kernels.py picks the route from the offsets before launch).
 //
-// Tile plus halo.  A block owns TILE consecutive peers [b, b + TILE) as
-// holders and as requesters.  With o_max = max(offsets, 0), o_min =
+// Tile plus halo.  A block owns SA_TILE consecutive peers [b, b + SA_TILE)
+// as holders and as requesters.  With o_max = max(offsets, 0), o_min =
 // min(offsets, 0) and span = o_max - o_min, the requesters of its holders
-// are the R = TILE + span peers [b - o_max, b + TILE - o_min), one per
-// thread, and their neighbours the H = TILE + 2 span peers from
+// are the R = SA_TILE + span peers [b - o_max, b + SA_TILE - o_min), one
+// per thread, and their neighbours the H = SA_TILE + 2 span peers from
 // b - o_max + o_min.  Every index is taken mod P, so the ring may wrap
-// more than once when P < TILE + span.
+// more than once when P < SA_TILE + span.
 //   1. Serve bits (present, present && p2p_ok > 0) of the neighbour range
 //      go to shared memory once, so each neighbour test reads a byte of
 //      shared memory instead of three global arrays.
@@ -361,16 +361,26 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
 //      neighbours' map words (K template: the K loads go out together),
 //      finishes its selection (select_finish) and keeps its req in shared
 //      memory; only the block that owns the peer writes its outputs.  The
-//      halo costs span / TILE of recompute.  ROWS instead tests the H x K
-//      (neighbour, offset) pairs across the block, K lanes per neighbour
-//      row, so a warp's load touches a few cache lines where one requester
-//      per lane touches 32; it was timed and lost on the main path's
-//      steady state (PERF.md).
+//      halo costs span / SA_TILE of recompute.
 //   3. Each holder of the tile walks its K requesters in offset order from
 //      shared memory (admission up to the cap, then its service), as TK2.
-// How a tile's per-peer inputs arrive is the design's MODE (SA_DIRECT ...
-// below).  Map rows are never staged whole.  What bounds it on an H100:
-// bytes, as TK1; PERF.md has the measured designs and what holds it back.
+// Each thread loads its requester's inputs from global memory itself, and
+// the map words directly; map rows are never staged whole.  What bounds it
+// on an H100: bytes, as TK1.  PERF.md has the designs that were timed
+// against this one and what holds it back.
+//
+// The build sets SA_TILE (peers per block) and SA_MAX_SPAN (the widest
+// halo a block takes) from ops/swarm_kernels.py, whose route sends a wider
+// halo to TK1 + TK2.
+#if !defined(SA_TILE) || !defined(SA_MAX_SPAN)
+#error "build with -DSA_TILE=... -DSA_MAX_SPAN=... (ops/swarm_kernels.py)"
+#endif
+// the block's threads at the widest halo: one per requester, whole warps
+#define SA_THREADS ((SA_TILE + SA_MAX_SPAN + 31) / 32 * 32)
+// registers for 8 blocks per SM: 48 at 160 threads, no spills (asking for
+// 12 blocks spilled and ran 40% slower, PERF.md)
+#define SA_MIN_BLOCKS 8
+
 struct SelectAdmitArgs {
   SelectArgs sel;  // its offs hold the offsets reduced mod P
   const float* uplink_bps;
@@ -381,12 +391,7 @@ struct SelectAdmitArgs {
   int o_max;
   int o_min;
   int soffs[MAX_OFFS];  // the normalized offsets, signed
-  // timed designs only (else null): per block, SA_STAMPS clocks, see
-  // stamp() in select_admit_kernel
-  long long* stamps;
 };
-
-#define SA_STAMPS 8
 
 // x mod P in [0, P), for any x
 __device__ __forceinline__ long long wrap(long long x, long long P) {
@@ -395,348 +400,101 @@ __device__ __forceinline__ long long wrap(long long x, long long P) {
   return x < 0 ? x + P : x;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned int d = (unsigned int)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The ways select_admit gets a tile's per-peer inputs:
-//   SA_DIRECT   each thread loads its own from global memory;
-//   SA_STAGED   the block copies them into shared memory with cp.async
-//               (4 bytes a copy: the ranges start unaligned and wrap);
-//   SA_PERSIST  as SA_STAGED, but a block stays resident and walks tiles
-//               (blockIdx.x, + gridDim.x, ...), copying the next tile's
-//               inputs into a second buffer while it works on this one;
-//   SA_TIMED    as SA_DIRECT, and records per-block clocks (measurement).
-#define SA_DIRECT 0
-#define SA_STAGED 1
-#define SA_PERSIST 2
-#define SA_TIMED 3
-// the block's threads: one per requester of a halo up to TILE / 4, the
-// widest the wrapper sends here
-#define SA_THREADS(TILE) (((TILE) + (TILE) / 4 + 31) / 32 * 32)
-// (neighbour, offset) pairs whose map words a thread has in flight at once
-#define SA_GATHER 8
-// bytes of one staged buffer: 3 [H] arrays, 10 [R] arrays, uplink [TILE]
-#define SA_STAGED_BYTES(H, R, TILE) (4 * (3 * (H) + 10 * (R) + (TILE)))
-
-// A tile's per-peer inputs in shared memory (SA_STAGED, SA_PERSIST).
-struct Staged {
-  float* join;  // [H], the neighbour range
-  float* leave;
-  float* p2p;
-  float* play;  // [R], the requester range
-  float* buf;
-  float* fe;
-  float* fw;
-  float* se;
-  float* sw;
-  float* moff;
-  uint32_t* fl;
-  int* att;
-  int* cap;
-  float* up;  // [TILE], the holders
-};
-
-__device__ __forceinline__ Staged carve_staged(unsigned char* p, int H, int R) {
-  Staged g;
-  float* f = reinterpret_cast<float*>(p);
-  g.join = f;
-  g.leave = f + H;
-  g.p2p = f + 2 * H;
-  f += 3 * H;
-  g.play = f;
-  g.buf = f + R;
-  g.fe = f + 2 * R;
-  g.fw = f + 3 * R;
-  g.se = f + 4 * R;
-  g.sw = f + 5 * R;
-  g.moff = f + 6 * R;
-  g.fl = reinterpret_cast<uint32_t*>(f + 7 * R);
-  g.att = reinterpret_cast<int*>(g.fl + R);
-  g.cap = g.att + R;
-  g.up = reinterpret_cast<float*>(g.cap + R);
-  return g;
-}
-
-// Start the cp.async copies of the tile at b into g (not committed).
-__device__ __forceinline__ void stage_tile(const SelectAdmitArgs& a,
-                                           const Staged& g, long long b,
-                                           int tile, int H, int R) {
-  const SelectArgs& s = a.sel;
-  const long long P = s.n_peers;
-  const long long q0 = b - a.o_max;
-  const long long h0 = q0 + a.o_min;
-  for (int h = threadIdx.x; h < H; h += blockDim.x) {
-    const long long x = wrap(h0 + h, P);
-    cp_async4(&g.join[h], s.join_s + x);
-    cp_async4(&g.leave[h], s.leave_s + x);
-    cp_async4(&g.p2p[h], s.p2p_ok + x);
-  }
-  for (int q = threadIdx.x; q < R; q += blockDim.x) {
-    const long long x = wrap(q0 + q, P);
-    cp_async4(&g.play[q], s.playhead_s + x);
-    cp_async4(&g.buf[q], s.buffer_s + x);
-    cp_async4(&g.fe[q], s.fast_estimate + x);
-    cp_async4(&g.fw[q], s.fast_weight + x);
-    cp_async4(&g.se[q], s.slow_estimate + x);
-    cp_async4(&g.sw[q], s.slow_weight + x);
-    cp_async4(&g.moff[q], s.urgent_margin_off_s + x);
-    cp_async4(&g.fl[q], s.dl_flags + x);
-    cp_async4(&g.att[q], s.dl_attempts + x);
-    cp_async4(&g.cap[q], s.abr_cap_level + x);
-  }
-  for (int jl = threadIdx.x; jl < tile && b + jl < P; jl += blockDim.x)
-    cp_async4(&g.up[jl], a.uplink_bps + b + jl);
-}
-
-// MINB asks the compiler for registers enough to keep MINB blocks on an
-// SM at once.  ROWS tests neighbours by (row, offset) pairs across the
-// block (step 2 above); without it each requester loads its own K words.
-template <int KT, int TILE, int MODE, int MINB, bool ROWS>
-__global__ void __launch_bounds__(SA_THREADS(TILE), MINB)
+template <int KT>
+__global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
     select_admit_kernel(const SelectAdmitArgs a) {
-  constexpr bool STAGE = MODE == SA_STAGED || MODE == SA_PERSIST;
-  constexpr bool PERSIST = MODE == SA_PERSIST;
-  constexpr bool TIMED = MODE == SA_TIMED;
-  extern __shared__ __align__(16) unsigned char smem[];
+  // the serve bits of the neighbour range (bit 0 present, bit 1 serves)
+  // and the req of the requester range
+  __shared__ unsigned char serve_s[SA_TILE + 2 * SA_MAX_SPAN];
+  __shared__ signed char req_s[SA_TILE + SA_MAX_SPAN];
   const SelectArgs& s = a.sel;
   const long long P = s.n_peers;
   const int K = KT > 0 ? KT : s.n_offs;
   const int span = a.o_max - a.o_min;
-  const int R = TILE + span;
-  const int H = TILE + 2 * span;
+  const int R = SA_TILE + span;
+  const int H = SA_TILE + 2 * span;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const float t = *s.t_s;
-  const long long n_tiles = (P + TILE - 1) / TILE;
-  // a timed design records, per block, the global timer (ns) at its start
-  // (stamp 0) and end (7) and the SM clock at its start (1) and after
-  // each phase (2 serve bits, 3 targets, 4 gather, 5 finish, 6 holders)
-  long long* stamps = TIMED ? a.stamps + (long long)blockIdx.x * SA_STAMPS
-                            : nullptr;
-  auto stamp = [&](int n) {
-    if (TIMED && tid == 0) stamps[n] = (long long)clock64();
-  };
-  if (TIMED && tid == 0) {
-    unsigned long long ns;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-    stamps[0] = (long long)ns;
+  const long long b = (long long)blockIdx.x * SA_TILE;
+  const long long q0 = b - a.o_max;   // requester q is peer (q0 + q) mod P
+  const long long h0 = q0 + a.o_min;  // neighbour h is peer (h0 + h) mod P
+
+  // 1. serve bits of the neighbour range
+  for (int h = tid; h < H; h += blockDim.x) {
+    const long long x = wrap(h0 + h, P);
+    const bool present = (t >= s.join_s[x]) && (t < s.leave_s[x]);
+    serve_s[h] = (unsigned char)((present ? 1 : 0) |
+                                 ((present && s.p2p_ok[x] > 0.0f) ? 2 : 0));
   }
-  stamp(1);
+  __syncthreads();
 
-  // shared memory: the staged buffers (one, or two for SA_PERSIST), then
-  // each requester's wanted word, eligibility word and bit, the serve
-  // bytes of the neighbour range and the req of the requester range
-  const int staged_bytes = STAGE ? SA_STAGED_BYTES(H, R, TILE) : 0;
-  unsigned char* p = smem + (PERSIST ? 2 : 1) * staged_bytes;
-  int* wi_s = reinterpret_cast<int*>(p);
-  uint32_t* elig_s = reinterpret_cast<uint32_t*>(wi_s + R);
-  unsigned char* bit_s = reinterpret_cast<unsigned char*>(elig_s + R);
-  unsigned char* serve_s = bit_s + R;
-  signed char* req_s = reinterpret_cast<signed char*>(serve_s + H);
-
-  if (PERSIST && blockIdx.x < n_tiles) {
-    stage_tile(a, carve_staged(smem, H, R), (long long)blockIdx.x * TILE,
-               TILE, H, R);
-    cp_async_commit();
-  }
-  int cur = 0;
-  for (long long tile = blockIdx.x; tile < n_tiles;
-       tile += PERSIST ? gridDim.x : n_tiles) {
-    const long long b = tile * TILE;
-    const long long q0 = b - a.o_max;   // requester q is peer (q0 + q) mod P
-    const long long h0 = q0 + a.o_min;  // neighbour h is peer (h0 + h) mod P
-    const Staged g = carve_staged(smem + cur * staged_bytes, H, R);
-    if (PERSIST) {
-      // the next tile's copies go out now and land while this one works
-      if (tile + gridDim.x < n_tiles)
-        stage_tile(a, carve_staged(smem + (cur ^ 1) * staged_bytes, H, R),
-                   (tile + gridDim.x) * TILE, TILE, H, R);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-    } else if (STAGE) {
-      stage_tile(a, g, b, TILE, H, R);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-    }
-
-    // 1. serve bits of the neighbour range: bit 0 present, bit 1 serves
-    for (int h = tid; h < H; h += nt) {
-      float join, leave, p2p;
-      if (STAGE) {
-        join = g.join[h];
-        leave = g.leave[h];
-        p2p = g.p2p[h];
-      } else {
-        const long long x = wrap(h0 + h, P);
-        join = s.join_s[x];
-        leave = s.leave_s[x];
-        p2p = s.p2p_ok[x];
-      }
-      const bool present = (t >= join) && (t < leave);
-      serve_s[h] = (unsigned char)((present ? 1 : 0) |
-                                   ((present && p2p > 0.0f) ? 2 : 0));
-    }
-    __syncthreads();
-    stamp(2);
-
-    // 2. requester q = tid: its target
-    const int q = tid;
-    const bool has_q = q < R;
-    const long long i = has_q ? wrap(q0 + q, P) : 0;
+  // 2. requester q = tid: its target, its neighbours' words, its selection
+  const int q = tid;
+  if (q < R) {
+    const long long i = wrap(q0 + q, P);
     const int hq = q - a.o_min;  // requester q in the neighbour range
     PeerIn in;
-    Target tg;
-    if (has_q) {
-      in.present = (serve_s[hq] & 1) != 0;
-      if (STAGE) {
-        in.p2p_req = g.p2p[hq];
-        in.fl = g.fl[q];
-        in.playhead = g.play[q];
-        in.buffer = g.buf[q];
-        in.fast_est = g.fe[q];
-        in.fast_w = g.fw[q];
-        in.slow_est = g.se[q];
-        in.slow_w = g.sw[q];
-        in.cap_level = g.cap[q];
-        in.margin_off = g.moff[q];
-        in.attempts = g.att[q];
-      } else {
-        in.p2p_req = s.p2p_ok[i];
-        in.fl = s.dl_flags[i];
-        in.playhead = s.playhead_s[i];
-        in.buffer = s.buffer_s[i];
-        in.fast_est = s.fast_estimate[i];
-        in.fast_w = s.fast_weight[i];
-        in.slow_est = s.slow_estimate[i];
-        in.slow_w = s.slow_weight[i];
-        in.cap_level = s.abr_cap_level[i];
-        in.margin_off = s.urgent_margin_off_s[i];
-        in.attempts = s.dl_attempts[i];
-      }
-      tg = select_target(s, i, in);
-      if (ROWS) {
-        wi_s[q] = tg.wi;
-        bit_s[q] = (unsigned char)tg.bit;
-        elig_s[q] = 0u;
-      }
-    }
+    in.present = (serve_s[hq] & 1) != 0;
+    in.p2p_req = s.p2p_ok[i];
+    in.fl = s.dl_flags[i];
+    in.playhead = s.playhead_s[i];
+    in.buffer = s.buffer_s[i];
+    in.fast_est = s.fast_estimate[i];
+    in.fast_w = s.fast_weight[i];
+    in.slow_est = s.slow_estimate[i];
+    in.slow_w = s.slow_weight[i];
+    in.cap_level = s.abr_cap_level[i];
+    in.margin_off = s.urgent_margin_off_s[i];
+    in.attempts = s.dl_attempts[i];
+    const Target tg = select_target(s, i, in);
+    // circulant eligibility (:681-772); the map is not written in this
+    // launch, so its words go through the read-only path
+    const uint32_t bm = 1u << tg.bit;
     uint32_t elig_bits = 0u;
-    if (!ROWS && has_q) {
-      // requester q tests its own K neighbours (:681-772); the map is not
-      // written in this launch, so its words go through the read-only path
-      const uint32_t bm = 1u << tg.bit;
-      if (KT > 0) {
-        uint32_t w[KT > 0 ? KT : 1];
+    if (KT > 0) {
+      uint32_t w[KT > 0 ? KT : 1];
 #pragma unroll
-        for (int k = 0; k < KT; ++k) {
-          long long j = i + s.offs[k];
-          if (j >= P) j -= P;
-          w[k] = __ldg(&s.avail[j * s.n_words + tg.wi]);
-        }
-#pragma unroll
-        for (int k = 0; k < KT; ++k)
-          if ((w[k] & bm) != 0u && (serve_s[hq + a.soffs[k]] & 2) != 0)
-            elig_bits |= 1u << k;
-      } else {
-        for (int k = 0; k < K; ++k) {
-          long long j = i + s.offs[k];
-          if (j >= P) j -= P;
-          if ((__ldg(&s.avail[j * s.n_words + tg.wi]) & bm) != 0u &&
-              (serve_s[hq + a.soffs[k]] & 2) != 0)
-            elig_bits |= 1u << k;
-        }
-      }
-    }
-    if (ROWS) __syncthreads();
-    stamp(3);
-
-    // ROWS: the (neighbour h, offset k) pairs, K consecutive lanes per
-    // neighbour: requester h + o_min - o_k asks row h for its word.
-    const int n_pairs = ROWS ? H * K : 0;
-    for (int base = tid; base < n_pairs; base += SA_GATHER * nt) {
-      uint32_t w[SA_GATHER];
-      int qk[SA_GATHER];  // requester * 32 + k, or -1
-#pragma unroll
-      for (int u = 0; u < SA_GATHER; ++u) {
-        const int idx = base + u * nt;
-        qk[u] = -1;
-        w[u] = 0u;
-        if (idx < n_pairs) {
-          const int h = idx / K;
-          const int k = idx - h * K;
-          const int qn = h + a.o_min - a.soffs[k];
-          if (qn >= 0 && qn < R && (serve_s[h] & 2) != 0) {
-            qk[u] = qn * 32 + k;
-            w[u] = __ldg(&s.avail[wrap(h0 + h, P) * s.n_words + wi_s[qn]]);
-          }
-        }
+      for (int k = 0; k < KT; ++k) {
+        long long j = i + s.offs[k];
+        if (j >= P) j -= P;
+        w[k] = __ldg(&s.avail[j * s.n_words + tg.wi]);
       }
 #pragma unroll
-      for (int u = 0; u < SA_GATHER; ++u) {
-        if (qk[u] >= 0) {
-          const int qn = qk[u] >> 5;
-          if ((w[u] >> bit_s[qn]) & 1u)
-            atomicOr(&elig_s[qn], 1u << (qk[u] & 31));
-        }
+      for (int k = 0; k < KT; ++k)
+        if ((w[k] & bm) != 0u && (serve_s[hq + a.soffs[k]] & 2) != 0)
+          elig_bits |= 1u << k;
+    } else {
+      for (int k = 0; k < K; ++k) {
+        long long j = i + s.offs[k];
+        if (j >= P) j -= P;
+        if ((__ldg(&s.avail[j * s.n_words + tg.wi]) & bm) != 0u &&
+            (serve_s[hq + a.soffs[k]] & 2) != 0)
+          elig_bits |= 1u << k;
       }
     }
-    if (ROWS) {
-      __syncthreads();
-      if (has_q) elig_bits = elig_s[q];
-    }
-    stamp(4);
-
-    // requester q finishes its selection; the owner writes its outputs
-    if (has_q) {
-      const long long u = (long long)q - a.o_max;  // position in the tile
-      const bool owner = u >= 0 && u < TILE && b + u < P;
-      req_s[q] = (signed char)select_finish(s, i, in, tg, elig_bits, owner);
-    }
-    __syncthreads();
-    stamp(5);
-
-    // 3. admission and service of the tile's holders (TK2's walk):
-    // requester (j - o_k) mod P sits at q = jl - o_k + o_max
-    const float eff = *a.uplink_efficiency;
-    for (int jl = tid; jl < TILE; jl += nt) {
-      const long long j = b + jl;
-      if (j >= P) break;
-      float cum = 0.0f;
-      uint32_t adm = 0u;
-#pragma unroll
-      for (int k = 0; k < (KT > 0 ? KT : K); ++k) {
-        if (req_s[jl - a.soffs[k] + a.o_max] == k && cum < a.cap) {
-          cum += 1.0f;
-          adm |= 1u << k;
-        }
-      }
-      const float up = STAGE ? g.up[jl] : a.uplink_bps[j];
-      a.service[j] = up * eff / fmaxf(cum, 1.0f);
-      a.adm_mask[j] = (int)adm;
-    }
-    if (PERSIST || TIMED) __syncthreads();  // shared arrays are reused
-    stamp(6);
-    cur ^= 1;
+    const long long u = (long long)q - a.o_max;  // position in the tile
+    const bool owner = u >= 0 && u < SA_TILE && b + u < P;
+    req_s[q] = (signed char)select_finish(s, i, in, tg, elig_bits, owner);
   }
-  if (TIMED && tid == 0) {
-    unsigned long long ns;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-    stamps[7] = (long long)ns;
+  __syncthreads();
+
+  // 3. admission and service of the tile's holders (TK2's walk):
+  // requester (j - o_k) mod P sits at q = jl - o_k + o_max
+  const float eff = *a.uplink_efficiency;
+  for (int jl = tid; jl < SA_TILE; jl += blockDim.x) {
+    const long long j = b + jl;
+    if (j >= P) break;
+    float cum = 0.0f;
+    uint32_t adm = 0u;
+#pragma unroll
+    for (int k = 0; k < (KT > 0 ? KT : K); ++k) {
+      if (req_s[jl - a.soffs[k] + a.o_max] == k && cum < a.cap) {
+        cum += 1.0f;
+        adm |= 1u << k;
+      }
+    }
+    a.service[j] = a.uplink_bps[j] * eff / fmaxf(cum, 1.0f);
+    a.adm_mask[j] = (int)adm;
   }
 }
 
@@ -921,143 +679,26 @@ extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// select_admit's launch: TILE peers per block, one thread per requester
-// of the tile and its halo (rounded up to a warp), shared memory sized
-// from the span; SA_PERSIST launches as many blocks as fit on the card at
-// once, at most one per tile.
-template <int KT, int TILE, int MODE, int MINB, bool ROWS>
+// select_admit's launch: SA_TILE peers per block, one thread per requester
+// of the tile and its halo (rounded up to a warp).  A halo wider than
+// SA_MAX_SPAN is refused; the wrapper never sends one.
+template <int KT>
 static int launch_select_admit(const SelectAdmitArgs* a,
                                cudaStream_t stream) {
   const long long P = a->sel.n_peers;
   const int span = a->o_max - a->o_min;
-  const int R = TILE + span;
-  const int H = TILE + 2 * span;
-  const int nt = (R + 31) / 32 * 32;
-  if (span < 0 || nt > SA_THREADS(TILE) || (MODE == SA_TIMED && !a->stamps))
-    return (int)cudaErrorInvalidValue;
-  const int staged = MODE == SA_PERSIST  ? 2 * SA_STAGED_BYTES(H, R, TILE)
-                     : MODE == SA_STAGED ? SA_STAGED_BYTES(H, R, TILE)
-                                         : 0;
-  const size_t smem =
-      (size_t)staged + (sizeof(int) + sizeof(uint32_t) + 2) * R + H;
-  auto kernel = select_admit_kernel<KT, TILE, MODE, MINB, ROWS>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (P <= 0) return (int)cudaGetLastError();
-  long long grid = (P + TILE - 1) / TILE;
-  if (MODE == SA_PERSIST) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt,
-                                                        smem);
-    if (e != cudaSuccess) return (int)e;
-    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    grid = grid < resident ? grid : resident;
-  }
-  kernel<<<(unsigned int)grid, nt, smem, stream>>>(*a);
+  if (span < 0 || span > SA_MAX_SPAN) return (int)cudaErrorInvalidValue;
+  if (P > 0)
+    select_admit_kernel<KT><<<(unsigned int)((P + SA_TILE - 1) / SA_TILE),
+                              (SA_TILE + span + 31) / 32 * 32, 0, stream>>>(
+        *a);
   return (int)cudaGetLastError();
 }
-
-// The launch the port uses, chosen by timing the variants below at the
-// main path's shapes (chip_smoke.py; PERF.md).  The wrapper sends a halo
-// wider than SA_TILE / 4 to TK1 + TK2 instead.
-#define SA_TILE 128
-#define SA_MODE SA_DIRECT
-#define SA_MINB 8
-#define SA_ROWS false
 
 extern "C" int swarm_select_admit(const SelectAdmitArgs* args, void* stream) {
   if (args->sel.n_offs == 8)
-    return launch_select_admit<8, SA_TILE, SA_MODE, SA_MINB, SA_ROWS>(
-        args, (cudaStream_t)stream);
-  return launch_select_admit<0, SA_TILE, SA_MODE, SA_MINB, SA_ROWS>(
-      args, (cudaStream_t)stream);
-}
-
-// The designs that were timed against each other, by index: {K template
-// (0 = runtime), TILE, MODE, MINB, ROWS}.  The K = 8 ones take only eight
-// offsets; an SA_TIMED one needs args->stamps, SA_STAMPS per block.
-// Measurement only; the port launches swarm_select_admit.
-static const int SA_VARIANTS[][5] = {
-    {8, 128, SA_DIRECT, 8, 0}, {8, 128, SA_DIRECT, 8, 1},
-    {8, 256, SA_DIRECT, 4, 0}, {8, 512, SA_DIRECT, 2, 0},
-    {8, 128, SA_STAGED, 8, 0}, {8, 128, SA_PERSIST, 8, 0},
-    {0, 128, SA_DIRECT, 8, 0}, {8, 128, SA_DIRECT, 12, 0},
-    {8, 128, SA_TIMED, 8, 0}, {8, 128, SA_TIMED, 8, 1},
-    {8, 128, SA_TIMED, 12, 0}};
-#define SA_N_VARIANTS 11
-
-extern "C" int swarm_select_admit_variant_info(int v, int* out) {
-  if (v < 0 || v >= SA_N_VARIANTS) return -1;
-  for (int c = 0; c < 5; ++c) out[c] = SA_VARIANTS[v][c];
-  out[5] = SA_STAMPS;
-  return 0;
-}
-
-extern "C" int swarm_select_admit_variant(const SelectAdmitArgs* args,
-                                          void* stream, int v) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (v < 0 || v >= SA_N_VARIANTS ||
-      (SA_VARIANTS[v][0] != 0 && args->sel.n_offs != SA_VARIANTS[v][0]))
-    return (int)cudaErrorInvalidValue;
-  switch (v) {
-    case 0: return launch_select_admit<8, 128, SA_DIRECT, 8, false>(args, st);
-    case 1: return launch_select_admit<8, 128, SA_DIRECT, 8, true>(args, st);
-    case 2: return launch_select_admit<8, 256, SA_DIRECT, 4, false>(args, st);
-    case 3: return launch_select_admit<8, 512, SA_DIRECT, 2, false>(args, st);
-    case 4: return launch_select_admit<8, 128, SA_STAGED, 8, false>(args, st);
-    case 5: return launch_select_admit<8, 128, SA_PERSIST, 8, false>(args, st);
-    case 6: return launch_select_admit<0, 128, SA_DIRECT, 8, false>(args, st);
-    case 7: return launch_select_admit<8, 128, SA_DIRECT, 12, false>(args, st);
-    case 8: return launch_select_admit<8, 128, SA_TIMED, 8, false>(args, st);
-    case 9: return launch_select_admit<8, 128, SA_TIMED, 8, true>(args, st);
-    default: return launch_select_admit<8, 128, SA_TIMED, 12, false>(args, st);
-  }
-}
-
-// Measurement only: hold [base, base + bytes) in the L2 cache for the
-// kernels on `stream` (an access-policy window over persisting lines, as
-// much of it as the card allows); bytes == 0 removes the window and frees
-// the persisting lines.  Writes the window's bytes to *window.
-extern "C" int swarm_l2_window(void* stream, void* base, long long bytes,
-                               long long* window) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  int max_window = 0, max_persist = 0;
-  cudaDeviceGetAttribute(&max_window, cudaDevAttrMaxAccessPolicyWindowSize,
-                         dev);
-  cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize,
-                         dev);
-  cudaStreamAttrValue v = {};
-  const long long win = bytes < max_window ? bytes : (long long)max_window;
-  const long long persist = win < max_persist ? win : (long long)max_persist;
-  if (win > 0) {
-    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, (size_t)persist);
-    if (e != cudaSuccess) return (int)e;
-    v.accessPolicyWindow.base_ptr = base;
-    v.accessPolicyWindow.num_bytes = (size_t)win;
-    v.accessPolicyWindow.hitRatio = (float)persist / (float)win;
-    v.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
-    v.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
-  }
-  e = cudaStreamSetAttribute((cudaStream_t)stream,
-                             cudaStreamAttributeAccessPolicyWindow, &v);
-  if (e != cudaSuccess) return (int)e;
-  if (win <= 0) {
-    e = cudaCtxResetPersistingL2Cache();
-    if (e != cudaSuccess) return (int)e;
-    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
-    if (e != cudaSuccess) return (int)e;
-  }
-  *window = win > 0 ? win : 0;
-  return (int)cudaGetLastError();
+    return launch_select_admit<8>(args, (cudaStream_t)stream);
+  return launch_select_admit<0>(args, (cudaStream_t)stream);
 }
 
 // Struct sizes, so the Python side can check its ctypes mirrors.

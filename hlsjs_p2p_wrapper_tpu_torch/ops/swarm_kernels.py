@@ -54,7 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -117,20 +117,16 @@ def geometry(config: SwarmConfig) -> Geometry:
         cap=config.max_total_serves)
 
 
-#: peers per block of ``select_admit`` (``SA_TILE`` in the CUDA source)
+#: peers per block of ``select_admit``
 SELECT_ADMIT_TILE = 128
-#: clocks a timed design of ``select_admit`` records per block
-SELECT_ADMIT_STAMPS = 8
-#: how a design of ``select_admit`` gets a tile's inputs, by the value of
-#: its mode in the CUDA source (``SA_DIRECT`` ... ``SA_TIMED``)
-SELECT_ADMIT_MODES = ("direct", "cp.async", "cp.async persistent", "timed")
-#: the widest halo, ``o_hi - o_lo``, that ``select_admit`` takes.  Each
-#: block recomputes the selection of ``span`` requesters beyond its tile,
-#: so a quarter of the tile caps that recompute at 25% of the requester
-#: work (6% on the main path's ring of 8), and one thread per requester
-#: keeps the block within 160 threads; its shared memory is a few hundred
-#: bytes either way.  A wider halo goes to TK1 + TK2.
-MAX_FUSED_SPAN = SELECT_ADMIT_TILE // 4
+#: the widest halo, ``o_hi - o_lo``, that ``select_admit`` takes; a
+#: wider one goes to TK1 + TK2.  Each block recomputes the selection of
+#: ``span`` requesters beyond its tile, one thread each, so the limit
+#: trades that recompute against TK2's separate launch.  MEASURED_LIMIT
+MAX_FUSED_SPAN = 32
+#: the CUDA source's tile and limit (``SA_TILE``, ``SA_MAX_SPAN``), set
+#: by the build from the two numbers above
+DEFINES = (("SA_TILE", SELECT_ADMIT_TILE), ("SA_MAX_SPAN", MAX_FUSED_SPAN))
 
 
 def fused_route(config: SwarmConfig) -> bool:
@@ -436,8 +432,7 @@ class _SelectAdmitArgs(ctypes.Structure):
     _fields_ = [("sel", _SelectArgs)] + [(name, _P) for name in (
         "uplink_bps", "uplink_efficiency", "service", "adm_mask")] + [
         ("cap", ctypes.c_float), ("o_max", ctypes.c_int),
-        ("o_min", ctypes.c_int), ("soffs", ctypes.c_int * MAX_OFFS),
-        ("stamps", _P)]
+        ("o_min", ctypes.c_int), ("soffs", ctypes.c_int * MAX_OFFS)]
 
 
 class _UpdateArgs(ctypes.Structure):
@@ -467,20 +462,11 @@ def _lib() -> ctypes.CDLL:
     """Build (once, on first use) and bind the kernels' library, and
     check the ctypes mirrors against the C structs' sizes."""
     from . import _build
-    lib = _build.load(SOURCE)
+    lib = _build.load(SOURCE, DEFINES)
     for fn, _args in _ENTRY.values():
         f = getattr(lib, fn)
         f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         f.restype = ctypes.c_int
-    lib.swarm_select_admit_variant.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-    lib.swarm_select_admit_variant.restype = ctypes.c_int
-    lib.swarm_select_admit_variant_info.argtypes = [ctypes.c_int,
-                                                    ctypes.c_void_p]
-    lib.swarm_select_admit_variant_info.restype = ctypes.c_int
-    lib.swarm_l2_window.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_longlong, ctypes.c_void_p]
-    lib.swarm_l2_window.restype = ctypes.c_int
     lib.swarm_args_sizes.argtypes = [ctypes.c_void_p]
     lib.swarm_args_sizes.restype = ctypes.c_int
     sizes = (ctypes.c_longlong * len(_ENTRY))()
@@ -492,10 +478,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def build_kernels() -> None:
-    """Build and bind the kernels now (they build on first launch
-    otherwise)."""
+def build_kernels(force: bool = False) -> dict:
+    """Build (anew with ``force``) and bind the kernels now; they build
+    on first launch otherwise.  Returns the build's report
+    (``_build.build``)."""
+    from . import _build
+    info = _build.build({SOURCE: DEFINES}, force=force)
     _lib()
+    return info
 
 
 def _launch(name: str, args: ctypes.Structure, device) -> None:
@@ -626,65 +616,6 @@ def select_admit(config: SwarmConfig, scenario: SwarmScenario,
         return (flags, req) + admit_service(config, scenario, req)
     args, out = _select_admit_args(config, scenario, state, dev)
     _launch("select_admit", args, dev)
-    return out
-
-
-def select_admit_variants() -> list:
-    """The fused kernel's designs that ``chip_smoke.py`` times against
-    each other, by index: ``(K template or 0 for a runtime K, peers per
-    block, input mode, blocks per SM the registers are sized for,
-    neighbours tested by rows across the block)``, the mode one of
-    :data:`SELECT_ADMIT_MODES`.  A ``"timed"`` design records
-    :data:`SELECT_ADMIT_STAMPS` clocks per block (see the CUDA
-    source)."""
-    lib = _lib()
-    out, info = [], (ctypes.c_int * 6)()
-    while lib.swarm_select_admit_variant_info(len(out), info) == 0:
-        out.append((info[0], info[1], SELECT_ADMIT_MODES[info[2]],
-                    info[3], bool(info[4])))
-        if info[5] != SELECT_ADMIT_STAMPS:
-            raise RuntimeError(f"the library records {info[5]} stamps a "
-                               f"block, not {SELECT_ADMIT_STAMPS}")
-    return out
-
-
-def l2_window(t: Optional[torch.Tensor]) -> int:
-    """Measurement only: hold CUDA tensor ``t`` in the L2 cache for the
-    kernels on the current stream (as much of it as the card allows), or
-    with None remove the window.  Returns the window's bytes."""
-    dev = torch.device("cuda") if t is None else t.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    window = ctypes.c_longlong(0)
-    rc = _lib().swarm_l2_window(
-        ctypes.c_void_p(stream),
-        ctypes.c_void_p(0 if t is None else t.data_ptr()),
-        0 if t is None else t.numel() * t.element_size(),
-        ctypes.byref(window))
-    if rc != 0:
-        raise RuntimeError(f"L2 access-policy window failed: CUDA error "
-                           f"{rc}")
-    return window.value
-
-
-def launch_select_admit_variant(config: SwarmConfig,
-                                scenario: SwarmScenario,
-                                state: SwarmState, variant: int,
-                                stamps: Optional[torch.Tensor] = None):
-    """Launch design ``variant`` of the fused kernel on a CUDA state, for
-    timing it; same outputs as :func:`select_admit`.  A timed design
-    writes its clocks into ``stamps``, int64 ``[blocks,
-    SELECT_ADMIT_STAMPS]``.  It is not counted in :data:`LAUNCHES`: no
-    step calls it."""
-    dev = state.avail.device
-    args, out = _select_admit_args(config, scenario, state, dev)
-    if stamps is not None:
-        args.stamps = stamps.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().swarm_select_admit_variant(
-        ctypes.byref(args), ctypes.c_void_p(stream), variant)
-    if rc != 0:
-        raise RuntimeError(f"select_admit variant {variant} launch failed: "
-                           f"CUDA error {rc}")
     return out
 
 

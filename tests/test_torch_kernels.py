@@ -25,12 +25,13 @@ BITRATES = [300_000.0, 800_000.0, 2_000_000.0]
 C_TYPES = {"float*": ctypes.c_void_p, "int*": ctypes.c_void_p,
            "uint32_t*": ctypes.c_void_p, "long long": ctypes.c_longlong,
            "int": ctypes.c_int, "float": ctypes.c_float,
-           "SelectArgs": sk._SelectArgs, "long long*": ctypes.c_void_p}
+           "SelectArgs": sk._SelectArgs}
 #: offset tuples at which the fused kernel's tiles wrap the ring: the
 #: main path's ring at P = 16 (< one tile), a degree-12 ring at P = 96,
-#: and a tuple with an offset beyond P and no negative offset
+#: a tuple with an offset beyond P and no negative offset, and the ring
+#: at P = 1000, whose last tile is partial (1000 = 7 * 128 + 104)
 WRAPS = [(16, port.ring_offsets(8)), (96, port.ring_offsets(12)),
-         (16, (1, 2, 20))]
+         (16, (1, 2, 20)), (1000, port.ring_offsets(8))]
 #: a tuple whose halo is too wide for the fused kernel's tile
 WIDE = (1, -1, 2, -2, 97, -97, 300, -300)
 
@@ -79,32 +80,22 @@ def test_c_source_flags_and_no_torch_headers():
     assert _build.BUILD_DIR.endswith(os.path.join("build", "torch_kernels"))
 
 
-def test_select_admit_tile_and_variants_match_the_source():
-    """The tile the route helper assumes is the one the C launch uses,
-    and each timed design's switch case launches the design its table
-    row names."""
+def test_select_admit_tile_and_limit_reach_the_build():
+    """The route helper's tile and span limit are the only ones: the
+    build passes them to nvcc, the source defines neither itself, and a
+    changed limit names (so builds) a different library."""
     src = _source()
-    assert f"#define SA_TILE {sk.SELECT_ADMIT_TILE}\n" in src
-    assert f"#define SA_STAMPS {sk.SELECT_ADMIT_STAMPS}\n" in src
-    modes = ["SA_DIRECT", "SA_STAGED", "SA_PERSIST", "SA_TIMED"]
-    for value, name in enumerate(modes):
-        assert f"#define {name} {value}\n" in src
-    assert len(modes) == len(sk.SELECT_ADMIT_MODES)
-    rows = re.search(r"SA_VARIANTS\[\]\[5\] = \{(.*?)\};", src, re.S)
-    table = re.findall(r"\{(\d+), (\d+), (SA_\w+), (\d+), ([01])\}",
-                       rows.group(1))
-    assert f"#define SA_N_VARIANTS {len(table)}" in src
-    cases = re.findall(r"(?:case (\d+)|default): return launch_select_admit"
-                       r"<(\d+), (\d+), (SA_\w+), (\d+), (true|false)>",
-                       src)
-    assert [c[1:5] + ("1" if c[5] == "true" else "0",)
-            for c in cases] == table
-    assert [c[0] for c in cases] == [str(v) for v in
-                                     range(len(table) - 1)] + [""]
-    for kt, tile, mode, minb, _rows in table:
-        threads = -(-(int(tile) + int(tile) // 4) // 32) * 32
-        assert mode in modes and threads <= 1024
-        assert int(minb) * threads <= 2048   # threads an SM holds
+    tile, span = sk.SELECT_ADMIT_TILE, sk.MAX_FUSED_SPAN
+    flags = _build.flags(sk.DEFINES)
+    assert f"-DSA_TILE={tile}" in flags and f"-DSA_MAX_SPAN={span}" in flags
+    assert not re.search(r"#define SA_(TILE|MAX_SPAN)\b", src)
+    assert "#error" in src
+    wider = (("SA_TILE", tile), ("SA_MAX_SPAN", span + 1))
+    assert (_build.library_path(sk.SOURCE, sk.DEFINES)
+            != _build.library_path(sk.SOURCE, wider))
+    threads = -(-(tile + span) // 32) * 32
+    min_blocks = int(re.search(r"#define SA_MIN_BLOCKS (\d+)", src).group(1))
+    assert min_blocks * threads <= 2048   # the blocks fit on an SM
 
 
 def _case(P=64, S=16, steps=60, offsets=None):
@@ -198,6 +189,7 @@ def test_select_admit_on_cpu_is_the_two_plain_passes(P, offsets):
     (262_144, WIDE, False),
     (16, port.ring_offsets(8), True),
     (96, port.ring_offsets(12), True),
+    (1000, port.ring_offsets(8), True),
     (262_144, (1, -(sk.MAX_FUSED_SPAN - 1)), True),
     (262_144, (1, -sk.MAX_FUSED_SPAN), False)])
 def test_route_is_chosen_from_the_offsets(P, offsets, fused):
@@ -300,9 +292,11 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("offsets", [port.ring_offsets(8), WIDE])
-def test_kernels_match_plain_on_the_card(cuda_device, offsets):
-    P, S = 4096, 64
+@pytest.mark.parametrize("P,offsets", [(4096, port.ring_offsets(8)),
+                                       (4096, WIDE),
+                                       (1000, port.ring_offsets(8))])
+def test_kernels_match_plain_on_the_card(cuda_device, P, offsets):
+    S = 64
     config = port.SwarmConfig(n_peers=P, n_segments=S, n_levels=3,
                               neighbor_offsets=offsets)
     join = port.staggered_joins(P, 10.0, device=cuda_device)
