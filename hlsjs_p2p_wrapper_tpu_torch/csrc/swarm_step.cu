@@ -419,12 +419,15 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
   const long long q0 = b - a.o_max;   // requester q is peer (q0 + q) mod P
   const long long h0 = q0 + a.o_min;  // neighbour h is peer (h0 + h) mod P
 
-  // 1. serve bits of the neighbour range
+  // 1. serve bits of the neighbour range.  The three loads are taken
+  // before the test, so they go out together: behind `&&` the compiler
+  // waited for join_s before it loaded leave_s and p2p_ok.
   for (int h = tid; h < H; h += blockDim.x) {
     const long long x = wrap(h0 + h, P);
-    const bool present = (t >= s.join_s[x]) && (t < s.leave_s[x]);
+    const float join = s.join_s[x], leave = s.leave_s[x], p2p = s.p2p_ok[x];
+    const bool present = (t >= join) && (t < leave);
     serve_s[h] = (unsigned char)((present ? 1 : 0) |
-                                 ((present && s.p2p_ok[x] > 0.0f) ? 2 : 0));
+                                 ((present && p2p > 0.0f) ? 2 : 0));
   }
   __syncthreads();
 
@@ -448,8 +451,9 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
     in.attempts = s.dl_attempts[i];
     const Target tg = select_target(s, i, in);
     // circulant eligibility (:681-772); the map is not written in this
-    // launch, so its words go through the read-only path
-    const uint32_t bm = 1u << tg.bit;
+    // launch, so its words go through the read-only path.  Each neighbour's
+    // serve bit is read whatever its map word holds, and the two are
+    // combined without a branch, so the K shared loads go out together.
     uint32_t elig_bits = 0u;
     if (KT > 0) {
       uint32_t w[KT > 0 ? KT : 1];
@@ -460,16 +464,17 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
         w[k] = __ldg(&s.avail[j * s.n_words + tg.wi]);
       }
 #pragma unroll
-      for (int k = 0; k < KT; ++k)
-        if ((w[k] & bm) != 0u && (serve_s[hq + a.soffs[k]] & 2) != 0)
-          elig_bits |= 1u << k;
+      for (int k = 0; k < KT; ++k) {
+        const uint32_t serves = (serve_s[hq + a.soffs[k]] >> 1) & 1u;
+        elig_bits |= (((w[k] >> tg.bit) & serves) & 1u) << k;
+      }
     } else {
       for (int k = 0; k < K; ++k) {
         long long j = i + s.offs[k];
         if (j >= P) j -= P;
-        if ((__ldg(&s.avail[j * s.n_words + tg.wi]) & bm) != 0u &&
-            (serve_s[hq + a.soffs[k]] & 2) != 0)
-          elig_bits |= 1u << k;
+        const uint32_t serves = (serve_s[hq + a.soffs[k]] >> 1) & 1u;
+        elig_bits |= (((__ldg(&s.avail[j * s.n_words + tg.wi]) >> tg.bit) &
+                       serves) & 1u) << k;
       }
     }
     const long long u = (long long)q - a.o_max;  // position in the tile

@@ -123,10 +123,10 @@ SELECT_ADMIT_TILE = 128
 #: wider one goes to TK1 + TK2.  Each block recomputes the selection of
 #: ``span`` requesters beyond its tile, one thread each, so the limit
 #: trades that recompute against TK2's separate launch.  Timed on an
-#: H100 at 262,144 peers (``chip_smoke.py`` phase 4, PERF.md), the fused
-#: kernel took 0.931, 0.943, 0.970 and 0.981 of TK1 + TK2's time at
-#: halos of 8, 16, 24 and 32, so it still wins at 32, where the block
-#: has 160 threads and 48 registers each.  A wider limit raises the
+#: H100 at 262,144 peers (``chip_smoke.py`` phase 4; readings in
+#: PERF.md), the fused kernel beats TK1 + TK2 at halos of 8, 16, 24 and
+#: 32, by a margin that shrinks as the halo grows; at 32 the block has
+#: 160 threads and 48 registers each.  A wider limit raises the
 #: kernel's thread bound, which lowers the register budget of every
 #: launch, the main path's too, for a margin heading to zero; untried.
 MAX_FUSED_SPAN = 32
