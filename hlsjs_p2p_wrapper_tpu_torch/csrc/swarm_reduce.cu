@@ -1,0 +1,289 @@
+// The per-lane reductions of the swarm simulator's scan, as sm_90a kernels:
+// TK4 lane_sums (the offload series) and TK5 timeline_row (one metrics
+// timeline row, and the rebuffer ratio).
+//
+// The reference is hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py: _scan_swarm's
+// step sums p2p_bytes and cdn_bytes with jnp.sum and takes their ratio
+// (:1643-1647, offload_ratio :2607-2611), and _timeline_row (:1559-1627)
+// reduces the state into one row every record_every steps.  XLA fuses
+// those reductions into the scanned program; there was no Pallas kernel.
+//
+// Layout: lanes as in swarm_step.cu.  Per-peer arrays are [B, P], float32
+// (int32 for `level`); lane b's rows start at b * P (64-bit).  The grid is
+// (n_blocks, B): n_blocks blocks per lane, each summing a fixed contiguous
+// range of the lane's peers.
+//
+// Determinism: no float atomics.  Each thread sums its strided share of
+// the block's range in order, the block sums its threads' values by a
+// fixed tree in shared memory, and writes one partial per quantity.  The
+// last block of a lane to finish (an integer arrival counter per lane,
+// which that block sets back to 0) sums the lane's partials in block
+// order by the same scheme.  n_blocks depends on P alone
+// (ops/swarm_kernels.py reduce_blocks), so a lane's sums are the same bits
+// whatever the batch it runs in, and from run to run.  Counts are summed as
+// integers in shared memory and as float32 across blocks, which is exact
+// below 2^24.
+//
+// What bounds these kernels on an H100: bytes.  Each reads its [B, P]
+// arrays once (8 B a peer for lane_sums, 20-24 B for timeline_row) and does
+// a few operations per element; the partials are a few KB.
+//
+// Numerics: built with --fmad=false like swarm_step.cu.  The ratios are
+// IEEE divisions; the interval rates multiply by one float32 constant
+// (`rate`), as XLA folds the reference's `* 8.0 / interval_s`.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#define RBLOCK 256      // threads per block; a power of two
+#define MAX_LEVELS 16   // the row's level columns
+#define MAX_EDGES 32    // the stall digest's edges
+#define MAX_QUANT (3 + MAX_LEVELS + MAX_EDGES + 1)
+
+// [begin, end) of block blk's peers among P peers cut into n_blocks ranges
+__device__ __forceinline__ void block_range(long long P, int n_blocks,
+                                            int blk, long long* begin,
+                                            long long* end) {
+  const long long chunk = (P + n_blocks - 1) / n_blocks;
+  *begin = (long long)blk * chunk;
+  *end = min(P, *begin + chunk);
+}
+
+// The block's sum of v in a fixed order: a tree over the threads in
+// shared memory.  Every thread returns the sum.
+__device__ __forceinline__ float block_sum(float* red, float v) {
+  const int tid = threadIdx.x;
+  __syncthreads();  // red may still be read from a previous call
+  red[tid] = v;
+  __syncthreads();
+  for (int s = RBLOCK / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] += red[tid + s];
+    __syncthreads();
+  }
+  return red[0];
+}
+
+// Whether this block is the last of its lane to finish; if so, the
+// partials of every block of the lane are visible to it.
+__device__ __forceinline__ bool last_block(int* counters, int lane,
+                                           int n_blocks) {
+  __shared__ bool last;
+  __threadfence();  // this block's partials before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int arrived =
+        atomicAdd(reinterpret_cast<unsigned int*>(&counters[lane]), 1u);
+    last = arrived == (unsigned int)n_blocks - 1u;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// Quantity q summed over the lane's n_blocks partials (stride nq), in
+// block order; every thread returns it.
+__device__ __forceinline__ float lane_total(float* red, const float* part,
+                                            int n_blocks, int nq, int q) {
+  float v = 0.0f;
+  for (int k = threadIdx.x; k < n_blocks; k += RBLOCK)
+    v += __ldcg(&part[(long long)k * nq + q]);
+  return block_sum(red, v);
+}
+
+// ---------------------------------------------------------------------------
+// TK4 lane_sums
+//
+// Replaces: the two jnp.sums and the ratio of _scan_swarm's step
+// (swarm_sim.py:1643-1647) and offload_ratio (:2607-2611).  Per lane:
+// sums[b] = (cdn, p2p) over the lane's peers and, when `series` is given,
+// series[b * series_stride + column] = p2p / max(p2p + cdn, 1).
+struct LaneSumsArgs {
+  const float* p2p_bytes;
+  const float* cdn_bytes;
+  float* partials;  // [B, n_blocks, 2]
+  int* counters;    // [>= B], zero between launches
+  float* sums;      // [B, 2]: cdn, p2p
+  float* series;    // null: sums only
+  long long n_peers;
+  long long series_stride;
+  int n_lanes;
+  int n_blocks;
+  int column;
+};
+
+__global__ void __launch_bounds__(RBLOCK) lane_sums_kernel(
+    const LaneSumsArgs a) {
+  __shared__ float red[RBLOCK];
+  const int lane = blockIdx.y, blk = blockIdx.x;
+  const long long lb = (long long)lane * a.n_peers;
+  long long begin, end;
+  block_range(a.n_peers, a.n_blocks, blk, &begin, &end);
+  float p2p = 0.0f, cdn = 0.0f;
+  for (long long x = begin + threadIdx.x; x < end; x += RBLOCK) {
+    p2p += a.p2p_bytes[lb + x];
+    cdn += a.cdn_bytes[lb + x];
+  }
+  float* part = a.partials + ((long long)lane * a.n_blocks + blk) * 2;
+  const float bp = block_sum(red, p2p);
+  const float bc = block_sum(red, cdn);
+  if (threadIdx.x == 0) {
+    part[0] = bc;
+    part[1] = bp;
+  }
+  if (!last_block(a.counters, lane, a.n_blocks)) return;
+  const float* lp = a.partials + (long long)lane * a.n_blocks * 2;
+  const float c = lane_total(red, lp, a.n_blocks, 2, 0);
+  const float p = lane_total(red, lp, a.n_blocks, 2, 1);
+  if (threadIdx.x == 0) {
+    a.sums[2 * lane] = c;
+    a.sums[2 * lane + 1] = p;
+    if (a.series != nullptr)
+      a.series[lane * a.series_stride + a.column] = p / fmaxf(p + c, 1.0f);
+    a.counters[lane] = 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// TK5 timeline_row
+//
+// Replaces: _timeline_row (swarm_sim.py:1559-1627) for n_cohorts == 0, and
+// the sums of rebuffer_ratio (:2613-2631).  Per lane, at the clock t_s[b]:
+// the rebuffer sum and the watched sum  sum(clip(min(leave, t) - join, 0)),
+// and in row mode (prev_rebuffer given) also the stalled count
+// (rebuffer_s > prev_rebuffer, every peer), the present-peer count per
+// level and, with n_edges > 0, the stall digest: each present peer's
+// interval stall in ms binned by searchsorted(edges, ms, side="left"),
+// i.e. the number of edges below it.  The row is
+//   t, offload, rebuffer, cdn_rate, p2p_rate, stalled, level_0..L-1,
+//   bin_0..n_edges
+// with the offload and the rates from this step's `sums` (lane_sums) and
+// the previous sample's `prev_sums`; then prev_sums and prev_rebuffer take
+// this sample's values (one writer per element).  Without prev_rebuffer
+// (ratio mode) it writes the rebuffer ratio alone, to row[b * row_stride],
+// summed exactly as the row's rebuffer column is.
+struct TimelineArgs {
+  const float* t_s;
+  const float* join_s;
+  const float* leave_s;
+  const float* rebuffer_s;
+  float* prev_rebuffer;  // null: ratio mode
+  const int* level;
+  const float* sums;     // [B, 2]: cdn, p2p of this step
+  float* prev_sums;      // [B, 2], updated
+  const float* edges;    // [n_edges], ascending
+  float* partials;       // [B, n_blocks, n_quant]
+  int* counters;         // [>= B], zero between launches
+  float* row;            // lane b's row at row + b * row_stride
+  long long n_peers;
+  long long row_stride;
+  int n_lanes;
+  int n_blocks;
+  int n_levels;
+  int n_edges;           // 0: no stall digest
+  float rate;            // 8 / interval_s, one float32 constant
+};
+
+__global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
+    const TimelineArgs a) {
+  __shared__ float red[RBLOCK];
+  __shared__ int counts[MAX_QUANT];  // [2] stalled, [3 + l] levels, bins
+  __shared__ float edges_s[MAX_EDGES];
+  __shared__ float tot[MAX_QUANT];
+  const int lane = blockIdx.y, blk = blockIdx.x, tid = threadIdx.x;
+  const long long lb = (long long)lane * a.n_peers;
+  const bool row_mode = a.prev_rebuffer != nullptr;
+  const int n_bins = a.n_edges > 0 ? a.n_edges + 1 : 0;
+  // quantities: 0 rebuffer sum, 1 watched sum, 2 stalled, then levels, bins
+  const int nq = row_mode ? 3 + a.n_levels + n_bins : 2;
+  for (int q = tid; q < MAX_QUANT; q += RBLOCK) counts[q] = 0;
+  for (int e = tid; e < a.n_edges; e += RBLOCK) edges_s[e] = a.edges[e];
+  __syncthreads();
+
+  const float t = a.t_s[lane];
+  long long begin, end;
+  block_range(a.n_peers, a.n_blocks, blk, &begin, &end);
+  float reb = 0.0f, watched = 0.0f;
+  for (long long x = begin + tid; x < end; x += RBLOCK) {
+    const long long r = lb + x;
+    const float rb = a.rebuffer_s[r];
+    const float join = a.join_s[r], leave = a.leave_s[r];
+    reb += rb;
+    watched += fmaxf(fminf(leave, t) - join, 0.0f);
+    if (!row_mode) continue;
+    const float prev = a.prev_rebuffer[r];
+    const int lv = a.level[r];
+    const bool present = (t >= join) && (t < leave);
+    if (rb > prev) atomicAdd(&counts[2], 1);
+    if (present && lv >= 0 && lv < a.n_levels) atomicAdd(&counts[3 + lv], 1);
+    if (n_bins > 0 && present) {
+      const float ms = (rb - prev) * 1000.0f;
+      int idx = 0;
+      for (int e = 0; e < a.n_edges; ++e) idx += edges_s[e] < ms ? 1 : 0;
+      atomicAdd(&counts[3 + a.n_levels + idx], 1);
+    }
+    a.prev_rebuffer[r] = rb;
+  }
+  float* part = a.partials + ((long long)lane * a.n_blocks + blk) * nq;
+  const float br = block_sum(red, reb);
+  const float bw = block_sum(red, watched);
+  if (tid == 0) {
+    part[0] = br;
+    part[1] = bw;
+  }
+  for (int q = 2 + tid; q < nq; q += RBLOCK) part[q] = (float)counts[q];
+  if (!last_block(a.counters, lane, a.n_blocks)) return;
+
+  const float* lp = a.partials + (long long)lane * a.n_blocks * nq;
+  for (int q = 0; q < nq; ++q) {
+    const float v = lane_total(red, lp, a.n_blocks, nq, q);
+    if (tid == 0) tot[q] = v;
+  }
+  if (tid != 0) return;
+  float* row = a.row + lane * a.row_stride;
+  const float rebuffer = tot[0] / fmaxf(tot[1], 1e-9f);
+  a.counters[lane] = 0;
+  if (!row_mode) {
+    row[0] = rebuffer;
+    return;
+  }
+  const float cdn = a.sums[2 * lane], p2p = a.sums[2 * lane + 1];
+  row[0] = t;
+  row[1] = p2p / fmaxf(p2p + cdn, 1.0f);
+  row[2] = rebuffer;
+  row[3] = (cdn - a.prev_sums[2 * lane]) * a.rate;
+  row[4] = (p2p - a.prev_sums[2 * lane + 1]) * a.rate;
+  for (int q = 2; q < nq; ++q) row[q + 3] = tot[q];
+  a.prev_sums[2 * lane] = cdn;
+  a.prev_sums[2 * lane + 1] = p2p;
+}
+
+// ---------------------------------------------------------------------------
+// Plain C entry points for ctypes.  Each launches on the caller's stream
+// and returns cudaGetLastError(), so a refused launch reaches the caller.
+
+extern "C" int reduce_lane_sums(const LaneSumsArgs* a, void* stream) {
+  if (a->n_peers <= 0 || a->n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  if (a->n_lanes > 0)
+    lane_sums_kernel<<<dim3((unsigned int)a->n_blocks,
+                            (unsigned int)a->n_lanes),
+                       RBLOCK, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int reduce_timeline_row(const TimelineArgs* a, void* stream) {
+  if (a->n_peers <= 0 || a->n_blocks <= 0 || a->n_levels < 0 ||
+      a->n_levels > MAX_LEVELS || a->n_edges < 0 || a->n_edges > MAX_EDGES)
+    return (int)cudaErrorInvalidValue;
+  if (a->n_lanes > 0)
+    timeline_row_kernel<<<dim3((unsigned int)a->n_blocks,
+                               (unsigned int)a->n_lanes),
+                          RBLOCK, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// Struct sizes, so the Python side can check its ctypes mirrors.
+extern "C" int reduce_args_sizes(long long* out) {
+  out[0] = (long long)sizeof(LaneSumsArgs);
+  out[1] = (long long)sizeof(TimelineArgs);
+  return 0;
+}

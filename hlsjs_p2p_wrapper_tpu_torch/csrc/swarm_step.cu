@@ -9,13 +9,19 @@
 // one transfer slot (max_concurrency == 1), "spread" holder selection, an
 // admission cap (max_total_serves > 0) and VOD (live == False).
 //
-// Layout: TK1-TK3 run one thread per peer over a 1-D grid; select_admit
-// runs a tile of peers per block (see there).  Per-peer fields are [P]
-// arrays; the packed cache map `avail` is [P, W] u32 (stored by PyTorch as
-// int32 with the same bit pattern), `dl_flags` is [P] u32 (bit 0 = slot 0
-// active, bit 1 = slot 0 is_p2p).  Scalars that the scenario carries as
-// 0-dim device tensors (the clock t_s, the policy knobs) are read through
-// pointers, so a step never waits on the host.
+// Layout: scenario lanes.  Every array carries a leading lane axis of
+// n_lanes (B), and the lane is the grid's y dimension: one launch steps
+// every lane.  TK1-TK3 run one thread per peer of a lane over the grid's x
+// dimension; select_admit runs a tile of one lane's peers per block (see
+// there).  Per-peer fields are [B, P] arrays; the packed cache map `avail`
+// is [B, P, W] u32 (stored by PyTorch as int32 with the same bit pattern),
+// `dl_flags` is [B, P] u32 (bit 0 = slot 0 active, bit 1 = slot 0 is_p2p).
+// Per-lane scalars (the clock t_s, the policy knobs) are [B] device
+// arrays read through pointers, so a step never waits on the host, and the
+// ladder `bitrates` is [B, L].  A lane's rows start at lane * P; that
+// offset and every index derived from it are 64-bit (48 lanes of 1,048,576
+// peers put a map row 2.4 GB from the base).  Neighbours wrap mod P inside
+// their lane: no thread reads another lane's rows.
 //
 // What bounds these kernels on an H100: bytes.  They do a few dozen scalar
 // operations per peer and no matrix product, so each is a stream over its
@@ -87,6 +93,7 @@ struct SelectArgs {
   int* slot_flags;
   int* req;
   long long n_peers;
+  int n_lanes;
   int n_words;
   int n_segments;
   int n_levels;
@@ -111,8 +118,8 @@ __device__ __forceinline__ float corrected(float alpha, float est,
 
 __device__ __forceinline__ bool is_present(float t, const float* join_s,
                                            const float* leave_s,
-                                           long long i) {
-  return (t >= join_s[i]) && (t < leave_s[i]);
+                                           long long r) {
+  return (t >= join_s[r]) && (t < leave_s[r]);
 }
 
 // A requester's own inputs to the selection, which TK1 and select_admit
@@ -146,9 +153,10 @@ struct Target {
 };
 
 // The requester half of the selection before eligibility (shared by TK1
-// and select_admit, so that the two round alike).
+// and select_admit, so that the two round alike), for the requester in row
+// r of lane `lane`.
 __device__ __forceinline__ Target select_target(const SelectArgs& a,
-                                                long long i,
+                                                int lane, long long r,
                                                 const PeerIn& in) {
   const int S = a.n_segments;
   Target tg;
@@ -161,9 +169,10 @@ __device__ __forceinline__ Target select_target(const SelectArgs& a,
   const float estimate = in.fast_w > 0.0f ? fminf(fast, slow)
                                           : a.default_estimate_bps;
   const float thr = estimate * a.bandwidth_safety;
+  const float* rates = a.bitrates + (long long)lane * a.n_levels;
   int pick = 0;
   for (int l = 0; l < a.n_levels; ++l)
-    if (a.bitrates[l] <= thr && l > pick) pick = l;
+    if (rates[l] <= thr && l > pick) pick = l;
   tg.want_level = min(pick, in.cap_level);
 
   // next segment: truncate toward zero, then cap (:831-836)
@@ -183,8 +192,8 @@ __device__ __forceinline__ Target select_target(const SelectArgs& a,
   tg.gi_seg = tg.next_seg;
   int gi_level = tg.want_level;
   if (tg.a0) {
-    tg.gi_seg = a.dl_seg[i];
-    gi_level = a.dl_level[i];
+    tg.gi_seg = a.dl_seg[r];
+    gi_level = a.dl_level[r];
   }
   const int gi_flat = gi_level * S + tg.gi_seg;
   tg.wi = gi_flat >> 5;
@@ -195,7 +204,9 @@ __device__ __forceinline__ Target select_target(const SelectArgs& a,
 // The requester half after eligibility: elig_bits has bit k set where
 // neighbour k holds the target bit and serves (:681-772, serve_ok :805).
 // Writes the requester's outputs only where `owner` holds; returns req.
-__device__ __forceinline__ int select_finish(const SelectArgs& a, long long i,
+// i is the requester's peer index in its lane (the hash's), r its row.
+__device__ __forceinline__ int select_finish(const SelectArgs& a, int lane,
+                                             long long i, long long r,
                                              const PeerIn& in,
                                              const Target& tg,
                                              uint32_t elig_bits,
@@ -208,13 +219,16 @@ __device__ __forceinline__ int select_finish(const SelectArgs& a, long long i,
 
   // urgency, budget and segment bytes (:1060-1074)
   const float margin = (float)tg.next_seg * a.seg_duration_s - in.playhead;
-  const bool urgent = margin < (*a.urgent_margin_s + in.margin_off);
-  const float budget = fminf(fmaxf(margin * 1000.0f * *a.p2p_budget_fraction,
-                                   *a.p2p_budget_floor_ms),
-                             *a.p2p_budget_cap_ms);
+  const bool urgent = margin < (a.urgent_margin_s[lane] + in.margin_off);
+  const float budget =
+      fminf(fmaxf(margin * 1000.0f * a.p2p_budget_fraction[lane],
+                  a.p2p_budget_floor_ms[lane]),
+            a.p2p_budget_cap_ms[lane]);
   // the reference's one-hot sum over the ladder: 0 off the ladder
-  const float want_rate = (tg.want_level >= 0 && tg.want_level < a.n_levels)
-                              ? a.bitrates[tg.want_level] : 0.0f;
+  const float want_rate =
+      (tg.want_level >= 0 && tg.want_level < a.n_levels)
+          ? a.bitrates[(long long)lane * a.n_levels + tg.want_level]
+          : 0.0f;
   const float want_bytes = want_rate * (a.seg_duration_s / 8.0f);
 
   // slot 0's start decision, VOD (:1133-1175)
@@ -241,25 +255,25 @@ __device__ __forceinline__ int select_finish(const SelectArgs& a, long long i,
   // and rides it only while that holder is still eligible
   int off = new_off;
   if (tg.a0) {
-    off = a.dl_holder_off[i];
+    off = a.dl_holder_off[r];
     sel = (off >= 0 && off < a.n_offs && ((elig_bits >> off) & 1u)) ? off
                                                                     : -1;
   }
   const bool demand = active && is_p2p && in.present;
   const int req = (demand && sel >= 0) ? sel : -1;
   if (!owner) return req;
-  a.req[i] = req;
-  a.slot_flags[i] = (may ? 1 : 0) | (active ? 2 : 0) | (is_p2p ? 4 : 0) |
+  a.req[r] = req;
+  a.slot_flags[r] = (may ? 1 : 0) | (active ? 2 : 0) | (is_p2p ? 4 : 0) |
                     (have_n ? 8 : 0);
-  if (!tg.a0) a.dl_holder_off[i] = off;
+  if (!tg.a0) a.dl_holder_off[r] = off;
   if (may) {
-    a.level[i] = tg.want_level;
-    a.dl_seg[i] = tg.next_seg;
-    a.dl_level[i] = tg.want_level;
-    a.dl_total_bytes[i] = want_bytes;
-    a.dl_done_bytes[i] = 0.0f;
-    a.dl_elapsed_ms[i] = 0.0f;
-    a.dl_budget_ms[i] = budget;
+    a.level[r] = tg.want_level;
+    a.dl_seg[r] = tg.next_seg;
+    a.dl_level[r] = tg.want_level;
+    a.dl_total_bytes[r] = want_bytes;
+    a.dl_done_bytes[r] = 0.0f;
+    a.dl_elapsed_ms[r] = 0.0f;
+    a.dl_budget_ms[r] = budget;
   }
   return req;
 }
@@ -268,21 +282,24 @@ __global__ void elig_select_kernel(const SelectArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
   if (i >= P) return;
-  const float t = *a.t_s;
+  const int lane = blockIdx.y;
+  const long long lb = (long long)lane * P;  // the lane's first row
+  const long long r = lb + i;
+  const float t = a.t_s[lane];
   PeerIn in;
-  in.present = is_present(t, a.join_s, a.leave_s, i);
-  in.p2p_req = a.p2p_ok[i];
-  in.fl = a.dl_flags[i];
-  in.playhead = a.playhead_s[i];
-  in.buffer = a.buffer_s[i];
-  in.fast_est = a.fast_estimate[i];
-  in.fast_w = a.fast_weight[i];
-  in.slow_est = a.slow_estimate[i];
-  in.slow_w = a.slow_weight[i];
-  in.cap_level = a.abr_cap_level[i];
-  in.margin_off = a.urgent_margin_off_s[i];
-  in.attempts = a.dl_attempts[i];
-  const Target tg = select_target(a, i, in);
+  in.present = is_present(t, a.join_s, a.leave_s, r);
+  in.p2p_req = a.p2p_ok[r];
+  in.fl = a.dl_flags[r];
+  in.playhead = a.playhead_s[r];
+  in.buffer = a.buffer_s[r];
+  in.fast_est = a.fast_estimate[r];
+  in.fast_w = a.fast_weight[r];
+  in.slow_est = a.slow_estimate[r];
+  in.slow_w = a.slow_weight[r];
+  in.cap_level = a.abr_cap_level[r];
+  in.margin_off = a.urgent_margin_off_s[r];
+  in.attempts = a.dl_attempts[r];
+  const Target tg = select_target(a, lane, r, in);
   // circulant eligibility (:681-772): neighbour k is (i + o_k) mod P; the
   // holder side is gated on presence and p2p_ok (serve_ok, :805)
   const uint32_t bm = 1u << tg.bit;
@@ -290,12 +307,13 @@ __global__ void elig_select_kernel(const SelectArgs a) {
   for (int k = 0; k < a.n_offs; ++k) {
     long long j = i + a.offs[k];
     if (j >= P) j -= P;
+    j += lb;
     const bool serve = is_present(t, a.join_s, a.leave_s, j) &&
                        (a.p2p_ok[j] > 0.0f);
     const bool have = (a.avail[j * a.n_words + tg.wi] & bm) != 0u;
     if (have && serve) elig_bits |= 1u << k;
   }
-  select_finish(a, i, in, tg, elig_bits, true);
+  select_finish(a, lane, i, r, in, tg, elig_bits, true);
 }
 
 // ---------------------------------------------------------------------------
@@ -315,6 +333,7 @@ struct AdmitArgs {
   float* service;
   int* adm_mask;
   long long n_peers;
+  int n_lanes;
   int n_offs;
   float cap;
   int offs[MAX_OFFS];
@@ -324,18 +343,21 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
   if (j >= P) return;
+  const int lane = blockIdx.y;
+  const long long lb = (long long)lane * P;
   float cum = 0.0f;
   uint32_t adm = 0u;
   for (int k = 0; k < a.n_offs; ++k) {
     long long r = j - a.offs[k];
     if (r < 0) r += P;
-    if (a.req[r] == k && cum < a.cap) {
+    if (a.req[lb + r] == k && cum < a.cap) {
       cum += 1.0f;
       adm |= 1u << k;
     }
   }
-  a.service[j] = a.uplink_bps[j] * *a.uplink_efficiency / fmaxf(cum, 1.0f);
-  a.adm_mask[j] = (int)adm;
+  a.service[lb + j] =
+      a.uplink_bps[lb + j] * a.uplink_efficiency[lane] / fmaxf(cum, 1.0f);
+  a.adm_mask[lb + j] = (int)adm;
 }
 
 // ---------------------------------------------------------------------------
@@ -348,12 +370,12 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
 // ops/swarm_kernels.py picks the route from the offsets before launch).
 //
 // Tile plus halo.  A block owns SA_TILE consecutive peers [b, b + SA_TILE)
-// as holders and as requesters.  With o_max = max(offsets, 0), o_min =
+// of one lane (blockIdx.y) as holders and as requesters.  With o_max = max(offsets, 0), o_min =
 // min(offsets, 0) and span = o_max - o_min, the requesters of its holders
 // are the R = SA_TILE + span peers [b - o_max, b + SA_TILE - o_min), one
 // per thread, and their neighbours the H = SA_TILE + 2 span peers from
 // b - o_max + o_min.  Every index is taken mod P, so the ring may wrap
-// more than once when P < SA_TILE + span.
+// more than once when P < SA_TILE + span; the wrap stays inside the lane.
 //   1. Serve bits (present, present && p2p_ok > 0) of the neighbour range
 //      go to shared memory once, so each neighbour test reads a byte of
 //      shared memory instead of three global arrays.
@@ -414,7 +436,9 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
   const int R = SA_TILE + span;
   const int H = SA_TILE + 2 * span;
   const int tid = threadIdx.x;
-  const float t = *s.t_s;
+  const int lane = blockIdx.y;
+  const long long lb = (long long)lane * P;  // the lane's first row
+  const float t = s.t_s[lane];
   const long long b = (long long)blockIdx.x * SA_TILE;
   const long long q0 = b - a.o_max;   // requester q is peer (q0 + q) mod P
   const long long h0 = q0 + a.o_min;  // neighbour h is peer (h0 + h) mod P
@@ -423,7 +447,7 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
   // before the test, so they go out together: behind `&&` the compiler
   // waited for join_s before it loaded leave_s and p2p_ok.
   for (int h = tid; h < H; h += blockDim.x) {
-    const long long x = wrap(h0 + h, P);
+    const long long x = lb + wrap(h0 + h, P);
     const float join = s.join_s[x], leave = s.leave_s[x], p2p = s.p2p_ok[x];
     const bool present = (t >= join) && (t < leave);
     serve_s[h] = (unsigned char)((present ? 1 : 0) |
@@ -435,21 +459,22 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
   const int q = tid;
   if (q < R) {
     const long long i = wrap(q0 + q, P);
+    const long long r = lb + i;
     const int hq = q - a.o_min;  // requester q in the neighbour range
     PeerIn in;
     in.present = (serve_s[hq] & 1) != 0;
-    in.p2p_req = s.p2p_ok[i];
-    in.fl = s.dl_flags[i];
-    in.playhead = s.playhead_s[i];
-    in.buffer = s.buffer_s[i];
-    in.fast_est = s.fast_estimate[i];
-    in.fast_w = s.fast_weight[i];
-    in.slow_est = s.slow_estimate[i];
-    in.slow_w = s.slow_weight[i];
-    in.cap_level = s.abr_cap_level[i];
-    in.margin_off = s.urgent_margin_off_s[i];
-    in.attempts = s.dl_attempts[i];
-    const Target tg = select_target(s, i, in);
+    in.p2p_req = s.p2p_ok[r];
+    in.fl = s.dl_flags[r];
+    in.playhead = s.playhead_s[r];
+    in.buffer = s.buffer_s[r];
+    in.fast_est = s.fast_estimate[r];
+    in.fast_w = s.fast_weight[r];
+    in.slow_est = s.slow_estimate[r];
+    in.slow_w = s.slow_weight[r];
+    in.cap_level = s.abr_cap_level[r];
+    in.margin_off = s.urgent_margin_off_s[r];
+    in.attempts = s.dl_attempts[r];
+    const Target tg = select_target(s, lane, r, in);
     // circulant eligibility (:681-772); the map is not written in this
     // launch, so its words go through the read-only path.  Each neighbour's
     // serve bit is read whatever its map word holds, and the two are
@@ -461,7 +486,7 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
       for (int k = 0; k < KT; ++k) {
         long long j = i + s.offs[k];
         if (j >= P) j -= P;
-        w[k] = __ldg(&s.avail[j * s.n_words + tg.wi]);
+        w[k] = __ldg(&s.avail[(lb + j) * s.n_words + tg.wi]);
       }
 #pragma unroll
       for (int k = 0; k < KT; ++k) {
@@ -473,22 +498,24 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
         long long j = i + s.offs[k];
         if (j >= P) j -= P;
         const uint32_t serves = (serve_s[hq + a.soffs[k]] >> 1) & 1u;
-        elig_bits |= (((__ldg(&s.avail[j * s.n_words + tg.wi]) >> tg.bit) &
+        elig_bits |= (((__ldg(&s.avail[(lb + j) * s.n_words + tg.wi]) >>
+                        tg.bit) &
                        serves) & 1u) << k;
       }
     }
     const long long u = (long long)q - a.o_max;  // position in the tile
     const bool owner = u >= 0 && u < SA_TILE && b + u < P;
-    req_s[q] = (signed char)select_finish(s, i, in, tg, elig_bits, owner);
+    req_s[q] =
+        (signed char)select_finish(s, lane, i, r, in, tg, elig_bits, owner);
   }
   __syncthreads();
 
   // 3. admission and service of the tile's holders (TK2's walk):
   // requester (j - o_k) mod P sits at q = jl - o_k + o_max
-  const float eff = *a.uplink_efficiency;
+  const float eff = a.uplink_efficiency[lane];
   for (int jl = tid; jl < SA_TILE; jl += blockDim.x) {
-    const long long j = b + jl;
-    if (j >= P) break;
+    if (b + jl >= P) break;
+    const long long j = lb + b + jl;
     float cum = 0.0f;
     uint32_t adm = 0u;
 #pragma unroll
@@ -542,6 +569,7 @@ struct UpdateArgs {
   float* dl_elapsed_ms;
   float* dl_cooldown_ms;
   long long n_peers;
+  int n_lanes;
   int n_words;
   int n_segments;
   int n_offs;
@@ -567,10 +595,13 @@ __device__ __forceinline__ void ewma_update(float alpha, float weight,
 }
 
 __global__ void peer_update_kernel(const UpdateArgs a) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
-  if (i >= P) return;
-  const float t = *a.t_s;
+  if (p >= P) return;
+  const int lane = blockIdx.y;
+  const long long lb = (long long)lane * P;  // the lane's first row
+  const long long i = lb + p;                // this peer's row
+  const float t = a.t_s[lane];
   const bool present = is_present(t, a.join_s, a.leave_s, i);
   const int fl = a.slot_flags[i];
   const bool may = (fl & 1) != 0;
@@ -583,8 +614,9 @@ __global__ void peer_update_kernel(const UpdateArgs a) {
   bool admitted = false;
   float svc = 0.0f;
   if (k >= 0) {
-    long long j = i + a.offs[k];
+    long long j = p + a.offs[k];
     if (j >= P) j -= P;
+    j += lb;
     admitted = ((a.adm_mask[j] >> k) & 1) != 0;
     if (admitted) svc = a.service[j];
   }
@@ -594,7 +626,8 @@ __global__ void peer_update_kernel(const UpdateArgs a) {
   const float p2p_rate = fminf(demand * svc, a.p2p_bps);
   const bool progressing = active0 && present;
   float elapsed = a.dl_elapsed_ms[i] + (progressing ? a.dt_ms : 0.0f);
-  const float live_ms = fminf(fmaxf(elapsed - *a.p2p_setup_ms, 0.0f), a.dt_ms);
+  const float live_ms =
+      fminf(fmaxf(elapsed - a.p2p_setup_ms[lane], 0.0f), a.dt_ms);
   const float p2p_step = p2p_rate * live_ms * (1.0f / 8000.0f);
   const float step_bytes = is_p2p0 ? p2p_step
                                     : a.cdn_bps[i] * a.dt_s * (1.0f / 8.0f);
@@ -659,33 +692,35 @@ __global__ void peer_update_kernel(const UpdateArgs a) {
 // Plain C entry points for ctypes.  Each launches on the caller's stream
 // and returns cudaGetLastError(), so a refused launch reaches the caller.
 
-static inline unsigned int grid_for(long long n) {
-  return (unsigned int)((n + BLOCK - 1) / BLOCK);
+// The grid of a per-peer kernel: peers on x, lanes on y.
+static inline dim3 grid_for(long long n, int lanes) {
+  return dim3((unsigned int)((n + BLOCK - 1) / BLOCK), (unsigned int)lanes);
 }
 
 extern "C" int swarm_elig_select(const SelectArgs* args, void* stream) {
-  if (args->n_peers > 0)
-    elig_select_kernel<<<grid_for(args->n_peers), BLOCK, 0,
+  if (args->n_peers > 0 && args->n_lanes > 0)
+    elig_select_kernel<<<grid_for(args->n_peers, args->n_lanes), BLOCK, 0,
                          (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
 extern "C" int swarm_admit_service(const AdmitArgs* args, void* stream) {
-  if (args->n_peers > 0)
-    admit_service_kernel<<<grid_for(args->n_peers), BLOCK, 0,
+  if (args->n_peers > 0 && args->n_lanes > 0)
+    admit_service_kernel<<<grid_for(args->n_peers, args->n_lanes), BLOCK, 0,
                            (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
 extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
-  if (args->n_peers > 0)
-    peer_update_kernel<<<grid_for(args->n_peers), BLOCK, 0,
+  if (args->n_peers > 0 && args->n_lanes > 0)
+    peer_update_kernel<<<grid_for(args->n_peers, args->n_lanes), BLOCK, 0,
                          (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
-// select_admit's launch: SA_TILE peers per block, one thread per requester
-// of the tile and its halo (rounded up to a warp).  A halo wider than
+// select_admit's launch: SA_TILE peers of one lane per block (lanes on the
+// grid's y), one thread per requester of the tile and its halo (rounded up
+// to a warp).  A halo wider than
 // SA_MAX_SPAN is refused; the wrapper never sends one.
 template <int KT>
 static int launch_select_admit(const SelectAdmitArgs* a,
@@ -693,10 +728,11 @@ static int launch_select_admit(const SelectAdmitArgs* a,
   const long long P = a->sel.n_peers;
   const int span = a->o_max - a->o_min;
   if (span < 0 || span > SA_MAX_SPAN) return (int)cudaErrorInvalidValue;
-  if (P > 0)
-    select_admit_kernel<KT><<<(unsigned int)((P + SA_TILE - 1) / SA_TILE),
-                              (SA_TILE + span + 31) / 32 * 32, 0, stream>>>(
-        *a);
+  if (P > 0 && a->sel.n_lanes > 0)
+    select_admit_kernel<KT>
+        <<<dim3((unsigned int)((P + SA_TILE - 1) / SA_TILE),
+                (unsigned int)a->sel.n_lanes),
+           (SA_TILE + span + 31) / 32 * 32, 0, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

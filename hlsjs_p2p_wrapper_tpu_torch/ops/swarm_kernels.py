@@ -1,5 +1,6 @@
-"""The kernels of one circulant VOD step, with their plain PyTorch
-versions and the wrappers that choose between them.
+"""The kernels of the circulant VOD step and of its per-lane
+reductions, with their plain PyTorch versions and the wrappers that
+choose between them.
 
 =====================  ==========================================
 kernel                 replaces (reference ``ops/swarm_sim.py``)
@@ -13,15 +14,27 @@ TK2 ``admit_service``  circulant admission and service, :1259-1303
                        peers with a halo of requesters
 TK3 ``peer_update``    the service readback and the slot-0 update
                        :1351-1525 with ``ewma.update``
+TK4 ``lane_sums``      the offload series of ``_scan_swarm``'s step
+                       :1643-1647 and ``offload_ratio`` :2607-2611
+TK5 ``timeline_row``   ``_timeline_row`` :1559-1627 (no cohort
+                       columns), and the sums of ``rebuffer_ratio``
 =====================  ==========================================
 
-A step is :func:`select_admit` then :func:`peer_update`.  The route of
-``select_admit`` is chosen from the offsets before launch
+A step is :func:`select_admit` then :func:`peer_update`, then
+:func:`lane_sums` writes the step's column of the offload series and
+every ``record_every`` steps :func:`timeline_row` writes a row.  The
+route of ``select_admit`` is chosen from the offsets before launch
 (:func:`fused_route`): the fused kernel where the halo fits its tile
 (the main path), else TK1 then TK2.
 
-The sources are ``csrc/swarm_step.cu`` (CUDA C++ for ``sm_90a``, built
-by ``ops/_build.py`` and bound with ``ctypes``).  Each wrapper checks
+Lanes.  Every function here works on stacked scenario lanes (``t_s``
+of shape ``[B]``, see ``swarm_sim``); the step's functions also take a
+single scenario, which they run as one lane.  On the card the lane is
+a grid dimension of every kernel, so one launch covers all lanes.
+
+The sources are ``csrc/swarm_step.cu`` (TK1–TK3, ``select_admit``) and
+``csrc/swarm_reduce.cu`` (TK4, TK5), CUDA C++ for ``sm_90a`` built by
+``ops/_build.py`` and bound with ``ctypes``.  Each wrapper checks
 device, dtype, shape and contiguity; for CUDA tensors it launches its
 kernel or raises, for CPU tensors it runs the plain version.  There is
 no fallback from a failed build or launch to the plain version.
@@ -31,8 +44,8 @@ selected holder; TK2 needs every requester's demand to admit per
 holder; TK3 needs every holder's service.  ``select_admit`` does TK1
 and TK2 in one launch by recomputing, in each block, the selection of
 the requesters its holders serve.  Between the passes travel four
-``[P]`` scratch words: ``slot_flags`` (bit 0 may, bit 1 active, bit 2
-is_p2p, bit 3 have_n), ``req`` (the offset index of the selected
+``[B, P]`` scratch words: ``slot_flags`` (bit 0 may, bit 1 active, bit
+2 is_p2p, bit 3 have_n), ``req`` (the offset index of the selected
 holder of a transfer that places demand, else -1), ``service`` and
 ``adm`` (per holder, a bit mask of the admitted offset indices).
 
@@ -46,6 +59,13 @@ active and written only when it is not (``csrc/swarm_step.cu``).  The
 plain versions update the state in place too.  Callers that compare two
 steps clone the state first.
 
+Reductions.  TK4 and TK5 sum in a fixed order (per block, then over
+the blocks of a lane in its last block to finish) with no float
+atomics, and the blocks of a lane depend on ``P`` alone: a lane's sums
+are the same bits batched or alone, run after run.  On the CPU the
+plain versions take ``torch.sum``; between the card and the CPU sums
+agree to a tolerance, not to the bit.
+
 Every launch adds one to :data:`LAUNCHES`; plain calls add nothing.
 """
 
@@ -54,25 +74,27 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..core.abr import DEFAULT_ESTIMATE_BPS, MIN_SAMPLE_DURATION_MS
+from ..engine.digest import DEFAULT_EDGES
 from .ewma import _div, get_estimate, update
 from .swarm_sim import (BANDWIDTH_SAFETY, SwarmConfig, SwarmScenario,
                         SwarmState, _abr_pick, _normalized_offsets,
-                        bit_mask_words, circulant_eligibility,
+                        as_lanes, bit_mask_words, circulant_eligibility,
                         pack_dl_flags, packed_words, resolve_eligibility,
                         unpack_dl_flags)
 
 SOURCE = "swarm_step.cu"
+REDUCE_SOURCE = "swarm_reduce.cu"
 MAX_OFFS = 32
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES = {"select_admit": 0, "elig_select": 0, "admit_service": 0,
-            "peer_update": 0}
+            "peer_update": 0, "lane_sums": 0, "timeline_row": 0}
 
 
 def reset_launch_counts() -> None:
@@ -134,6 +156,16 @@ MAX_FUSED_SPAN = 32
 #: by the build from the two numbers above
 DEFINES = (("SA_TILE", SELECT_ADMIT_TILE), ("SA_MAX_SPAN", MAX_FUSED_SPAN))
 
+#: peers per block of the reduction kernels, and the most blocks a lane
+#: takes; the block count depends on P alone, so that a lane sums in
+#: the same order whatever the batch
+REDUCE_TILE = 4096
+REDUCE_MAX_BLOCKS = 1024
+#: the reduction kernels' limits on the timeline row (``MAX_LEVELS``
+#: levels, ``MAX_EDGES`` digest edges), checked before launch
+MAX_LEVELS = 16
+MAX_EDGES = 32
+
 
 def fused_route(config: SwarmConfig) -> bool:
     """Whether :func:`select_admit` runs its fused kernel for
@@ -142,17 +174,39 @@ def fused_route(config: SwarmConfig) -> bool:
     return g.o_hi - g.o_lo <= MAX_FUSED_SPAN
 
 
+def reduce_blocks(n_peers: int) -> int:
+    """Blocks per lane of ``lane_sums`` and ``timeline_row``."""
+    return max(1, min(-(-n_peers // REDUCE_TILE), REDUCE_MAX_BLOCKS))
+
+
+def _lane_api(fn):
+    """Let ``fn(config, scenario, *args)``, written for stacked lanes,
+    take a single scenario too: its arguments become one lane (views of
+    its storage, so in-place writes land in it) and the tensors ``fn``
+    returns lose the lane axis again."""
+    @functools.wraps(fn)
+    def wrapped(config, scenario, *args):
+        if scenario.bitrates.dim() == 2:
+            return fn(config, scenario, *args)
+        out = fn(config, as_lanes(scenario), *(as_lanes(x) for x in args))
+        return None if out is None else tuple(x[0] for x in out)
+    return wrapped
+
+
+def _col(x: torch.Tensor) -> torch.Tensor:
+    """A ``[B]`` per-lane scalar against ``[B, P]`` per-peer arrays."""
+    return x[:, None]
+
+
 # ---- plain versions -------------------------------------------------------
 
 def _present(scenario: SwarmScenario, t: torch.Tensor) -> torch.Tensor:
-    return (t >= scenario.join_s) & (t < scenario.leave_s)
+    return (_col(t) >= scenario.join_s) & (_col(t) < scenario.leave_s)
 
 
-def slot_targets(config: SwarmConfig, scenario: SwarmScenario,
-                 state: SwarmState) -> dict:
-    """What each peer wants next (reference :796-894): presence, the
-    ABR level, the next segment, the foreground's wish and slot 0's
-    flat (level·S + seg) target."""
+@_lane_api
+def _slot_targets(config: SwarmConfig, scenario: SwarmScenario,
+                  state: SwarmState) -> Tuple[torch.Tensor, ...]:
     g = geometry(config)
     present = _present(scenario, state.t_s)
     dl_active, dl_is_p2p = unpack_dl_flags(state.dl_flags, 1)
@@ -166,20 +220,30 @@ def slot_targets(config: SwarmConfig, scenario: SwarmScenario,
     timeline_left = pb < g.end_s
     fg_wants = (present & ~a0 & timeline_left
                 & (state.buffer_s < config.max_buffer_s))
-    gi_seg = torch.where(a0, state.dl_seg[:, 0], next_seg)
-    gi_level = torch.where(a0, state.dl_level[:, 0], want_level)
-    return {"present": present, "a0": a0, "p0": dl_is_p2p[0],
-            "want_level": want_level, "next_seg": next_seg,
-            "fg_wants": fg_wants, "gi_seg": gi_seg,
-            "gi_flat": gi_level * g.S + gi_seg}
+    gi_seg = torch.where(a0, state.dl_seg[..., 0], next_seg)
+    gi_level = torch.where(a0, state.dl_level[..., 0], want_level)
+    return (present, a0, dl_is_p2p[0], want_level, next_seg, fg_wants,
+            gi_seg, gi_level * g.S + gi_seg)
+
+
+_TARGETS = ("present", "a0", "p0", "want_level", "next_seg", "fg_wants",
+            "gi_seg", "gi_flat")
+
+
+def slot_targets(config: SwarmConfig, scenario: SwarmScenario,
+                 state: SwarmState) -> dict:
+    """What each peer wants next (reference :796-894): presence, the
+    ABR level, the next segment, the foreground's wish and slot 0's
+    flat (level·S + seg) target, by name."""
+    return dict(zip(_TARGETS, _slot_targets(config, scenario, state)))
 
 
 def _spread_holder_only(elig, n_holders, gi_seg, rot):
     """Reference :959-991 for slot 0 (salt 0): ONE eligible holder by a
     u32 hash of (peer, segment, slot), its rank advanced by the slot's
-    failed attempts.  The u32 products wrap: int64, masked after each
-    multiply and add."""
-    P = gi_seg.shape[0]
+    failed attempts.  The peer is its index within its lane.  The u32
+    products wrap: int64, masked after each multiply and add."""
+    P = gi_seg.shape[-1]
     peer = torch.arange(P, dtype=torch.int64, device=gi_seg.device)
     salt = (0 * 2246822519 + 97) % (1 << 32)
     h = (peer * 2654435761) & 0xFFFFFFFF
@@ -189,7 +253,7 @@ def _spread_holder_only(elig, n_holders, gi_seg, rot):
     n = torch.clamp_min(n_holders, 1.0).to(torch.int64)
     rot_u = rot.to(torch.int64) & 0xFFFFFFFF
     rank = ((((h % n) + rot_u) & 0xFFFFFFFF) % n).to(torch.int32)
-    cum = torch.zeros((P,), dtype=torch.int32, device=gi_seg.device)
+    cum = torch.zeros_like(gi_seg)
     out = []
     for e in elig:
         is_e = e > 0
@@ -198,6 +262,7 @@ def _spread_holder_only(elig, n_holders, gi_seg, rot):
     return out
 
 
+@_lane_api
 def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
                       state: SwarmState):
     """Plain TK1: eligibility, holder selection, slot 0's start
@@ -205,44 +270,42 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
     the slot record into ``state`` in place; returns ``(slot_flags,
     req)``."""
     g = geometry(config)
-    tg = slot_targets(config, scenario, state)
-    present, a0, p0 = tg["present"], tg["a0"], tg["p0"]
-    next_seg, want_level = tg["next_seg"], tg["want_level"]
+    (present, a0, p0, want_level, next_seg, fg_wants, gi_seg,
+     gi_flat) = _slot_targets(config, scenario, state)
     p2p_req = scenario.p2p_ok
     serve_ok = present & (scenario.p2p_ok > 0.0)
     impl = resolve_eligibility(config, state.avail.device)
     elig, n, _own = circulant_eligibility(state.avail, serve_ok, list(g.offs),
-                                          [tg["gi_flat"]], impl=impl)[0]
+                                          [gi_flat], impl=impl)[0]
     elig = [e * p2p_req for e in elig]
     n = n * p2p_req
 
     margin_s = next_seg.to(torch.float32) * g.seg - state.playhead_s
-    urgent = margin_s < (scenario.urgent_margin_s
+    urgent = margin_s < (_col(scenario.urgent_margin_s)
                          + scenario.urgent_margin_off_s)
     budget_ms = torch.minimum(
-        torch.maximum(margin_s * 1000.0 * scenario.p2p_budget_fraction,
-                      scenario.p2p_budget_floor_ms),
-        scenario.p2p_budget_cap_ms)
+        torch.maximum(margin_s * 1000.0 * _col(scenario.p2p_budget_fraction),
+                      _col(scenario.p2p_budget_floor_ms)),
+        _col(scenario.p2p_budget_cap_ms))
     lvl_iota = torch.arange(g.L, dtype=torch.int32, device=p2p_req.device)
     zero = torch.zeros((), dtype=torch.float32, device=p2p_req.device)
     want_bytes = torch.sum(
-        torch.where(want_level[:, None] == lvl_iota[None, :],
-                    scenario.bitrates[None, :], zero), dim=1) * (g.seg / 8.0)
+        torch.where(want_level.unsqueeze(-1) == lvl_iota,
+                    scenario.bitrates.unsqueeze(-2), zero),
+        dim=-1) * (g.seg / 8.0)
 
     have_n = n > 0.0
-    wants_dl = tg["fg_wants"]
-    start_p2p = wants_dl & have_n & ~urgent
-    start_cdn = wants_dl & ~start_p2p
+    start_p2p = fg_wants & have_n & ~urgent
+    start_cdn = fg_wants & ~start_p2p
     may = start_p2p | start_cdn
     is_p2p = torch.where(may, start_p2p, p0) & have_n
     active = a0 | may
     level = torch.where(may, want_level, state.level)
 
-    sel = _spread_holder_only(elig, n, tg["gi_seg"],
-                              state.dl_attempts[:, 0])
+    sel = _spread_holder_only(elig, n, gi_seg, state.dl_attempts[..., 0])
     new_off = sum(((s_k > 0).to(torch.int32) * k
                    for k, s_k in enumerate(sel)), torch.zeros_like(next_seg))
-    off = torch.where(a0, state.dl_holder_off[:, 0], new_off)
+    off = torch.where(a0, state.dl_holder_off[..., 0], new_off)
     sel = [torch.where(a0, e * (off == k), s_k)
            for k, (e, s_k) in enumerate(zip(elig, sel))]
     demand = (active & is_p2p & present).to(torch.float32)
@@ -250,42 +313,42 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
     for k, s_k in enumerate(sel):
         req = torch.where(s_k * demand > 0.0, torch.full_like(req, k), req)
 
+    slot = {name: getattr(state, name)[..., 0] for name in (
+        "dl_seg", "dl_level", "dl_total_bytes", "dl_done_bytes",
+        "dl_elapsed_ms", "dl_budget_ms")}
     state.level.copy_(level)
-    state.dl_seg[:, 0].copy_(torch.where(may, next_seg, state.dl_seg[:, 0]))
-    state.dl_level[:, 0].copy_(torch.where(may, want_level,
-                                           state.dl_level[:, 0]))
-    state.dl_total_bytes[:, 0].copy_(
-        torch.where(may, want_bytes, state.dl_total_bytes[:, 0]))
-    state.dl_done_bytes[:, 0].copy_(
-        torch.where(may, zero, state.dl_done_bytes[:, 0]))
-    state.dl_elapsed_ms[:, 0].copy_(
-        torch.where(may, zero, state.dl_elapsed_ms[:, 0]))
-    state.dl_budget_ms[:, 0].copy_(
-        torch.where(may, budget_ms, state.dl_budget_ms[:, 0]))
-    state.dl_holder_off[:, 0].copy_(off)
+    slot["dl_seg"].copy_(torch.where(may, next_seg, slot["dl_seg"]))
+    slot["dl_level"].copy_(torch.where(may, want_level, slot["dl_level"]))
+    slot["dl_total_bytes"].copy_(
+        torch.where(may, want_bytes, slot["dl_total_bytes"]))
+    for name in ("dl_done_bytes", "dl_elapsed_ms"):
+        slot[name].copy_(torch.where(may, zero, slot[name]))
+    slot["dl_budget_ms"].copy_(
+        torch.where(may, budget_ms, slot["dl_budget_ms"]))
+    state.dl_holder_off[..., 0].copy_(off)
     slot_flags = (may.to(torch.int32) | (active.to(torch.int32) << 1)
                   | (is_p2p.to(torch.int32) << 2)
                   | (have_n.to(torch.int32) << 3))
     return slot_flags, req
 
 
+@_lane_api
 def admit_service_plain(config: SwarmConfig, scenario: SwarmScenario,
                         req: torch.Tensor):
     """Plain TK2 (reference :1259-1303, ``cap > 0``): admission in
     offset order at each holder, then its service.  Returns
-    ``(service [P] f32, adm [P] i32 bit mask)``."""
+    ``(service f32, adm i32 bit mask)``, shaped as ``req``."""
     g = geometry(config)
-    P = req.shape[0]
-    zeros = torch.zeros((P,), dtype=torch.float32, device=req.device)
+    zeros = torch.zeros(req.shape, dtype=torch.float32, device=req.device)
     cum_j = zeros
-    adm = torch.zeros((P,), dtype=torch.int32, device=req.device)
+    adm = torch.zeros(req.shape, dtype=torch.int32, device=req.device)
     for k, o in enumerate(g.offs):
-        contrib_at_j = torch.roll((req == k).to(torch.float32), o)
+        contrib_at_j = torch.roll((req == k).to(torch.float32), o, -1)
         adm_at_j = torch.where((contrib_at_j > 0.0) & (cum_j < g.cap),
                                contrib_at_j, zeros)
         cum_j = cum_j + adm_at_j
         adm = adm | ((adm_at_j > 0.0).to(torch.int32) << k)
-    service = (scenario.uplink_bps * scenario.uplink_efficiency
+    service = (scenario.uplink_bps * _col(scenario.uplink_efficiency)
                / torch.clamp_min(cum_j, 1.0))
     return service, adm
 
@@ -299,6 +362,7 @@ def select_admit_plain(config: SwarmConfig, scenario: SwarmScenario,
     return (flags, req) + admit_service_plain(config, scenario, req)
 
 
+@_lane_api
 def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
                       state: SwarmState, slot_flags: torch.Tensor,
                       req: torch.Tensor, service: torch.Tensor,
@@ -307,9 +371,8 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     slot-0 update (:1351-1434, :1467-1493), playback and the repack
     (:1495-1525).  Updates ``state`` in place."""
     g = geometry(config)
-    P = req.shape[0]
     dev = req.device
-    zeros = torch.zeros((P,), dtype=torch.float32, device=dev)
+    zeros = torch.zeros(req.shape, dtype=torch.float32, device=dev)
     present = _present(scenario, state.t_s)
     may = (slot_flags & 1) != 0
     s_active = (slot_flags & 2) != 0
@@ -318,20 +381,20 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
 
     # service readback: the admitted edge of each requester
     svc = zeros
-    admitted_any = torch.zeros((P,), dtype=torch.bool, device=dev)
+    admitted_any = torch.zeros(req.shape, dtype=torch.bool, device=dev)
     for k, o in enumerate(g.offs):
-        adm_k = (req == k) & (((torch.roll(adm, -o) >> k) & 1) != 0)
+        adm_k = (req == k) & (((torch.roll(adm, -o, -1) >> k) & 1) != 0)
         admitted_any = admitted_any | adm_k
-        svc = svc + adm_k.to(torch.float32) * torch.roll(service, -o)
+        svc = svc + adm_k.to(torch.float32) * torch.roll(service, -o, -1)
     demand = (s_active & s_is_p2p & present).to(torch.float32)
 
-    total = state.dl_total_bytes[:, 0]
-    s_done = state.dl_done_bytes[:, 0]
+    total = state.dl_total_bytes[..., 0]
+    s_done = state.dl_done_bytes[..., 0]
     p2p_rate = torch.clamp_max(demand * svc, config.p2p_bps)
     progressing = s_active & present
-    elapsed = state.dl_elapsed_ms[:, 0] + torch.where(
+    elapsed = state.dl_elapsed_ms[..., 0] + torch.where(
         progressing, g.dt_ms, 0.0)
-    p2p_live_ms = torch.clamp(elapsed - scenario.p2p_setup_ms, 0.0,
+    p2p_live_ms = torch.clamp(elapsed - _col(scenario.p2p_setup_ms), 0.0,
                               g.dt_ms)
     p2p_step = _div(p2p_rate * p2p_live_ms, 8000.0)
     step_bytes = torch.where(s_is_p2p, p2p_step,
@@ -344,14 +407,14 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     completed = progressing & (done >= total)
     active = s_active & ~completed
     is_p2p = s_is_p2p
-    cooled = torch.clamp_min(state.dl_cooldown_ms[:, 0] - g.dt_ms, 0.0)
+    cooled = torch.clamp_min(state.dl_cooldown_ms[..., 0] - g.dt_ms, 0.0)
     # BUSY fast-fail: a start the holder did not admit flips to the CDN
     denied = may & is_p2p & have_n & ~admitted_any
     is_p2p = is_p2p & ~denied
     done = torch.where(denied, zeros, done)
     elapsed = torch.where(denied, zeros, elapsed)
     # budget failover to the CDN, discarding partial bytes
-    expired = active & is_p2p & (elapsed >= state.dl_budget_ms[:, 0])
+    expired = active & is_p2p & (elapsed >= state.dl_budget_ms[..., 0])
     is_p2p = is_p2p & ~expired
     done = torch.where(expired, zeros, done)
     elapsed = torch.where(expired, zeros, elapsed)
@@ -361,9 +424,9 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     buffer_add = zeros + torch.where(completed, g.seg, 0.0)
 
     # cache insert: the slot's own (level, seg) bit
-    Wm = bit_mask_words(state.dl_level[:, 0] * g.S + state.dl_seg[:, 0],
+    Wm = bit_mask_words(state.dl_level[..., 0] * g.S + state.dl_seg[..., 0],
                         g.W)
-    insert = torch.where(completed[:, None], Wm,
+    insert = torch.where(completed.unsqueeze(-1), Wm,
                          torch.zeros((), dtype=torch.int32, device=dev))
     sample_ms = torch.clamp_min(elapsed, MIN_SAMPLE_DURATION_MS)
     ewma = update(state.ewma, torch.where(completed, sample_ms, zeros),
@@ -387,19 +450,94 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     state.cdn_bytes.copy_(cdn_bytes)
     state.p2p_bytes.copy_(p2p_bytes)
     state.dl_flags.copy_(pack_dl_flags([active], [is_p2p]))
-    state.dl_done_bytes[:, 0].copy_(done)
-    state.dl_elapsed_ms[:, 0].copy_(elapsed)
-    state.dl_cooldown_ms[:, 0].copy_(cooled)
+    state.dl_done_bytes[..., 0].copy_(done)
+    state.dl_elapsed_ms[..., 0].copy_(elapsed)
+    state.dl_cooldown_ms[..., 0].copy_(cooled)
 
 
 def plain_step(config: SwarmConfig, scenario: SwarmScenario,
                state: SwarmState) -> SwarmState:
-    """One step through the plain versions on any device: the oracle a
-    kernel step is held against.  Updates ``state`` in place and returns
-    it with the clock advanced, as ``swarm_step`` does."""
+    """One step through the plain versions on any device, of one
+    scenario or of lanes: the oracle a kernel step is held against.
+    Updates ``state`` in place and returns it with the clock advanced,
+    as ``swarm_step`` does."""
     flags, req, service, adm = select_admit_plain(config, scenario, state)
     peer_update_plain(config, scenario, state, flags, req, service, adm)
     return state._replace(t_s=state.t_s + config.dt_ms / 1000.0)
+
+
+def lane_sums_plain(state: SwarmState, series=None, column: int = 0):
+    """Plain TK4 on lanes: each lane's ``cdn_bytes`` and ``p2p_bytes``
+    sums, returned as ``[B, 2]`` (cdn, p2p); with ``series`` it also
+    writes ``p2p / max(p2p + cdn, 1)`` (the reference's
+    ``offload_ratio``) into ``series[:, column]``."""
+    p2p = torch.sum(state.p2p_bytes, dim=-1)
+    cdn = torch.sum(state.cdn_bytes, dim=-1)
+    if series is not None:
+        series[:, column] = p2p / torch.clamp_min(p2p + cdn, 1.0)
+    return torch.stack([cdn, p2p], dim=-1)
+
+
+def _rebuffer_plain(reb, join, leave, t):
+    """Per-lane stall time over watched time ``Σ clip(min(leave, t) -
+    join, 0)`` (reference :1573-1578 and ``rebuffer_ratio``)."""
+    watched = torch.sum(torch.clamp_min(torch.minimum(leave, _col(t)) - join,
+                                        0.0), dim=-1)
+    return torch.sum(reb, dim=-1) / torch.clamp_min(watched, 1e-9)
+
+
+def rate_factor(config: SwarmConfig, record_every: int) -> float:
+    """``8 / interval_s`` as the reference's row applies it: XLA folds
+    ``delta * 8.0 / interval_s``, a division by a constant, into one
+    multiplication by a float32 constant (``* 3.2`` for a 2.5 s
+    interval in the compiled HLO), and so does the port."""
+    interval_s = record_every * config.dt_ms / 1000.0
+    return float(np.float32(8.0) * (np.float32(1.0) / np.float32(interval_s)))
+
+
+@functools.lru_cache(maxsize=None)
+def _edges(device: torch.device) -> torch.Tensor:
+    """The stall-digest edges as float32 on ``device`` (made once)."""
+    return torch.tensor(DEFAULT_EDGES, dtype=torch.float32, device=device)
+
+
+def timeline_row_plain(config: SwarmConfig, scenario: SwarmScenario,
+                       state: SwarmState, sums: torch.Tensor,
+                       prev_sums: torch.Tensor, prev_rebuffer: torch.Tensor,
+                       out: torch.Tensor, sample: int,
+                       record_every: int) -> None:
+    """Plain TK5 on lanes (reference ``_timeline_row`` :1559-1627, no
+    cohort columns): writes ``out[:, sample, :]``, the row of
+    :func:`~swarm_sim.timeline_columns`, from the state, this step's
+    ``sums`` (``lane_sums``), and the previous sample's ``prev_sums``
+    and ``prev_rebuffer``, which it then updates in place."""
+    t = state.t_s
+    cdn, p2p = sums[:, 0], sums[:, 1]
+    offload = p2p / torch.clamp_min(p2p + cdn, 1.0)
+    rebuffer = _rebuffer_plain(state.rebuffer_s, scenario.join_s,
+                               scenario.leave_s, t)
+    k = rate_factor(config, record_every)
+    cdn_rate = (cdn - prev_sums[:, 0]) * k
+    p2p_rate = (p2p - prev_sums[:, 1]) * k
+    stalled = torch.sum((state.rebuffer_s > prev_rebuffer).to(torch.float32),
+                        dim=-1)
+    present = _present(scenario, t).unsqueeze(-1)
+    lvl = torch.arange(config.n_levels, dtype=state.level.dtype,
+                       device=t.device)
+    parts = [torch.stack([t, offload, rebuffer, cdn_rate, p2p_rate, stalled],
+                         dim=-1),
+             torch.sum((present & (state.level.unsqueeze(-1) == lvl))
+                       .to(torch.float32), dim=-2)]
+    if config.stall_digest:
+        edges = _edges(t.device)
+        interval_ms = (state.rebuffer_s - prev_rebuffer) * 1000.0
+        idx = torch.searchsorted(edges, interval_ms, side="left")
+        bins = torch.arange(edges.shape[0] + 1, device=t.device)
+        parts.append(torch.sum(((idx.unsqueeze(-1) == bins) & present)
+                               .to(torch.float32), dim=-2))
+    out[:, sample] = torch.cat(parts, dim=-1)
+    prev_sums.copy_(sums)
+    prev_rebuffer.copy_(state.rebuffer_s)
 
 
 # ---- the kernels ----------------------------------------------------------
@@ -417,7 +555,8 @@ class _SelectArgs(ctypes.Structure):
         "level", "dl_seg", "dl_level", "dl_done_bytes", "dl_total_bytes",
         "dl_elapsed_ms", "dl_budget_ms", "dl_holder_off", "slot_flags",
         "req")] + [
-        ("n_peers", ctypes.c_longlong), ("n_words", ctypes.c_int),
+        ("n_peers", ctypes.c_longlong), ("n_lanes", ctypes.c_int),
+        ("n_words", ctypes.c_int),
         ("n_segments", ctypes.c_int), ("n_levels", ctypes.c_int),
         ("n_offs", ctypes.c_int)] + [
         (name, ctypes.c_float) for name in (
@@ -430,7 +569,8 @@ class _SelectArgs(ctypes.Structure):
 class _AdmitArgs(ctypes.Structure):
     _fields_ = [(name, _P) for name in (
         "req", "uplink_bps", "uplink_efficiency", "service", "adm_mask")] + [
-        ("n_peers", ctypes.c_longlong), ("n_offs", ctypes.c_int),
+        ("n_peers", ctypes.c_longlong), ("n_lanes", ctypes.c_int),
+        ("n_offs", ctypes.c_int),
         ("cap", ctypes.c_float), ("offs", ctypes.c_int * MAX_OFFS)]
 
 
@@ -449,7 +589,8 @@ class _UpdateArgs(ctypes.Structure):
         "rebuffer_s", "fast_estimate", "fast_weight", "slow_estimate",
         "slow_weight", "avail", "cdn_bytes", "p2p_bytes", "dl_flags",
         "dl_done_bytes", "dl_elapsed_ms", "dl_cooldown_ms")] + [
-        ("n_peers", ctypes.c_longlong), ("n_words", ctypes.c_int),
+        ("n_peers", ctypes.c_longlong), ("n_lanes", ctypes.c_int),
+        ("n_words", ctypes.c_int),
         ("n_segments", ctypes.c_int), ("n_offs", ctypes.c_int)] + [
         (name, ctypes.c_float) for name in (
             "seg_duration_s", "end_s", "dt_ms", "dt_s", "p2p_bps",
@@ -457,45 +598,80 @@ class _UpdateArgs(ctypes.Structure):
         ("offs", ctypes.c_int * MAX_OFFS)]
 
 
-_ENTRY = {"elig_select": ("swarm_elig_select", _SelectArgs),
-          "admit_service": ("swarm_admit_service", _AdmitArgs),
-          "peer_update": ("swarm_peer_update", _UpdateArgs),
-          "select_admit": ("swarm_select_admit", _SelectAdmitArgs)}
+class _LaneSumsArgs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in (
+        "p2p_bytes", "cdn_bytes", "partials", "counters", "sums",
+        "series")] + [
+        ("n_peers", ctypes.c_longlong), ("series_stride", ctypes.c_longlong),
+        ("n_lanes", ctypes.c_int), ("n_blocks", ctypes.c_int),
+        ("column", ctypes.c_int)]
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    """Build (once, on first use) and bind the kernels' library, and
+class _TimelineArgs(ctypes.Structure):
+    _fields_ = [(name, _P) for name in (
+        "t_s", "join_s", "leave_s", "rebuffer_s", "prev_rebuffer", "level",
+        "sums", "prev_sums", "edges", "partials", "counters", "row")] + [
+        ("n_peers", ctypes.c_longlong), ("row_stride", ctypes.c_longlong),
+        ("n_lanes", ctypes.c_int), ("n_blocks", ctypes.c_int),
+        ("n_levels", ctypes.c_int), ("n_edges", ctypes.c_int),
+        ("rate", ctypes.c_float)]
+
+
+#: kernel -> (source, C entry point, argument struct)
+_ENTRY = {"elig_select": (SOURCE, "swarm_elig_select", _SelectArgs),
+          "admit_service": (SOURCE, "swarm_admit_service", _AdmitArgs),
+          "peer_update": (SOURCE, "swarm_peer_update", _UpdateArgs),
+          "select_admit": (SOURCE, "swarm_select_admit", _SelectAdmitArgs),
+          "lane_sums": (REDUCE_SOURCE, "reduce_lane_sums", _LaneSumsArgs),
+          "timeline_row": (REDUCE_SOURCE, "reduce_timeline_row",
+                           _TimelineArgs)}
+#: each source's macros and its entry point that reports its structs'
+#: sizes, in ``_ENTRY`` order
+_SOURCES = {SOURCE: (DEFINES, "swarm_args_sizes"),
+            REDUCE_SOURCE: ((), "reduce_args_sizes")}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(source: str) -> ctypes.CDLL:
+    """Build (once, on first use) and bind one source's library, and
     check the ctypes mirrors against the C structs' sizes."""
     from . import _build
-    lib = _build.load(SOURCE, DEFINES)
-    for fn, _args in _ENTRY.values():
+    defines, sizes_fn = _SOURCES[source]
+    lib = _build.load(source, defines)
+    entries = [(fn, args) for src, fn, args in _ENTRY.values()
+               if src == source]
+    for fn, _args in entries:
         f = getattr(lib, fn)
         f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         f.restype = ctypes.c_int
-    lib.swarm_args_sizes.argtypes = [ctypes.c_void_p]
-    lib.swarm_args_sizes.restype = ctypes.c_int
-    sizes = (ctypes.c_longlong * len(_ENTRY))()
-    lib.swarm_args_sizes(sizes)
-    want = [ctypes.sizeof(a) for _fn, a in _ENTRY.values()]
+    get_sizes = getattr(lib, sizes_fn)
+    get_sizes.argtypes = [ctypes.c_void_p]
+    get_sizes.restype = ctypes.c_int
+    sizes = (ctypes.c_longlong * len(entries))()
+    get_sizes(sizes)
+    want = [ctypes.sizeof(a) for _fn, a in entries]
     if list(sizes) != want:
-        raise RuntimeError(f"kernel argument structs disagree with their "
-                           f"ctypes mirrors: C {list(sizes)} vs {want}")
+        raise RuntimeError(f"{source}: kernel argument structs disagree "
+                           f"with their ctypes mirrors: C {list(sizes)} vs "
+                           f"{want}")
     return lib
 
 
 def build_kernels(force: bool = False) -> dict:
-    """Build (anew with ``force``) and bind the kernels now; they build
-    on first launch otherwise.  Returns the build's report
-    (``_build.build``)."""
+    """Build (anew with ``force``) and bind every source now, one
+    ``nvcc`` each, started together; they build on first launch
+    otherwise.  Returns the build's report (``_build.build``)."""
     from . import _build
-    info = _build.build({SOURCE: DEFINES}, force=force)
-    _lib()
+    info = _build.build({src: d for src, (d, _fn) in _SOURCES.items()},
+                        force=force)
+    for src in _SOURCES:
+        _lib(src)
     return info
 
 
 def _launch(name: str, args: ctypes.Structure, device) -> None:
-    fn = getattr(_lib(), _ENTRY[name][0])
+    source, fn_name, _args = _ENTRY[name]
+    fn = getattr(_lib(source), fn_name)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
@@ -531,11 +707,11 @@ _SCALARS = frozenset(("urgent_margin_s", "p2p_budget_fraction",
                       "p2p_setup_ms", "uplink_efficiency"))
 
 
-def _scenario_ptrs(scenario: SwarmScenario, names, P, L, dev) -> dict:
+def _scenario_ptrs(scenario: SwarmScenario, names, B, P, L, dev) -> dict:
     out = {}
     for name in names:
-        shape = (() if name in _SCALARS
-                 else (L,) if name == "bitrates" else (P,))
+        shape = ((B,) if name in _SCALARS
+                 else (B, L) if name == "bitrates" else (B, P))
         dtype = _I if name == "abr_cap_level" else _F
         out[name] = _check(name, getattr(scenario, name), dtype, shape, dev)
     return out
@@ -547,31 +723,32 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
     checked, with fresh ``slot_flags`` and ``req`` outputs."""
     g = geometry(config)
     P = g.P
-    slot_flags = torch.empty((P,), dtype=_I, device=dev)
-    req = torch.empty((P,), dtype=_I, device=dev)
+    B = state.t_s.shape[0]
+    slot_flags = torch.empty((B, P), dtype=_I, device=dev)
+    req = torch.empty((B, P), dtype=_I, device=dev)
     ptrs = _scenario_ptrs(scenario, (
         "join_s", "leave_s", "p2p_ok", "abr_cap_level",
         "urgent_margin_off_s", "bitrates", "urgent_margin_s",
         "p2p_budget_fraction", "p2p_budget_cap_ms", "p2p_budget_floor_ms"),
-        P, g.L, dev)
-    ptrs["t_s"] = _check("t_s", state.t_s, _F, (), dev)
+        B, P, g.L, dev)
+    ptrs["t_s"] = _check("t_s", state.t_s, _F, (B,), dev)
     for name in ("playhead_s", "buffer_s"):
-        ptrs[name] = _check(name, getattr(state, name), _F, (P,), dev)
+        ptrs[name] = _check(name, getattr(state, name), _F, (B, P), dev)
     for name, t in state.ewma._asdict().items():
-        ptrs[name] = _check(name, t, _F, (P,), dev)
-    ptrs["avail"] = _check("avail", state.avail, _I, (P, g.W), dev)
-    ptrs["dl_flags"] = _check("dl_flags", state.dl_flags, _I, (P,), dev)
-    ptrs["level"] = _check("level", state.level, _I, (P,), dev)
+        ptrs[name] = _check(name, t, _F, (B, P), dev)
+    ptrs["avail"] = _check("avail", state.avail, _I, (B, P, g.W), dev)
+    ptrs["dl_flags"] = _check("dl_flags", state.dl_flags, _I, (B, P), dev)
+    ptrs["level"] = _check("level", state.level, _I, (B, P), dev)
     for name in ("dl_attempts", "dl_seg", "dl_level", "dl_holder_off"):
-        ptrs[name] = _check(name, getattr(state, name), _I, (P, 1), dev)
+        ptrs[name] = _check(name, getattr(state, name), _I, (B, P, 1), dev)
     for name in ("dl_done_bytes", "dl_total_bytes", "dl_elapsed_ms",
                  "dl_budget_ms"):
-        ptrs[name] = _check(name, getattr(state, name), _F, (P, 1), dev)
+        ptrs[name] = _check(name, getattr(state, name), _F, (B, P, 1), dev)
     ptrs["slot_flags"] = slot_flags.data_ptr()
     ptrs["req"] = req.data_ptr()
     args = _SelectArgs(
-        **ptrs, n_peers=P, n_words=g.W, n_segments=g.S, n_levels=g.L,
-        n_offs=len(g.offs), seg_duration_s=g.seg,
+        **ptrs, n_peers=P, n_lanes=B, n_words=g.W, n_segments=g.S,
+        n_levels=g.L, n_offs=len(g.offs), seg_duration_s=g.seg,
         inv_seg_duration_s=float(np.float32(1.0) / np.float32(g.seg)),
         max_buffer_s=config.max_buffer_s, end_s=g.end_s,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
@@ -580,6 +757,7 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
     return args, slot_flags, req
 
 
+@_lane_api
 def elig_select(config: SwarmConfig, scenario: SwarmScenario,
                 state: SwarmState):
     """TK1.  Same signature and outputs as :func:`elig_select_plain`."""
@@ -594,21 +772,23 @@ def elig_select(config: SwarmConfig, scenario: SwarmScenario,
 def _select_admit_args(config: SwarmConfig, scenario: SwarmScenario,
                        state: SwarmState, dev):
     g = geometry(config)
+    B = state.t_s.shape[0]
     sel, slot_flags, req = _select_args(config, scenario, state, dev)
-    service = torch.empty((g.P,), dtype=_F, device=dev)
-    adm = torch.empty((g.P,), dtype=_I, device=dev)
+    service = torch.empty((B, g.P), dtype=_F, device=dev)
+    adm = torch.empty((B, g.P), dtype=_I, device=dev)
     args = _SelectAdmitArgs(
         sel=sel,
-        uplink_bps=_check("uplink_bps", scenario.uplink_bps, _F, (g.P,),
+        uplink_bps=_check("uplink_bps", scenario.uplink_bps, _F, (B, g.P),
                           dev),
         uplink_efficiency=_check("uplink_efficiency",
-                                 scenario.uplink_efficiency, _F, (), dev),
+                                 scenario.uplink_efficiency, _F, (B,), dev),
         service=service.data_ptr(), adm_mask=adm.data_ptr(),
         cap=float(g.cap), o_max=g.o_hi, o_min=g.o_lo,
         soffs=_offs_array(g.offs))
     return args, (slot_flags, req, service, adm)
 
 
+@_lane_api
 def select_admit(config: SwarmConfig, scenario: SwarmScenario,
                  state: SwarmState):
     """TK1 and TK2 of one step: same signature and outputs as
@@ -625,6 +805,7 @@ def select_admit(config: SwarmConfig, scenario: SwarmScenario,
     return out
 
 
+@_lane_api
 def admit_service(config: SwarmConfig, scenario: SwarmScenario,
                   req: torch.Tensor):
     """TK2.  Same signature and outputs as :func:`admit_service_plain`."""
@@ -633,20 +814,23 @@ def admit_service(config: SwarmConfig, scenario: SwarmScenario,
         return admit_service_plain(config, scenario, req)
     g = geometry(config)
     P = g.P
-    service = torch.empty((P,), dtype=_F, device=dev)
-    adm = torch.empty((P,), dtype=_I, device=dev)
+    B = req.shape[0]
+    service = torch.empty((B, P), dtype=_F, device=dev)
+    adm = torch.empty((B, P), dtype=_I, device=dev)
     args = _AdmitArgs(
-        req=_check("req", req, _I, (P,), dev),
-        uplink_bps=_check("uplink_bps", scenario.uplink_bps, _F, (P,), dev),
+        req=_check("req", req, _I, (B, P), dev),
+        uplink_bps=_check("uplink_bps", scenario.uplink_bps, _F, (B, P),
+                          dev),
         uplink_efficiency=_check("uplink_efficiency",
-                                 scenario.uplink_efficiency, _F, (), dev),
+                                 scenario.uplink_efficiency, _F, (B,), dev),
         service=service.data_ptr(), adm_mask=adm.data_ptr(),
-        n_peers=P, n_offs=len(g.offs), cap=float(g.cap),
+        n_peers=P, n_lanes=B, n_offs=len(g.offs), cap=float(g.cap),
         offs=_offs_array(g.offs_mod))
     _launch("admit_service", args, dev)
     return service, adm
 
 
+@_lane_api
 def peer_update(config: SwarmConfig, scenario: SwarmScenario,
                 state: SwarmState, slot_flags: torch.Tensor,
                 req: torch.Tensor, service: torch.Tensor,
@@ -658,29 +842,164 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
                                  service, adm)
     g = geometry(config)
     P = g.P
+    B = state.t_s.shape[0]
     ptrs = _scenario_ptrs(scenario, ("join_s", "leave_s", "cdn_bps",
-                                     "p2p_setup_ms"), P, g.L, dev)
-    ptrs["t_s"] = _check("t_s", state.t_s, _F, (), dev)
-    ptrs["slot_flags"] = _check("slot_flags", slot_flags, _I, (P,), dev)
-    ptrs["req"] = _check("req", req, _I, (P,), dev)
-    ptrs["service"] = _check("service", service, _F, (P,), dev)
-    ptrs["adm_mask"] = _check("adm", adm, _I, (P,), dev)
+                                     "p2p_setup_ms"), B, P, g.L, dev)
+    ptrs["t_s"] = _check("t_s", state.t_s, _F, (B,), dev)
+    ptrs["slot_flags"] = _check("slot_flags", slot_flags, _I, (B, P), dev)
+    ptrs["req"] = _check("req", req, _I, (B, P), dev)
+    ptrs["service"] = _check("service", service, _F, (B, P), dev)
+    ptrs["adm_mask"] = _check("adm", adm, _I, (B, P), dev)
     for name in ("playhead_s", "buffer_s", "rebuffer_s", "cdn_bytes",
                  "p2p_bytes"):
-        ptrs[name] = _check(name, getattr(state, name), _F, (P,), dev)
+        ptrs[name] = _check(name, getattr(state, name), _F, (B, P), dev)
     for name, t in state.ewma._asdict().items():
-        ptrs[name] = _check(name, t, _F, (P,), dev)
-    ptrs["avail"] = _check("avail", state.avail, _I, (P, g.W), dev)
-    ptrs["dl_flags"] = _check("dl_flags", state.dl_flags, _I, (P,), dev)
+        ptrs[name] = _check(name, t, _F, (B, P), dev)
+    ptrs["avail"] = _check("avail", state.avail, _I, (B, P, g.W), dev)
+    ptrs["dl_flags"] = _check("dl_flags", state.dl_flags, _I, (B, P), dev)
     for name in ("dl_seg", "dl_level"):
-        ptrs[name] = _check(name, getattr(state, name), _I, (P, 1), dev)
+        ptrs[name] = _check(name, getattr(state, name), _I, (B, P, 1), dev)
     for name in ("dl_total_bytes", "dl_budget_ms", "dl_done_bytes",
                  "dl_elapsed_ms", "dl_cooldown_ms"):
-        ptrs[name] = _check(name, getattr(state, name), _F, (P, 1), dev)
+        ptrs[name] = _check(name, getattr(state, name), _F, (B, P, 1), dev)
     args = _UpdateArgs(
-        **ptrs, n_peers=P, n_words=g.W, n_segments=g.S,
+        **ptrs, n_peers=P, n_lanes=B, n_words=g.W, n_segments=g.S,
         n_offs=len(g.offs), seg_duration_s=g.seg, end_s=g.end_s,
         dt_ms=g.dt_ms, dt_s=g.dt_s, p2p_bps=config.p2p_bps,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         min_sample_ms=MIN_SAMPLE_DURATION_MS, offs=_offs_array(g.offs_mod))
     _launch("peer_update", args, dev)
+
+
+# ---- the reductions ---------------------------------------------------------
+
+#: per (device, kernel): zeroed u32 arrival counters of the last-block
+#: reductions, one per lane.  The last block of each lane sets its
+#: counter back to 0, so the buffer is zero between launches and is
+#: made once (grown when a batch outgrows it).
+_COUNTERS: Dict[Tuple[torch.device, str], torch.Tensor] = {}
+
+
+def _counters(dev: torch.device, name: str, n_lanes: int) -> int:
+    buf = _COUNTERS.get((dev, name))
+    if buf is None or buf.numel() < n_lanes:
+        buf = torch.zeros((max(n_lanes, 64),), dtype=_I, device=dev)
+        _COUNTERS[(dev, name)] = buf
+    return buf.data_ptr()
+
+
+def lane_sums(state: SwarmState, series=None, column: int = 0):
+    """TK4 on lanes: each lane's ``cdn_bytes`` and ``p2p_bytes`` sums as
+    a ``[B, 2]`` (cdn, p2p) tensor, and with ``series`` (a ``[B, n]``
+    float32 tensor) the offload ratio written into ``series[:,
+    column]``.  Same outputs as :func:`lane_sums_plain`, to the sums'
+    tolerance."""
+    dev = state.p2p_bytes.device
+    if dev.type != "cuda":
+        return lane_sums_plain(state, series, column)
+    B, P = state.p2p_bytes.shape
+    if P == 0:
+        raise ValueError("lane_sums needs at least one peer")
+    stride = 0
+    if series is not None:
+        if (series.device != dev or series.dtype != _F or series.dim() != 2
+                or series.shape[0] != B or series.stride(1) != 1
+                or not 0 <= column < series.shape[1]):
+            raise ValueError(f"series must be a float32 [{B}, n] tensor on "
+                             f"{dev} with unit column stride holding "
+                             f"column {column}")
+        stride = series.stride(0)
+    nb = reduce_blocks(P)
+    sums = torch.empty((B, 2), dtype=_F, device=dev)
+    partials = torch.empty((B, nb, 2), dtype=_F, device=dev)
+    args = _LaneSumsArgs(
+        p2p_bytes=_check("p2p_bytes", state.p2p_bytes, _F, (B, P), dev),
+        cdn_bytes=_check("cdn_bytes", state.cdn_bytes, _F, (B, P), dev),
+        partials=partials.data_ptr(),
+        counters=_counters(dev, "lane_sums", B), sums=sums.data_ptr(),
+        series=None if series is None else series.data_ptr(),
+        n_peers=P, series_stride=stride, n_lanes=B, n_blocks=nb,
+        column=column)
+    _launch("lane_sums", args, dev)
+    return sums
+
+
+def _timeline_args(dev, t_s, join, leave, reb, *, n_levels=0, n_edges=0,
+                   row, row_stride, rate=0.0, prev_rebuffer=None,
+                   level=None, sums=None, prev_sums=None):
+    """TK5's arguments, checked, and its partials buffer, which the
+    caller holds until the launch; without ``prev_rebuffer`` the kernel
+    computes the rebuffer ratio alone."""
+    B, P = reb.shape
+    if P == 0:
+        raise ValueError("timeline_row needs at least one peer")
+    if n_levels > MAX_LEVELS or n_edges > MAX_EDGES:
+        raise ValueError(f"the timeline kernel takes at most {MAX_LEVELS} "
+                         f"levels and {MAX_EDGES} digest edges")
+    nb = reduce_blocks(P)
+    n_quant = 3 + n_levels + (n_edges + 1 if n_edges else 0)
+    partials = torch.empty((B, nb, n_quant if prev_rebuffer is not None
+                            else 2), dtype=_F, device=dev)
+
+    def opt(name, t, dtype, shape):
+        return None if t is None else _check(name, t, dtype, shape, dev)
+    args = _TimelineArgs(
+        t_s=_check("t_s", t_s, _F, (B,), dev),
+        join_s=_check("join_s", join, _F, (B, P), dev),
+        leave_s=_check("leave_s", leave, _F, (B, P), dev),
+        rebuffer_s=_check("rebuffer_s", reb, _F, (B, P), dev),
+        prev_rebuffer=opt("prev_rebuffer", prev_rebuffer, _F, (B, P)),
+        level=opt("level", level, _I, (B, P)),
+        sums=opt("sums", sums, _F, (B, 2)),
+        prev_sums=opt("prev_sums", prev_sums, _F, (B, 2)),
+        edges=_edges(dev).data_ptr() if n_edges else None,
+        partials=partials.data_ptr(),
+        counters=_counters(dev, "timeline_row", B), row=row,
+        n_peers=P, row_stride=row_stride, n_lanes=B, n_blocks=nb,
+        n_levels=n_levels, n_edges=n_edges, rate=rate)
+    return args, partials
+
+
+def timeline_row(config: SwarmConfig, scenario: SwarmScenario,
+                 state: SwarmState, sums: torch.Tensor,
+                 prev_sums: torch.Tensor, prev_rebuffer: torch.Tensor,
+                 out: torch.Tensor, sample: int, record_every: int) -> None:
+    """TK5 on lanes.  Same signature and effect as
+    :func:`timeline_row_plain`: writes ``out[:, sample, :]`` and updates
+    ``prev_sums`` and ``prev_rebuffer`` in place."""
+    dev = state.rebuffer_s.device
+    if dev.type != "cuda":
+        return timeline_row_plain(config, scenario, state, sums, prev_sums,
+                                  prev_rebuffer, out, sample, record_every)
+    B, P = state.rebuffer_s.shape
+    n_edges = len(DEFAULT_EDGES) if config.stall_digest else 0
+    M = 6 + config.n_levels + (n_edges + 1 if n_edges else 0)
+    if (out.device != dev or out.dtype != _F or out.dim() != 3
+            or out.shape[0] != B or out.shape[2] != M
+            or not out.is_contiguous() or not 0 <= sample < out.shape[1]):
+        raise ValueError(f"out must be a contiguous float32 [{B}, n, {M}] "
+                         f"tensor on {dev} holding sample {sample}")
+    row = out.data_ptr() + sample * M * out.element_size()
+    args, _partials = _timeline_args(
+        dev, state.t_s, scenario.join_s, scenario.leave_s, state.rebuffer_s,
+        n_levels=config.n_levels, n_edges=n_edges, row=row,
+        row_stride=out.stride(0), rate=rate_factor(config, record_every),
+        prev_rebuffer=prev_rebuffer, level=state.level, sums=sums,
+        prev_sums=prev_sums)
+    _launch("timeline_row", args, dev)
+
+
+def rebuffer_ratio_lanes(reb: torch.Tensor, join: torch.Tensor,
+                         leave: torch.Tensor, t: torch.Tensor):
+    """Per-lane ``Σ reb / max(Σ clip(min(leave, t) - join, 0), 1e-9)``
+    (``[B]``) for ``[B, P]`` arrays and ``[B]`` clocks: on the card TK5,
+    which sums the two as it does for the timeline's rebuffer column, so
+    the two agree to the bit; on the CPU the plain sums."""
+    dev = reb.device
+    if dev.type != "cuda":
+        return _rebuffer_plain(reb, join, leave, t)
+    out = torch.empty((reb.shape[0],), dtype=_F, device=dev)
+    args, _partials = _timeline_args(dev, t, join, leave, reb,
+                                     row=out.data_ptr(), row_stride=1)
+    _launch("timeline_row", args, dev)
+    return out

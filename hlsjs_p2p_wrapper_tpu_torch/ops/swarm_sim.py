@@ -1,4 +1,4 @@
-"""Batched swarm+ABR simulator on tensors — slice 1 of the port.
+"""Batched swarm+ABR simulator on tensors.
 
 Port of the reference's ``ops/swarm_sim.py`` for its main path: the
 circulant VOD step that ``bench.py``'s headline and ``tools/sweep.py``'s
@@ -12,7 +12,19 @@ eligibility, holder selection and admission with uplink share
 hand-written kernels (one launch each on the main path); on the CPU
 each is its plain PyTorch version.
 
-What this slice covers, and what raises instead:
+Scenario lanes.  The reference ``vmap``s its scan over a stacked
+scenario axis (:func:`run_swarm_batch`); the port writes that axis out.
+A stacked state has ``t_s`` of shape ``[B]``, ``[B, P]`` and
+``[B, P, C]`` fields and ``avail`` of shape ``[B, P, W]``; a stacked
+scenario has its policy scalars as ``[B]`` and ``bitrates`` as
+``[B, L]`` (:func:`stack_pytrees`, :func:`lane`).  The step runs on
+lanes only: a single scenario is one lane (:func:`as_lanes`, views
+that share its storage), so ``swarm_step`` and ``run_swarm`` go through
+the batched path at ``B = 1``.  The offload series and the metrics
+timeline (``record_every``) are written per lane by two reduction
+kernels.
+
+What this port covers, and what raises instead:
 
 - circulant offsets only (``neighbors=None``); the general ``[P, K]``
   path is queue 1 item 9a;
@@ -22,7 +34,8 @@ What this slice covers, and what raises instead:
   item 9e;
 - ``max_total_serves > 0``; the uncapped fair share (``cap == 0``) is
   item 9a's admission work;
-- ``record_every == 0``; timelines are item 5.
+- timelines without the per-cohort columns (``n_cohorts == 0``); the
+  cohort columns come with the population fields, item 9d.
 
 Bit-packed words (``avail``, ``dl_flags``) are stored as ``int32``
 tensors holding the u32 bit pattern: PyTorch's ``uint32`` has no
@@ -44,7 +57,8 @@ import torch
 from ..core.abr import (BANDWIDTH_SAFETY, DEFAULT_FAST_HALF_LIFE_S,
                         DEFAULT_SLOW_HALF_LIFE_S)
 from ..core.device import resolve_device
-from .ewma import EwmaState, init_state
+from ..engine.digest import DEFAULT_EDGES
+from .ewma import EwmaState
 
 NEVER_S = 1e18  # "leave" time of a peer that never departs
 
@@ -53,6 +67,16 @@ NEVER_S = 1e18  # "leave" time of a peer that never departs
 UNREACHABLE_BITRATE = 1e18
 
 U32_MASK = 0xFFFFFFFF
+
+#: fraction of the device's free memory the chunk autotuner commits
+#: to one dispatch's ``[B, P, …]`` lanes (the reference's value)
+AUTOTUNE_MEMORY_FRACTION = 0.5
+#: budget where the device reports no free memory (the CPU): a
+#: conservative host-RAM allowance
+AUTOTUNE_FALLBACK_BYTES = 4 << 30
+#: autotuner ceiling: lanes beyond this stop amortizing per-dispatch
+#: overhead but keep growing the time to the first row
+MAX_AUTOTUNE_CHUNK = 64
 
 
 class SwarmConfig(NamedTuple):
@@ -176,6 +200,45 @@ def _bit_table(device: torch.device) -> torch.Tensor:
     ).to(device)
 
 
+# ---- lanes: the stacked scenario axis --------------------------------------
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of one or more like-shaped state or
+    scenario tuples (the ``ewma`` field nested), rebuilt as the first
+    one's type."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+def stack_pytrees(items):
+    """Stack same-shaped states or scenarios along a new leading lane
+    axis (copies), the host-side assembly step for
+    :func:`run_swarm_batch`."""
+    items = list(items)
+    if not items:
+        raise ValueError("cannot stack an empty scenario batch")
+    return tree_map(lambda *xs: torch.stack(xs), *items)
+
+
+def lane(tree, b: int):
+    """Lane ``b`` of a stacked state or scenario, as views."""
+    return tree_map(lambda x: x[b], tree)
+
+
+def as_lanes(tree):
+    """A single state or scenario as one lane: views with a leading
+    axis of 1 that share its storage, so an in-place step of the lanes
+    updates it."""
+    return tree_map(lambda x: x.unsqueeze(0), tree)
+
+
+def is_lanes(state: SwarmState) -> bool:
+    """Whether ``state`` is stacked (``t_s`` of shape ``[B]``) rather
+    than a single scenario's (``t_s`` 0-dim)."""
+    return state.t_s.dim() == 1
+
+
 # ---- scenario and state -------------------------------------------------
 
 def make_scenario(config: SwarmConfig, bitrates, neighbors, cdn_bps,
@@ -218,7 +281,11 @@ def make_scenario(config: SwarmConfig, bitrates, neighbors, cdn_bps,
     def per_peer(value, fill, conv=f32):
         if value is None:
             return conv(np.full((P,), fill))
-        out = conv(_np(value))
+        if torch.is_tensor(value):   # no round trip through the host
+            out = value.to(device=dev, dtype=(torch.int32 if conv is i32
+                                              else torch.float32))
+        else:
+            out = conv(_np(value))
         if tuple(out.shape) != (P,):
             raise ValueError(f"per-peer array of shape {tuple(out.shape)},"
                              f" expected ({P},)")
@@ -311,12 +378,15 @@ def unpack_avail(state: SwarmState, config: SwarmConfig) -> torch.Tensor:
 
 
 def init_swarm(config: SwarmConfig, n_neighbors: Optional[int] = None,
-               device=None) -> SwarmState:
-    """Zero state on ``device``.  Only ``"adaptive"`` carries a
-    non-empty per-edge penalty field, and this slice does not run it."""
+               device=None, batch: Optional[int] = None) -> SwarmState:
+    """Zero state on ``device``; with ``batch``, ``batch`` stacked lanes
+    of it (``[B, …]`` zeros, built directly).  Only ``"adaptive"``
+    carries a non-empty per-edge penalty field, and the port does not
+    run it yet."""
     dev = resolve_device(device)
     P = config.n_peers
     C = config.max_concurrency
+    lead = () if batch is None else (batch,)
     if config.holder_selection != "adaptive":
         n_neighbors = 0
     elif n_neighbors is None:
@@ -328,14 +398,14 @@ def init_swarm(config: SwarmConfig, n_neighbors: Optional[int] = None,
                          f"per slot in one u32)")
 
     def f(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+        return torch.zeros(lead + shape, dtype=torch.float32, device=dev)
 
     def i(*shape):
-        return torch.zeros(shape, dtype=torch.int32, device=dev)
+        return torch.zeros(lead + shape, dtype=torch.int32, device=dev)
 
     return SwarmState(
         t_s=f(), playhead_s=f(P), buffer_s=f(P), rebuffer_s=f(P),
-        level=i(P), ewma=init_state(P, device=dev),
+        level=i(P), ewma=EwmaState(f(P), f(P), f(P), f(P)),
         avail=i(P, packed_words(config)), cdn_bytes=f(P), p2p_bytes=f(P),
         dl_flags=i(P), dl_seg=i(P, C), dl_level=i(P, C),
         dl_done_bytes=f(P, C), dl_total_bytes=f(P, C),
@@ -346,9 +416,7 @@ def init_swarm(config: SwarmConfig, n_neighbors: Optional[int] = None,
 
 def clone_state(state: SwarmState) -> SwarmState:
     """A deep copy (the step updates its state in place)."""
-    return SwarmState(*(EwmaState(*(t.clone() for t in f))
-                        if isinstance(f, EwmaState) else f.clone()
-                        for f in state))
+    return tree_map(torch.clone, state)
 
 
 # ---- eligibility helpers ----------------------------------------------------
@@ -356,12 +424,14 @@ def clone_state(state: SwarmState) -> SwarmState:
 def _abr_pick(estimate_bps: torch.Tensor,
               bitrates: torch.Tensor) -> torch.Tensor:
     """Highest level whose bitrate fits under the safety-scaled
-    estimate, else 0 (core/abr.py next_level)."""
-    fits = bitrates[None, :] <= (estimate_bps * BANDWIDTH_SAFETY)[:, None]
-    idx = torch.arange(bitrates.shape[0], dtype=torch.int32,
+    estimate, else 0 (core/abr.py next_level).  ``estimate_bps`` is
+    ``[..., P]`` and ``bitrates`` the matching ``[..., L]`` ladder."""
+    fits = (bitrates.unsqueeze(-2)
+            <= (estimate_bps * BANDWIDTH_SAFETY).unsqueeze(-1))
+    idx = torch.arange(bitrates.shape[-1], dtype=torch.int32,
                        device=bitrates.device)
     zero = torch.zeros((), dtype=torch.int32, device=bitrates.device)
-    return torch.amax(torch.where(fits, idx[None, :], zero), dim=1)
+    return torch.amax(torch.where(fits, idx, zero), dim=-1)
 
 
 def resolve_eligibility(config: SwarmConfig,
@@ -379,20 +449,23 @@ def resolve_eligibility(config: SwarmConfig,
 
 
 def bit_mask_words(gi_flat: torch.Tensor, n_words: int) -> torch.Tensor:
-    """One-hot ``[P, W]`` mask (int32 bit patterns) selecting each
+    """One-hot ``[..., P, W]`` mask (int32 bit patterns) selecting each
     peer's flat (level, seg) bit in the packed map — the cache-insert
     position and the "kpass" AND operand."""
     wcol = torch.arange(n_words, dtype=torch.int32, device=gi_flat.device)
     word_idx = gi_flat >> 5
     bitmask = _bit_table(gi_flat.device)[(gi_flat & 31).long()]
     zero = torch.zeros((), dtype=torch.int32, device=gi_flat.device)
-    return torch.where(wcol[None, :] == word_idx[:, None],
-                       bitmask[:, None], zero)
+    return torch.where(wcol == word_idx.unsqueeze(-1),
+                       bitmask.unsqueeze(-1), zero)
 
 
 def circulant_eligibility(avail_p: torch.Tensor, present: torch.Tensor,
                           offs, gi_flats, *, impl: str = "stencil"):
-    """Circulant-path eligibility for every transfer slot at once.
+    """Circulant-path eligibility for every transfer slot at once, on
+    one scenario (``avail_p`` ``[P, W]``) or on lanes (``[B, P, W]``):
+    every roll is along the peer axis, so a lane never sees another's
+    peers.
 
     ``gi_flats`` lists each slot's ``[P]`` flat (level·S + seg) target
     bit; returns one ``(elig, n_holders, own)`` triple per slot:
@@ -405,22 +478,21 @@ def circulant_eligibility(avail_p: torch.Tensor, present: torch.Tensor,
     bit tests; ``impl="kpass"`` rolls the presence-masked map once per
     offset.  Bit-identical by construction; both are held to the
     reference's NumPy oracle by the tests."""
-    P, W = avail_p.shape
     dev = avail_p.device
-    zeros = torch.zeros((P,), dtype=torch.float32, device=dev)
+    zeros = torch.zeros(present.shape, dtype=torch.float32, device=dev)
     table = _bit_table(dev)
     bitmasks = [table[(gf & 31).long()] for gf in gi_flats]
     if impl == "kpass":
-        AP = torch.where(present[:, None], avail_p,
+        AP = torch.where(present.unsqueeze(-1), avail_p,
                          torch.zeros((), dtype=avail_p.dtype, device=dev))
         out = []
         for gf in gi_flats:
-            Wm = bit_mask_words(gf, W)
-            elig = [torch.sum((torch.roll(AP, -o, 0) & Wm) != 0, dim=1,
+            Wm = bit_mask_words(gf, avail_p.shape[-1])
+            elig = [torch.sum((torch.roll(AP, -o, -2) & Wm) != 0, dim=-1,
                               dtype=torch.int32).to(torch.float32)
                     for o in offs]
             n = sum(elig) if elig else zeros
-            own = torch.any((avail_p & Wm) != 0, dim=1)
+            own = torch.any((avail_p & Wm) != 0, dim=-1)
             out.append((elig, n, own))
         return out
     if impl != "stencil":
@@ -429,18 +501,18 @@ def circulant_eligibility(avail_p: torch.Tensor, present: torch.Tensor,
     for gf in gi_flats:
         wi = gf >> 5
         cols.append(wi)
-        cols.extend(torch.roll(wi, o) for o in offs)
-    wanted = torch.stack(cols, dim=1).long()             # [P, M]
-    ext = torch.gather(avail_p, 1, wanted)               # [P, M] words
-    pres_ro = {o: torch.roll(present, -o) for o in dict.fromkeys(offs)}
+        cols.extend(torch.roll(wi, o, -1) for o in offs)
+    wanted = torch.stack(cols, dim=-1).long()            # [..., P, M]
+    ext = torch.gather(avail_p, -1, wanted)              # [..., P, M] words
+    pres_ro = {o: torch.roll(present, -o, -1) for o in dict.fromkeys(offs)}
     stride = 1 + len(offs)
     out = []
     for c, bm in enumerate(bitmasks):
         base = c * stride
-        own = (ext[:, base] & bm) != 0
+        own = (ext[..., base] & bm) != 0
         elig = []
         for k, o in enumerate(offs):
-            word = torch.roll(ext[:, base + 1 + k], -o)
+            word = torch.roll(ext[..., base + 1 + k], -o, -1)
             have = (word & bm) != 0
             elig.append((have & pres_ro[o]).to(torch.float32))
         n = sum(elig) if elig else zeros
@@ -451,8 +523,8 @@ def circulant_eligibility(avail_p: torch.Tensor, present: torch.Tensor,
 # ---- the step -------------------------------------------------------------
 
 def check_slice(config: SwarmConfig) -> None:
-    """Raise for a configuration outside slice 1, naming the ROADMAP
-    item that brings it."""
+    """Raise for a configuration the port does not run yet, naming the
+    ROADMAP item that brings it."""
     if config.holder_selection not in ("adaptive", "spread", "ranked"):
         raise ValueError(f"unknown holder_selection "
                          f"{config.holder_selection!r}")
@@ -481,21 +553,22 @@ def check_slice(config: SwarmConfig) -> None:
 
 def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
                state: SwarmState) -> SwarmState:
-    """One ``dt_ms`` tick for every peer.  Two passes: eligibility,
-    holder selection, admission and service (``select_admit``), then
-    the per-peer update (``ops/swarm_kernels.py``).  On a CUDA state
-    each pass launches its kernels; on a CPU state the plain PyTorch
+    """One ``dt_ms`` tick for every peer, of one scenario or of every
+    lane of a stacked one.  Two passes: eligibility, holder selection,
+    admission and service (``select_admit``), then the per-peer update
+    (``ops/swarm_kernels.py``).  On a CUDA state each pass launches its
+    kernels over all lanes at once; on a CPU state the plain PyTorch
     versions run.
 
     The state's tensors are updated IN PLACE and the returned state
-    carries them with the clock advanced: clone a state
+    carries them with each lane's clock advanced: clone a state
     (:func:`clone_state`) to keep it."""
     from . import swarm_kernels as sk
     check_slice(config)
-    if state.holder_penalty_ms.shape[1] != 0:
+    if state.holder_penalty_ms.shape[-1] != 0:
         raise ValueError(
             f"state.holder_penalty_ms is sized for "
-            f"{state.holder_penalty_ms.shape[1]} neighbors but "
+            f"{state.holder_penalty_ms.shape[-1]} neighbors but "
             f"\"spread\" carries a zero-width field")
     flags, req, service, adm = sk.select_admit(config, scenario, state)
     sk.peer_update(config, scenario, state, flags, req, service, adm)
@@ -504,19 +577,40 @@ def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
 
 def _scan_swarm(config: SwarmConfig, scenario: SwarmScenario,
                 state: SwarmState, n_steps: int, record_every: int = 0):
-    """``n_steps`` steps as a Python loop; returns ``(final state,
-    offload series [n_steps])``.  The series is filled on the device,
-    so the loop never waits on the host.  Updates ``state`` in place."""
+    """``n_steps`` steps as a Python loop over the lanes: the shared
+    body of every entry point.  Returns ``(final state, offload series
+    [..., n_steps])``; ``record_every=N > 0`` appends the metrics
+    timeline ``[..., n_steps // N, M]`` (:func:`timeline_columns`), one
+    row at the end of each N-step interval, and trailing steps past the
+    last full interval still run.  The series and the rows are written
+    on the device by ``lane_sums`` and ``timeline_row``
+    (``ops/swarm_kernels.py``), so the loop never waits on the host.
+    Updates ``state`` in place.  A single scenario runs as one lane and
+    gets its outputs back without the lane axis."""
+    from . import swarm_kernels as sk
+    if record_every < 0:
+        raise ValueError(f"record_every must be >= 0, got {record_every}")
+    single = not is_lanes(state)
+    if single:
+        scenario, state = as_lanes(scenario), as_lanes(state)
+    B, dev = state.t_s.shape[0], state.t_s.device
+    series = torch.empty((B, n_steps), dtype=torch.float32, device=dev)
+    timeline = ()
     if record_every:
-        raise NotImplementedError(
-            "record_every > 0 (metrics timelines) is not ported yet "
-            "(ROADMAP queue 1 item 5)")
-    series = torch.empty((n_steps,), dtype=torch.float32,
-                         device=state.t_s.device)
+        timeline = (torch.empty((B, n_steps // record_every,
+                                 len(timeline_columns(config))),
+                                dtype=torch.float32, device=dev),)
+        prev_sums = sk.lane_sums(state)
+        prev_reb = state.rebuffer_s.clone()
     for s in range(n_steps):
         state = swarm_step(config, scenario, state)
-        series[s] = offload_ratio(state)
-    return state, series
+        sums = sk.lane_sums(state, series, s)
+        if record_every and (s + 1) % record_every == 0:
+            sk.timeline_row(config, scenario, state, sums, prev_sums,
+                            prev_reb, timeline[0],
+                            (s + 1) // record_every - 1, record_every)
+    out = (state, series) + timeline
+    return tuple(lane(x, 0) for x in out) if single else out
 
 
 def run_swarm(config: SwarmConfig, bitrates, neighbors, cdn_bps,
@@ -532,8 +626,10 @@ def run_swarm(config: SwarmConfig, bitrates, neighbors, cdn_bps,
               urgent_margin_off_s=None, cohort_id=None,
               record_every: int = 0, device=None):
     """Step ``n_steps`` ticks; returns (final state, offload-over-time
-    ``[n_steps]``).  Runs on ``device`` — the card when None — and
-    leaves the caller's ``state`` untouched (it steps a copy)."""
+    ``[n_steps]``), plus the ``[n_steps // record_every, M]`` metrics
+    timeline when ``record_every > 0`` (see :func:`_scan_swarm`).  Runs
+    on ``device`` — the card when None — and leaves the caller's
+    ``state`` untouched (it steps a copy)."""
     dev = resolve_device(device)
     check_slice(config)
     scenario = make_scenario(
@@ -551,60 +647,219 @@ def run_swarm(config: SwarmConfig, bitrates, neighbors, cdn_bps,
         p2p_ok=p2p_ok, abr_cap_level=abr_cap_level,
         urgent_margin_off_s=urgent_margin_off_s, cohort_id=cohort_id,
         device=dev)
-    state = SwarmState(*(EwmaState(*(t.to(dev, copy=True) for t in f))
-                         if isinstance(f, EwmaState)
-                         else f.to(dev, copy=True) for f in state))
+    state = tree_map(lambda t: t.to(dev, copy=True), state)
     state = ensure_penalty_width(config, scenario, state)
     return _scan_swarm(config, scenario, state, n_steps,
                        record_every=record_every)
+
+
+def run_swarm_scenario(config: SwarmConfig, scenario: SwarmScenario,
+                       state: SwarmState, n_steps: int,
+                       record_every: int = 0):
+    """Step one pre-built scenario (the :func:`make_scenario` output):
+    the sequential path the batched one is held against.  Returns what
+    :func:`run_swarm` returns.  Unlike :func:`run_swarm`, it steps
+    ``state`` itself, in place."""
+    state = ensure_penalty_width(config, scenario, state)
+    return _scan_swarm(config, scenario, state, n_steps,
+                       record_every=record_every)
+
+
+def run_swarm_batch(config: SwarmConfig, scenarios: SwarmScenario,
+                    states: SwarmState, n_steps: int,
+                    record_every: int = 0):
+    """Step a whole scenario batch: ``scenarios`` and ``states`` are
+    stacked along a leading ``[B]`` lane axis (:func:`stack_pytrees`,
+    ``init_swarm(..., batch=B)``), and every launch of a step covers
+    all lanes.  Returns ``(final states [B, …], offload-over-time
+    [B, n_steps])``, plus the per-lane ``[B, n_steps // N, M]``
+    timeline with ``record_every=N``; each lane is bit-identical to
+    :func:`run_swarm_scenario` on that lane alone.
+
+    The reference donates the state buffers to its compiled program;
+    PyTorch has no donation, so the port steps the stacked ``states``
+    IN PLACE: the returned final states are the passed buffers."""
+    if not is_lanes(states):
+        raise ValueError("run_swarm_batch takes stacked lanes; use "
+                         "run_swarm_scenario for one scenario")
+    states = ensure_penalty_width_batch(config, scenarios, states)
+    return _scan_swarm(config, scenarios, states, n_steps,
+                       record_every=record_every)
+
+
+def _penalty_width(config: SwarmConfig, scenario: SwarmScenario) -> int:
+    if config.holder_selection != "adaptive":
+        return 0
+    if config.neighbor_offsets is not None:
+        return len(_normalized_offsets(config.neighbor_offsets,
+                                       config.n_peers))
+    return scenario.neighbors.shape[-1]
 
 
 def ensure_penalty_width(config: SwarmConfig, scenario: SwarmScenario,
                          state: SwarmState) -> SwarmState:
     """Resize a pristine (all-zero) penalty field of the wrong width;
     under ``"spread"`` the field has zero width."""
-    if config.holder_selection != "adaptive":
-        k_topo = 0
-    elif config.neighbor_offsets is not None:
-        k_topo = len(_normalized_offsets(config.neighbor_offsets,
-                                         config.n_peers))
-    else:
-        k_topo = scenario.neighbors.shape[1]
+    k_topo = _penalty_width(config, scenario)
     pen = state.holder_penalty_ms
-    if pen.shape[1] != k_topo and not bool(torch.any(pen > 0.0)):
+    if pen.shape[-1] != k_topo and not bool(torch.any(pen > 0.0)):
         state = state._replace(holder_penalty_ms=torch.zeros(
-            (config.n_peers, k_topo), dtype=torch.float32,
+            tuple(pen.shape[:-1]) + (k_topo,), dtype=torch.float32,
             device=pen.device))
     return state
 
 
+def ensure_penalty_width_batch(config: SwarmConfig,
+                               scenarios: SwarmScenario,
+                               states: SwarmState) -> SwarmState:
+    """Batched :func:`ensure_penalty_width`, for a ``[B, P, K]``
+    penalty field."""
+    return ensure_penalty_width(config, scenarios, states)
+
+
+def timeline_columns(config: SwarmConfig) -> Tuple[str, ...]:
+    """Column names of one metrics-timeline row (the ``[M]`` axis of
+    the ``record_every`` output), as the reference names them: sample
+    clock, the cumulative offload and rebuffer, interval byte rates,
+    the interval stall count, per-level present-peer counts and, with
+    ``config.stall_digest``, the stall-digest bins."""
+    if config.n_cohorts:
+        raise NotImplementedError(
+            "per-cohort timeline columns (n_cohorts > 0) need the "
+            "population fields, which are not ported yet (ROADMAP queue "
+            "1 item 9d)")
+    base = (("t_s", "offload", "rebuffer", "cdn_rate_bps",
+             "p2p_rate_bps", "stalled_peers")
+            + tuple(f"level_{i}_peers" for i in range(config.n_levels)))
+    if config.stall_digest:
+        base += tuple(f"stall_ms_bin{i}"
+                      for i in range(len(DEFAULT_EDGES) + 1))
+    return base
+
+
 def offload_ratio(state: SwarmState) -> torch.Tensor:
-    p2p = torch.sum(state.p2p_bytes)
-    total = p2p + torch.sum(state.cdn_bytes)
-    return p2p / torch.clamp_min(total, 1.0)
+    """P2P bytes over all bytes, of one scenario."""
+    return offload_ratio_batch(as_lanes(state))[0]
+
+
+def offload_ratio_batch(states: SwarmState) -> torch.Tensor:
+    """Per-lane offload ratios ``[B]``, by the reduction that writes the
+    offload series (``lane_sums``), so a run's last series entry, its
+    last timeline row and this agree to the bit on each device."""
+    from . import swarm_kernels as sk
+    out = torch.empty((states.t_s.shape[0], 1), dtype=torch.float32,
+                      device=states.t_s.device)
+    sk.lane_sums(states, out, 0)
+    return out[:, 0]
 
 
 def rebuffer_ratio(state: SwarmState, elapsed_s: float,
                    join_s=None, leave_s=None) -> torch.Tensor:
     """Stall time over per-peer watch time (present time on both
     ends), as the reference and the discrete harness define it."""
-    reb = state.rebuffer_s
-    if join_s is None and leave_s is None:
-        watched = torch.tensor(reb.shape[0] * elapsed_s,
-                               dtype=torch.float32, device=reb.device)
-    else:
-        P = reb.shape[0]
+    def one(x):
+        return None if x is None else _f32_on(x, state.t_s.device)[None]
+    return rebuffer_ratio_batch(as_lanes(state), elapsed_s, one(join_s),
+                                one(leave_s))[0]
 
-        def f32(x):
-            return torch.from_numpy(_np(x).astype(np.float32)).to(
-                reb.device)
-        join = (torch.zeros((P,), dtype=torch.float32, device=reb.device)
-                if join_s is None else f32(join_s))
-        end = (torch.full((P,), elapsed_s, dtype=torch.float32,
-                          device=reb.device) if leave_s is None
-               else torch.clamp_max(f32(leave_s), elapsed_s))
-        watched = torch.sum(torch.clamp_min(end - join, 0.0))
-    return torch.sum(reb) / torch.clamp_min(watched, 1e-9)
+
+def rebuffer_ratio_batch(states: SwarmState, elapsed_s: float,
+                         join_s=None, leave_s=None) -> torch.Tensor:
+    """Per-lane rebuffer ratios ``[B]``; ``join_s`` and ``leave_s`` are
+    ``[B, P]`` (or ``[P]`` for every lane) when given.  The watched time
+    is ``Σ clip(min(leave, elapsed) - join, 0)``, summed by the
+    reduction that writes the timeline's rebuffer column
+    (``timeline_row``), so the last row of a run that ends on a sample
+    equals this to the bit.  Without joins and leaves the reference
+    takes ``P · elapsed``; the port sums ``elapsed`` over the peers,
+    which is the same number wherever float32 holds the partial sums
+    exactly."""
+    from . import swarm_kernels as sk
+    reb = states.rebuffer_s
+    B, P = reb.shape
+    dev = reb.device
+
+    def lanes(x, fill):
+        if x is None:
+            return torch.full((B, P), fill, dtype=torch.float32, device=dev)
+        return _f32_on(x, dev).expand(B, P).contiguous()
+    t = torch.full((B,), elapsed_s, dtype=torch.float32, device=dev)
+    return sk.rebuffer_ratio_lanes(reb, lanes(join_s, 0.0),
+                                   lanes(leave_s, NEVER_S), t)
+
+
+def _f32_on(x, device) -> torch.Tensor:
+    """An array-like as a float32 tensor on ``device``."""
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+    return x.to(device=device, dtype=torch.float32)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a state or scenario, the ``ewma`` field's
+    included."""
+    if isinstance(tree, tuple):
+        return [x for f in tree for x in tree_leaves(f)]
+    return [tree]
+
+
+def batch_lane_bytes(config: SwarmConfig, n_steps: int, *,
+                     record_every: int = 0, n_neighbors: int = 0,
+                     scenario: Optional[SwarmScenario] = None) -> int:
+    """Device bytes ONE lane of a batched dispatch pins, counted as the
+    reference counts them: the state twice (its carry and the update in
+    flight), the per-peer scenario arrays, the ``[n_steps]`` offload
+    series and the timeline when recording.  The state's shapes are the
+    port's own (an :func:`init_swarm` on the ``meta`` device, which
+    allocates nothing).  ``scenario`` (one lane) sizes the scenario term
+    from its tensors; without it, nine ``[P]`` 4-byte arrays."""
+    if scenario is not None and config.neighbor_offsets is None:
+        n_neighbors = int(scenario.neighbors.shape[-1])
+    state = init_swarm(config, n_neighbors if n_neighbors else None,
+                       device="meta")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    P = config.n_peers
+    if scenario is not None:
+        scenario_bytes = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(scenario))
+    else:
+        scenario_bytes = 9 * 4 * P
+        if config.neighbor_offsets is None and n_neighbors:
+            scenario_bytes += 2 * 4 * P * n_neighbors  # nbrs + in_edges
+    out_bytes = 4 * n_steps
+    if record_every:
+        out_bytes += 4 * (n_steps // record_every) * len(
+            timeline_columns(config))
+    return 2 * state_bytes + scenario_bytes + out_bytes
+
+
+def autotune_chunk(config: SwarmConfig, n_items: int, n_steps: int, *,
+                   record_every: int = 0, n_neighbors: int = 0,
+                   scenario: Optional[SwarmScenario] = None,
+                   device=None) -> int:
+    """Memory-derived lanes per dispatch: how many lanes of
+    :func:`batch_lane_bytes` fit in :data:`AUTOTUNE_MEMORY_FRACTION` of
+    the card's free memory (``torch.cuda.mem_get_info``, plus what
+    PyTorch's allocator holds reserved and unused), or of
+    :data:`AUTOTUNE_FALLBACK_BYTES` on the CPU.  Clamps: floor 1 (a
+    lane that does not fit still has to run), cap ``n_items``, ceiling
+    :data:`MAX_AUTOTUNE_CHUNK`.  ``device`` is the card when None."""
+    if n_items <= 0:
+        return 1
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        free = (torch.cuda.mem_get_info(dev)[0]
+                + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
+    else:
+        free = AUTOTUNE_FALLBACK_BYTES
+    lane_bytes = batch_lane_bytes(config, n_steps,
+                                  record_every=record_every,
+                                  n_neighbors=n_neighbors,
+                                  scenario=scenario)
+    fit = int(free * AUTOTUNE_MEMORY_FRACTION // max(lane_bytes, 1))
+    return max(1, min(fit, n_items, MAX_AUTOTUNE_CHUNK))
 
 
 # ---- topology and inputs --------------------------------------------------
@@ -621,6 +876,16 @@ def staggered_joins(n_peers: int, window_s: float = 60.0, seed: int = 0,
     base = np.linspace(0.0, window_s, n_peers, dtype=np.float32)
     perm = np.random.default_rng(seed).permutation(n_peers)
     return torch.as_tensor(base[perm], device=resolve_device(device))
+
+
+def stable_ranks(n_peers: int, seed: int = 0, device=None) -> torch.Tensor:
+    """Deterministic per-peer ranks in [0, 1) for the live-edge CDN
+    stagger, drawn as float32 from ``numpy.random.default_rng(seed)``.
+    The draws differ from the reference's ``jax.random.uniform``:
+    parity tests pass the reference's materialized ranks to both
+    sides."""
+    ranks = np.random.default_rng(seed).random(n_peers, dtype=np.float32)
+    return torch.from_numpy(ranks).to(resolve_device(device))
 
 
 def _normalized_offsets(offsets: Tuple[int, ...], n_peers: int) -> List[int]:

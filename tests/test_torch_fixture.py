@@ -1,7 +1,7 @@
-"""The committed reference fixture (``testing/reference_run.npz``)
-that ``chip_smoke.py`` holds the port to on the card, where there is no
-JAX: it must still match the JAX reference, and the port on the CPU
-must match it."""
+"""The committed reference fixtures (``testing/reference_run.npz`` and
+``testing/reference_batch.npz``) that ``chip_smoke.py`` holds the port
+to on the card, where there is no JAX: each must still match the JAX
+reference, and the port on the CPU must match each."""
 
 import os
 import sys
@@ -9,7 +9,9 @@ import sys
 import numpy as np
 
 from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_sim as port
-from hlsjs_p2p_wrapper_tpu_torch.testing import REFERENCE_RUN
+from hlsjs_p2p_wrapper_tpu_torch.testing import (REFERENCE_BATCH,
+                                                 REFERENCE_RUN,
+                                                 run_batch_fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
@@ -50,3 +52,33 @@ def test_port_matches_the_fixture_on_cpu():
                - float(d["offload"])) <= RUN_TOL
     assert abs(float(port.rebuffer_ratio(final, elapsed, d["join_s"]))
                - float(d["rebuffer"])) <= RUN_TOL
+
+
+def test_batch_fixture_matches_the_reference():
+    """Re-run the reference's batched sweep path at the batch fixture's
+    shape: the committed arrays must be what it gives today."""
+    d = np.load(REFERENCE_BATCH)
+    assert tuple(d["shape"]) == torch_port_fixture.BATCH_SHAPE
+    fresh = torch_port_fixture.reference_batch()
+    for name in ("join_s", "grid", "columns"):
+        np.testing.assert_array_equal(d[name], fresh[name])
+    for name in ("offload", "rebuffer", "series", "timeline"):
+        np.testing.assert_allclose(d[name], fresh[name], rtol=1e-6,
+                                   err_msg=name)
+    assert float(np.max(d["rebuffer"])) > 0.0   # the lanes stall
+
+
+def test_port_matches_the_batch_fixture_on_cpu():
+    """Offload, rebuffer and the series within RUN_TOL; the timeline's
+    clock and count columns equal."""
+    d = np.load(REFERENCE_BATCH)
+    offload, rebuffer, series, timeline = run_batch_fixture(d, "cpu")
+    np.testing.assert_allclose(offload.numpy(), d["offload"], atol=RUN_TOL)
+    np.testing.assert_allclose(rebuffer.numpy(), d["rebuffer"],
+                               atol=RUN_TOL)
+    np.testing.assert_allclose(series.numpy(), d["series"], atol=RUN_TOL)
+    cols = list(d["columns"])
+    exact = [i for i, c in enumerate(cols)
+             if c in ("t_s", "stalled_peers") or c.startswith("level_")]
+    np.testing.assert_array_equal(timeline.numpy()[..., exact],
+                                  d["timeline"][..., exact])

@@ -21,6 +21,7 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "hlsjs_p2p_wrapper_tpu")
              or m.startswith(("jax.", "jaxlib.", "hlsjs_p2p_wrapper_tpu.")))
 print(len(names), ",".join(bad))
+print(" ".join(names))
 """
 
 
@@ -31,6 +32,10 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, env=env,
                          cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split()[0], out.stdout.split()[1:]
-    assert int(n_modules) >= 8   # core, ops, testing and their modules
+    counts, names = out.stdout.splitlines()
+    n_modules, bad = counts.split()[0], counts.split()[1:]
+    assert int(n_modules) >= 11   # core, engine, ops, testing and theirs
     assert bad == [], f"the port loaded {bad}"
+    for name in ("sweep_grid", "engine.digest", "ops.dispatch",
+                 "ops.swarm_kernels"):
+        assert f"hlsjs_p2p_wrapper_tpu_torch.{name}" in names.split()

@@ -37,8 +37,12 @@ WIDE = (1, -1, 2, -2, 97, -97, 300, -300)
 
 
 def _source():
-    with open(os.path.join(_build.CSRC_DIR, sk.SOURCE)) as fh:
-        return fh.read()
+    """Both CUDA sources of the port, one after the other."""
+    out = []
+    for src in (sk.SOURCE, sk.REDUCE_SOURCE):
+        with open(os.path.join(_build.CSRC_DIR, src)) as fh:
+            out.append(fh.read())
+    return "\n".join(out)
 
 
 def _c_struct(name):
@@ -59,7 +63,8 @@ def _c_struct(name):
 
 @pytest.mark.parametrize("c_name,mirror", [
     ("SelectArgs", sk._SelectArgs), ("AdmitArgs", sk._AdmitArgs),
-    ("UpdateArgs", sk._UpdateArgs), ("SelectAdmitArgs", sk._SelectAdmitArgs)])
+    ("UpdateArgs", sk._UpdateArgs), ("SelectAdmitArgs", sk._SelectAdmitArgs),
+    ("LaneSumsArgs", sk._LaneSumsArgs), ("TimelineArgs", sk._TimelineArgs)])
 def test_ctypes_mirrors_match_the_c_structs(c_name, mirror):
     c_fields = _c_struct(c_name)
     assert [f for f, _t, _a in c_fields] == [f for f, _t in mirror._fields_]
@@ -317,10 +322,87 @@ def test_kernels_match_plain_on_the_card(cuda_device, P, offsets):
     assert sk.LAUNCHES == {"select_admit": 20 if fused else 0,
                            "elig_select": 0 if fused else 20,
                            "admit_service": 0 if fused else 20,
-                           "peer_update": 20}
+                           "peer_update": 20, "lane_sums": 0,
+                           "timeline_row": 0}
     for x, y in zip(a, b):
         for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
             if u.is_floating_point():
                 torch.testing.assert_close(u, v, rtol=1e-6, atol=1e-6)
             else:
                 assert torch.equal(u, v)
+
+
+def _lanes_case(device, P=4096, S=64, warm=52, more=8):
+    """Four stacked VOD grid points mid-run on ``device``: the state
+    ``more`` plain steps after ``prev``."""
+    from hlsjs_p2p_wrapper_tpu_torch import sweep_grid as sg
+    config = sg.build_config(P, S, False, 8)
+    join = port.staggered_joins(P, 10.0, device=device)
+    scenario = port.stack_pytrees(
+        [sg.build_scenario(config, k, watch_s=20.0, stagger_s=10.0, seed=0,
+                           join_s=join, device=device)[0]
+         for k in sg.sample_grid(sg.vod_grid(), 4)])
+    state = port.init_swarm(config, device=device, batch=4)
+    for _ in range(warm):
+        state = sk.plain_step(config, scenario, state)
+    prev = port.clone_state(state)
+    for _ in range(more):
+        state = sk.plain_step(config, scenario, state)
+    return config, scenario, prev, state
+
+
+@pytest.mark.gpu
+def test_batched_kernels_match_plain_on_the_card(cuda_device):
+    """Four lanes stepped by the kernels, one launch of each a step,
+    against the plain step."""
+    config, scenario, _prev, state = _lanes_case(cuda_device)
+    a, b = port.clone_state(state), port.clone_state(state)
+    sk.reset_launch_counts()
+    for _ in range(20):
+        a = port.swarm_step(config, scenario, a)
+        b = sk.plain_step(config, scenario, b)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {"select_admit": 20, "elig_select": 0,
+                           "admit_service": 0, "peer_update": 20,
+                           "lane_sums": 0, "timeline_row": 0}
+    for u, v in zip(port.tree_leaves(a), port.tree_leaves(b)):
+        if u.is_floating_point():
+            torch.testing.assert_close(u, v, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("digest", [False, True])
+def test_reductions_match_plain_on_the_card(cuda_device, digest):
+    """``lane_sums`` and ``timeline_row`` against their plain versions:
+    sums within 1e-5 relative (another summation order), counts and
+    everything taken from the same sums equal; a lane alone sums to
+    the bits of its batch, and the rebuffer ratio alone to the bits of
+    the row's rebuffer column."""
+    config, scenario, prev, state = _lanes_case(cuda_device)
+    config = config._replace(stall_digest=digest)
+    series = torch.zeros((4, 2), device=cuda_device)
+    sums = sk.lane_sums(state, series, 1)
+    torch.testing.assert_close(sums, sk.lane_sums_plain(state), rtol=1e-5,
+                               atol=0.0)
+    for b in range(4):
+        alone = sk.lane_sums(port.as_lanes(port.lane(state, b)))
+        assert torch.equal(alone[0], sums[b])
+    cols = port.timeline_columns(config)
+    ri = cols.index("rebuffer")
+    rows = []
+    for fn in (sk.timeline_row, sk.timeline_row_plain):
+        out = torch.zeros((4, 1, len(cols)), device=cuda_device)
+        fn(config, scenario, state, sums, sk.lane_sums_plain(prev),
+           prev.rebuffer_s.clone(), out, 0, 8)
+        rows.append(out[:, 0])
+    kernel, plain = rows
+    keep = [i for i in range(len(cols)) if i != ri]
+    assert torch.equal(kernel[:, keep], plain[:, keep])
+    torch.testing.assert_close(kernel[:, ri], plain[:, ri], rtol=1e-5,
+                               atol=0.0)
+    assert bool((kernel[:, cols.index("stalled_peers")] > 0).any())
+    ratio = sk.rebuffer_ratio_lanes(state.rebuffer_s, scenario.join_s,
+                                    scenario.leave_s, state.t_s)
+    assert torch.equal(ratio, kernel[:, ri])

@@ -336,9 +336,15 @@ def test_outside_the_slice_raises(change, err):
 def test_record_every_and_neighbors_raise():
     _, cp = _configs(16, 8)
     state = port.init_swarm(cp, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # timelines are ported (slice 3): a negative interval and the
+    # per-cohort columns, which need the population fields, still raise
+    with pytest.raises(ValueError, match="record_every"):
         port.run_swarm(cp, BITRATES, None, np.full(16, 8e6), state, 2,
-                       record_every=1, device="cpu")
+                       record_every=-1, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9d"):
+        port.run_swarm(cp._replace(n_cohorts=2), BITRATES, None,
+                       np.full(16, 8e6), state, 2, record_every=1,
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="item 9a"):
         port.make_scenario(cp, BITRATES, np.zeros((16, 2), np.int32),
                            np.full(16, 8e6), device="cpu")
