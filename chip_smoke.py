@@ -10,22 +10,28 @@ exits nonzero:
    print each one's registers and spills;
 3. each kernel against its plain PyTorch version on the card, at
    1,048,576 peers × 256 segments, from a state the plain path reached
-   after 300 steps;
+   after 300 steps (``peer_update`` with the offload sums of its
+   epilogue, against ``peer_update_plain`` then ``lane_sums_plain``, and
+   its sums against ``lane_sums``' to the bit);
 4. the routes of ``select_admit`` away from the main path: the fused
    kernel where its tiles wrap the ring (16 peers with the ring of 8,
    96 peers with a ring of 12, 1,000 peers with the ring of 8, whose
-   last tile is partial) and the TK1 + TK2 route of a wide offset
-   tuple, each stepped beside the plain step, launches checked; then,
-   at the main path's size, the fused kernel at halos of 8, 16, 24 and
-   32 peers (the widest it takes) against its plain version and timed
-   against TK1 + TK2, which sets the route's span limit;
+   last tile and last ``peer_update`` block are partial) and the TK1 +
+   TK2 route of a wide offset tuple, each stepped beside the plain
+   step, launches checked, ``peer_update`` and its sums against plain
+   at each; then, at the main path's size, the fused kernel at halos of
+   8, 16, 24 and 32 peers (the widest it takes) against its plain
+   version and timed against TK1 + TK2, which sets the route's span
+   limit;
 5. the main path — ``run_swarm`` at 262,144 peers × 256 segments ×
-   2,400 steps, the configuration of ``bench.py``'s headline — through
-   ``select_admit`` and ``peer_update``, with the launch counts checked;
-   then, from its final state, each kernel against its plain version,
-   the step timed with CUDA events and traced with ``torch.profiler``
-   on the main path's route and on the TK1 + TK2 route, and the same
-   run on the plain path;
+   2,400 steps, the configuration of ``bench.py``'s headline — replayed
+   as CUDA graphs of ``select_admit`` and ``peer_update``, with the
+   launch counts checked; the same run through the eager loop
+   (``_scan_eager``) equal to the bit, runs of the two in turns timed
+   by the host clock, and each traced with ``torch.profiler``; then,
+   from the final state, each kernel against its plain version, each
+   pass timed with CUDA events on the main path's route and on the TK1
+   + TK2 route, and the same run on the plain path;
 6. the port at the committed reference fixture's shape and joins,
    against the JAX reference's final offload and rebuffer ratio;
 7. the batched kernels: four lanes of ``sample_grid(vod_grid(), 4)`` at
@@ -36,12 +42,16 @@ exits nonzero:
    reference's ``run_swarm_batch`` over four VOD grid points, with its
    metrics timeline);
 9. the sweep path: all 48 points of the VOD grid at 1,048,576 peers ×
-   128 segments × 960 steps with a timeline row every 40 steps, through
-   ``run_batch_chunked`` with the autotuned chunk, launches checked;
-   then chunk 16 and one direct 48-lane ``run_swarm_batch`` give the
-   same rows to the bit, two lanes run alone give their lanes' series,
-   timelines and ratios to the bit, each last timeline row equals its
-   final ratios; then 20 batched steps at B = 48 traced, and the two
+   128 segments × 960 steps with a timeline row every 40 steps, joins
+   and ranks drawn by the port (the reference's threefry draws), through
+   ``run_batch_chunked`` with the autotuned chunk, launches checked, 36
+   points stalling as in the reference's ``SWEEP_1M_r05.json``; then
+   chunk 16, one direct 48-lane ``run_swarm_batch`` and the same batch
+   through the eager loop give the same rows, series and timelines to
+   the bit, two lanes run alone give their lanes' to the bit, each last
+   timeline row and last series entry equal the final ratios; then the
+   direct 48-lane run traced whole (graphs and eager loop), 80 eager
+   steps from its final state traced per kernel, and the two
    reductions timed against their plain versions and ``torch.sum``.
 
 The last line of standard output is one JSON object
@@ -84,15 +94,20 @@ GRID_WATCH_S = 240.0
 GRID_STAGGER_S = 60.0
 GRID_RECORD_EVERY = 40
 GRID_CHUNK = 16
-#: rows of the reference's SWEEP_1M_r05.json that stall (rebuffer > 0),
-#: printed beside the port's count (its joins come from another
-#: generator, so the counts need not agree)
+#: the reference's run of this grid (a TPU, tools/sweep.py), whose
+#: rows are rounded to 4-5 digits; 36 of its 48 rows stall (rebuffer >
+#: 0, the least 0.00119), and the port, drawing the same joins, must
+#: stall at the same count
+REFERENCE_SWEEP = "SWEEP_1M_r05.json"
 REFERENCE_STALLING_ROWS = 36
 #: the lanes run alone against their batched lanes: the first point
 #: (scarce supply, stalls) and the last (ample supply)
 ALONE_LANES = (0, 47)
-#: batched steps traced at B = 48, with a timeline row at the end
-TRACE_STEPS = 20
+#: eager steps at B = 48 traced per kernel from the grid's final state
+#: (a row every GRID_RECORD_EVERY steps), and steps of the TK1 + TK2
+#: route; the grid's direct run is traced whole besides
+TRACE_STEPS = 80
+TRACE_PAIR_STEPS = 20
 #: the batched kernel check: lanes, and plain steps before it, then
 #: steps more to the state the timeline row is taken at
 BATCH_LANES = 4
@@ -131,9 +146,11 @@ KERNELS = {
     "timeline_row": (REDUCE_SOURCE, f"{REF}:1559"),
 }
 #: the kernels the single-scenario main path launches, once a step
-#: each; TK1 and TK2 are the route of offset tuples too wide for
-#: select_admit's tile, and timeline_row runs only with a timeline
-MAIN_PATH = ("select_admit", "peer_update", "lane_sums")
+#: each (peer_update writes the offload series); TK1 and TK2 are the
+#: route of offset tuples too wide for select_admit's tile, lane_sums
+#: serves the sums outside the step, and timeline_row runs only with a
+#: timeline
+MAIN_PATH = ("select_admit", "peer_update")
 #: shapes where select_admit's tiles wrap the ring, (peers, ring
 #: degree); at 1,000 peers the last tile is partial
 WRAP_CASES = ((16, 8), (96, 12), (1000, 8))
@@ -240,19 +257,48 @@ def compare_kernels(sim, sk, config, scenario, state, label):
                                                  state, label)}
     errs.update(compare_kernels_pair(sim, sk, config, scenario, state,
                                      label))
-    b = sim.clone_state(state)
-    fp, rp, sv_p, adm_p = sk.select_admit_plain(config, scenario, b)
-    c, d = sim.clone_state(b), sim.clone_state(b)
-    sk.peer_update(config, scenario, c, fp, rp, sv_p, adm_p)
-    sk.peer_update_plain(config, scenario, d, fp, rp, sv_p, adm_p)
-    torch.cuda.synchronize()
-    errs["peer_update"] = compare(f"{label} peer_update", c._asdict(),
-                                  d._asdict())
-    n_active = int((b.dl_flags & 1).sum())
+    errs["peer_update"], rel = compare_peer_update(sim, sk, config,
+                                                   scenario, state, label)
+    n_active = int((state.dl_flags & 1).sum())
     log(f"  {label}: all four kernels agree with their plain versions "
         f"({n_active} transfers in flight); max float err "
-        f"{json.dumps(errs)}")
+        f"{json.dumps(errs)}; peer_update's sums rel err {rel!r}")
     return errs
+
+
+def compare_peer_update(sim, sk, config, scenario, state, label):
+    """``peer_update`` (its offload sums and series entry in the
+    epilogue) against ``peer_update_plain`` then ``lane_sums_plain`` on
+    the plain selection's outputs: the state as :func:`compare` holds
+    it, the sums and the series entry within REDUCE_RTOL; and its sums
+    and series entry equal to the bit to what ``lane_sums`` gives on the
+    state it wrote.  Returns ``(max abs float error, max relative error
+    of the sums)``."""
+    import torch
+    scenario, b = _as_lanes(sim, scenario, state)
+    B = b.t_s.shape[0]
+    fp, rp, sv_p, adm_p = sk.select_admit_plain(config, scenario, b)
+    c, d = sim.clone_state(b), sim.clone_state(b)
+    ser_k = torch.zeros((B, 3), dtype=torch.float32, device="cuda")
+    ser_p, ser_l = ser_k.clone(), ser_k.clone()
+    sums_k = sk.peer_update(config, scenario, c, fp, rp, sv_p, adm_p,
+                            series=ser_k, column=1)
+    sk.peer_update_plain(config, scenario, d, fp, rp, sv_p, adm_p)
+    sums_p = sk.lane_sums_plain(d, ser_p, 1)
+    sums_l = sk.lane_sums(c, ser_l, 1)
+    torch.cuda.synchronize()
+    err = compare(f"{label} peer_update", c._asdict(), d._asdict())
+    rel = _rel_err(sums_k, sums_p)
+    ser_err = float((ser_k - ser_p).abs().max())
+    check(rel <= REDUCE_RTOL and ser_err <= REDUCE_RTOL,
+          f"{label} peer_update: sums off by {rel!r} relative, series by "
+          f"{ser_err!r}")
+    check(torch.equal(sums_k, sums_l) and torch.equal(ser_k, ser_l),
+          f"{label} peer_update: its sums {sums_k.tolist()} are not "
+          f"lane_sums' {sums_l.tolist()}")
+    check(bool((ser_k[:, [0, 2]] == 0).all()),
+          f"{label} peer_update wrote outside its series column")
+    return max(err, ser_err), rel
 
 
 def compare_kernels_pair(sim, sk, config, scenario, state, label):
@@ -339,7 +385,8 @@ def phase_routes(sim, sk):
     ROUTE_STEPS times through ``swarm_step`` beside ``plain_step``, the
     launches of each kernel counted.  Returns the max float error of
     select_admit, TK1 and TK2."""
-    errs = {"select_admit": 0.0, "elig_select": 0.0, "admit_service": 0.0}
+    errs = {"select_admit": 0.0, "elig_select": 0.0, "admit_service": 0.0,
+            "peer_update": 0.0}
     cases = [(P, sim.ring_offsets(d), 16, 20.0, 80) for P, d in WRAP_CASES]
     cases.append((WIDE_PEERS, WIDE_OFFSETS, WIDE_SEGMENTS, 10.0, 60))
     for P, offsets, S, window_s, warm in cases:
@@ -361,6 +408,9 @@ def phase_routes(sim, sk):
             e = compare_kernels_pair(sim, sk, config, scenario, state, label)
             for name in e:
                 errs[name] = max(errs[name], e[name])
+        pu_err, pu_rel = compare_peer_update(sim, sk, config, scenario,
+                                             state, label)
+        errs["peer_update"] = max(errs["peer_update"], pu_err)
         direct = dict(sk.LAUNCHES)
         a, b = sim.clone_state(state), sim.clone_state(state)
         sk.reset_launch_counts()
@@ -381,7 +431,8 @@ def phase_routes(sim, sk):
         check(placed > 0, f"{label}: no transfer placed demand")
         err = compare(f"{label} {n} steps", a._asdict(), b._asdict())
         log(f"[4] {label}: {'fused' if fused else 'TK1 + TK2'} route; "
-            f"one call equals its plain version (launches {direct}); "
+            f"one call equals its plain version, peer_update's too (sums "
+            f"rel err {pu_rel!r}; launches {direct}); "
             f"{n} steps equal the plain step (launches {launches}, "
             f"{placed} demands placed; max float err {err!r})")
     return errs
@@ -455,24 +506,32 @@ def _ratios(sim, state, n_steps, dt_s, join):
 
 def _stages(sk, config, scenario, route):
     """The passes of one step on ``route`` as ``[(kernel, fn)]``, each
-    ``fn(state, outputs so far) -> outputs``: ``"fused"`` is the main
-    path (select_admit, TK3), ``"pair"`` TK1, TK2 and TK3 called
-    directly, ``"plain"`` and ``"plain_pair"`` the plain versions of
-    the one and the other."""
+    ``fn(state, outputs so far, series, column) -> outputs``:
+    ``"fused"`` is the main path (select_admit, then TK3 with the
+    offload sums in its epilogue), ``"pair"`` TK1, TK2 and TK3 called
+    directly, ``"plain"`` and ``"plain_pair"`` the plain versions of the
+    one and the other (TK3's is ``peer_update_plain`` then
+    ``lane_sums_plain``)."""
     if route in ("fused", "plain"):
         sa = sk.select_admit if route == "fused" else sk.select_admit_plain
         first = [("select_admit",
-                  lambda st, o: sa(config, scenario, st))]
+                  lambda st, o, ser, s: sa(config, scenario, st))]
     else:
         es, ad = ((sk.elig_select, sk.admit_service) if route == "pair"
                   else (sk.elig_select_plain, sk.admit_service_plain))
-        first = [("elig_select", lambda st, o: es(config, scenario, st)),
+        first = [("elig_select",
+                  lambda st, o, ser, s: es(config, scenario, st)),
                  ("admit_service",
-                  lambda st, o: o + ad(config, scenario, o[1]))]
-    pu = (sk.peer_update_plain if route.startswith("plain")
-          else sk.peer_update)
-    return first + [("peer_update",
-                     lambda st, o: pu(config, scenario, st, *o))]
+                  lambda st, o, ser, s: o + ad(config, scenario, o[1]))]
+    if route.startswith("plain"):
+        def pu(st, o, ser, s):
+            sk.peer_update_plain(config, scenario, st, *o)
+            return sk.lane_sums_plain(st, ser, s)
+    else:
+        def pu(st, o, ser, s):
+            return sk.peer_update(config, scenario, st, *o, series=ser,
+                                  column=s)
+    return first + [("peer_update", pu)]
 
 
 def _as_lanes(sim, scenario, state):
@@ -486,49 +545,44 @@ def _as_lanes(sim, scenario, state):
 
 def _steps(sim, sk, config, scenario, st, n_steps, route, series,
            events=None):
-    """``n_steps`` steps of ``st`` on ``route`` as ``_scan_swarm`` steps
-    them: the passes, the clock add and the offload series
-    (``lane_sums``, or its plain version on the plain routes); with
-    ``events``, one list of CUDA events per step bracketing each pass
-    and the series."""
+    """``n_steps`` eager steps of the lanes ``st`` on ``route``, as
+    ``_scan_eager`` steps them: the passes (TK3 writing the offload
+    series) and the clock add; with ``events``, one list of CUDA events
+    per step bracketing each pass and the clock add."""
     stages = _stages(sk, config, scenario, route)
-    ls = sk.lane_sums_plain if route.startswith("plain") else sk.lane_sums
     for s in range(n_steps):
         e = events[s] if events is not None else None
         if e:
             e[0].record()
         out = ()
         for n, (_name, fn) in enumerate(stages):
-            out = fn(st, out)
+            out = fn(st, out, series, s)
             if e:
                 e[n + 1].record()
-        st = st._replace(t_s=st.t_s + config.dt_ms / 1000.0)
-        ls(st, series, s)
+        st.t_s.add_(config.dt_ms / 1000.0)
         if e:
             e[-1].record()
     return st
 
 
 def time_window(sim, sk, config, scenario, state0, n_steps, route):
-    """Device time over ``n_steps`` consecutive steps from ``state0`` (a
-    clone is stepped) on ``route`` (see :func:`_stages`), each step as
-    ``_scan_swarm`` runs it: the passes, the clock add and the
-    offload-series write.  CUDA events bracket each pass and the
-    series.  A GPU sleep ahead of the window lets the host queue the
-    launches, so the events time the device, not the host.  A kernels'
-    window fails if the host did not stay ahead.  The plain passes
-    launch hundreds of small ops a step, more than the launch queue
-    holds, so their times are the passes as the host drives them,
+    """Device time over ``n_steps`` consecutive eager steps from
+    ``state0`` (a clone is stepped) on ``route`` (see :func:`_stages`),
+    each step as ``_scan_eager`` runs it.  CUDA events bracket each pass
+    and the clock add.  A GPU sleep ahead of the window lets the host
+    queue the launches, so the events time the device, not the host.  A
+    kernels' window fails if the host did not stay ahead.  The plain
+    passes launch hundreds of small ops a step, more than the launch
+    queue holds, so their times are the passes as the host drives them,
     launch gaps included.  Returns ``({kernel: mean ms per pass}, mean
     ms per whole step)``."""
     import torch
     scenario, st = _as_lanes(sim, scenario, state0)
     names = [n for n, _fn in _stages(sk, config, scenario, route)]
-    names.append("lane_sums")
     series = torch.empty((st.t_s.shape[0], n_steps), dtype=torch.float32,
                          device="cuda")
     ev = [[torch.cuda.Event(enable_timing=True)
-           for _ in range(len(names) + 1)] for _ in range(n_steps)]
+           for _ in range(len(names) + 2)] for _ in range(n_steps)]
     torch.cuda.synchronize()
     torch.cuda._sleep(int(3e8))
     slept = torch.cuda.Event()
@@ -545,48 +599,38 @@ def time_window(sim, sk, config, scenario, state0, n_steps, route):
     return per_pass, ev[0][0].elapsed_time(ev[-1][-1]) / n_steps
 
 
-def host_wall(sim, sk, config, scenario, state0, n_steps, route):
-    """Host wall per step (ms) of ``n_steps`` steps on ``route`` from a
-    clone of ``state0``, stepped as ``_scan_swarm`` steps (passes, clock
-    add, offload-series write), ending in a synchronize."""
+def timed_run(sim, config, scenario, state0, n_steps, path,
+              record_every=0):
+    """One ``_scan_swarm`` (``path="graph"``: the entry points' path on
+    the card, replayed CUDA graphs) or ``_scan_eager`` (``"eager"``: the
+    same kernels launched step by step) run of ``n_steps`` from a clone
+    of ``state0``, by the host clock from its start to a synchronize
+    after it.  Returns ``(seconds, the run's outputs)``."""
     import torch
     scenario, st = _as_lanes(sim, scenario, state0)
-    series = torch.empty((st.t_s.shape[0], n_steps), dtype=torch.float32,
-                         device="cuda")
+    run = sim._scan_swarm if path == "graph" else sim._scan_eager
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _steps(sim, sk, config, scenario, st, n_steps, route, series)
+    out = run(config, scenario, st, n_steps, record_every=record_every)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n_steps * 1e3
+    return time.perf_counter() - t0, out
 
 
-def trace_steps(sim, sk, config, scenario, state0, n_steps, route,
-                record_every=0):
-    """``n_steps`` steps under ``torch.profiler`` (CUPTI): the main
-    path's loop (``_scan_swarm``, with ``record_every``) for ``route ==
-    "fused"``, else the same loop over the passes of :func:`_stages`.
-    Returns ``(device busy ms per step, host wall ms per step, {kernel:
-    (launches, mean ms)})`` over the kernels of :data:`KERNELS` that the
-    trace holds; the busy time is None where the trace holds no device
-    op.  The trace may miss a launch (at B = 48 it held 19 of 20 of one
-    kernel), so the busy time per step is each kernel's mean time
-    times its launches per step, plus the other device ops' time over
-    the steps."""
+def same_bits(a, b):
+    """Whether two states, or tensors, or tuples of them, are equal to
+    the bit."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    scenario, st = _as_lanes(sim, scenario, state0)
-    series = torch.empty((st.t_s.shape[0], n_steps), dtype=torch.float32,
-                         device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        if route == "fused":
-            sim._scan_swarm(config, scenario, st, n_steps,
-                            record_every=record_every)
-        else:
-            _steps(sim, sk, config, scenario, st, n_steps, route, series)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_bits(x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _traced(prof, n_steps):
+    """From a ``torch.profiler`` run: ``({kernel: (launches, mean ms)}``
+    over the kernels of :data:`KERNELS` the trace holds, the other
+    device ops' ms per step, whether it holds any device op)."""
+    import torch
     ops = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     per_kernel = {}
@@ -595,19 +639,64 @@ def trace_steps(sim, sk, config, scenario, state0, n_steps, route,
                 if f"{name}_kernel" in e.name]
         if durs:
             per_kernel[name] = (len(durs), sum(durs) / len(durs) / 1e3)
-    if not ops:
-        return None, wall_ms, per_kernel
-    per_step = {name: 1.0 for name, _fn in _stages(sk, config, scenario,
-                                                    route)}
-    per_step["lane_sums"] = 1.0
-    if record_every:
-        per_step["timeline_row"] = 1.0 / record_every
     other_us = sum(e.time_range.elapsed_us() for e in ops
                    if not any(f"{name}_kernel" in e.name for name in KERNELS))
-    busy_ms = other_us / n_steps / 1e3 + sum(
-        per_kernel[name][1] * n for name, n in per_step.items()
-        if name in per_kernel)
+    return per_kernel, other_us / n_steps / 1e3, bool(ops)
+
+
+def trace_steps(sim, sk, config, scenario, state0, n_steps, route,
+                record_every=0):
+    """``n_steps`` steps from a clone of ``state0`` under
+    ``torch.profiler`` (CUPTI): the scan as the entry points run it on
+    the card (``route="graph"``, with ``record_every``), the eager loop
+    (``"eager"``), or the eager loop over the passes of :func:`_stages`
+    (the other routes).  Returns ``(device busy ms per step, host wall
+    ms per step, {kernel: (launches, mean ms)})`` over the kernels of
+    :data:`KERNELS` that the trace holds; the busy time is None where
+    the trace holds no device op, or (graph route) where it holds none
+    of the step's kernels.  The trace may miss a launch (at B = 48 it
+    held 19 of 20 of one kernel), so the busy time per step is each
+    kernel's mean time times its launches per step, plus the other
+    device ops' time over the steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    scenario, st = _as_lanes(sim, scenario, state0)
+    series = torch.empty((st.t_s.shape[0], n_steps), dtype=torch.float32,
+                         device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        if route in ("graph", "eager"):
+            run = sim._scan_swarm if route == "graph" else sim._scan_eager
+            run(config, scenario, st, n_steps, record_every=record_every)
+        else:
+            _steps(sim, sk, config, scenario, st, n_steps, route, series)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    per_kernel, other_ms, any_op = _traced(prof, n_steps)
+    stage_route = "fused" if route in ("graph", "eager") else route
+    per_step = {name: 1.0 for name, _fn in _stages(sk, config, scenario,
+                                                    stage_route)}
+    if record_every:
+        per_step["timeline_row"] = 1.0 / record_every
+    if not any_op or not all(name in per_kernel for name in per_step):
+        return None, wall_ms, per_kernel
+    busy_ms = other_ms + sum(per_kernel[name][1] * n
+                             for name, n in per_step.items())
     return busy_ms, wall_ms, per_kernel
+
+
+def trace_calls(fn, n):
+    """``{kernel: mean traced ms}`` over ``n`` calls of ``fn()`` under
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {k: v[1] for k, v in _traced(prof, n)[0].items()}
 
 
 def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
@@ -647,7 +736,10 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
            + 4 * 10 * P        # 10 state arrays read
            + 4 * 9 * P         # 9 state arrays written
            + 4 * 2             # t_s, p2p_setup_ms
-           + (8 + 8 + 32) * completed)  # seg/level, map word, EWMA
+           + (8 + 8 + 32) * completed   # seg/level, map word, EWMA
+           # the epilogue: each block's (cdn, p2p) partial written and
+           # read back by the lane's last block, the sums, the series
+           + 2 * 8 * sk.sums_blocks(P) + 8 + 4)
     # select_admit: TK1's traffic plus uplink in, service and adm out,
     # the efficiency scalar (req stays in shared memory)
     fused = tk1 + 4 * 3 * P + 4
@@ -655,10 +747,11 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
             "admit_service": float(tk2), "peer_update": float(tk3)}
 
 
-def lane_sums_bytes(B, P):
-    """TK4 reads two [B, P] float32 arrays and writes the [B, 2] sums
-    and one series entry a lane."""
-    return float(8 * B * P + 12 * B)
+def lane_sums_bytes(sk, B, P):
+    """TK4 reads two [B, P] float32 arrays, writes and reads back one
+    (cdn, p2p) partial a block, and writes the [B, 2] sums and one series
+    entry a lane."""
+    return float(8 * B * P + 16 * B * sk.sums_blocks(P) + 12 * B)
 
 
 def timeline_bytes(B, P, n_cols):
@@ -672,7 +765,7 @@ def timeline_bytes(B, P, n_cols):
 def step_bytes(sim, sk, config, scenario, state_before, slot_flags, req,
                adm, state_after):
     """:func:`kernel_bytes` of one step, summed over its lanes (a single
-    scenario is one lane), plus the series write's ``lane_sums``."""
+    scenario is one lane), and ``lane_sums``' on the same lanes."""
     if not sim.is_lanes(state_before):
         scenario, state_before, state_after = (
             sim.as_lanes(x) for x in (scenario, state_before, state_after))
@@ -685,7 +778,7 @@ def step_bytes(sim, sk, config, scenario, state_before, slot_flags, req,
                 sim.lane(state_before, b), slot_flags[b], req[b], adm[b],
                 sim.lane(state_after, b)).items():
             total[name] = total.get(name, 0.0) + v
-    total["lane_sums"] = lane_sums_bytes(B, config.n_peers)
+    total["lane_sums"] = lane_sums_bytes(sk, B, config.n_peers)
     return total
 
 
@@ -702,7 +795,7 @@ def window_bytes(sim, sk, config, scenario, state0, n_steps):
         for name, b in step_bytes(sim, sk, config, scenario, before, flags,
                                   req, adm, st).items():
             total[name] = total.get(name, 0.0) + b
-        st = st._replace(t_s=st.t_s + config.dt_ms / 1000.0)
+        st.t_s.add_(config.dt_ms / 1000.0)
     return {name: b / n_steps for name, b in total.items()}
 
 
@@ -726,9 +819,11 @@ def phase_main(sim, sk, P, S, T, window):
     wall = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[5] main path {P:,} peers x {S} segments x {T} steps through "
-        f"the kernels: {wall:.3f} s, {P * T / wall:,.0f} peer-steps/s; "
-        f"launches {json.dumps(launches)}; peak memory {peak:,} B")
+    log(f"[5] main path {P:,} peers x {S} segments x {T} steps, replayed "
+        f"as CUDA graphs of {sim.GRAPH_STEPS} steps: {wall!r} s, "
+        f"{P * T / wall:,.0f} peer-steps/s, host wall per step "
+        f"{wall / T * 1e3!r} ms; launches {json.dumps(launches)}; peak "
+        f"memory {peak:,} B")
     for name in KERNELS:
         want = T if name in MAIN_PATH else 0
         check(launches[name] == want, f"{name} launched {launches[name]} "
@@ -743,10 +838,55 @@ def phase_main(sim, sk, P, S, T, window):
     offload, rebuffer = _ratios(sim, final, T, dt_s, join)
     check(0.0 <= offload <= 1.0 and 0.0 <= rebuffer <= 1.0,
           f"ratios out of range: {offload!r} {rebuffer!r}")
-    log(f"    final offload {offload!r}, rebuffer ratio {rebuffer!r}")
+    check(torch.equal(series[-1], sim.offload_ratio(final)),
+          "the last series entry is not offload_ratio of the final state")
+    log(f"    final offload {offload!r} (= the last series entry), "
+        f"rebuffer ratio {rebuffer!r}")
 
+    # the eager loop on the same inputs: the same launches, the same bits
     scenario = sim.make_scenario(config, BITRATES, None, cdn, join,
                                  device="cuda")
+    sk.reset_launch_counts()
+    wall_e, (final_e, series_e) = timed_run(sim, config, scenario, state0,
+                                            T, "eager")
+    launches_e = dict(sk.LAUNCHES)
+    check(launches_e == launches, f"eager loop launches {launches_e}, not "
+                                  f"the graphs' {launches}")
+    check(same_bits(sim.lane(final_e, 0), final)
+          and torch.equal(series_e[0], series),
+          "the graphs' run and the eager loop's differ")
+    walls = {"graph": [], "eager": []}
+    for path in ("graph", "eager", "eager", "graph"):
+        w, (f, ser) = timed_run(sim, config, scenario, state0, T, path)
+        check(same_bits(f, final_e) and torch.equal(ser, series_e),
+              f"a repeated {path} run differs")
+        walls[path].append(w / T * 1e3)
+    log(f"    eager loop on the same inputs: {wall_e!r} s "
+        f"({P * T / wall_e:,.0f} peer-steps/s), launches equal, final "
+        f"state and series equal to the bit; host wall per step (ms) of "
+        f"runs in turns graph, eager, eager, graph: graphs "
+        f"{walls['graph']}, eager {walls['eager']}")
+    g_busy, g_wall, g_traced = trace_steps(sim, sk, config, scenario,
+                                           state0, T, "graph")
+    e_busy, e_wall, e_traced = trace_steps(sim, sk, config, scenario,
+                                           state0, T, "eager")
+    if e_busy is None:
+        log("    trace: torch.profiler recorded no device op; device busy "
+            "time and idle share not measured")
+    else:
+        if g_busy is None:
+            g_busy = e_busy
+            how = ("torch.profiler holds none of the graphs' kernels, so "
+                   "their busy time is the eager loop's")
+        else:
+            how = f"per kernel {json.dumps(g_traced)}"
+        log(f"    traced whole run ({T} steps each): graphs device busy "
+            f"{g_busy!r} ms per step over host wall {g_wall!r} ms, idle "
+            f"{1.0 - g_busy / g_wall!r} ({how}); eager loop busy "
+            f"{e_busy!r} ms over {e_wall!r} ms, idle "
+            f"{1.0 - e_busy / e_wall!r}; per kernel "
+            f"{json.dumps(e_traced)}")
+
     errs = compare_kernels(sim, sk, config, scenario, final,
                            f"{P:,} peers")
     # both routes from the same final state, in turns
@@ -765,12 +905,8 @@ def phase_main(sim, sk, P, S, T, window):
                                          window, "fused")
     pair_busy_ms, _wall, pair_traced = trace_steps(
         sim, sk, config, scenario, final, window, "pair")
-    walls = {"fused": [], "pair": []}
-    for route in ("fused", "pair", "pair", "fused"):
-        walls[route].append(host_wall(sim, sk, config, scenario, final,
-                                      HOST_STEPS, route))
 
-    # the same run on the plain path, stepped as _scan_swarm steps
+    # the same run on the plain path, stepped as _scan_eager steps
     scen_l, st = _as_lanes(sim, scenario, state0)
     series_p = torch.empty((1, T), dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
@@ -785,38 +921,42 @@ def phase_main(sim, sk, P, S, T, window):
     check(abs(offload_p - offload) <= RUN_TOL
           and abs(rebuffer_p - rebuffer) <= RUN_TOL,
           "kernels and plain path disagree on the main path's ratios")
-    host_ms = wall / T * 1e3
-    log(f"    device time per whole step ({window}-step windows queued "
-        f"ahead, CUDA events; kernels, clock add, offload-series write): "
-        f"main path {fused_step_ms!r} ms (select_admit + peer_update + "
-        f"lane_sums {sum(fused_ms.values())!r} ms), TK1 + TK2 + TK3 route "
-        f"{pair_step_ms!r} ms (kernels {sum(pair_ms.values())!r} ms); "
-        f"plain passes {plain_step_ms!r} ms; host wall per step on the "
-        f"main path {host_ms!r} ms")
-    log(f"    host wall per step over {HOST_STEPS} steps from the final "
-        f"state, routes in turns (ms): select_admit + peer_update "
-        f"{walls['fused']}, TK1 + TK2 + TK3 {walls['pair']}")
+    log(f"    device time per whole eager step ({window}-step windows "
+        f"from the final state queued ahead, CUDA events; kernels and the "
+        f"clock add): main path {fused_step_ms!r} ms (select_admit + "
+        f"peer_update {sum(fused_ms.values())!r} ms), TK1 + TK2 + TK3 "
+        f"route {pair_step_ms!r} ms (kernels {sum(pair_ms.values())!r} "
+        f"ms); plain passes {plain_step_ms!r} ms")
     log(f"    per pass, CUDA events (ms): main path {json.dumps(fused_ms)}; "
         f"TK1 + TK2 + TK3 {json.dumps(pair_ms)}; plain versions "
         f"{json.dumps(plain_ms)}")
-    if busy_ms is None or pair_busy_ms is None:
-        log("    trace: torch.profiler recorded no device op; device busy "
-            "time and idle share not measured")
-    else:
-        log(f"    trace ({window} steps each, torch.profiler): main path "
-            f"device busy {busy_ms!r} ms per step, i.e. idle "
-            f"{1.0 - busy_ms / host_ms!r} of the main path's host wall "
-            f"per step; per kernel (launches, mean ms) "
-            f"{json.dumps(traced)}.  TK1 + TK2 + TK3 route: busy "
-            f"{pair_busy_ms!r} ms per step; per kernel "
-            f"{json.dumps(pair_traced)}")
+    if busy_ms is not None and pair_busy_ms is not None:
+        log(f"    trace ({window} eager steps from the final state, "
+            f"torch.profiler): main path busy {busy_ms!r} ms per step, "
+            f"per kernel (launches, mean ms) {json.dumps(traced)}; TK1 + "
+            f"TK2 + TK3 route busy {pair_busy_ms!r} ms per step, per "
+            f"kernel {json.dumps(pair_traced)}")
     traced_ms = {**{k: v[1] for k, v in pair_traced.items()},
                  **{k: v[1] for k, v in traced.items()}}
+
+    # lane_sums, off the step: at this shape, on the final state
+    _scen, lanes = _as_lanes(sim, scenario, final)
+    one = torch.empty((1, 1), dtype=torch.float32, device="cuda")
+    ms["lane_sums"] = back_to_back(lambda st: sk.lane_sums(st, one, 0),
+                                   lanes)
+    plain_ms["lane_sums"] = cuda_ms(lambda: sk.lane_sums_plain(lanes, one,
+                                                               0), 5)
+    traced_ms.update({k: v for k, v in trace_calls(
+        lambda: sk.lane_sums(lanes, one, 0), WINDOW).items()
+        if k == "lane_sums"})
+    nbytes["lane_sums"] = lane_sums_bytes(sk, 1, P)
     library_ms = back_to_back(lambda st: (torch.sum(st.p2p_bytes, dim=-1),
                                           torch.sum(st.cdn_bytes, dim=-1)),
-                              final)
-    log(f"    torch.sum of p2p_bytes and cdn_bytes (two calls, the "
-        f"library yardstick of lane_sums), {BACK_TO_BACK} back to back: "
+                              lanes)
+    log(f"    lane_sums (not launched by the step; {BACK_TO_BACK} launches "
+        f"back to back): {ms['lane_sums']!r} ms by CUDA events, "
+        f"{traced_ms.get('lane_sums')!r} ms traced; torch.sum of "
+        f"p2p_bytes and cdn_bytes (two calls, its library yardstick) "
         f"{library_ms!r} ms")
     return launches, errs, ms, traced_ms, plain_ms, nbytes, library_ms
 
@@ -1037,13 +1177,13 @@ def phase_grid(sim, sk, sg, dp):
         f"{len(grid) / wall!r} grid points/s, {peer_steps / wall:,.0f} "
         f"peer-steps/s; launches {json.dumps(launches)}; peak memory "
         f"{peak:,} B")
-    # per chunk: a launch of each step kernel a step; lane_sums once a
-    # step, once for the timeline's first interval and once for the
-    # final offload ratio; timeline_row once a row and once for the
-    # final rebuffer ratio
+    # per chunk: a launch of each step kernel a step, replayed from the
+    # graphs; lane_sums once for the timeline's first interval and once
+    # for the final offload ratio; timeline_row once a row and once for
+    # the final rebuffer ratio
     want = {"select_admit": n_steps * n_chunks, "elig_select": 0,
             "admit_service": 0, "peer_update": n_steps * n_chunks,
-            "lane_sums": (n_steps + 2) * n_chunks,
+            "lane_sums": 2 * n_chunks,
             "timeline_row": (n_rows + 1) * n_chunks}
     check(launches == want, f"grid launches {launches}, not {want}")
     offs = [r[0] for r in rows]
@@ -1061,30 +1201,57 @@ def phase_grid(sim, sk, sg, dp):
               f"is not its final ratios {off!r} {reb!r}")
     stalling = sum(r > 0.0 for r in rebs)
     check(len(set(offs)) > 1, "every grid point has the same offload")
-    check(stalling > 0, "no grid point stalls: the stall columns are idle")
+    with open(os.path.join(ROOT, REFERENCE_SWEEP)) as fh:
+        ref_rows = {tuple(r[k] for k in grid[0]): r
+                    for r in json.load(fh)["rows"]}
+    ref = [ref_rows[tuple(knobs.values())] for knobs in grid]
+    check(stalling == REFERENCE_STALLING_ROWS,
+          f"{stalling} grid points stall, the reference's "
+          f"{REFERENCE_SWEEP} {REFERENCE_STALLING_ROWS}")
+    diff = max(max(abs(o - r["offload"]), abs(b - r["rebuffer"]))
+               for o, b, r in zip(offs, rebs, ref))
+    log(f"    point 0 {json.dumps(grid[0])}: offload {offs[0]!r}, "
+        f"rebuffer {rebs[0]!r} (the reference's {REFERENCE_SWEEP}: "
+        f"offload {ref[0]['offload']!r}, rebuffer {ref[0]['rebuffer']!r})")
     log(f"    offload {min(offs)!r} .. {max(offs)!r}; {stalling} of "
-        f"{len(grid)} points stall (the reference's SWEEP_1M_r05.json: "
-        f"{REFERENCE_STALLING_ROWS}; the port's joins come from another "
-        f"generator); each last timeline row equals its final ratios")
+        f"{len(grid)} points stall ({REFERENCE_SWEEP}: "
+        f"{REFERENCE_STALLING_ROWS}); largest difference from its rows "
+        f"(rounded to 4-5 digits, a TPU's run) {diff!r}; each last "
+        f"timeline row equals its final ratios")
 
     rows16, wall16 = run(GRID_CHUNK)
     check(_rows_equal(rows16, rows),
           f"chunk {GRID_CHUNK} rows differ from the autotuned run's")
     scen48, joins48 = build_lanes(sim, sg, config, grid, GRID_WATCH_S)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    final48, series48, tl48 = sim.run_swarm_batch(
-        config, scen48, sim.init_swarm(config, device="cuda",
-                                       batch=len(grid)), n_steps,
-        record_every=GRID_RECORD_EVERY)
-    torch.cuda.synchronize()
-    wall48 = time.perf_counter() - t0
-    offs48 = sim.offload_ratio_batch(final48)
-    rebs48 = sim.rebuffer_ratio_batch(final48, GRID_WATCH_S, joins48)
+    directs = {}
+    for path in ("graph", "eager"):
+        init = sim.init_swarm(config, device="cuda", batch=len(grid))
+        sk.reset_launch_counts()
+        w, out = timed_run(sim, config, scen48, init, n_steps, path,
+                           record_every=GRID_RECORD_EVERY)
+        del init
+        final, series, tl = out
+        offs48 = sim.offload_ratio_batch(final)
+        rebs48 = sim.rebuffer_ratio_batch(final, GRID_WATCH_S, joins48)
+        check(torch.equal(series[:, -1], offs48),
+              f"{path}: a last series entry is not its final offload")
+        directs[path] = (w, final, series, tl, offs48, rebs48,
+                         dict(sk.LAUNCHES))
+        if path == "eager":
+            del final, series, tl, out
+    wall48, final48, series48, tl48, offs48, rebs48, l48 = directs["graph"]
+    wall_e, final_e, series_e, tl_e, offs_e, rebs_e, l_e = directs.pop(
+        "eager")
     direct = [(float(o), float(r), t) for o, r, t in
               zip(offs48.tolist(), rebs48.tolist(), tl48.cpu().numpy())]
     check(_rows_equal(direct, rows), "the direct 48-lane batch's rows "
                                      "differ from the dispatch's")
+    check(l_e == l48 and torch.equal(series_e, series48)
+          and torch.equal(tl_e, tl48) and torch.equal(offs_e, offs48)
+          and torch.equal(rebs_e, rebs48),
+          "the 48-lane batch through the eager loop differs from the "
+          "graphs'")
+    del final_e, series_e, tl_e
     for b in ALONE_LANES:
         sc, join = build(grid[b])
         f1, s1, t1 = sim.run_swarm_scenario(
@@ -1096,11 +1263,16 @@ def phase_grid(sim, sk, sg, dp):
                               rebs48[b]),
               f"grid point {b} run alone differs from its batched lane")
     log(f"    chunk {GRID_CHUNK}: {wall16!r} s, rows equal to the bit; one "
-        f"direct {len(grid)}-lane run_swarm_batch: {wall48!r} s, rows "
-        f"equal; points {list(ALONE_LANES)} run alone: series, timelines "
-        f"and ratios equal their lanes to the bit")
+        f"direct {len(grid)}-lane run_swarm_batch (graphs): {wall48!r} s "
+        f"({wall48 * 1e3 / n_steps!r} ms per step), rows equal; the same "
+        f"batch through the eager loop: {wall_e!r} s "
+        f"({wall_e * 1e3 / n_steps!r} ms per step), launches, series, "
+        f"timelines and ratios equal to the bit; each last series entry "
+        f"equals its final offload; points {list(ALONE_LANES)} run alone: "
+        f"series, timelines and ratios equal their lanes to the bit")
     return {"config": config, "scenario": scen48, "final": final48,
-            "launches": launches, "wall48": wall48, "n_steps": n_steps}
+            "launches": launches, "wall48": wall48, "wall_eager": wall_e,
+            "n_steps": n_steps}
 
 
 def cuda_ms(fn, n):
@@ -1118,18 +1290,30 @@ def cuda_ms(fn, n):
 
 
 def phase_trace48(sim, sk, g):
-    """TRACE_STEPS batched steps at B = 48 from the grid's final state,
-    traced (both routes), each kernel's bytes for one of those steps,
-    and the two reductions timed (CUDA events, 200 launches back to
-    back) against their plain versions and ``torch.sum``."""
+    """The direct 48-lane run of the grid traced whole, as the graphs
+    replay it and through the eager loop (device busy time and idle
+    share); TRACE_STEPS eager steps from its final state traced per
+    kernel (the windows of earlier runs), and TRACE_PAIR_STEPS on the
+    TK1 + TK2 route; each kernel's bytes for one of those steps; and the
+    two reductions timed (CUDA events, 200 launches back to back)
+    against their plain versions and ``torch.sum``."""
     import torch
     config, scenario, final = g["config"], g["scenario"], g["final"]
     B, P = final.rebuffer_s.shape
-    busy, wall_ms, traced = trace_steps(sim, sk, config, scenario, final,
-                                        TRACE_STEPS, "fused",
-                                        record_every=TRACE_STEPS)
+    init = sim.init_swarm(config, device="cuda", batch=B)
+    busy, wall_ms, traced = trace_steps(sim, sk, config, scenario, init,
+                                        g["n_steps"], "graph",
+                                        record_every=GRID_RECORD_EVERY)
+    run_busy, run_wall_ms, run_traced = trace_steps(
+        sim, sk, config, scenario, init, g["n_steps"], "eager",
+        record_every=GRID_RECORD_EVERY)
+    del init
+    _busy, _wall, e_traced = trace_steps(
+        sim, sk, config, scenario, final, TRACE_STEPS, "eager",
+        record_every=GRID_RECORD_EVERY)
     pair_busy, _wall, pair_traced = trace_steps(sim, sk, config, scenario,
-                                                final, TRACE_STEPS, "pair")
+                                                final, TRACE_PAIR_STEPS,
+                                                "pair")
     before, st = sim.clone_state(final), sim.clone_state(final)
     flags, req, _service, adm = sk.select_admit(config, scenario, st)
     sk.peer_update(config, scenario, st, flags, req, _service, adm)
@@ -1160,33 +1344,49 @@ def phase_trace48(sim, sk, g):
     library = back_to_back(lambda st: (torch.sum(st.p2p_bytes, dim=1),
                                        torch.sum(st.cdn_bytes, dim=1)),
                            final)
+    ls_traced = trace_calls(lambda: sk.lane_sums(final, series, 0), 20)
     traced_ms = {**{k: v[1] for k, v in pair_traced.items()},
-                 **{k: v[1] for k, v in traced.items()}}
+                 **{k: v[1] for k, v in e_traced.items()}}
+    traced_ms["lane_sums"] = ls_traced.get("lane_sums")
     bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in nbytes.items()}
-    step_ms = g["wall48"] * 1e3 / g["n_steps"]
-    if busy is None:
+    if run_busy is None:
         log("[9] trace at B = 48: torch.profiler recorded no device op; "
             "device busy time and idle share not measured")
     else:
-        log(f"[9] trace of {TRACE_STEPS} batched steps at B = {B} "
-            f"(torch.profiler, a row at the end): device busy {busy!r} ms "
-            f"per step, idle {1.0 - busy / wall_ms!r} of the traced "
-            f"window's host wall ({wall_ms!r} ms per step; the direct "
-            f"48-lane run took {step_ms!r} ms per step); TK1 + TK2 route "
-            f"busy {pair_busy!r} ms per step")
-    log(f"    per kernel at B = {B} (launches, traced mean ms): "
-        f"{json.dumps(traced)}, TK1 + TK2 route {json.dumps(pair_traced)}; "
-        f"bytes {json.dumps(nbytes)}; bound ms at 3.35 TB/s "
+        if busy is None:
+            busy = run_busy
+            how = ("torch.profiler holds none of the graphs' kernels, so "
+                   "their busy time is the eager loop's")
+        else:
+            how = f"per kernel {json.dumps(traced)}"
+        log(f"[9] the direct {B}-lane run traced whole ({g['n_steps']} "
+            f"steps from the start, a row every {GRID_RECORD_EVERY}; "
+            f"torch.profiler): graphs device busy {busy!r} ms per step, "
+            f"idle {1.0 - busy / wall_ms!r} of the traced host wall "
+            f"({wall_ms!r} ms per step; {how}); eager loop busy "
+            f"{run_busy!r} ms per step, idle "
+            f"{1.0 - run_busy / run_wall_ms!r} ({run_wall_ms!r} ms per "
+            f"step; per kernel {json.dumps(run_traced)}); untraced, the "
+            f"direct runs took {g['wall48'] * 1e3 / g['n_steps']!r} "
+            f"(graphs) and {g['wall_eager'] * 1e3 / g['n_steps']!r} "
+            f"(eager) ms per step; TK1 + TK2 route busy {pair_busy!r} ms "
+            f"per step ({TRACE_PAIR_STEPS} steps from the final state)")
+    log(f"    per kernel at B = {B} (launches, traced mean ms): eager, "
+        f"{TRACE_STEPS} steps from the final state {json.dumps(e_traced)}, "
+        f"TK1 + TK2 route "
+        f"{json.dumps(pair_traced)}, lane_sums alone {json.dumps(ls_traced)}"
+        f"; bytes {json.dumps(nbytes)}; bound ms at 3.35 TB/s "
         f"{json.dumps(bound)}; traced / bound "
-        f"{json.dumps({k: traced_ms[k] / bound[k] for k in traced_ms})}")
+        f"{json.dumps({k: v / bound[k] for k, v in traced_ms.items() if v})}")
     log(f"    reductions at B = {B}, {BACK_TO_BACK} launches back to back "
         f"(CUDA events): {json.dumps(ms)} ms; plain versions "
         f"{json.dumps(plain)} ms; torch.sum of p2p_bytes and cdn_bytes "
         f"(two calls) {library!r} ms")
+    launches = {k: v[0] for k, v in {**pair_traced, **e_traced}.items()}
+    launches["lane_sums"] = 0
     return {"traced_ms": traced_ms, "bytes": nbytes, "bound_ms": bound,
-            "launches": {k: v[0] for k, v in {**pair_traced,
-                                              **traced}.items()},
-            "ms": ms, "plain_ms": plain, "library_ms": library}
+            "launches": launches, "ms": ms, "plain_ms": plain,
+            "library_ms": library}
 
 
 def main() -> int:

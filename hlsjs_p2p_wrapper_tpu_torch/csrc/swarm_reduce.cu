@@ -11,22 +11,24 @@
 // Layout: lanes as in swarm_step.cu.  Per-peer arrays are [B, P], float32
 // (int32 for `level`); lane b's rows start at b * P (64-bit).  The grid is
 // (n_blocks, B): n_blocks blocks per lane, each summing a fixed contiguous
-// range of the lane's peers.
+// range of the lane's peers (lane_sums: LS_THREADS peers, one a thread, as
+// in lane_sums.cuh; timeline_row: ops/swarm_kernels.py reduce_blocks).
 //
-// Determinism: no float atomics.  Each thread sums its strided share of
-// the block's range in order, the block sums its threads' values by a
-// fixed tree in shared memory, and writes one partial per quantity.  The
-// last block of a lane to finish (an integer arrival counter per lane,
-// which that block sets back to 0) sums the lane's partials in block
-// order by the same scheme.  n_blocks depends on P alone
-// (ops/swarm_kernels.py reduce_blocks), so a lane's sums are the same bits
-// whatever the batch it runs in, and from run to run.  Counts are summed as
+// Determinism: no float atomics.  In timeline_row each thread sums its
+// strided share of the block's range in order, the block sums its threads'
+// values by a fixed tree in shared memory, and writes one partial per
+// quantity; lane_sums sums by lane_sums.cuh.  The last block of a lane to
+// finish (an integer arrival counter per lane, which that block sets back
+// to 0) sums the lane's partials in block order by the same scheme.
+// n_blocks depends on P alone, so a lane's sums are the same bits whatever
+// the batch it runs in, and from run to run.  Counts are summed as
 // integers in shared memory and as float32 across blocks, which is exact
 // below 2^24.
 //
 // What bounds these kernels on an H100: bytes.  Each reads its [B, P]
 // arrays once (8 B a peer for lane_sums, 20-24 B for timeline_row) and does
-// a few operations per element; the partials are a few KB.
+// a few operations per element; the partials are 8 B a block of 256 peers
+// for lane_sums and a few KB for timeline_row.
 //
 // Numerics: built with --fmad=false like swarm_step.cu.  The ratios are
 // IEEE divisions; the interval rates multiply by one float32 constant
@@ -34,6 +36,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "lane_sums.cuh"
 
 #define RBLOCK 256      // threads per block; a power of two
 #define MAX_LEVELS 16   // the row's level columns
@@ -96,7 +100,13 @@ __device__ __forceinline__ float lane_total(float* red, const float* part,
 // Replaces: the two jnp.sums and the ratio of _scan_swarm's step
 // (swarm_sim.py:1643-1647) and offload_ratio (:2607-2611).  Per lane:
 // sums[b] = (cdn, p2p) over the lane's peers and, when `series` is given,
-// series[b * series_stride + column] = p2p / max(p2p + cdn, 1).
+// series[b * series_stride + column] = p2p / max(p2p + cdn, 1).  Inside the
+// step TK3 peer_update computes the same in its epilogue (swarm_step.cu);
+// this kernel serves the reductions outside the step (a timeline's first
+// interval, offload_ratio).  Both sum by lane_sums.cuh over blocks of
+// LS_THREADS peers, one peer a thread (n_blocks = ceil(P / LS_THREADS)
+// partials a lane), so the two give the same bits; here a thread block
+// sums LS_GROUP of those blocks in turn.
 struct LaneSumsArgs {
   const float* p2p_bytes;
   const float* cdn_bytes;
@@ -111,36 +121,36 @@ struct LaneSumsArgs {
   int column;
 };
 
-__global__ void __launch_bounds__(RBLOCK) lane_sums_kernel(
+// Blocks of LS_THREADS peers each thread block sums in turn, their loads
+// issued together first: a few, so that the arrival's fence and atomic are
+// paid once for them, and enough thread blocks remain to fill the SMs at
+// one lane of 262,144 peers (128 thread blocks).
+#define LS_GROUP 8
+
+__global__ void __launch_bounds__(LS_THREADS) lane_sums_kernel(
     const LaneSumsArgs a) {
-  __shared__ float red[RBLOCK];
-  const int lane = blockIdx.y, blk = blockIdx.x;
-  const long long lb = (long long)lane * a.n_peers;
-  long long begin, end;
-  block_range(a.n_peers, a.n_blocks, blk, &begin, &end);
-  float p2p = 0.0f, cdn = 0.0f;
-  for (long long x = begin + threadIdx.x; x < end; x += RBLOCK) {
-    p2p += a.p2p_bytes[lb + x];
-    cdn += a.cdn_bytes[lb + x];
+  __shared__ float2 red[LS_WARPS];
+  const long long lb = (long long)blockIdx.y * a.n_peers;
+  const long long q0 = (long long)blockIdx.x * LS_GROUP;
+  float2 v[LS_GROUP];
+#pragma unroll
+  for (int j = 0; j < LS_GROUP; ++j) {
+    const long long p = (q0 + j) * LS_THREADS + threadIdx.x;
+    v[j] = p < a.n_peers
+               ? make_float2(a.cdn_bytes[lb + p], a.p2p_bytes[lb + p])
+               : make_float2(0.0f, 0.0f);
   }
-  float* part = a.partials + ((long long)lane * a.n_blocks + blk) * 2;
-  const float bp = block_sum(red, p2p);
-  const float bc = block_sum(red, cdn);
-  if (threadIdx.x == 0) {
-    part[0] = bc;
-    part[1] = bp;
+  float2* part = reinterpret_cast<float2*>(a.partials) +
+                 (long long)blockIdx.y * a.n_blocks;
+#pragma unroll
+  for (int j = 0; j < LS_GROUP; ++j) {
+    if (q0 + j >= a.n_blocks) break;  // the same for every thread
+    const float2 b = ls_block_sum(v[j], red);
+    if (threadIdx.x == 0) part[q0 + j] = b;
   }
-  if (!last_block(a.counters, lane, a.n_blocks)) return;
-  const float* lp = a.partials + (long long)lane * a.n_blocks * 2;
-  const float c = lane_total(red, lp, a.n_blocks, 2, 0);
-  const float p = lane_total(red, lp, a.n_blocks, 2, 1);
-  if (threadIdx.x == 0) {
-    a.sums[2 * lane] = c;
-    a.sums[2 * lane + 1] = p;
-    if (a.series != nullptr)
-      a.series[lane * a.series_stride + a.column] = p / fmaxf(p + c, 1.0f);
-    a.counters[lane] = 0;
-  }
+  if (threadIdx.x >= 32) return;
+  lane_sums_finish(a.partials, a.n_blocks, a.counters, a.sums, a.series,
+                   a.series_stride, a.column);
 }
 
 // ---------------------------------------------------------------------------
@@ -156,9 +166,10 @@ __global__ void __launch_bounds__(RBLOCK) lane_sums_kernel(
 // i.e. the number of edges below it.  The row is
 //   t, offload, rebuffer, cdn_rate, p2p_rate, stalled, level_0..L-1,
 //   bin_0..n_edges
-// with the offload and the rates from this step's `sums` (lane_sums) and
-// the previous sample's `prev_sums`; then prev_sums and prev_rebuffer take
-// this sample's values (one writer per element).  Without prev_rebuffer
+// with the offload and the rates from this step's `sums` (peer_update's
+// epilogue, or lane_sums) and the previous sample's `prev_sums`; then
+// prev_sums and prev_rebuffer take this sample's values (one writer per
+// element).  Without prev_rebuffer
 // (ratio mode) it writes the rebuffer ratio alone, to row[b * row_stride],
 // summed exactly as the row's rebuffer column is.
 struct TimelineArgs {
@@ -262,11 +273,14 @@ __global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
 // and returns cudaGetLastError(), so a refused launch reaches the caller.
 
 extern "C" int reduce_lane_sums(const LaneSumsArgs* a, void* stream) {
-  if (a->n_peers <= 0 || a->n_blocks <= 0) return (int)cudaErrorInvalidValue;
+  if (a->n_peers <= 0 ||
+      a->n_blocks != (a->n_peers + LS_THREADS - 1) / LS_THREADS)
+    return (int)cudaErrorInvalidValue;
   if (a->n_lanes > 0)
-    lane_sums_kernel<<<dim3((unsigned int)a->n_blocks,
+    lane_sums_kernel<<<dim3((unsigned int)((a->n_blocks + LS_GROUP - 1) /
+                                           LS_GROUP),
                             (unsigned int)a->n_lanes),
-                       RBLOCK, 0, (cudaStream_t)stream>>>(*a);
+                       LS_THREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
@@ -279,6 +293,19 @@ extern "C" int reduce_timeline_row(const TimelineArgs* a, void* stream) {
                                (unsigned int)a->n_lanes),
                           RBLOCK, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// Load every kernel of this library onto the card now (see swarm_step.cu
+// swarm_preload).
+extern "C" int reduce_preload(void) {
+  cudaFuncAttributes attr;
+  const void* kernels[] = {(const void*)lane_sums_kernel,
+                           (const void*)timeline_row_kernel};
+  for (const void* k : kernels) {
+    const cudaError_t e = cudaFuncGetAttributes(&attr, k);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // Struct sizes, so the Python side can check its ctypes mirrors.

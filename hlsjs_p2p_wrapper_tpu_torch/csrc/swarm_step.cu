@@ -1,6 +1,7 @@
 // One step of the circulant VOD swarm simulator as sm_90a kernels: on the
-// main path select_admit then TK3 (two launches); for an offset tuple whose
-// halo is too wide for select_admit's tile, TK1, TK2 and TK3.
+// main path select_admit then TK3 (two launches, TK3 with the offset
+// series' sums in its epilogue); for an offset tuple whose halo is too wide
+// for select_admit's tile, TK1, TK2 and TK3.
 //
 // The reference is hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py, whose step is
 // jnp code that XLA fuses (its one Pallas kernel, the eligibility stencil
@@ -43,8 +44,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lane_sums.cuh"
+
 #define MAX_OFFS 32
 #define BLOCK 256
+static_assert(BLOCK == LS_THREADS,
+              "peer_update's blocks are the offload sums' blocks");
 
 // ---------------------------------------------------------------------------
 // TK1 elig_select (reference K1 + K2)
@@ -540,6 +545,14 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
 // fast-fail, budget failover, byte counters, the cache bit-OR into its own
 // row, the EWMA, playback and the dl_flags word.  Updates the state in
 // place; each thread writes only its own peer's row.
+//
+// Epilogue (TK4 lane_sums fused in; reference _scan_swarm's step sums and
+// ratio :1643-1647): each thread keeps the cdn_bytes and p2p_bytes it has
+// just written, and the block sums them for the lane's offload series by
+// lane_sums.cuh, the same blocks and order as the standalone lane_sums, so
+// the step no longer re-reads 8 B a peer in a launch of its own.  A thread
+// past the lane's last peer skips the update and adds zeros: every thread
+// reaches the epilogue's barriers.
 struct UpdateArgs {
   const float* t_s;
   const float* join_s;
@@ -568,11 +581,17 @@ struct UpdateArgs {
   float* dl_done_bytes;
   float* dl_elapsed_ms;
   float* dl_cooldown_ms;
+  float* partials;  // [B, n_blocks, 2] (cdn, p2p) per block of BLOCK peers
+  int* counters;    // [>= B], zero between launches
+  float* sums;      // [B, 2]: cdn, p2p
+  float* series;    // null: sums only
   long long n_peers;
+  long long series_stride;
   int n_lanes;
   int n_words;
   int n_segments;
   int n_offs;
+  int column;       // series[b * series_stride + column]
   float seg_duration_s;
   float end_s;
   float dt_ms;
@@ -594,11 +613,10 @@ __device__ __forceinline__ void ewma_update(float alpha, float weight,
   *total_w = *total_w + weight;
 }
 
-__global__ void peer_update_kernel(const UpdateArgs a) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// One peer's update; returns its new (cdn_bytes, p2p_bytes).
+__device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
+                                              long long p, int lane) {
   const long long P = a.n_peers;
-  if (p >= P) return;
-  const int lane = blockIdx.y;
   const long long lb = (long long)lane * P;  // the lane's first row
   const long long i = lb + p;                // this peer's row
   const float t = a.t_s[lane];
@@ -654,8 +672,11 @@ __global__ void peer_update_kernel(const UpdateArgs a) {
     done = 0.0f;
     elapsed = 0.0f;
   }
-  a.cdn_bytes[i] = a.cdn_bytes[i] + cdn_accrue;
-  a.p2p_bytes[i] = a.p2p_bytes[i] + ((completed && is_p2p) ? total : 0.0f);
+  const float cdn_new = a.cdn_bytes[i] + cdn_accrue;
+  const float p2p_new =
+      a.p2p_bytes[i] + ((completed && is_p2p) ? total : 0.0f);
+  a.cdn_bytes[i] = cdn_new;
+  a.p2p_bytes[i] = p2p_new;
   const float buffer_add = 0.0f + (completed ? a.seg_duration_s : 0.0f);
   a.dl_cooldown_ms[i] = fmaxf(a.dl_cooldown_ms[i] - a.dt_ms, 0.0f);
   a.dl_done_bytes[i] = done;
@@ -686,6 +707,23 @@ __global__ void peer_update_kernel(const UpdateArgs a) {
   a.playhead_s[i] = playhead + advance;
   a.rebuffer_s[i] = a.rebuffer_s[i] + (can_play ? a.dt_s - advance : 0.0f);
   a.buffer_s[i] = buf - advance;
+  return make_float2(cdn_new, p2p_new);
+}
+
+__global__ void __launch_bounds__(BLOCK) peer_update_kernel(
+    const UpdateArgs a) {
+  __shared__ float2 red[LS_WARPS];
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = blockIdx.y;
+  float2 bytes = make_float2(0.0f, 0.0f);
+  if (p < a.n_peers) bytes = update_peer(a, p, lane);
+  const float2 b = ls_block_sum(bytes, red);
+  if (threadIdx.x >= 32) return;
+  if (threadIdx.x == 0)
+    reinterpret_cast<float2*>(a.partials)[(long long)lane * gridDim.x +
+                                          blockIdx.x] = b;
+  lane_sums_finish(a.partials, gridDim.x, a.counters, a.sums, a.series,
+                   a.series_stride, a.column);
 }
 
 // ---------------------------------------------------------------------------
@@ -712,6 +750,9 @@ extern "C" int swarm_admit_service(const AdmitArgs* args, void* stream) {
 }
 
 extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
+  if (args->partials == nullptr || args->counters == nullptr ||
+      args->sums == nullptr)
+    return (int)cudaErrorInvalidValue;
   if (args->n_peers > 0 && args->n_lanes > 0)
     peer_update_kernel<<<grid_for(args->n_peers, args->n_lanes), BLOCK, 0,
                          (cudaStream_t)stream>>>(*args);
@@ -740,6 +781,22 @@ extern "C" int swarm_select_admit(const SelectAdmitArgs* args, void* stream) {
   if (args->sel.n_offs == 8)
     return launch_select_admit<8>(args, (cudaStream_t)stream);
   return launch_select_admit<0>(args, (cudaStream_t)stream);
+}
+
+// Load every kernel of this library onto the card now, so that none is
+// loaded lazily at its first launch, which may fall inside a CUDA graph
+// capture.  Called once, when the library is bound.
+extern "C" int swarm_preload(void) {
+  cudaFuncAttributes attr;
+  const void* kernels[] = {
+      (const void*)elig_select_kernel, (const void*)admit_service_kernel,
+      (const void*)peer_update_kernel, (const void*)select_admit_kernel<8>,
+      (const void*)select_admit_kernel<0>};
+  for (const void* k : kernels) {
+    const cudaError_t e = cudaFuncGetAttributes(&attr, k);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // Struct sizes, so the Python side can check its ctypes mirrors.

@@ -4,7 +4,8 @@ Route: ``nvcc`` by hand into a library with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 The library lands in ``build/torch_kernels/`` at the repository root,
 named by a hash of the source and flags, so a changed source builds
-anew and an unchanged one is loaded as it is.  A source's macros
+anew and an unchanged one is loaded as it is (the hash covers the
+headers in ``csrc/`` too).  A source's macros
 (``-DNAME=VALUE``) come from the module that binds it, so that numbers
 the kernel and its wrapper share live in one place.  Nothing here runs
 at import time: the first launch builds.
@@ -62,9 +63,12 @@ def flags(defines: Defines = ()) -> Tuple[str, ...]:
 
 
 def _digest(source: str, defines: Defines) -> str:
+    """A hash of the source, the headers beside it and the flags."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, source), "rb") as fh:
-        h.update(fh.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC_DIR, name), "rb") as fh:
+            h.update(fh.read())
     h.update(" ".join(flags(defines)).encode())
     return h.hexdigest()[:16]
 

@@ -13,19 +13,21 @@ TK2 ``admit_service``  circulant admission and service, :1259-1303
 ``select_admit``       TK1 then TK2 in one launch, over tiles of
                        peers with a halo of requesters
 TK3 ``peer_update``    the service readback and the slot-0 update
-                       :1351-1525 with ``ewma.update``
-TK4 ``lane_sums``      the offload series of ``_scan_swarm``'s step
-                       :1643-1647 and ``offload_ratio`` :2607-2611
+                       :1351-1525 with ``ewma.update``, and in its
+                       epilogue TK4's sums for the step's offload
+                       series :1643-1647
+TK4 ``lane_sums``      the same sums outside the step: a timeline's
+                       first interval, ``offload_ratio`` :2607-2611
 TK5 ``timeline_row``   ``_timeline_row`` :1559-1627 (no cohort
                        columns), and the sums of ``rebuffer_ratio``
 =====================  ==========================================
 
-A step is :func:`select_admit` then :func:`peer_update`, then
-:func:`lane_sums` writes the step's column of the offload series and
-every ``record_every`` steps :func:`timeline_row` writes a row.  The
-route of ``select_admit`` is chosen from the offsets before launch
-(:func:`fused_route`): the fused kernel where the halo fits its tile
-(the main path), else TK1 then TK2.
+A step is :func:`select_admit` then :func:`peer_update`, which also
+sums each lane's byte counters and writes the step's column of the
+offload series; every ``record_every`` steps :func:`timeline_row`
+writes a row.  The route of ``select_admit`` is chosen from the offsets
+before launch (:func:`fused_route`): the fused kernel where the halo
+fits its tile (the main path), else TK1 then TK2.
 
 Lanes.  Every function here works on stacked scenario lanes (``t_s``
 of shape ``[B]``, see ``swarm_sim``); the step's functions also take a
@@ -59,14 +61,19 @@ active and written only when it is not (``csrc/swarm_step.cu``).  The
 plain versions update the state in place too.  Callers that compare two
 steps clone the state first.
 
-Reductions.  TK4 and TK5 sum in a fixed order (per block, then over
-the blocks of a lane in its last block to finish) with no float
-atomics, and the blocks of a lane depend on ``P`` alone: a lane's sums
-are the same bits batched or alone, run after run.  On the CPU the
-plain versions take ``torch.sum``; between the card and the CPU sums
-agree to a tolerance, not to the bit.
+Reductions.  The offload sums (TK3's epilogue, TK4) and TK5 sum in a
+fixed order (per block, then over the blocks of a lane in its last
+block to finish) with no float atomics, and the blocks of a lane depend
+on ``P`` alone: a lane's sums are the same bits batched or alone, run
+after run.  TK3's epilogue and TK4 share their blocks and their code
+(``csrc/lane_sums.cuh``), so a run's last series entry, its final
+offload ratio and its last timeline row agree to the bit.  On the CPU
+the plain versions take ``torch.sum``; between the card and the CPU
+sums agree to a tolerance, not to the bit.
 
-Every launch adds one to :data:`LAUNCHES`; plain calls add nothing.
+Every launch adds one to :data:`LAUNCHES`; plain calls add nothing.  A
+CUDA graph (:func:`capture`) counts the launches it recorded once per
+replay (:meth:`Graph.replay`), not at its capture.
 """
 
 from __future__ import annotations
@@ -156,11 +163,15 @@ MAX_FUSED_SPAN = 32
 #: by the build from the two numbers above
 DEFINES = (("SA_TILE", SELECT_ADMIT_TILE), ("SA_MAX_SPAN", MAX_FUSED_SPAN))
 
-#: peers per block of the reduction kernels, and the most blocks a lane
+#: peers per block of ``timeline_row``, and the most blocks a lane
 #: takes; the block count depends on P alone, so that a lane sums in
 #: the same order whatever the batch
 REDUCE_TILE = 4096
 REDUCE_MAX_BLOCKS = 1024
+#: peers per block of the offload sums, one a thread: ``peer_update``'s
+#: blocks, whose epilogue sums them, and ``lane_sums``' (``LS_THREADS``
+#: in ``csrc/lane_sums.cuh``)
+SUMS_BLOCK = 256
 #: the reduction kernels' limits on the timeline row (``MAX_LEVELS``
 #: levels, ``MAX_EDGES`` digest edges), checked before launch
 MAX_LEVELS = 16
@@ -175,21 +186,27 @@ def fused_route(config: SwarmConfig) -> bool:
 
 
 def reduce_blocks(n_peers: int) -> int:
-    """Blocks per lane of ``lane_sums`` and ``timeline_row``."""
+    """Blocks per lane of ``timeline_row``."""
     return max(1, min(-(-n_peers // REDUCE_TILE), REDUCE_MAX_BLOCKS))
 
 
 def _lane_api(fn):
-    """Let ``fn(config, scenario, *args)``, written for stacked lanes,
-    take a single scenario too: its arguments become one lane (views of
-    its storage, so in-place writes land in it) and the tensors ``fn``
-    returns lose the lane axis again."""
+    """Let ``fn(config, scenario, *args, **kw)``, written for stacked
+    lanes, take a single scenario too: its positional arguments become
+    one lane (views of its storage, so in-place writes land in it) and
+    the tensors ``fn`` returns lose the lane axis again.  Keyword
+    arguments pass as they are."""
     @functools.wraps(fn)
-    def wrapped(config, scenario, *args):
+    def wrapped(config, scenario, *args, **kw):
         if scenario.bitrates.dim() == 2:
-            return fn(config, scenario, *args)
-        out = fn(config, as_lanes(scenario), *(as_lanes(x) for x in args))
-        return None if out is None else tuple(x[0] for x in out)
+            return fn(config, scenario, *args, **kw)
+        out = fn(config, as_lanes(scenario), *(as_lanes(x) for x in args),
+                 **kw)
+        if out is None:
+            return None
+        if torch.is_tensor(out):
+            return out[0]
+        return tuple(x[0] for x in out)
     return wrapped
 
 
@@ -459,11 +476,12 @@ def plain_step(config: SwarmConfig, scenario: SwarmScenario,
                state: SwarmState) -> SwarmState:
     """One step through the plain versions on any device, of one
     scenario or of lanes: the oracle a kernel step is held against.
-    Updates ``state`` in place and returns it with the clock advanced,
-    as ``swarm_step`` does."""
+    Updates ``state`` in place, the clock too, and returns it, as
+    ``swarm_step`` does."""
     flags, req, service, adm = select_admit_plain(config, scenario, state)
     peer_update_plain(config, scenario, state, flags, req, service, adm)
-    return state._replace(t_s=state.t_s + config.dt_ms / 1000.0)
+    state.t_s.add_(config.dt_ms / 1000.0)
+    return state
 
 
 def lane_sums_plain(state: SwarmState, series=None, column: int = 0):
@@ -509,7 +527,7 @@ def timeline_row_plain(config: SwarmConfig, scenario: SwarmScenario,
     """Plain TK5 on lanes (reference ``_timeline_row`` :1559-1627, no
     cohort columns): writes ``out[:, sample, :]``, the row of
     :func:`~swarm_sim.timeline_columns`, from the state, this step's
-    ``sums`` (``lane_sums``), and the previous sample's ``prev_sums``
+    ``sums`` (``peer_update``'s), and the previous sample's ``prev_sums``
     and ``prev_rebuffer``, which it then updates in place."""
     t = state.t_s
     cdn, p2p = sums[:, 0], sums[:, 1]
@@ -588,10 +606,12 @@ class _UpdateArgs(ctypes.Structure):
         "dl_total_bytes", "dl_budget_ms", "playhead_s", "buffer_s",
         "rebuffer_s", "fast_estimate", "fast_weight", "slow_estimate",
         "slow_weight", "avail", "cdn_bytes", "p2p_bytes", "dl_flags",
-        "dl_done_bytes", "dl_elapsed_ms", "dl_cooldown_ms")] + [
-        ("n_peers", ctypes.c_longlong), ("n_lanes", ctypes.c_int),
-        ("n_words", ctypes.c_int),
-        ("n_segments", ctypes.c_int), ("n_offs", ctypes.c_int)] + [
+        "dl_done_bytes", "dl_elapsed_ms", "dl_cooldown_ms", "partials",
+        "counters", "sums", "series")] + [
+        ("n_peers", ctypes.c_longlong), ("series_stride", ctypes.c_longlong),
+        ("n_lanes", ctypes.c_int), ("n_words", ctypes.c_int),
+        ("n_segments", ctypes.c_int), ("n_offs", ctypes.c_int),
+        ("column", ctypes.c_int)] + [
         (name, ctypes.c_float) for name in (
             "seg_duration_s", "end_s", "dt_ms", "dt_s", "p2p_bps",
             "fast_alpha", "slow_alpha", "min_sample_ms")] + [
@@ -625,18 +645,20 @@ _ENTRY = {"elig_select": (SOURCE, "swarm_elig_select", _SelectArgs),
           "lane_sums": (REDUCE_SOURCE, "reduce_lane_sums", _LaneSumsArgs),
           "timeline_row": (REDUCE_SOURCE, "reduce_timeline_row",
                            _TimelineArgs)}
-#: each source's macros and its entry point that reports its structs'
-#: sizes, in ``_ENTRY`` order
-_SOURCES = {SOURCE: (DEFINES, "swarm_args_sizes"),
-            REDUCE_SOURCE: ((), "reduce_args_sizes")}
+#: each source's macros, its entry point that reports its structs'
+#: sizes (in ``_ENTRY`` order), and the one that loads its kernels onto
+#: the card (so that none loads lazily inside a graph capture)
+_SOURCES = {SOURCE: (DEFINES, "swarm_args_sizes", "swarm_preload"),
+            REDUCE_SOURCE: ((), "reduce_args_sizes", "reduce_preload")}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(source: str) -> ctypes.CDLL:
-    """Build (once, on first use) and bind one source's library, and
-    check the ctypes mirrors against the C structs' sizes."""
+    """Build (once, on first use) and bind one source's library, check
+    the ctypes mirrors against the C structs' sizes, and load its
+    kernels onto the card."""
     from . import _build
-    defines, sizes_fn = _SOURCES[source]
+    defines, sizes_fn, preload_fn = _SOURCES[source]
     lib = _build.load(source, defines)
     entries = [(fn, args) for src, fn, args in _ENTRY.values()
                if src == source]
@@ -654,6 +676,12 @@ def _lib(source: str) -> ctypes.CDLL:
         raise RuntimeError(f"{source}: kernel argument structs disagree "
                            f"with their ctypes mirrors: C {list(sizes)} vs "
                            f"{want}")
+    preload = getattr(lib, preload_fn)
+    preload.restype = ctypes.c_int
+    rc = preload()
+    if rc != 0:
+        raise RuntimeError(f"{source}: loading its kernels failed: CUDA "
+                           f"error {rc}")
     return lib
 
 
@@ -662,7 +690,7 @@ def build_kernels(force: bool = False) -> dict:
     ``nvcc`` each, started together; they build on first launch
     otherwise.  Returns the build's report (``_build.build``)."""
     from . import _build
-    info = _build.build({src: d for src, (d, _fn) in _SOURCES.items()},
+    info = _build.build({src: d for src, (d, _s, _p) in _SOURCES.items()},
                         force=force)
     for src in _SOURCES:
         _lib(src)
@@ -834,12 +862,19 @@ def admit_service(config: SwarmConfig, scenario: SwarmScenario,
 def peer_update(config: SwarmConfig, scenario: SwarmScenario,
                 state: SwarmState, slot_flags: torch.Tensor,
                 req: torch.Tensor, service: torch.Tensor,
-                adm: torch.Tensor) -> None:
-    """TK3.  Same signature and effect as :func:`peer_update_plain`."""
+                adm: torch.Tensor, *, series=None,
+                column: int = 0) -> torch.Tensor:
+    """TK3 with TK4's sums in its epilogue: :func:`peer_update_plain`
+    then :func:`lane_sums_plain` on the updated state, in one launch.
+    Updates ``state`` in place and returns each lane's ``[B, 2]`` (cdn,
+    p2p) sums; with ``series`` (a ``[B, n]`` float32 tensor) it also
+    writes the offload ratio into ``series[:, column]``.  The sums are
+    the bits :func:`lane_sums` gives on the updated state."""
     dev = state.avail.device
     if dev.type != "cuda":
-        return peer_update_plain(config, scenario, state, slot_flags, req,
-                                 service, adm)
+        peer_update_plain(config, scenario, state, slot_flags, req, service,
+                          adm)
+        return lane_sums_plain(state, series, column)
     g = geometry(config)
     P = g.P
     B = state.t_s.shape[0]
@@ -862,13 +897,16 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
     for name in ("dl_total_bytes", "dl_budget_ms", "dl_done_bytes",
                  "dl_elapsed_ms", "dl_cooldown_ms"):
         ptrs[name] = _check(name, getattr(state, name), _F, (B, P, 1), dev)
+    sums, _partials, out = _sums_out(dev, "peer_update", B, P, series,
+                                     column)
     args = _UpdateArgs(
-        **ptrs, n_peers=P, n_lanes=B, n_words=g.W, n_segments=g.S,
+        **ptrs, **out, n_peers=P, n_lanes=B, n_words=g.W, n_segments=g.S,
         n_offs=len(g.offs), seg_duration_s=g.seg, end_s=g.end_s,
         dt_ms=g.dt_ms, dt_s=g.dt_s, p2p_bps=config.p2p_bps,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         min_sample_ms=MIN_SAMPLE_DURATION_MS, offs=_offs_array(g.offs_mod))
     _launch("peer_update", args, dev)
+    return sums
 
 
 # ---- the reductions ---------------------------------------------------------
@@ -888,18 +926,19 @@ def _counters(dev: torch.device, name: str, n_lanes: int) -> int:
     return buf.data_ptr()
 
 
-def lane_sums(state: SwarmState, series=None, column: int = 0):
-    """TK4 on lanes: each lane's ``cdn_bytes`` and ``p2p_bytes`` sums as
-    a ``[B, 2]`` (cdn, p2p) tensor, and with ``series`` (a ``[B, n]``
-    float32 tensor) the offload ratio written into ``series[:,
-    column]``.  Same outputs as :func:`lane_sums_plain`, to the sums'
-    tolerance."""
-    dev = state.p2p_bytes.device
-    if dev.type != "cuda":
-        return lane_sums_plain(state, series, column)
-    B, P = state.p2p_bytes.shape
+def sums_blocks(n_peers: int) -> int:
+    """Blocks per lane of the offload sums (``peer_update``'s epilogue
+    and ``lane_sums``): one per :data:`SUMS_BLOCK` peers."""
+    return -(-n_peers // SUMS_BLOCK)
+
+
+def _sums_out(dev, name: str, B: int, P: int, series, column: int):
+    """The offload sums' outputs for kernel ``name``: a fresh ``[B, 2]``
+    sums tensor, its partials (held by the caller until the launch is
+    queued), and the struct fields that point at them, the arrival
+    counters and ``series[:, column]``, checked."""
     if P == 0:
-        raise ValueError("lane_sums needs at least one peer")
+        raise ValueError(f"{name} needs at least one peer")
     stride = 0
     if series is not None:
         if (series.device != dev or series.dtype != _F or series.dim() != 2
@@ -909,17 +948,34 @@ def lane_sums(state: SwarmState, series=None, column: int = 0):
                              f"{dev} with unit column stride holding "
                              f"column {column}")
         stride = series.stride(0)
-    nb = reduce_blocks(P)
     sums = torch.empty((B, 2), dtype=_F, device=dev)
-    partials = torch.empty((B, nb, 2), dtype=_F, device=dev)
+    partials = torch.empty((B, sums_blocks(P), 2), dtype=_F, device=dev)
+    return sums, partials, dict(
+        partials=partials.data_ptr(), counters=_counters(dev, name, B),
+        sums=sums.data_ptr(),
+        series=None if series is None else series.data_ptr(),
+        series_stride=stride, column=column)
+
+
+def lane_sums(state: SwarmState, series=None, column: int = 0):
+    """TK4 on lanes: each lane's ``cdn_bytes`` and ``p2p_bytes`` sums as
+    a ``[B, 2]`` (cdn, p2p) tensor, and with ``series`` (a ``[B, n]``
+    float32 tensor) the offload ratio written into ``series[:,
+    column]``.  Same outputs as :func:`lane_sums_plain`, to the sums'
+    tolerance; on the card the same bits as ``peer_update``'s epilogue
+    on the same counters.  The step does not launch it: it serves the
+    sums outside the step (a timeline's first interval,
+    ``offload_ratio_batch``)."""
+    dev = state.p2p_bytes.device
+    if dev.type != "cuda":
+        return lane_sums_plain(state, series, column)
+    B, P = state.p2p_bytes.shape
+    sums, _partials, out = _sums_out(dev, "lane_sums", B, P, series,
+                                     column)
     args = _LaneSumsArgs(
         p2p_bytes=_check("p2p_bytes", state.p2p_bytes, _F, (B, P), dev),
         cdn_bytes=_check("cdn_bytes", state.cdn_bytes, _F, (B, P), dev),
-        partials=partials.data_ptr(),
-        counters=_counters(dev, "lane_sums", B), sums=sums.data_ptr(),
-        series=None if series is None else series.data_ptr(),
-        n_peers=P, series_stride=stride, n_lanes=B, n_blocks=nb,
-        column=column)
+        **out, n_peers=P, n_lanes=B, n_blocks=sums_blocks(P))
     _launch("lane_sums", args, dev)
     return sums
 
@@ -1003,3 +1059,86 @@ def rebuffer_ratio_lanes(reb: torch.Tensor, join: torch.Tensor,
                                      row=out.data_ptr(), row_stride=1)
     _launch("timeline_row", args, dev)
     return out
+
+
+# ---- CUDA graphs of the scan ------------------------------------------------
+
+def graph_path(device) -> bool:
+    """Whether ``_scan_swarm`` replays its steps as CUDA graphs on
+    ``device``: on the card, always; on the CPU it loops eagerly."""
+    return torch.device(device).type == "cuda"
+
+
+class Graph(NamedTuple):
+    """A captured CUDA graph, the kernel launches it holds (by name) and
+    its memory pool, which a later capture of the same scan may share
+    (the graphs replay one at a time, in order)."""
+
+    graph: object
+    launches: Dict[str, int]
+    pool: object
+
+    def replay(self) -> None:
+        """Replay the graph on the current stream, counting its
+        launches."""
+        self.graph.replay()
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n
+
+
+def _prepare_capture(dev: torch.device, n_lanes: int) -> None:
+    """What a capture must find ready, since a graph may not build,
+    load, allocate outside its pool or copy from the host: both
+    libraries built, bound and their kernels loaded (``_lib``), the
+    arrival counters for ``n_lanes`` lanes, the digest edges, and
+    PyTorch's kernel of the clock add loaded by one add on the capture
+    stream."""
+    for source in _SOURCES:
+        _lib(source)
+    for name in ("peer_update", "lane_sums", "timeline_row"):
+        _counters(dev, name, n_lanes)
+    _edges(dev)
+    with torch.cuda.stream(_capture_stream(dev)):
+        torch.zeros((n_lanes,), dtype=_F, device=dev).add_(1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(dev: torch.device):
+    """The side stream captures run on (made once per device)."""
+    return torch.cuda.Stream(dev)
+
+
+def capture(fn, dev: torch.device, n_lanes: int, pool=None) -> Graph:
+    """Capture ``fn()``, which launches work on ``n_lanes`` lanes on the
+    card, as a CUDA graph (in ``pool`` when given, else a pool of its
+    own).  The launches ``fn`` makes while captured run nothing, so they
+    are taken off :data:`LAUNCHES` and counted at each replay instead.
+    A failed capture raises."""
+    _prepare_capture(dev, n_lanes)
+    before = dict(LAUNCHES)
+    try:
+        graph = _record(fn, dev, pool)
+    finally:
+        recorded = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+        LAUNCHES.update(before)
+    return Graph(graph, {k: n for k, n in recorded.items() if n},
+                 graph.pool())
+
+
+def _record(fn, dev: torch.device, pool):
+    """``fn()`` captured into a ``torch.cuda.CUDAGraph`` on the capture
+    stream.  Unlike the ``torch.cuda.graph`` context manager, it neither
+    synchronizes the card nor empties PyTorch's cache of free device
+    memory first: a capture is made once per scan, and emptying the
+    cache sends the allocations after it back to the driver."""
+    graph = torch.cuda.CUDAGraph()
+    stream = _capture_stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        graph.capture_begin(*(() if pool is None else (pool,)))
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    return graph

@@ -20,9 +20,13 @@ scenario has its policy scalars as ``[B]`` and ``bitrates`` as
 ``[B, L]`` (:func:`stack_pytrees`, :func:`lane`).  The step runs on
 lanes only: a single scenario is one lane (:func:`as_lanes`, views
 that share its storage), so ``swarm_step`` and ``run_swarm`` go through
-the batched path at ``B = 1``.  The offload series and the metrics
-timeline (``record_every``) are written per lane by two reduction
-kernels.
+the batched path at ``B = 1``.  The offload series is written per lane
+by the per-peer update's epilogue, the metrics timeline
+(``record_every``) by a reduction kernel.
+
+The scan.  On the card :func:`_scan_swarm` captures runs of steps as
+CUDA graphs and replays them, the counterpart of the reference's
+``jax.lax.scan`` compiled whole; on the CPU it loops eagerly.
 
 What this port covers, and what raises instead:
 
@@ -54,6 +58,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import prng
 from ..core.abr import (BANDWIDTH_SAFETY, DEFAULT_FAST_HALF_LIFE_S,
                         DEFAULT_SLOW_HALF_LIFE_S)
 from ..core.device import resolve_device
@@ -551,66 +556,150 @@ def check_slice(config: SwarmConfig) -> None:
             "ported yet (ROADMAP queue 1 item 9a)")
 
 
-def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
-               state: SwarmState) -> SwarmState:
-    """One ``dt_ms`` tick for every peer, of one scenario or of every
-    lane of a stacked one.  Two passes: eligibility, holder selection,
-    admission and service (``select_admit``), then the per-peer update
-    (``ops/swarm_kernels.py``).  On a CUDA state each pass launches its
-    kernels over all lanes at once; on a CPU state the plain PyTorch
-    versions run.
-
-    The state's tensors are updated IN PLACE and the returned state
-    carries them with each lane's clock advanced: clone a state
-    (:func:`clone_state`) to keep it."""
-    from . import swarm_kernels as sk
+def _check_step(config: SwarmConfig, state: SwarmState) -> None:
     check_slice(config)
     if state.holder_penalty_ms.shape[-1] != 0:
         raise ValueError(
             f"state.holder_penalty_ms is sized for "
             f"{state.holder_penalty_ms.shape[-1]} neighbors but "
             f"\"spread\" carries a zero-width field")
+
+
+def _step(config: SwarmConfig, scenario: SwarmScenario, state: SwarmState,
+          series=None, column: int = 0) -> torch.Tensor:
+    """One step in place: ``select_admit``, ``peer_update`` (which also
+    sums the byte counters and, with ``series``, writes the offload
+    ratio into ``series[:, column]``), then the clock.  Returns the
+    step's ``[B, 2]`` (cdn, p2p) sums."""
+    from . import swarm_kernels as sk
     flags, req, service, adm = sk.select_admit(config, scenario, state)
-    sk.peer_update(config, scenario, state, flags, req, service, adm)
-    return state._replace(t_s=state.t_s + config.dt_ms / 1000.0)
+    sums = sk.peer_update(config, scenario, state, flags, req, service, adm,
+                          series=series, column=column)
+    state.t_s.add_(config.dt_ms / 1000.0)
+    return sums
+
+
+def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
+               state: SwarmState) -> SwarmState:
+    """One ``dt_ms`` tick for every peer, of one scenario or of every
+    lane of a stacked one.  Two passes: eligibility, holder selection,
+    admission and service (``select_admit``), then the per-peer update
+    (``ops/swarm_kernels.py``).  On a CUDA state each pass launches its
+    kernel over all lanes at once; on a CPU state the plain PyTorch
+    versions run.
+
+    The state's tensors, the clock ``t_s`` included, are updated IN
+    PLACE (the clock's float32 add is the reference's), and the state
+    is returned: clone a state (:func:`clone_state`) to keep it."""
+    _check_step(config, state)
+    _step(config, scenario, state)
+    return state
+
+
+#: steps per CUDA graph of a scan without a timeline; with one, a graph
+#: is one interval of ``record_every`` steps and its row.  40 steps keep
+#: a replay's host work (the replay and one copy of the series) small
+#: beside its device time, and a capture (one host pass over the steps)
+#: short
+GRAPH_STEPS = 40
 
 
 def _scan_swarm(config: SwarmConfig, scenario: SwarmScenario,
                 state: SwarmState, n_steps: int, record_every: int = 0):
-    """``n_steps`` steps as a Python loop over the lanes: the shared
-    body of every entry point.  Returns ``(final state, offload series
+    """``n_steps`` steps: the shared body of every entry point, the
+    reference's scanned step.  Returns ``(final state, offload series
     [..., n_steps])``; ``record_every=N > 0`` appends the metrics
     timeline ``[..., n_steps // N, M]`` (:func:`timeline_columns`), one
     row at the end of each N-step interval, and trailing steps past the
-    last full interval still run.  The series and the rows are written
-    on the device by ``lane_sums`` and ``timeline_row``
-    (``ops/swarm_kernels.py``), so the loop never waits on the host.
-    Updates ``state`` in place.  A single scenario runs as one lane and
-    gets its outputs back without the lane axis."""
+    last full interval still run.  Updates ``state`` in place.  A single
+    scenario runs as one lane and gets its outputs back without the
+    lane axis.
+
+    On the card the steps run as CUDA graphs, the port's counterpart of
+    the reference's compiled scan: a run of steps (one interval with a
+    timeline, else :data:`GRAPH_STEPS`; the trailing steps a graph of
+    their own) is captured once and replayed, so the host does no work
+    per step.  A failed capture or replay raises; nothing falls back to
+    the eager loop.  On the CPU it is the eager loop
+    (:func:`_scan_eager`)."""
+    from . import swarm_kernels as sk
+    graph = sk.graph_path(state.t_s.device)
+    return _scan(config, scenario, state, n_steps, record_every, graph)
+
+
+def _scan_eager(config: SwarmConfig, scenario: SwarmScenario,
+                state: SwarmState, n_steps: int, record_every: int = 0):
+    """:func:`_scan_swarm` as a Python loop of eager steps on any
+    device: the CPU path, and on the card the run the graphs are held
+    against (the same kernels, launched one by one)."""
+    return _scan(config, scenario, state, n_steps, record_every, False)
+
+
+def _scan(config, scenario, state, n_steps, record_every, graph):
     from . import swarm_kernels as sk
     if record_every < 0:
         raise ValueError(f"record_every must be >= 0, got {record_every}")
+    _check_step(config, state)
     single = not is_lanes(state)
     if single:
         scenario, state = as_lanes(scenario), as_lanes(state)
     B, dev = state.t_s.shape[0], state.t_s.device
     series = torch.empty((B, n_steps), dtype=torch.float32, device=dev)
     timeline = ()
+    row = None
     if record_every:
-        timeline = (torch.empty((B, n_steps // record_every,
-                                 len(timeline_columns(config))),
+        M = len(timeline_columns(config))
+        timeline = (torch.empty((B, n_steps // record_every, M),
                                 dtype=torch.float32, device=dev),)
         prev_sums = sk.lane_sums(state)
         prev_reb = state.rebuffer_s.clone()
-    for s in range(n_steps):
-        state = swarm_step(config, scenario, state)
-        sums = sk.lane_sums(state, series, s)
-        if record_every and (s + 1) % record_every == 0:
+
+        def row(sums, out, sample):
             sk.timeline_row(config, scenario, state, sums, prev_sums,
-                            prev_reb, timeline[0],
-                            (s + 1) // record_every - 1, record_every)
+                            prev_reb, out, sample, record_every)
+    if graph:
+        _replay_steps(config, scenario, state, n_steps, record_every, row,
+                      series, timeline)
+    else:
+        for s in range(n_steps):
+            sums = _step(config, scenario, state, series, s)
+            if record_every and (s + 1) % record_every == 0:
+                row(sums, timeline[0], (s + 1) // record_every - 1)
     out = (state, series) + timeline
     return tuple(lane(x, 0) for x in out) if single else out
+
+
+def _replay_steps(config, scenario, state, n_steps, record_every, row,
+                  series, timeline):
+    """The steps of :func:`_scan` as replayed CUDA graphs.  A graph
+    bakes its launches' arguments, so every step of one graph writes its
+    series column, and the interval its row, into fixed scratch
+    (``[B, G]``, ``[B, 1, M]``), which a copy after each replay moves
+    into place; the state, the clock and the timeline's carried sums are
+    updated in place at fixed addresses."""
+    from . import swarm_kernels as sk
+    B, dev = state.t_s.shape[0], state.t_s.device
+    G = record_every or GRAPH_STEPS
+    series_g = torch.empty((B, G), dtype=torch.float32, device=dev)
+    row_g = (torch.empty((B, 1, timeline[0].shape[-1]), dtype=torch.float32,
+                         device=dev) if record_every else None)
+    graphs = {}
+    done = 0
+    while done < n_steps:
+        n = min(G, n_steps - done)
+        if n not in graphs:
+            def steps(n=n):
+                for s in range(n):
+                    sums = _step(config, scenario, state, series_g, s)
+                if n == record_every:
+                    row(sums, row_g, 0)
+            pool = next(iter(graphs.values())).pool if graphs else None
+            graphs[n] = sk.capture(steps, dev, B, pool)
+        graphs[n].replay()
+        series[:, done:done + n].copy_(series_g[:, :n])
+        if n == record_every:
+            timeline[0][:, done // record_every].copy_(row_g[:, 0])
+        done += n
 
 
 def run_swarm(config: SwarmConfig, bitrates, neighbors, cdn_bps,
@@ -867,24 +956,23 @@ def autotune_chunk(config: SwarmConfig, n_items: int, n_steps: int, *,
 def staggered_joins(n_peers: int, window_s: float = 60.0, seed: int = 0,
                     device=None) -> torch.Tensor:
     """Deterministic shuffled join times over ``window_s``: the evenly
-    spaced times of ``linspace(0, window_s, n_peers)`` in an order drawn
-    from ``numpy.random.default_rng(seed)``.  Shuffling matters for
+    spaced float32 times of ``jnp.linspace(0, window_s, n_peers)`` in
+    the order of ``jax.random.permutation(PRNGKey(seed), ...)``, drawn
+    on the host by the port's threefry twin (``core/prng.py``), so they
+    are the reference's joins to the bit.  Shuffling matters for
     ring-ish topologies (ring-adjacent peers should not arrive
-    together).  The draws differ from the reference's ``jax.random``
-    permutation: parity tests pass the reference's materialized joins
-    to both sides."""
-    base = np.linspace(0.0, window_s, n_peers, dtype=np.float32)
-    perm = np.random.default_rng(seed).permutation(n_peers)
-    return torch.as_tensor(base[perm], device=resolve_device(device))
+    together)."""
+    base = prng.linspace_f32(0.0, window_s, n_peers)
+    joins = prng.permutation(prng.PRNGKey(seed), base)
+    return torch.from_numpy(joins).to(resolve_device(device))
 
 
 def stable_ranks(n_peers: int, seed: int = 0, device=None) -> torch.Tensor:
     """Deterministic per-peer ranks in [0, 1) for the live-edge CDN
-    stagger, drawn as float32 from ``numpy.random.default_rng(seed)``.
-    The draws differ from the reference's ``jax.random.uniform``:
-    parity tests pass the reference's materialized ranks to both
-    sides."""
-    ranks = np.random.default_rng(seed).random(n_peers, dtype=np.float32)
+    stagger: ``jax.random.uniform(PRNGKey(seed), (n_peers,))``, drawn on
+    the host by the port's threefry twin (``core/prng.py``), to the
+    bit."""
+    ranks = prng.uniform(prng.PRNGKey(seed), n_peers)
     return torch.from_numpy(ranks).to(resolve_device(device))
 
 

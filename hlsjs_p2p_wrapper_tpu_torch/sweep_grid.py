@@ -93,8 +93,9 @@ def build_scenario(config, knobs, *, watch_s, stagger_s, seed,
     """One VOD grid point's scenario on ``device`` (the card when None),
     and its join times ``[P]``, which the rebuffer denominator needs.
     Joins are ``staggered_joins(P, stagger_s, seed)`` unless ``join_s``
-    gives them: their draws differ from the reference's, so parity
-    checks pass the reference's joins here.  ``watch_s`` is the
+    gives them, and ranks ``stable_ranks(P, seed)``: both are the
+    reference's threefry draws, so the scenario is ``tools/sweep.py``'s
+    at the same seed.  ``watch_s`` is the
     reference's signature; only the live crowd wave reads it."""
     if population is not None:
         raise NotImplementedError(

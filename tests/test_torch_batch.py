@@ -3,9 +3,8 @@
 per-lane reductions, inside the port and against the JAX reference.
 
 The reference runs as its own tests run it on this host (jit on the
-CPU).  Its ``staggered_joins`` draws from ``jax.random``, which the
-port cannot reproduce, so the reference's joins are handed to both
-sides."""
+CPU).  The reference's joins are handed to both sides (the port's own
+draws are the same bits: tests/test_torch_prng.py)."""
 
 import os
 import sys

@@ -225,6 +225,27 @@ def test_build_scenario_matches_the_sweep_tool(monkeypatch):
                                           err_msg=name)
 
 
+def test_build_scenario_without_joins_is_the_sweep_tools():
+    """Drawing its own joins and ranks (the reference's threefry draws),
+    the port builds every scenario array of each VOD point, and the
+    joins, as ``tools/sweep.py`` does at the same seed: to the bit."""
+    config = sg.build_config(P, S, False, 8)
+    rconfig = ref.SwarmConfig(*config)
+    for knobs in sg.sample_grid(sg.vod_grid(), 6):
+        rscen, rjoin = ref_sweep.build_scenario(
+            rconfig, knobs, watch_s=WATCH_S, stagger_s=12.0, seed=3)
+        scen, join = sg.build_scenario(
+            config, knobs, watch_s=WATCH_S, stagger_s=12.0, seed=3,
+            device="cpu")
+        np.testing.assert_array_equal(join.numpy(), np.asarray(rjoin))
+        for name in port.SwarmScenario._fields:
+            got, want = getattr(scen, name).numpy(), np.asarray(
+                getattr(rscen, name))
+            assert got.shape == want.shape, name
+            np.testing.assert_array_equal(got, want.astype(got.dtype),
+                                          err_msg=name)
+
+
 def test_build_scenario_draws_its_joins_once():
     config = sg.build_config(P, S, False, 8)
     a, ja = sg.build_scenario(config, sg.vod_grid()[0], watch_s=WATCH_S,

@@ -4,9 +4,8 @@ formulations against the NumPy oracle, one step from a shared mid-run
 state, a whole run, the device policy and the slice's limits.
 
 Inputs are made from seeds with numpy and handed to both sides.  The
-reference's ``staggered_joins`` draws from ``jax.random``, which
-PyTorch cannot reproduce, so the reference's join array is passed to
-both."""
+reference's join array is passed to both (the port's own draws are the
+same bits: tests/test_torch_prng.py)."""
 
 import jax
 import jax.numpy as jnp
