@@ -28,7 +28,8 @@ exits nonzero:
    as CUDA graphs of ``select_admit`` and ``peer_update``, with the
    launch counts checked; the same run through the eager loop
    (``_scan_eager``) equal to the bit, runs of the two in turns timed
-   by the host clock, and each traced with ``torch.profiler``; then,
+   by the host clock (a graph run's captures timed apart from its
+   replays), and each traced with ``torch.profiler``; then,
    from the final state, each kernel against its plain version, each
    pass timed with CUDA events on the main path's route and on the TK1
    + TK2 route, and the same run on the plain path;
@@ -63,6 +64,7 @@ nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -80,6 +82,9 @@ CHECK_WARM_STEPS = 300
 PEERS = 262_144
 SEGMENTS = 256
 STEPS = 2_400
+#: the main path's host-clock runs of the graphs and the eager loop, in
+#: turns, after the first of each
+TURNS = ("graph", "eager", "eager", "graph") * 2
 #: steps in each timed window: a kernels' window of CUDA events must fit
 #: in the launch queue while the card sleeps (~15 entries per step)
 WINDOW = 40
@@ -599,21 +604,45 @@ def time_window(sim, sk, config, scenario, state0, n_steps, route):
     return per_pass, ev[0][0].elapsed_time(ev[-1][-1]) / n_steps
 
 
-def timed_run(sim, config, scenario, state0, n_steps, path,
+def timed_run(sim, sk, config, scenario, state0, n_steps, path,
               record_every=0):
     """One ``_scan_swarm`` (``path="graph"``: the entry points' path on
     the card, replayed CUDA graphs) or ``_scan_eager`` (``"eager"``: the
     same kernels launched step by step) run of ``n_steps`` from a clone
     of ``state0``, by the host clock from its start to a synchronize
-    after it.  Returns ``(seconds, the run's outputs)``."""
+    after it.  Returns ``(seconds, seconds of them inside the run's
+    graph captures, the run's outputs)``; the rest of a graph run is its
+    replays (the first uploads its graph) and the copies between
+    them."""
     import torch
     scenario, st = _as_lanes(sim, scenario, state0)
     run = sim._scan_swarm if path == "graph" else sim._scan_eager
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run(config, scenario, st, n_steps, record_every=record_every)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, out
+    with capture_clock(sk) as spent:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(config, scenario, st, n_steps, record_every=record_every)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, sum(spent), out
+
+
+@contextlib.contextmanager
+def capture_clock(sk):
+    """Within it, the host seconds of each graph capture
+    (``swarm_kernels.capture``) are appended to the list it yields."""
+    capture, spent = sk.capture, []
+
+    def timed_capture(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return capture(*args, **kw)
+        finally:
+            spent.append(time.perf_counter() - t)
+    sk.capture = timed_capture
+    try:
+        yield spent
+    finally:
+        sk.capture = capture
 
 
 def same_bits(a, b):
@@ -812,15 +841,17 @@ def phase_main(sim, sk, P, S, T, window):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
-    t0 = time.perf_counter()
-    final, series = sim.run_swarm(config, BITRATES, None, cdn, state0, T,
-                                  join, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with capture_clock(sk) as spent:
+        t0 = time.perf_counter()
+        final, series = sim.run_swarm(config, BITRATES, None, cdn, state0,
+                                      T, join, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log(f"[5] main path {P:,} peers x {S} segments x {T} steps, replayed "
-        f"as CUDA graphs of {sim.GRAPH_STEPS} steps: {wall!r} s, "
+        f"as CUDA graphs of {sim.GRAPH_STEPS} steps: {wall!r} s "
+        f"({sum(spent)!r} s of it in {len(spent)} captures), "
         f"{P * T / wall:,.0f} peer-steps/s, host wall per step "
         f"{wall / T * 1e3!r} ms; launches {json.dumps(launches)}; peak "
         f"memory {peak:,} B")
@@ -847,8 +878,8 @@ def phase_main(sim, sk, P, S, T, window):
     scenario = sim.make_scenario(config, BITRATES, None, cdn, join,
                                  device="cuda")
     sk.reset_launch_counts()
-    wall_e, (final_e, series_e) = timed_run(sim, config, scenario, state0,
-                                            T, "eager")
+    wall_e, _cap, (final_e, series_e) = timed_run(
+        sim, sk, config, scenario, state0, T, "eager")
     launches_e = dict(sk.LAUNCHES)
     check(launches_e == launches, f"eager loop launches {launches_e}, not "
                                   f"the graphs' {launches}")
@@ -856,16 +887,22 @@ def phase_main(sim, sk, P, S, T, window):
           and torch.equal(series_e[0], series),
           "the graphs' run and the eager loop's differ")
     walls = {"graph": [], "eager": []}
-    for path in ("graph", "eager", "eager", "graph"):
-        w, (f, ser) = timed_run(sim, config, scenario, state0, T, path)
+    captures = []
+    for path in TURNS:
+        w, cap, (f, ser) = timed_run(sim, sk, config, scenario, state0, T,
+                                     path)
         check(same_bits(f, final_e) and torch.equal(ser, series_e),
               f"a repeated {path} run differs")
         walls[path].append(w / T * 1e3)
+        if path == "graph":
+            captures.append(cap * 1e3)
     log(f"    eager loop on the same inputs: {wall_e!r} s "
         f"({P * T / wall_e:,.0f} peer-steps/s), launches equal, final "
         f"state and series equal to the bit; host wall per step (ms) of "
-        f"runs in turns graph, eager, eager, graph: graphs "
-        f"{walls['graph']}, eager {walls['eager']}")
+        f"runs in turns {', '.join(TURNS)}: graphs {walls['graph']}, "
+        f"eager {walls['eager']}; host ms of each graph run spent in its "
+        f"captures {captures}, so its replays took (ms per step) "
+        f"{[w - c / T for w, c in zip(walls['graph'], captures)]}")
     g_busy, g_wall, g_traced = trace_steps(sim, sk, config, scenario,
                                            state0, T, "graph")
     e_busy, e_wall, e_traced = trace_steps(sim, sk, config, scenario,
@@ -1227,8 +1264,8 @@ def phase_grid(sim, sk, sg, dp):
     for path in ("graph", "eager"):
         init = sim.init_swarm(config, device="cuda", batch=len(grid))
         sk.reset_launch_counts()
-        w, out = timed_run(sim, config, scen48, init, n_steps, path,
-                           record_every=GRID_RECORD_EVERY)
+        w, cap, out = timed_run(sim, sk, config, scen48, init, n_steps,
+                                path, record_every=GRID_RECORD_EVERY)
         del init
         final, series, tl = out
         offs48 = sim.offload_ratio_batch(final)
@@ -1236,12 +1273,13 @@ def phase_grid(sim, sk, sg, dp):
         check(torch.equal(series[:, -1], offs48),
               f"{path}: a last series entry is not its final offload")
         directs[path] = (w, final, series, tl, offs48, rebs48,
-                         dict(sk.LAUNCHES))
+                         dict(sk.LAUNCHES), cap)
         if path == "eager":
             del final, series, tl, out
-    wall48, final48, series48, tl48, offs48, rebs48, l48 = directs["graph"]
-    wall_e, final_e, series_e, tl_e, offs_e, rebs_e, l_e = directs.pop(
-        "eager")
+    (wall48, final48, series48, tl48, offs48, rebs48, l48,
+     cap48) = directs["graph"]
+    wall_e, final_e, series_e, tl_e, offs_e, rebs_e, l_e, _cap = (
+        directs.pop("eager"))
     direct = [(float(o), float(r), t) for o, r, t in
               zip(offs48.tolist(), rebs48.tolist(), tl48.cpu().numpy())]
     check(_rows_equal(direct, rows), "the direct 48-lane batch's rows "
@@ -1264,7 +1302,8 @@ def phase_grid(sim, sk, sg, dp):
               f"grid point {b} run alone differs from its batched lane")
     log(f"    chunk {GRID_CHUNK}: {wall16!r} s, rows equal to the bit; one "
         f"direct {len(grid)}-lane run_swarm_batch (graphs): {wall48!r} s "
-        f"({wall48 * 1e3 / n_steps!r} ms per step), rows equal; the same "
+        f"({wall48 * 1e3 / n_steps!r} ms per step; {cap48!r} s of it in "
+        f"its captures), rows equal; the same "
         f"batch through the eager loop: {wall_e!r} s "
         f"({wall_e * 1e3 / n_steps!r} ms per step), launches, series, "
         f"timelines and ratios equal to the bit; each last series entry "
@@ -1382,11 +1421,15 @@ def phase_trace48(sim, sk, g):
         f"(CUDA events): {json.dumps(ms)} ms; plain versions "
         f"{json.dumps(plain)} ms; torch.sum of p2p_bytes and cdn_bytes "
         f"(two calls) {library!r} ms")
+    # as traced: lane_sums once, for the timeline's first interval
     launches = {k: v[0] for k, v in {**pair_traced, **e_traced}.items()}
-    launches["lane_sums"] = 0
+    window = (f"traced: {TRACE_STEPS} eager steps from the final state, a "
+              f"row every {GRID_RECORD_EVERY} (lane_sums: the timeline's "
+              f"first interval); elig_select and admit_service: "
+              f"{TRACE_PAIR_STEPS} steps on their route")
     return {"traced_ms": traced_ms, "bytes": nbytes, "bound_ms": bound,
-            "launches": launches, "ms": ms, "plain_ms": plain,
-            "library_ms": library}
+            "launches": launches, "launches_in": window, "ms": ms,
+            "plain_ms": plain, "library_ms": library}
 
 
 def main() -> int:
@@ -1430,6 +1473,7 @@ def main() -> int:
                                               errs_batch))
         wide = {"shape": f"48 x {GRID_PEERS:,}",
                 "launches": b48["launches"].get(name, 0),
+                "launches_in": b48["launches_in"],
                 "traced_ms": b48["traced_ms"].get(name),
                 "bytes": b48["bytes"][name],
                 "bound_ms": b48["bound_ms"][name]}

@@ -9,10 +9,10 @@
 //
 // Order, fixed: each block of LS_THREADS peers (one a thread) sums its
 // peers' (cdn, p2p) by warp shuffles, then its warps' sums by shuffles in
-// warp 0, giving one partial pair.  peer_update's thread blocks are these
-// blocks; a lane_sums thread block sums several of them in turn.  The last
-// thread block of a lane to finish (an integer arrival counter per lane,
-// which that block sets back to 0; no float atomics) sums the lane's
+// warp 0, giving one partial pair.  These blocks are the thread blocks of
+// both kernels.  The last thread block of a lane to finish (an integer
+// arrival counter per lane, which that block sets back to 0; no float
+// atomics) sums the lane's
 // partials in block order, strided over warp 0's lanes, then by the warp's
 // tree.  The partials depend on P alone, so a lane alone and the same lane
 // in a batch give the same bits, run after run.

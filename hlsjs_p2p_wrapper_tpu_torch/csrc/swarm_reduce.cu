@@ -105,8 +105,7 @@ __device__ __forceinline__ float lane_total(float* red, const float* part,
 // this kernel serves the reductions outside the step (a timeline's first
 // interval, offload_ratio).  Both sum by lane_sums.cuh over blocks of
 // LS_THREADS peers, one peer a thread (n_blocks = ceil(P / LS_THREADS)
-// partials a lane), so the two give the same bits; here a thread block
-// sums LS_GROUP of those blocks in turn.
+// partials a lane, one thread block each), so the two give the same bits.
 struct LaneSumsArgs {
   const float* p2p_bytes;
   const float* cdn_bytes;
@@ -121,34 +120,18 @@ struct LaneSumsArgs {
   int column;
 };
 
-// Blocks of LS_THREADS peers each thread block sums in turn, their loads
-// issued together first: a few, so that the arrival's fence and atomic are
-// paid once for them, and enough thread blocks remain to fill the SMs at
-// one lane of 262,144 peers (128 thread blocks).
-#define LS_GROUP 8
-
 __global__ void __launch_bounds__(LS_THREADS) lane_sums_kernel(
     const LaneSumsArgs a) {
   __shared__ float2 red[LS_WARPS];
-  const long long lb = (long long)blockIdx.y * a.n_peers;
-  const long long q0 = (long long)blockIdx.x * LS_GROUP;
-  float2 v[LS_GROUP];
-#pragma unroll
-  for (int j = 0; j < LS_GROUP; ++j) {
-    const long long p = (q0 + j) * LS_THREADS + threadIdx.x;
-    v[j] = p < a.n_peers
-               ? make_float2(a.cdn_bytes[lb + p], a.p2p_bytes[lb + p])
-               : make_float2(0.0f, 0.0f);
-  }
-  float2* part = reinterpret_cast<float2*>(a.partials) +
-                 (long long)blockIdx.y * a.n_blocks;
-#pragma unroll
-  for (int j = 0; j < LS_GROUP; ++j) {
-    if (q0 + j >= a.n_blocks) break;  // the same for every thread
-    const float2 b = ls_block_sum(v[j], red);
-    if (threadIdx.x == 0) part[q0 + j] = b;
-  }
+  const long long p = (long long)blockIdx.x * LS_THREADS + threadIdx.x;
+  const long long i = (long long)blockIdx.y * a.n_peers + p;
+  float2 v = make_float2(0.0f, 0.0f);
+  if (p < a.n_peers) v = make_float2(a.cdn_bytes[i], a.p2p_bytes[i]);
+  const float2 b = ls_block_sum(v, red);
   if (threadIdx.x >= 32) return;
+  if (threadIdx.x == 0)
+    reinterpret_cast<float2*>(a.partials)[(long long)blockIdx.y * a.n_blocks +
+                                          blockIdx.x] = b;
   lane_sums_finish(a.partials, a.n_blocks, a.counters, a.sums, a.series,
                    a.series_stride, a.column);
 }
@@ -277,8 +260,7 @@ extern "C" int reduce_lane_sums(const LaneSumsArgs* a, void* stream) {
       a->n_blocks != (a->n_peers + LS_THREADS - 1) / LS_THREADS)
     return (int)cudaErrorInvalidValue;
   if (a->n_lanes > 0)
-    lane_sums_kernel<<<dim3((unsigned int)((a->n_blocks + LS_GROUP - 1) /
-                                           LS_GROUP),
+    lane_sums_kernel<<<dim3((unsigned int)a->n_blocks,
                             (unsigned int)a->n_lanes),
                        LS_THREADS, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();

@@ -71,9 +71,10 @@ offload ratio and its last timeline row agree to the bit.  On the CPU
 the plain versions take ``torch.sum``; between the card and the CPU
 sums agree to a tolerance, not to the bit.
 
-Every launch adds one to :data:`LAUNCHES`; plain calls add nothing.  A
-CUDA graph (:func:`capture`) counts the launches it recorded once per
-replay (:meth:`Graph.replay`), not at its capture.
+Every launch adds one to :data:`LAUNCHES`, under the kernel that
+:data:`KERNEL_OF` names for the launching wrapper; plain calls add
+nothing.  A CUDA graph (:func:`capture`) counts the launches it
+recorded once per replay (:meth:`Graph.replay`), not at its capture.
 """
 
 from __future__ import annotations
@@ -102,6 +103,14 @@ MAX_OFFS = 32
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES = {"select_admit": 0, "elig_select": 0, "admit_service": 0,
             "peer_update": 0, "lane_sums": 0, "timeline_row": 0}
+#: the kernel each launching wrapper launches, once a call, on the card;
+#: :func:`select_admit` launches through ``select_admit_fused`` or
+#: through ``elig_select`` then ``admit_service`` (:func:`fused_route`)
+KERNEL_OF = {"select_admit_fused": "select_admit",
+             "elig_select": "elig_select", "admit_service": "admit_service",
+             "peer_update": "peer_update", "lane_sums": "lane_sums",
+             "timeline_row": "timeline_row",
+             "rebuffer_ratio_lanes": "timeline_row"}
 
 
 def reset_launch_counts() -> None:
@@ -697,7 +706,10 @@ def build_kernels(force: bool = False) -> dict:
     return info
 
 
-def _launch(name: str, args: ctypes.Structure, device) -> None:
+def _launch(wrapper: str, args: ctypes.Structure, device) -> None:
+    """Launch the kernel that ``wrapper`` launches (:data:`KERNEL_OF`)
+    and count it."""
+    name = KERNEL_OF[wrapper]
     source, fn_name, _args = _ENTRY[name]
     fn = getattr(_lib(source), fn_name)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -820,16 +832,26 @@ def _select_admit_args(config: SwarmConfig, scenario: SwarmScenario,
 def select_admit(config: SwarmConfig, scenario: SwarmScenario,
                  state: SwarmState):
     """TK1 and TK2 of one step: same signature and outputs as
-    :func:`select_admit_plain`.  On a CUDA state it launches the fused
-    kernel where :func:`fused_route` holds, else TK1 then TK2."""
-    dev = state.avail.device
-    if dev.type != "cuda":
-        return select_admit_plain(config, scenario, state)
+    :func:`select_admit_plain`.  On every device it takes the fused
+    kernel (:func:`select_admit_fused`) where :func:`fused_route` holds,
+    else TK1 then TK2."""
     if not fused_route(config):
         flags, req = elig_select(config, scenario, state)
         return (flags, req) + admit_service(config, scenario, req)
+    return select_admit_fused(config, scenario, state)
+
+
+@_lane_api
+def select_admit_fused(config: SwarmConfig, scenario: SwarmScenario,
+                       state: SwarmState):
+    """The fused kernel of TK1 and TK2, for an offset tuple that fits
+    its tile.  Same signature and outputs as
+    :func:`select_admit_plain`."""
+    dev = state.avail.device
+    if dev.type != "cuda":
+        return select_admit_plain(config, scenario, state)
     args, out = _select_admit_args(config, scenario, state, dev)
-    _launch("select_admit", args, dev)
+    _launch("select_admit_fused", args, dev)
     return out
 
 
@@ -1057,7 +1079,7 @@ def rebuffer_ratio_lanes(reb: torch.Tensor, join: torch.Tensor,
     out = torch.empty((reb.shape[0],), dtype=_F, device=dev)
     args, _partials = _timeline_args(dev, t, join, leave, reb,
                                      row=out.data_ptr(), row_stride=1)
-    _launch("timeline_row", args, dev)
+    _launch("rebuffer_ratio_lanes", args, dev)
     return out
 
 

@@ -78,9 +78,9 @@ def _stub_cuda(torch):
 
 
 def _count_launches(sk):
-    """Wrap the kernel wrappers so that each adds one to its count where
-    its kernel would launch (``select_admit`` by its route, the rebuffer
-    ratio as ``timeline_row``)."""
+    """Wrap each launching wrapper so that it adds one to the count of
+    its kernel (``swarm_kernels.KERNEL_OF``) where that kernel would
+    launch."""
     def counted(name, fn):
         @functools.wraps(fn)
         def wrapped(*args, **kw):
@@ -88,22 +88,8 @@ def _count_launches(sk):
             sk.LAUNCHES[name] += 1
             return out
         return wrapped
-    pair = {name: counted(name, getattr(sk, name))
-            for name in ("elig_select", "admit_service")}
-    select_admit = sk.select_admit
-
-    def routed(config, scenario, state):
-        if sk.fused_route(config):
-            sk.LAUNCHES["select_admit"] += 1
-            return select_admit(config, scenario, state)
-        flags, req = pair["elig_select"](config, scenario, state)
-        return (flags, req) + pair["admit_service"](config, scenario, req)
-    sk.select_admit = routed
-    sk.elig_select, sk.admit_service = pair["elig_select"], pair[
-        "admit_service"]
-    for name in ("peer_update", "lane_sums", "timeline_row"):
-        setattr(sk, name, counted(name, getattr(sk, name)))
-    sk.rebuffer_ratio_lanes = counted("timeline_row", sk.rebuffer_ratio_lanes)
+    for wrapper, kernel in sk.KERNEL_OF.items():
+        setattr(sk, wrapper, counted(kernel, getattr(sk, wrapper)))
 
 
 def main() -> int:

@@ -263,6 +263,53 @@ def test_capture_moves_its_launches_to_the_replays(monkeypatch):
     sk.reset_launch_counts()
 
 
+# ---- which kernel each wrapper launches -------------------------------------
+
+def test_kernel_of_names_every_launching_wrapper():
+    """Every launch in the module goes through a wrapper that
+    ``KERNEL_OF`` names, by the wrapper's own name, to a counted
+    kernel."""
+    with open(sk.__file__) as fh:
+        text = fh.read()
+    launched_by = re.findall(r'_launch\("(\w+)"', text)
+    assert sorted(set(launched_by)) == sorted(sk.KERNEL_OF)
+    for wrapper in launched_by:
+        body = text[text.index(f"def {wrapper}("):]
+        body = body[:body.index("\ndef ", 1)]
+        assert f'_launch("{wrapper}"' in body
+    assert set(sk.KERNEL_OF.values()) == set(sk.LAUNCHES)
+
+
+@pytest.mark.parametrize("offsets,fused", [
+    (port.ring_offsets(8), True),
+    ((1, -sk.MAX_FUSED_SPAN), False)])
+def test_select_admit_routes_before_the_device(monkeypatch, offsets, fused):
+    """``select_admit`` takes the route ``fused_route`` gives on the CPU
+    too, through the wrappers ``KERNEL_OF`` names, and its outputs are
+    ``select_admit_plain``'s to the bit on either route."""
+    config = port.SwarmConfig(n_peers=64, n_segments=16, n_levels=3,
+                              neighbor_offsets=offsets)
+    scen = port.make_scenario(config, BITRATES, None,
+                              np.full((64,), 8e6, np.float32),
+                              port.staggered_joins(64, 4.0, device="cpu"),
+                              device="cpu")
+    state = port.init_swarm(config, device="cpu")
+    for _ in range(12):
+        port.swarm_step(config, scen, state)
+    called = []
+    for wrapper in ("select_admit_fused", "elig_select", "admit_service"):
+        fn = getattr(sk, wrapper)
+        monkeypatch.setattr(sk, wrapper, lambda *a, _fn=fn, _w=wrapper, **k:
+                            called.append(_w) or _fn(*a, **k))
+    a, b = port.clone_state(state), port.clone_state(state)
+    out = sk.select_admit(config, scen, a)
+    want = sk.select_admit_plain(config, scen, b)
+    assert called == (["select_admit_fused"] if fused
+                      else ["elig_select", "admit_service"])
+    assert all(torch.equal(x, y) for x, y in zip(out, want))
+    assert _equal(a, b)
+
+
 def test_the_card_takes_the_graph_path():
     assert sk.graph_path(torch.device("cuda"))
     assert sk.graph_path("cuda:0")
