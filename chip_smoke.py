@@ -10,9 +10,11 @@ exits nonzero:
    print each one's registers and spills;
 3. each kernel against its plain PyTorch version on the card, at
    1,048,576 peers × 256 segments, from a state the plain path reached
-   after 300 steps (``peer_update`` with the offload sums of its
-   epilogue, against ``peer_update_plain`` then ``lane_sums_plain``, and
-   its sums against ``lane_sums``' to the bit);
+   after 300 steps (``peer_update`` with the offload sums and the clock
+   advance of its epilogue, against ``peer_update_plain`` then
+   ``lane_sums_plain``, its sums against ``lane_sums``' and
+   ``lane_sums_in_order``'s to the bit, its clock against ``t_s + dt``
+   to the bit);
 4. the routes of ``select_admit`` away from the main path: the fused
    kernel where its tiles wrap the ring (16 peers with the ring of 8,
    96 peers with a ring of 12, 1,000 peers with the ring of 8, whose
@@ -29,7 +31,9 @@ exits nonzero:
    launch counts checked; the same run through the eager loop
    (``_scan_eager``) equal to the bit, runs of the two in turns timed
    by the host clock (a graph run's captures timed apart from its
-   replays), and each traced with ``torch.profiler``; then,
+   replays), and each traced with ``torch.profiler``, which shows fewer
+   device ops besides the kernels than steps (the clock advances inside
+   ``peer_update``: a step is two graph nodes); then,
    from the final state, each kernel against its plain version, each
    pass timed with CUDA events on the main path's route and on the TK1
    + TK2 route, and the same run on the plain path;
@@ -53,7 +57,10 @@ exits nonzero:
    timeline row and last series entry equal the final ratios; then the
    direct 48-lane run traced whole (graphs and eager loop), 80 eager
    steps from its final state traced per kernel, and the two
-   reductions timed against their plain versions and ``torch.sum``.
+   reductions timed against their plain versions and ``torch.sum``;
+10. ``lane_sums`` on random byte counters at 1,000, 1,001, 262,144 and
+   1,048,576 peers × 1, 4 and 48 lanes against its plain version, the
+   bits of ``lane_sums_in_order`` and each lane alone.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -173,6 +180,11 @@ SPAN_OFFSETS = ((1, 2, 3, 4, -1, -2, -3, -4),
                 (1, 2, 3, 16, -1, -2, -3, -16))
 #: launches back to back per timing of one route
 BACK_TO_BACK = 200
+#: TK4 against its plain version and its order's PyTorch twin on random
+#: byte counters: peers (1,001 takes its scalar loads; 1,000 a partial
+#: last partial and super-partial) and lanes
+SUMS_PEERS = (1_000, 1_001, 262_144, 1_048_576)
+SUMS_LANES = (1, 4, 48)
 #: steps per host-clock run of each route, run in turns fused, pair,
 #: pair, fused
 HOST_STEPS = 400
@@ -301,6 +313,13 @@ def compare_peer_update(sim, sk, config, scenario, state, label):
     check(torch.equal(sums_k, sums_l) and torch.equal(ser_k, ser_l),
           f"{label} peer_update: its sums {sums_k.tolist()} are not "
           f"lane_sums' {sums_l.tolist()}")
+    check(torch.equal(sums_k, sk.lane_sums_in_order(c)),
+          f"{label} peer_update: its sums are not the bits of "
+          f"lane_sums_in_order")
+    clock = b.t_s.clone().add_(config.dt_ms / 1000.0)
+    check(torch.equal(c.t_s, clock) and torch.equal(d.t_s, clock),
+          f"{label} peer_update: the clock {c.t_s.tolist()} (plain "
+          f"{d.t_s.tolist()}) is not t_s + dt {clock.tolist()}")
     check(bool((ser_k[:, [0, 2]] == 0).all()),
           f"{label} peer_update wrote outside its series column")
     return max(err, ser_err), rel
@@ -551,9 +570,10 @@ def _as_lanes(sim, scenario, state):
 def _steps(sim, sk, config, scenario, st, n_steps, route, series,
            events=None):
     """``n_steps`` eager steps of the lanes ``st`` on ``route``, as
-    ``_scan_eager`` steps them: the passes (TK3 writing the offload
-    series) and the clock add; with ``events``, one list of CUDA events
-    per step bracketing each pass and the clock add."""
+    ``_scan_eager`` steps them: the passes, TK3 (or its plain version)
+    writing the offload series and advancing the clock; with
+    ``events``, one list of CUDA events per step bracketing each
+    pass."""
     stages = _stages(sk, config, scenario, route)
     for s in range(n_steps):
         e = events[s] if events is not None else None
@@ -564,17 +584,14 @@ def _steps(sim, sk, config, scenario, st, n_steps, route, series,
             out = fn(st, out, series, s)
             if e:
                 e[n + 1].record()
-        st.t_s.add_(config.dt_ms / 1000.0)
-        if e:
-            e[-1].record()
     return st
 
 
 def time_window(sim, sk, config, scenario, state0, n_steps, route):
     """Device time over ``n_steps`` consecutive eager steps from
     ``state0`` (a clone is stepped) on ``route`` (see :func:`_stages`),
-    each step as ``_scan_eager`` runs it.  CUDA events bracket each pass
-    and the clock add.  A GPU sleep ahead of the window lets the host
+    each step as ``_scan_eager`` runs it.  CUDA events bracket each
+    pass.  A GPU sleep ahead of the window lets the host
     queue the launches, so the events time the device, not the host.  A
     kernels' window fails if the host did not stay ahead.  The plain
     passes launch hundreds of small ops a step, more than the launch
@@ -587,7 +604,7 @@ def time_window(sim, sk, config, scenario, state0, n_steps, route):
     series = torch.empty((st.t_s.shape[0], n_steps), dtype=torch.float32,
                          device="cuda")
     ev = [[torch.cuda.Event(enable_timing=True)
-           for _ in range(len(names) + 2)] for _ in range(n_steps)]
+           for _ in range(len(names) + 1)] for _ in range(n_steps)]
     torch.cuda.synchronize()
     torch.cuda._sleep(int(3e8))
     slept = torch.cuda.Event()
@@ -658,7 +675,8 @@ def same_bits(a, b):
 def _traced(prof, n_steps):
     """From a ``torch.profiler`` run: ``({kernel: (launches, mean ms)}``
     over the kernels of :data:`KERNELS` the trace holds, the other
-    device ops' ms per step, whether it holds any device op)."""
+    device ops ``{name: count}`` and their ms per step, whether it holds
+    any device op)."""
     import torch
     ops = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -668,9 +686,13 @@ def _traced(prof, n_steps):
                 if f"{name}_kernel" in e.name]
         if durs:
             per_kernel[name] = (len(durs), sum(durs) / len(durs) / 1e3)
-    other_us = sum(e.time_range.elapsed_us() for e in ops
-                   if not any(f"{name}_kernel" in e.name for name in KERNELS))
-    return per_kernel, other_us / n_steps / 1e3, bool(ops)
+    others = [e for e in ops
+              if not any(f"{name}_kernel" in e.name for name in KERNELS)]
+    counts = {}
+    for e in others:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    other_us = sum(e.time_range.elapsed_us() for e in others)
+    return per_kernel, counts, other_us / n_steps / 1e3, bool(ops)
 
 
 def trace_steps(sim, sk, config, scenario, state0, n_steps, route,
@@ -680,8 +702,9 @@ def trace_steps(sim, sk, config, scenario, state0, n_steps, route,
     the card (``route="graph"``, with ``record_every``), the eager loop
     (``"eager"``), or the eager loop over the passes of :func:`_stages`
     (the other routes).  Returns ``(device busy ms per step, host wall
-    ms per step, {kernel: (launches, mean ms)})`` over the kernels of
-    :data:`KERNELS` that the trace holds; the busy time is None where
+    ms per step, {kernel: (launches, mean ms)}, {other device op:
+    count})`` over the kernels of :data:`KERNELS` that the trace holds,
+    and what else ran on the device; the busy time is None where
     the trace holds no device op, or (graph route) where it holds none
     of the step's kernels.  The trace may miss a launch (at B = 48 it
     held 19 of 20 of one kernel), so the busy time per step is each
@@ -702,17 +725,17 @@ def trace_steps(sim, sk, config, scenario, state0, n_steps, route,
             _steps(sim, sk, config, scenario, st, n_steps, route, series)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    per_kernel, other_ms, any_op = _traced(prof, n_steps)
+    per_kernel, others, other_ms, any_op = _traced(prof, n_steps)
     stage_route = "fused" if route in ("graph", "eager") else route
     per_step = {name: 1.0 for name, _fn in _stages(sk, config, scenario,
                                                     stage_route)}
     if record_every:
         per_step["timeline_row"] = 1.0 / record_every
     if not any_op or not all(name in per_kernel for name in per_step):
-        return None, wall_ms, per_kernel
+        return None, wall_ms, per_kernel, others
     busy_ms = other_ms + sum(per_kernel[name][1] * n
                              for name, n in per_step.items())
-    return busy_ms, wall_ms, per_kernel
+    return busy_ms, wall_ms, per_kernel, others
 
 
 def trace_calls(fn, n):
@@ -726,6 +749,19 @@ def trace_calls(fn, n):
             fn()
         torch.cuda.synchronize()
     return {k: v[1] for k, v in _traced(prof, n)[0].items()}
+
+
+def other_ops(prof_counts, n_steps, label):
+    """Checks that a traced run of ``n_steps`` steps launched fewer
+    device ops outside :data:`KERNELS` than steps (no clock add or other
+    PyTorch kernel a step: ``peer_update`` advances the clock) and
+    returns a summary of them for the log."""
+    n = sum(prof_counts.values())
+    check(n < n_steps, f"{label}: {n} device ops besides the kernels in "
+                       f"{n_steps} steps ({json.dumps(prof_counts)}), so a "
+                       f"step still launches one")
+    return (f"{n} other device op(s) in {n_steps} steps "
+            f"{json.dumps(prof_counts)}")
 
 
 def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
@@ -766,9 +802,10 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
            + 4 * 9 * P         # 9 state arrays written
            + 4 * 2             # t_s, p2p_setup_ms
            + (8 + 8 + 32) * completed   # seg/level, map word, EWMA
-           # the epilogue: each block's (cdn, p2p) partial written and
-           # read back by the lane's last block, the sums, the series
-           + 2 * 8 * sk.sums_blocks(P) + 8 + 4)
+           # the epilogue: each block's (cdn, p2p) partial and each
+           # super-partial written and read back once, the sums, the
+           # series entry and the advanced clock
+           + 2 * 8 * (sk.sums_blocks(P) + sk.sums_supers(P)) + 8 + 4 + 4)
     # select_admit: TK1's traffic plus uplink in, service and adm out,
     # the efficiency scalar (req stays in shared memory)
     fused = tk1 + 4 * 3 * P + 4
@@ -778,9 +815,9 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
 
 def lane_sums_bytes(sk, B, P):
     """TK4 reads two [B, P] float32 arrays, writes and reads back one
-    (cdn, p2p) partial a block, and writes the [B, 2] sums and one series
-    entry a lane."""
-    return float(8 * B * P + 16 * B * sk.sums_blocks(P) + 12 * B)
+    (cdn, p2p) super-partial a thread block, and writes the [B, 2] sums
+    and one series entry a lane."""
+    return float(8 * B * P + 16 * B * sk.sums_supers(P) + 12 * B)
 
 
 def timeline_bytes(B, P, n_cols):
@@ -824,7 +861,6 @@ def window_bytes(sim, sk, config, scenario, state0, n_steps):
         for name, b in step_bytes(sim, sk, config, scenario, before, flags,
                                   req, adm, st).items():
             total[name] = total.get(name, 0.0) + b
-        st.t_s.add_(config.dt_ms / 1000.0)
     return {name: b / n_steps for name, b in total.items()}
 
 
@@ -903,10 +939,10 @@ def phase_main(sim, sk, P, S, T, window):
         f"eager {walls['eager']}; host ms of each graph run spent in its "
         f"captures {captures}, so its replays took (ms per step) "
         f"{[w - c / T for w, c in zip(walls['graph'], captures)]}")
-    g_busy, g_wall, g_traced = trace_steps(sim, sk, config, scenario,
-                                           state0, T, "graph")
-    e_busy, e_wall, e_traced = trace_steps(sim, sk, config, scenario,
-                                           state0, T, "eager")
+    g_busy, g_wall, g_traced, g_other = trace_steps(
+        sim, sk, config, scenario, state0, T, "graph")
+    e_busy, e_wall, e_traced, e_other = trace_steps(
+        sim, sk, config, scenario, state0, T, "eager")
     if e_busy is None:
         log("    trace: torch.profiler recorded no device op; device busy "
             "time and idle share not measured")
@@ -923,6 +959,9 @@ def phase_main(sim, sk, P, S, T, window):
             f"{e_busy!r} ms over {e_wall!r} ms, idle "
             f"{1.0 - e_busy / e_wall!r}; per kernel "
             f"{json.dumps(e_traced)}")
+        log(f"    besides the kernels (no clock add a step): graphs "
+            f"{other_ops(g_other, T, 'graph run')}; eager loop "
+            f"{other_ops(e_other, T, 'eager run')}")
 
     errs = compare_kernels(sim, sk, config, scenario, final,
                            f"{P:,} peers")
@@ -938,9 +977,9 @@ def phase_main(sim, sk, P, S, T, window):
     ms = {**pair_ms, **fused_ms}
     plain_ms = {**plain_pair_ms, **plain_ms}
     nbytes = window_bytes(sim, sk, config, scenario, final, window)
-    busy_ms, _wall, traced = trace_steps(sim, sk, config, scenario, final,
-                                         window, "fused")
-    pair_busy_ms, _wall, pair_traced = trace_steps(
+    busy_ms, _wall, traced, _other = trace_steps(
+        sim, sk, config, scenario, final, window, "fused")
+    pair_busy_ms, _wall, pair_traced, _other = trace_steps(
         sim, sk, config, scenario, final, window, "pair")
 
     # the same run on the plain path, stepped as _scan_eager steps
@@ -959,9 +998,10 @@ def phase_main(sim, sk, P, S, T, window):
           and abs(rebuffer_p - rebuffer) <= RUN_TOL,
           "kernels and plain path disagree on the main path's ratios")
     log(f"    device time per whole eager step ({window}-step windows "
-        f"from the final state queued ahead, CUDA events; kernels and the "
-        f"clock add): main path {fused_step_ms!r} ms (select_admit + "
-        f"peer_update {sum(fused_ms.values())!r} ms), TK1 + TK2 + TK3 "
+        f"from the final state queued ahead, CUDA events; the kernels, "
+        f"which advance the clock): main path {fused_step_ms!r} ms "
+        f"(select_admit + peer_update {sum(fused_ms.values())!r} ms), "
+        f"TK1 + TK2 + TK3 "
         f"route {pair_step_ms!r} ms (kernels {sum(pair_ms.values())!r} "
         f"ms); plain passes {plain_step_ms!r} ms")
     log(f"    per pass, CUDA events (ms): main path {json.dumps(fused_ms)}; "
@@ -1286,7 +1326,7 @@ def phase_grid(sim, sk, sg, dp):
                                      "differ from the dispatch's")
     check(l_e == l48 and torch.equal(series_e, series48)
           and torch.equal(tl_e, tl48) and torch.equal(offs_e, offs48)
-          and torch.equal(rebs_e, rebs48),
+          and torch.equal(rebs_e, rebs48) and same_bits(final_e, final48),
           "the 48-lane batch through the eager loop differs from the "
           "graphs'")
     del final_e, series_e, tl_e
@@ -1305,13 +1345,70 @@ def phase_grid(sim, sk, sg, dp):
         f"({wall48 * 1e3 / n_steps!r} ms per step; {cap48!r} s of it in "
         f"its captures), rows equal; the same "
         f"batch through the eager loop: {wall_e!r} s "
-        f"({wall_e * 1e3 / n_steps!r} ms per step), launches, series, "
-        f"timelines and ratios equal to the bit; each last series entry "
+        f"({wall_e * 1e3 / n_steps!r} ms per step), launches, final "
+        f"states (clocks included), series, timelines and ratios equal to "
+        f"the bit; each last series entry "
         f"equals its final offload; points {list(ALONE_LANES)} run alone: "
         f"series, timelines and ratios equal their lanes to the bit")
     return {"config": config, "scenario": scen48, "final": final48,
             "launches": launches, "wall48": wall48, "wall_eager": wall_e,
             "n_steps": n_steps}
+
+
+def phase_lane_sums(sim, sk):
+    """TK4 on random byte counters (made on the card from a seed, as
+    large as a swarm's after a watch window) at each of SUMS_PEERS ×
+    SUMS_LANES: its sums within REDUCE_RTOL of ``lane_sums_plain``, its
+    series entry the ratio of its own sums, the bits of
+    ``lane_sums_in_order`` (the order ``peer_update``'s epilogue shares),
+    and each lane alone the bits of its batch.  Returns ``(max abs
+    series error, max relative error of the sums)``."""
+    import types
+
+    import torch
+    gen = torch.Generator(device="cuda")
+    worst_ser, worst_rel = 0.0, 0.0
+    for P in SUMS_PEERS:
+        for B in SUMS_LANES:
+            gen.manual_seed(P * 100 + B)
+            counters = [torch.rand((B, P), generator=gen, device="cuda")
+                        .mul_(2e7).floor_() for _ in range(2)]
+            counters[1][:, ::7] = 0.0   # peers that fetched nothing
+            st = types.SimpleNamespace(cdn_bytes=counters[0],
+                                       p2p_bytes=counters[1])
+            ser_k = torch.zeros((B, 2), dtype=torch.float32, device="cuda")
+            ser_p = ser_k.clone()
+            sums_k = sk.lane_sums(st, ser_k, 1)
+            sums_p = sk.lane_sums_plain(st, ser_p, 1)
+            twin = sk.lane_sums_in_order(st)
+            torch.cuda.synchronize()
+            label = f"lane_sums {B} x {P:,}"
+            rel = _rel_err(sums_k, sums_p)
+            ser_err = float((ser_k - ser_p).abs().max())
+            check(rel <= REDUCE_RTOL and ser_err <= REDUCE_RTOL,
+                  f"{label}: sums off by {rel!r} relative, series by "
+                  f"{ser_err!r}")
+            c, p = sums_k[:, 0], sums_k[:, 1]
+            check(torch.equal(ser_k[:, 1], p / torch.clamp_min(p + c, 1.0))
+                  and bool((ser_k[:, 0] == 0).all()),
+                  f"{label}: the series entry is not its sums' ratio")
+            check(torch.equal(sums_k, twin),
+                  f"{label}: sums {sums_k[:2].tolist()} are not "
+                  f"lane_sums_in_order's {twin[:2].tolist()}")
+            for b in {0, B - 1}:
+                alone = sk.lane_sums(types.SimpleNamespace(
+                    cdn_bytes=counters[0][b:b + 1].clone(),
+                    p2p_bytes=counters[1][b:b + 1].clone()))
+                check(torch.equal(alone[0], sums_k[b]),
+                      f"{label}: lane {b} alone differs from its batch")
+            worst_ser, worst_rel = max(worst_ser, ser_err), max(worst_rel,
+                                                                 rel)
+            del counters, st, twin
+    log(f"[10] lane_sums at {list(SUMS_PEERS)} peers x {list(SUMS_LANES)} "
+        f"lanes: within {REDUCE_RTOL} of its plain version (max rel err "
+        f"{worst_rel!r}), equal to lane_sums_in_order to the bit, lanes "
+        f"alone equal to their batch")
+    return worst_ser, worst_rel
 
 
 def cuda_ms(fn, n):
@@ -1340,19 +1437,18 @@ def phase_trace48(sim, sk, g):
     config, scenario, final = g["config"], g["scenario"], g["final"]
     B, P = final.rebuffer_s.shape
     init = sim.init_swarm(config, device="cuda", batch=B)
-    busy, wall_ms, traced = trace_steps(sim, sk, config, scenario, init,
-                                        g["n_steps"], "graph",
-                                        record_every=GRID_RECORD_EVERY)
-    run_busy, run_wall_ms, run_traced = trace_steps(
+    busy, wall_ms, traced, g_other = trace_steps(
+        sim, sk, config, scenario, init, g["n_steps"], "graph",
+        record_every=GRID_RECORD_EVERY)
+    run_busy, run_wall_ms, run_traced, e_other = trace_steps(
         sim, sk, config, scenario, init, g["n_steps"], "eager",
         record_every=GRID_RECORD_EVERY)
     del init
-    _busy, _wall, e_traced = trace_steps(
+    _busy, _wall, e_traced, _other = trace_steps(
         sim, sk, config, scenario, final, TRACE_STEPS, "eager",
         record_every=GRID_RECORD_EVERY)
-    pair_busy, _wall, pair_traced = trace_steps(sim, sk, config, scenario,
-                                                final, TRACE_PAIR_STEPS,
-                                                "pair")
+    pair_busy, _wall, pair_traced, _other = trace_steps(
+        sim, sk, config, scenario, final, TRACE_PAIR_STEPS, "pair")
     before, st = sim.clone_state(final), sim.clone_state(final)
     flags, req, _service, adm = sk.select_admit(config, scenario, st)
     sk.peer_update(config, scenario, st, flags, req, _service, adm)
@@ -1410,6 +1506,10 @@ def phase_trace48(sim, sk, g):
             f"(graphs) and {g['wall_eager'] * 1e3 / g['n_steps']!r} "
             f"(eager) ms per step; TK1 + TK2 route busy {pair_busy!r} ms "
             f"per step ({TRACE_PAIR_STEPS} steps from the final state)")
+        log(f"    besides the kernels at B = {B}: graphs "
+            f"{other_ops(g_other, g['n_steps'], 'B = 48 graph run')}; "
+            f"eager loop "
+            f"{other_ops(e_other, g['n_steps'], 'B = 48 eager run')}")
     log(f"    per kernel at B = {B} (launches, traced mean ms): eager, "
         f"{TRACE_STEPS} steps from the final state {json.dumps(e_traced)}, "
         f"TK1 + TK2 route "
@@ -1463,6 +1563,10 @@ def main() -> int:
         phase_batch_fixture()
         grid = phase_grid(sim, sk, sg, dp)
         b48 = phase_trace48(sim, sk, grid)
+        ls_err, ls_rel = phase_lane_sums(sim, sk)
+        errs_batch["lane_sums"] = max(errs_batch.get("lane_sums", 0.0),
+                                      ls_err)
+        sums_rel = max(sums_rel, ls_rel)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -11,13 +11,14 @@
 // Layout: lanes as in swarm_step.cu.  Per-peer arrays are [B, P], float32
 // (int32 for `level`); lane b's rows start at b * P (64-bit).  The grid is
 // (n_blocks, B): n_blocks blocks per lane, each summing a fixed contiguous
-// range of the lane's peers (lane_sums: LS_THREADS peers, one a thread, as
-// in lane_sums.cuh; timeline_row: ops/swarm_kernels.py reduce_blocks).
+// range of the lane's peers (lane_sums: one super-partial of LS_SUPER
+// peers, as in lane_sums.cuh; timeline_row: ops/swarm_kernels.py
+// reduce_blocks).
 //
-// Determinism: no float atomics.  In timeline_row each thread sums its
-// strided share of the block's range in order, the block sums its threads'
-// values by a fixed tree in shared memory, and writes one partial per
-// quantity; lane_sums sums by lane_sums.cuh.  The last block of a lane to
+// Determinism: no float atomics.  lane_sums sums in lane_sums.cuh's order.
+// In timeline_row each thread sums its strided share of the block's range
+// in order, the block sums its threads' values by a fixed tree in shared
+// memory, and writes one partial per quantity; the last block of a lane to
 // finish (an integer arrival counter per lane, which that block sets back
 // to 0) sums the lane's partials in block order by the same scheme.
 // n_blocks depends on P alone, so a lane's sums are the same bits whatever
@@ -27,8 +28,8 @@
 //
 // What bounds these kernels on an H100: bytes.  Each reads its [B, P]
 // arrays once (8 B a peer for lane_sums, 20-24 B for timeline_row) and does
-// a few operations per element; the partials are 8 B a block of 256 peers
-// for lane_sums and a few KB for timeline_row.
+// a few operations per element; the partials are 8 B a super-partial of
+// 8,192 peers for lane_sums and a few KB for timeline_row.
 //
 // Numerics: built with --fmad=false like swarm_step.cu.  The ratios are
 // IEEE divisions; the interval rates multiply by one float32 constant
@@ -103,37 +104,69 @@ __device__ __forceinline__ float lane_total(float* red, const float* part,
 // series[b * series_stride + column] = p2p / max(p2p + cdn, 1).  Inside the
 // step TK3 peer_update computes the same in its epilogue (swarm_step.cu);
 // this kernel serves the reductions outside the step (a timeline's first
-// interval, offload_ratio).  Both sum by lane_sums.cuh over blocks of
-// LS_THREADS peers, one peer a thread (n_blocks = ceil(P / LS_THREADS)
-// partials a lane, one thread block each), so the two give the same bits.
+// interval, offload_ratio).  Both sum in lane_sums.cuh's order, so the two
+// give the same bits.
+//
+// Design for the H100: one thread block of LS_WARPS warps per
+// super-partial (LS_SUPER = 8,192 peers, 64 KB of the two arrays), grid
+// (n_blocks = ceil(P / LS_SUPER), B), where one thread block per 256 peers
+// would make 196,608 tiny blocks and as many arrivals at B = 48.  Warp
+// w sums the block's partials w, w + 8, w + 16 and w + 24: for each, lane
+// t loads peers t, t + 32, ..., t + 224 of both arrays (coalesced, through
+// the read-only path) and ls_partial8 adds them in lane_sums.cuh's order.
+// The warps' partials meet in shared memory, warp 0 takes the
+// super-partial's tree, writes it and arrives at the lane's counter (one
+// atomic a thread block); the lane's last block sums the lane's
+// super-partials (4 a warp lane at 1,048,576 peers).
 struct LaneSumsArgs {
   const float* p2p_bytes;
   const float* cdn_bytes;
-  float* partials;  // [B, n_blocks, 2]
+  float* partials;  // [B, n_blocks, 2]: the lanes' super-partials
   int* counters;    // [>= B], zero between launches
   float* sums;      // [B, 2]: cdn, p2p
   float* series;    // null: sums only
   long long n_peers;
   long long series_stride;
   int n_lanes;
-  int n_blocks;
+  int n_blocks;     // super-partials a lane
   int column;
 };
 
+#define LS_WARPS (LS_THREADS / 32)     // warps of a TK4 block
+#define LS_LOADS (LS_FAN / LS_WARPS)   // partials a warp
+
 __global__ void __launch_bounds__(LS_THREADS) lane_sums_kernel(
     const LaneSumsArgs a) {
-  __shared__ float2 red[LS_WARPS];
-  const long long p = (long long)blockIdx.x * LS_THREADS + threadIdx.x;
-  const long long i = (long long)blockIdx.y * a.n_peers + p;
-  float2 v = make_float2(0.0f, 0.0f);
-  if (p < a.n_peers) v = make_float2(a.cdn_bytes[i], a.p2p_bytes[i]);
-  const float2 b = ls_block_sum(v, red);
-  if (threadIdx.x >= 32) return;
-  if (threadIdx.x == 0)
-    reinterpret_cast<float2*>(a.partials)[(long long)blockIdx.y * a.n_blocks +
-                                          blockIdx.x] = b;
-  lane_sums_finish(a.partials, a.n_blocks, a.counters, a.sums, a.series,
-                   a.series_stride, a.column);
+  __shared__ float2 part_s[LS_FAN];
+  const int lane = blockIdx.y, j = blockIdx.x;
+  const int w = threadIdx.x >> 5, t = threadIdx.x & 31;
+  const long long P = a.n_peers;
+  const float* cdn = a.cdn_bytes + (long long)lane * P;
+  const float* p2p = a.p2p_bytes + (long long)lane * P;
+#pragma unroll
+  for (int i = 0; i < LS_LOADS; ++i) {
+    const int m = w + LS_WARPS * i;  // the partial within the super
+    const long long base =
+        (long long)j * LS_SUPER + (long long)m * LS_THREADS + t;
+    float c[8], p[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const long long q = base + 32 * k;
+      c[k] = q < P ? __ldg(cdn + q) : 0.0f;
+      p[k] = q < P ? __ldg(p2p + q) : 0.0f;
+    }
+    const float2 b = make_float2(ls_partial8(c), ls_partial8(p));
+    if (t == 0) part_s[m] = b;
+  }
+  __syncthreads();
+  if (w != 0) return;
+  const float2 s = ls_warp_sum2(part_s[t]);
+  float* sup = a.partials + (long long)lane * a.n_blocks * 2;
+  if (t == 0) reinterpret_cast<float2*>(sup)[j] = s;
+  if (!ls_arrive(&a.counters[lane], gridDim.x)) return;
+  const LsOut out = {a.sums, a.series, a.series_stride, a.column, nullptr,
+                     0.0f};
+  ls_finish(sup, a.n_blocks, lane, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -257,7 +290,7 @@ __global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
 
 extern "C" int reduce_lane_sums(const LaneSumsArgs* a, void* stream) {
   if (a->n_peers <= 0 ||
-      a->n_blocks != (a->n_peers + LS_THREADS - 1) / LS_THREADS)
+      a->n_blocks != (a->n_peers + LS_SUPER - 1) / LS_SUPER)
     return (int)cudaErrorInvalidValue;
   if (a->n_lanes > 0)
     lane_sums_kernel<<<dim3((unsigned int)a->n_blocks,

@@ -1,7 +1,7 @@
 // One step of the circulant VOD swarm simulator as sm_90a kernels: on the
 // main path select_admit then TK3 (two launches, TK3 with the offset
-// series' sums in its epilogue); for an offset tuple whose halo is too wide
-// for select_admit's tile, TK1, TK2 and TK3.
+// series' sums and the clock's advance in its epilogue); for an offset
+// tuple whose halo is too wide for select_admit's tile, TK1, TK2 and TK3.
 //
 // The reference is hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py, whose step is
 // jnp code that XLA fuses (its one Pallas kernel, the eligibility stencil
@@ -49,7 +49,7 @@
 #define MAX_OFFS 32
 #define BLOCK 256
 static_assert(BLOCK == LS_THREADS,
-              "peer_update's blocks are the offload sums' blocks");
+              "peer_update's blocks are the offload sums' partials");
 
 // ---------------------------------------------------------------------------
 // TK1 elig_select (reference K1 + K2)
@@ -547,14 +547,25 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
 // place; each thread writes only its own peer's row.
 //
 // Epilogue (TK4 lane_sums fused in; reference _scan_swarm's step sums and
-// ratio :1643-1647): each thread keeps the cdn_bytes and p2p_bytes it has
-// just written, and the block sums them for the lane's offload series by
-// lane_sums.cuh, the same blocks and order as the standalone lane_sums, so
-// the step no longer re-reads 8 B a peer in a launch of its own.  A thread
-// past the lane's last peer skips the update and adds zeros: every thread
-// reaches the epilogue's barriers.
+// ratio :1643-1647): the block sums the cdn_bytes and p2p_bytes its
+// threads have just written in lane_sums.cuh's order, TK4's own, so the
+// step no longer re-reads 8 B a peer in a launch of its own: each warp its
+// run of 32 by shuffles, then warp 0 the 8 runs; the other warps are done.
+// The two-level arrival there (32 blocks to a super-partial, then the
+// lane's super-partials) keeps each tail to one load a warp lane, since at
+// B = 1 the whole grid runs in one wave and the last block's tail is the
+// kernel's end.  A thread past the lane's last peer skips the update and
+// adds zeros: every thread reaches the barrier.
+//
+// The clock (reference _scan_swarm's t_s + dt): the lane's last block to
+// arrive, after every block of the lane has read t_s, writes t_s[lane] =
+// t + dt_s, with t the clock its warp 0 read before arriving: the float32
+// add the step's callers made in PyTorch before, so a step is two
+// launches (three on the wide-span route) and no clock kernel.  Whatever
+// runs after peer_update (the next step, TK5's row) reads the advanced
+// clock.
 struct UpdateArgs {
-  const float* t_s;
+  const float* t_s;  // advanced by each lane's last block (the epilogue)
   const float* join_s;
   const float* leave_s;
   const float* cdn_bps;
@@ -581,8 +592,8 @@ struct UpdateArgs {
   float* dl_done_bytes;
   float* dl_elapsed_ms;
   float* dl_cooldown_ms;
-  float* partials;  // [B, n_blocks, 2] (cdn, p2p) per block of BLOCK peers
-  int* counters;    // [>= B], zero between launches
+  float* partials;  // [B, n_blocks + n_sup, 2] (lane_sums.cuh scratch)
+  int* counters;    // [B + B * n_sup], zero between launches
   float* sums;      // [B, 2]: cdn, p2p
   float* series;    // null: sums only
   long long n_peers;
@@ -712,18 +723,21 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
 
 __global__ void __launch_bounds__(BLOCK) peer_update_kernel(
     const UpdateArgs a) {
-  __shared__ float2 red[LS_WARPS];
+  __shared__ float2 red[BLOCK / 32];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = blockIdx.y;
   float2 bytes = make_float2(0.0f, 0.0f);
   if (p < a.n_peers) bytes = update_peer(a, p, lane);
   const float2 b = ls_block_sum(bytes, red);
   if (threadIdx.x >= 32) return;
-  if (threadIdx.x == 0)
-    reinterpret_cast<float2*>(a.partials)[(long long)lane * gridDim.x +
-                                          blockIdx.x] = b;
-  lane_sums_finish(a.partials, gridDim.x, a.counters, a.sums, a.series,
-                   a.series_stride, a.column);
+  // The clock, read before this block's arrival (so that the lane's last
+  // block need not load it in its tail) and after the update (so that it
+  // holds no register there); t_s is const for update_peer's reads.
+  const float t = a.t_s[lane];
+  const LsOut out = {a.sums, a.series, a.series_stride, a.column,
+                     const_cast<float*>(a.t_s), t + a.dt_s};
+  ls_block_epilogue(b, a.partials, a.counters, a.n_lanes, gridDim.x,
+                    blockIdx.x, lane, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -751,7 +765,7 @@ extern "C" int swarm_admit_service(const AdmitArgs* args, void* stream) {
 
 extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
   if (args->partials == nullptr || args->counters == nullptr ||
-      args->sums == nullptr)
+      args->sums == nullptr || args->t_s == nullptr)
     return (int)cudaErrorInvalidValue;
   if (args->n_peers > 0 && args->n_lanes > 0)
     peer_update_kernel<<<grid_for(args->n_peers, args->n_lanes), BLOCK, 0,

@@ -15,7 +15,7 @@ TK2 ``admit_service``  circulant admission and service, :1259-1303
 TK3 ``peer_update``    the service readback and the slot-0 update
                        :1351-1525 with ``ewma.update``, and in its
                        epilogue TK4's sums for the step's offload
-                       series :1643-1647
+                       series :1643-1647 and the clock's advance
 TK4 ``lane_sums``      the same sums outside the step: a timeline's
                        first interval, ``offload_ratio`` :2607-2611
 TK5 ``timeline_row``   ``_timeline_row`` :1559-1627 (no cohort
@@ -23,11 +23,12 @@ TK5 ``timeline_row``   ``_timeline_row`` :1559-1627 (no cohort
 =====================  ==========================================
 
 A step is :func:`select_admit` then :func:`peer_update`, which also
-sums each lane's byte counters and writes the step's column of the
-offload series; every ``record_every`` steps :func:`timeline_row`
-writes a row.  The route of ``select_admit`` is chosen from the offsets
-before launch (:func:`fused_route`): the fused kernel where the halo
-fits its tile (the main path), else TK1 then TK2.
+sums each lane's byte counters, writes the step's column of the
+offload series and advances the lane's clock; every ``record_every``
+steps :func:`timeline_row` writes a row.  The route of
+``select_admit`` is chosen from the offsets before launch
+(:func:`fused_route`): the fused kernel where the halo fits its tile
+(the main path), else TK1 then TK2.
 
 Lanes.  Every function here works on stacked scenario lanes (``t_s``
 of shape ``[B]``, see ``swarm_sim``); the step's functions also take a
@@ -62,14 +63,16 @@ plain versions update the state in place too.  Callers that compare two
 steps clone the state first.
 
 Reductions.  The offload sums (TK3's epilogue, TK4) and TK5 sum in a
-fixed order (per block, then over the blocks of a lane in its last
-block to finish) with no float atomics, and the blocks of a lane depend
-on ``P`` alone: a lane's sums are the same bits batched or alone, run
-after run.  TK3's epilogue and TK4 share their blocks and their code
-(``csrc/lane_sums.cuh``), so a run's last series entry, its final
-offload ratio and its last timeline row agree to the bit.  On the CPU
-the plain versions take ``torch.sum``; between the card and the CPU
-sums agree to a tolerance, not to the bit.
+fixed order with no float atomics, finished by the last block of a
+lane to arrive, and the order depends on ``P`` alone: a lane's sums are
+the same bits batched or alone, run after run.  TK3's epilogue and TK4
+sum by the same code (``csrc/lane_sums.cuh``: partials of
+:data:`SUMS_BLOCK` peers, super-partials of :data:`SUMS_FAN` partials,
+then the lane), so a run's last series entry, its final offload ratio
+and its last timeline row agree to the bit; :func:`lane_sums_in_order`
+is that order in PyTorch.  On the CPU the plain versions take
+``torch.sum``; between the card and the CPU sums agree to a tolerance,
+not to the bit.
 
 Every launch adds one to :data:`LAUNCHES`, under the kernel that
 :data:`KERNEL_OF` names for the launching wrapper; plain calls add
@@ -177,10 +180,12 @@ DEFINES = (("SA_TILE", SELECT_ADMIT_TILE), ("SA_MAX_SPAN", MAX_FUSED_SPAN))
 #: the same order whatever the batch
 REDUCE_TILE = 4096
 REDUCE_MAX_BLOCKS = 1024
-#: peers per block of the offload sums, one a thread: ``peer_update``'s
-#: blocks, whose epilogue sums them, and ``lane_sums``' (``LS_THREADS``
-#: in ``csrc/lane_sums.cuh``)
+#: the offload sums' order (``csrc/lane_sums.cuh``): peers per partial,
+#: which is ``peer_update``'s thread block (``LS_THREADS``), and partials
+#: per super-partial, a warp's lanes (``LS_FAN``); ``lane_sums`` sums one
+#: super-partial a thread block
 SUMS_BLOCK = 256
+SUMS_FAN = 32
 #: the reduction kernels' limits on the timeline row (``MAX_LEVELS``
 #: levels, ``MAX_EDGES`` digest edges), checked before launch
 MAX_LEVELS = 16
@@ -395,7 +400,8 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
                       adm: torch.Tensor) -> None:
     """Plain TK3: the service readback (reference :1297-1303), the
     slot-0 update (:1351-1434, :1467-1493), playback and the repack
-    (:1495-1525).  Updates ``state`` in place."""
+    (:1495-1525), then the step's clock advance (``_scan_swarm``'s
+    ``t_s + dt``, a float32 add).  Updates ``state`` in place."""
     g = geometry(config)
     dev = req.device
     zeros = torch.zeros(req.shape, dtype=torch.float32, device=dev)
@@ -479,17 +485,18 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     state.dl_done_bytes[..., 0].copy_(done)
     state.dl_elapsed_ms[..., 0].copy_(elapsed)
     state.dl_cooldown_ms[..., 0].copy_(cooled)
+    state.t_s.add_(g.dt_s)
 
 
 def plain_step(config: SwarmConfig, scenario: SwarmScenario,
                state: SwarmState) -> SwarmState:
     """One step through the plain versions on any device, of one
     scenario or of lanes: the oracle a kernel step is held against.
-    Updates ``state`` in place, the clock too, and returns it, as
-    ``swarm_step`` does."""
+    Updates ``state`` in place, the clock too (in
+    :func:`peer_update_plain`), and returns it, as ``swarm_step``
+    does."""
     flags, req, service, adm = select_admit_plain(config, scenario, state)
     peer_update_plain(config, scenario, state, flags, req, service, adm)
-    state.t_s.add_(config.dt_ms / 1000.0)
     return state
 
 
@@ -503,6 +510,38 @@ def lane_sums_plain(state: SwarmState, series=None, column: int = 0):
     if series is not None:
         series[:, column] = p2p / torch.clamp_min(p2p + cdn, 1.0)
     return torch.stack([cdn, p2p], dim=-1)
+
+
+def _tree(v: torch.Tensor) -> torch.Tensor:
+    """The kernels' tree over the last axis (a power of two, n): at
+    strides n/2, ..., 1, entry i adds entry i + stride
+    (``ls_warp_sum`` for 32)."""
+    s = v.shape[-1] // 2
+    while s:
+        v = v[..., :s] + v[..., s:2 * s]
+        s //= 2
+    return v[..., 0]
+
+
+def lane_sums_in_order(state: SwarmState) -> torch.Tensor:
+    """Each lane's ``[B, 2]`` (cdn, p2p) sums in the kernels' order
+    (``csrc/lane_sums.cuh``), as float32 PyTorch adds: on the card, the
+    bits ``lane_sums`` and ``peer_update``'s epilogue give.  Peers past
+    P, partials past the lane's last and super-partials past its last
+    add as zeros, as in the kernels."""
+    x = torch.stack([state.cdn_bytes, state.p2p_bytes], dim=1)
+    B, _two, P = x.shape
+    n_sup = sums_supers(P)
+    x = torch.nn.functional.pad(x, (0, n_sup * SUMS_FAN * SUMS_BLOCK - P))
+    # a partial: 8 runs of 32 peers, each run's tree, then the runs' tree
+    part = _tree(_tree(x.view(B, 2, n_sup * SUMS_FAN, SUMS_BLOCK // 32, 32)))
+    sup = _tree(part.view(B, 2, n_sup, SUMS_FAN))
+    rounds = -(-n_sup // 32)
+    sup = torch.nn.functional.pad(sup, (0, rounds * 32 - n_sup))
+    acc = torch.zeros((B, 2, 32), dtype=torch.float32, device=x.device)
+    for i in range(rounds):
+        acc = acc + sup[..., 32 * i:32 * (i + 1)]
+    return _tree(acc)
 
 
 def _rebuffer_plain(reb, join, leave, t):
@@ -886,8 +925,9 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
                 req: torch.Tensor, service: torch.Tensor,
                 adm: torch.Tensor, *, series=None,
                 column: int = 0) -> torch.Tensor:
-    """TK3 with TK4's sums in its epilogue: :func:`peer_update_plain`
-    then :func:`lane_sums_plain` on the updated state, in one launch.
+    """TK3 with TK4's sums and the clock's advance in its epilogue:
+    :func:`peer_update_plain` (which advances ``t_s``) then
+    :func:`lane_sums_plain` on the updated state, in one launch.
     Updates ``state`` in place and returns each lane's ``[B, 2]`` (cdn,
     p2p) sums; with ``series`` (a ``[B, n]`` float32 tensor) it also
     writes the offload ratio into ``series[:, column]``.  The sums are
@@ -934,30 +974,44 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
 # ---- the reductions ---------------------------------------------------------
 
 #: per (device, kernel): zeroed u32 arrival counters of the last-block
-#: reductions, one per lane.  The last block of each lane sets its
-#: counter back to 0, so the buffer is zero between launches and is
-#: made once (grown when a batch outgrows it).
+#: reductions (:func:`arrival_counters`).  The last arrival at each
+#: counter sets it back to 0, so the buffer is zero between launches and
+#: is made once (grown when a launch outgrows it).
 _COUNTERS: Dict[Tuple[torch.device, str], torch.Tensor] = {}
 
 
-def _counters(dev: torch.device, name: str, n_lanes: int) -> int:
+def _counters(dev: torch.device, name: str, n: int) -> int:
     buf = _COUNTERS.get((dev, name))
-    if buf is None or buf.numel() < n_lanes:
-        buf = torch.zeros((max(n_lanes, 64),), dtype=_I, device=dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 64),), dtype=_I, device=dev)
         _COUNTERS[(dev, name)] = buf
     return buf.data_ptr()
 
 
 def sums_blocks(n_peers: int) -> int:
-    """Blocks per lane of the offload sums (``peer_update``'s epilogue
-    and ``lane_sums``): one per :data:`SUMS_BLOCK` peers."""
+    """Partials per lane of the offload sums: one per
+    :data:`SUMS_BLOCK` peers, which is one ``peer_update`` block."""
     return -(-n_peers // SUMS_BLOCK)
+
+
+def sums_supers(n_peers: int) -> int:
+    """Super-partials per lane of the offload sums: one per
+    :data:`SUMS_FAN` partials, which is one ``lane_sums`` block."""
+    return -(-sums_blocks(n_peers) // SUMS_FAN)
+
+
+def arrival_counters(name: str, B: int, P: int) -> int:
+    """Arrival counters kernel ``name`` takes on ``B`` lanes of ``P``
+    peers: one a lane, and for ``peer_update`` one a super-partial."""
+    return B * (1 + sums_supers(P)) if name == "peer_update" else B
 
 
 def _sums_out(dev, name: str, B: int, P: int, series, column: int):
     """The offload sums' outputs for kernel ``name``: a fresh ``[B, 2]``
-    sums tensor, its partials (held by the caller until the launch is
-    queued), and the struct fields that point at them, the arrival
+    sums tensor, its scratch (held by the caller until the launch is
+    queued: ``peer_update``'s partials and super-partials, ``[B,
+    n_blocks + n_sup, 2]``, or ``lane_sums``' super-partials, ``[B,
+    n_sup, 2]``), and the struct fields that point at them, the arrival
     counters and ``series[:, column]``, checked."""
     if P == 0:
         raise ValueError(f"{name} needs at least one peer")
@@ -971,9 +1025,11 @@ def _sums_out(dev, name: str, B: int, P: int, series, column: int):
                              f"column {column}")
         stride = series.stride(0)
     sums = torch.empty((B, 2), dtype=_F, device=dev)
-    partials = torch.empty((B, sums_blocks(P), 2), dtype=_F, device=dev)
+    width = sums_supers(P) + (sums_blocks(P) if name == "peer_update" else 0)
+    partials = torch.empty((B, width, 2), dtype=_F, device=dev)
     return sums, partials, dict(
-        partials=partials.data_ptr(), counters=_counters(dev, name, B),
+        partials=partials.data_ptr(),
+        counters=_counters(dev, name, arrival_counters(name, B, P)),
         sums=sums.data_ptr(),
         series=None if series is None else series.data_ptr(),
         series_stride=stride, column=column)
@@ -997,7 +1053,7 @@ def lane_sums(state: SwarmState, series=None, column: int = 0):
     args = _LaneSumsArgs(
         p2p_bytes=_check("p2p_bytes", state.p2p_bytes, _F, (B, P), dev),
         cdn_bytes=_check("cdn_bytes", state.cdn_bytes, _F, (B, P), dev),
-        **out, n_peers=P, n_lanes=B, n_blocks=sums_blocks(P))
+        **out, n_peers=P, n_lanes=B, n_blocks=sums_supers(P))
     _launch("lane_sums", args, dev)
     return sums
 
@@ -1108,20 +1164,17 @@ class Graph(NamedTuple):
             LAUNCHES[name] += n
 
 
-def _prepare_capture(dev: torch.device, n_lanes: int) -> None:
+def _prepare_capture(dev: torch.device, n_lanes: int, n_peers: int) -> None:
     """What a capture must find ready, since a graph may not build,
     load, allocate outside its pool or copy from the host: both
     libraries built, bound and their kernels loaded (``_lib``), the
-    arrival counters for ``n_lanes`` lanes, the digest edges, and
-    PyTorch's kernel of the clock add loaded by one add on the capture
-    stream."""
+    arrival counters for ``n_lanes`` lanes of ``n_peers`` peers, and the
+    digest edges."""
     for source in _SOURCES:
         _lib(source)
     for name in ("peer_update", "lane_sums", "timeline_row"):
-        _counters(dev, name, n_lanes)
+        _counters(dev, name, arrival_counters(name, n_lanes, n_peers))
     _edges(dev)
-    with torch.cuda.stream(_capture_stream(dev)):
-        torch.zeros((n_lanes,), dtype=_F, device=dev).add_(1.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1130,13 +1183,14 @@ def _capture_stream(dev: torch.device):
     return torch.cuda.Stream(dev)
 
 
-def capture(fn, dev: torch.device, n_lanes: int, pool=None) -> Graph:
-    """Capture ``fn()``, which launches work on ``n_lanes`` lanes on the
-    card, as a CUDA graph (in ``pool`` when given, else a pool of its
-    own).  The launches ``fn`` makes while captured run nothing, so they
-    are taken off :data:`LAUNCHES` and counted at each replay instead.
-    A failed capture raises."""
-    _prepare_capture(dev, n_lanes)
+def capture(fn, dev: torch.device, n_lanes: int, n_peers: int,
+            pool=None) -> Graph:
+    """Capture ``fn()``, which launches work on ``n_lanes`` lanes of
+    ``n_peers`` peers on the card, as a CUDA graph (in ``pool`` when
+    given, else a pool of its own).  The launches ``fn`` makes while
+    captured run nothing, so they are taken off :data:`LAUNCHES` and
+    counted at each replay instead.  A failed capture raises."""
+    _prepare_capture(dev, n_lanes, n_peers)
     before = dict(LAUNCHES)
     try:
         graph = _record(fn, dev, pool)

@@ -567,16 +567,14 @@ def _check_step(config: SwarmConfig, state: SwarmState) -> None:
 
 def _step(config: SwarmConfig, scenario: SwarmScenario, state: SwarmState,
           series=None, column: int = 0) -> torch.Tensor:
-    """One step in place: ``select_admit``, ``peer_update`` (which also
-    sums the byte counters and, with ``series``, writes the offload
-    ratio into ``series[:, column]``), then the clock.  Returns the
-    step's ``[B, 2]`` (cdn, p2p) sums."""
+    """One step in place: ``select_admit``, then ``peer_update``, which
+    also sums the byte counters, with ``series`` writes the offload
+    ratio into ``series[:, column]``, and advances the clock.  Returns
+    the step's ``[B, 2]`` (cdn, p2p) sums."""
     from . import swarm_kernels as sk
     flags, req, service, adm = sk.select_admit(config, scenario, state)
-    sums = sk.peer_update(config, scenario, state, flags, req, service, adm,
+    return sk.peer_update(config, scenario, state, flags, req, service, adm,
                           series=series, column=column)
-    state.t_s.add_(config.dt_ms / 1000.0)
-    return sums
 
 
 def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
@@ -694,7 +692,7 @@ def _replay_steps(config, scenario, state, n_steps, record_every, row,
                 if n == record_every:
                     row(sums, row_g, 0)
             pool = next(iter(graphs.values())).pool if graphs else None
-            graphs[n] = sk.capture(steps, dev, B, pool)
+            graphs[n] = sk.capture(steps, dev, B, config.n_peers, pool)
         graphs[n].replay()
         series[:, done:done + n].copy_(series_g[:, :n])
         if n == record_every:

@@ -19,8 +19,10 @@ CPU build of PyTorch lacks:
 
 What it cannot show: that a kernel builds, runs or is right, and any
 time; ``chip_smoke.py`` on the card shows those.  A check that needs
-the real size (the stalling points of the 48-point grid) is reported
-and does not stop the rehearsal.  Takes ~17 minutes on a CPU.
+the real size (the stalling points of the 48-point grid), or the
+kernels' own summation order (the bits of ``lane_sums_in_order``), is
+reported and does not stop the rehearsal.  Takes ~17 minutes on a
+CPU.
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ import time
 
 #: the rehearsal's shapes, in place of chip_smoke.py's
 SIZES = dict(CHECK_PEERS=2_048, PEERS=2_048, GRID_PEERS=2_048, STEPS=400,
-             CHECK_WARM_STEPS=60, BACK_TO_BACK=3, WINDOW=10)
-#: checks that hold only at the real size
-SIZE_BOUND_CHECKS = ("stall",)
+             CHECK_WARM_STEPS=60, BACK_TO_BACK=3, WINDOW=10,
+             SUMS_PEERS=(1_000, 1_001, 2_048))
+#: checks that hold only at the real size, and checks of the kernels'
+#: bits (the plain versions sum by ``torch.sum``, not in their order)
+SIZE_BOUND_CHECKS = ("stall", "lane_sums_in_order")
 
 
 class EagerGraph:
@@ -108,14 +112,15 @@ def main() -> int:
     _stub_cuda(torch)
     _count_launches(sk)
     sk.graph_path = lambda dev: True
-    sk.capture = lambda fn, dev, n_lanes, pool=None: sk.Graph(
+    sk.capture = lambda fn, dev, n_lanes, n_peers, pool=None: sk.Graph(
         EagerGraph(fn), {}, None)
     _build.nvcc_path = lambda: "nvcc"
     strict = ns["check"]
 
     def check(cond, msg):
         if not cond and any(w in msg for w in SIZE_BOUND_CHECKS):
-            print(f"rehearsal: holds only at the real size: {msg}")
+            print(f"rehearsal: holds only on the card at the real size: "
+                  f"{msg}")
             return
         strict(cond, msg)
     ns.update(SIZES, check=check,

@@ -60,7 +60,7 @@ def graph_on_cpu(monkeypatch):
     """The graph path on CPU tensors, captures recorded by length."""
     captured = []
 
-    def capture(fn, dev, n_lanes, pool=None):
+    def capture(fn, dev, n_lanes, n_peers, pool=None):
         captured.append(n_lanes)
         return sk.Graph(EagerGraph(fn), {}, None)
     monkeypatch.setattr(sk, "graph_path", lambda dev: True)
@@ -237,7 +237,7 @@ def test_capture_moves_its_launches_to_the_replays(monkeypatch):
     def record(fn, dev, pool):
         fn()
         return _FakeCUDAGraph()
-    monkeypatch.setattr(sk, "_prepare_capture", lambda dev, n: None)
+    monkeypatch.setattr(sk, "_prepare_capture", lambda dev, n, p: None)
     monkeypatch.setattr(sk, "_record", record)
     sk.reset_launch_counts()
     sk.LAUNCHES["lane_sums"] = 1
@@ -246,7 +246,7 @@ def test_capture_moves_its_launches_to_the_replays(monkeypatch):
         for _ in range(3):
             sk.LAUNCHES["select_admit"] += 1
             sk.LAUNCHES["peer_update"] += 1
-    g = sk.capture(steps, torch.device("cpu"), 2)
+    g = sk.capture(steps, torch.device("cpu"), 2, 256)
     assert g.launches == {"select_admit": 3, "peer_update": 3}
     assert g.pool == ("pool", id(g.graph))
     assert sk.LAUNCHES == {**{k: 0 for k in sk.LAUNCHES}, "lane_sums": 1}
@@ -258,7 +258,7 @@ def test_capture_moves_its_launches_to_the_replays(monkeypatch):
         raise RuntimeError("capture failed")
     before = dict(sk.LAUNCHES)
     with pytest.raises(RuntimeError, match="capture failed"):
-        sk.capture(fails, torch.device("cpu"), 2)
+        sk.capture(fails, torch.device("cpu"), 2, 256)
     assert sk.LAUNCHES == before
     sk.reset_launch_counts()
 
