@@ -60,13 +60,33 @@ exits nonzero:
    reductions timed against their plain versions and ``torch.sum``;
 10. ``lane_sums`` on random byte counters at 1,000, 1,001, 262,144 and
    1,048,576 peers × 1, 4 and 48 lanes against its plain version, the
-   bits of ``lane_sums_in_order`` and each lane alone.
+   bits of ``lane_sums_in_order`` and each lane alone;
+11. live mode's kernels: four lanes of the live grid (points 15, 43, 107
+   and 136) at 1,048,576 peers × 128 segments, at t = 60 s (the crowd
+   joins) and 6 plain steps later, ``select_admit``, TK1 + TK2 (on the
+   ring and on a wide offset tuple) and ``peer_update`` against their
+   plain versions, with every live branch shown to bind (floored
+   joiners, the playback cushion, the stagger, the announce lag);
+12. the port's live run against the committed live fixture (the JAX
+   reference's ``run_swarm_batch`` over those four points);
+13. the live sweep: all 144 points of ``live_grid()`` at 1,048,576
+   peers × 128 segments × 960 steps, a row every 40 steps, through
+   ``run_batch_chunked`` with the autotuned chunk (64, 64, 16), launches
+   checked, each last row its final ratios, the last 32 points in one
+   chunk equal to the bit, and the rows held to the reference's record
+   ``SWEEP_LIVE_1M_r05.json`` after its rounding (at the points that
+   ``tools/torch_port_live_anchor.py`` re-ran, to the reference at
+   HEAD): the same stalling count, the largest difference bounded;
+14. a 64-lane live chunk run as graphs and traced whole (idle share),
+   80 eager steps from its final state traced per kernel, with each
+   kernel's bytes and bound.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
 name and power limit, and the ``{"kernels": [...]}`` line the kernels'
-launches and times.  Without a card, or outside a checkout, it exits
-nonzero and prints no result.
+launches and times (each step kernel's ``live`` entry: phase 14's
+numbers and the live instantiation's registers).  Without a card, or
+outside a checkout, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -188,6 +208,38 @@ SUMS_LANES = (1, 4, 48)
 #: steps per host-clock run of each route, run in turns fused, pair,
 #: pair, fused
 HOST_STEPS = 400
+
+#: live mode.  The kernel check's lanes, points of live_grid() (the live
+#: fixture's: stagger windows of 2 and 8 s, announce lags of 0 and 4 s,
+#: both join waves, every supply point, both cushions and both urgency
+#: margins) at GRID_PEERS × GRID_SEGMENTS, compared at two states: after
+#: LIVE_CHECK_STEPS plain steps (t = 60 s, when the crowd joins: its
+#: playhead floor binds) and LIVE_CHECK_MORE steps later (fresh segments
+#: held by peers that the announce lag still hides)
+LIVE_POINTS = (15, 43, 107, 136)
+LIVE_CHECK_STEPS = 240
+LIVE_CHECK_MORE = 6
+#: the reference's run of the 144-point live grid (a TPU, tools/sweep.py
+#: --live; 1,048,576 × 128 × 960, seed 0), rows rounded as
+#: tools/sweep.py:491-492 rounds them: offload to 4 digits, rebuffer to 5
+REFERENCE_LIVE_SWEEP = "SWEEP_LIVE_1M_r05.json"
+OFFLOAD_DIGITS, REBUFFER_DIGITS = 4, 5
+#: the reference at HEAD, re-run on a CPU at the record's shape by
+#: tools/torch_port_live_anchor.py: {point: (offload, rebuffer)}, rounded
+#: as the record.  Where it differs from the record (point 100's offload)
+#: the port is held to it, not to the record.
+LIVE_ANCHOR = {107: (0.4613, 7e-05), 100: (0.2511, 1e-05),
+               28: (0.0002, 0.00726), 15: (0.0, 0.01259)}
+#: the tail chunk's lanes, rerun inside a chunk of this many (with the
+#: lanes before them): rows equal to the bit
+LIVE_TAIL_CHUNK = 32
+#: lanes of the traced live chunk: the autotuned chunk at 1,048,576 peers
+LIVE_TRACE_LANES = 64
+#: the largest difference of a live row from the reference's after its
+#: rounding.  Measured on an H100 80GB HBM3 at 700 W (PERF.md): 6e-4,
+#: in the offload of 17 points (the card's float32 sums in another order
+#: than the TPU's, then rounded); every rebuffer equal.  Held to 1e-3.
+LIVE_ROW_TOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -361,6 +413,8 @@ def phase_card():
 
 
 def phase_build():
+    """Build both sources anew, print ptxas's lines, and return
+    :func:`kernel_registers` of the build."""
     from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_kernels as sk
     t0 = time.perf_counter()
     info = sk.build_kernels(force=True)
@@ -369,6 +423,41 @@ def phase_build():
     for src, rec in info.items():
         for line in rec["ptxas"]:
             log(f"    {src}: {line.strip()}")
+    return kernel_registers(line for rec in info.values()
+                            for line in rec["ptxas"])
+
+
+def kernel_registers(lines):
+    """``{entry function (mangled): {"registers": n, "spill_bytes":
+    stores + loads}}`` from ptxas's ``-v`` lines."""
+    import re
+    out, name = {}, None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def registers_of(regs, kernel, live):
+    """The build's registers and spills of ``kernel``'s instantiation on
+    the main path's ring (K = 8 for ``select_admit``), live or VOD."""
+    tag = {("select_admit", False): "select_admit_kernelILi8ELb0E",
+           ("select_admit", True): "select_admit_kernelILi8ELb1E",
+           ("peer_update", False): "peer_update_kernelILb0E",
+           ("peer_update", True): "peer_update_kernelILb1E"}[kernel, live]
+    found = [v for k, v in regs.items() if tag in k]
+    check(len(found) == 1, f"ptxas reported no single {tag} function")
+    return found[0]
 
 
 def make_case(sim, sk, P, S, n_steps_plain, device, offsets=None,
@@ -771,7 +860,11 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
     data-dependent read or write only where this step's data needs it
     (the neighbours' map words that requesters ask for, the slot record
     of peers that start, the cache word and estimator of peers that
-    complete).  A kernel's bound is these bytes over the card's memory
+    complete).  In live mode the selection also reads each requester's
+    stagger rank and wait clock and three lane scalars, and
+    ``peer_update`` writes every wait clock, reads those of the
+    foregrounds blocked on the stagger (the others reset) and reads the
+    cushion.  A kernel's bound is these bytes over the card's memory
     rate."""
     import torch
     g = sk.geometry(config)
@@ -806,11 +899,40 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
            # super-partial written and read back once, the sums, the
            # series entry and the advanced clock
            + 2 * 8 * (sk.sums_blocks(P) + sk.sums_supers(P)) + 8 + 4 + 4)
+    if config.live:
+        blocked = int(((slot_flags & 16) != 0).sum())
+        tk1 += 4 * 2 * P + 4 * 3   # edge_rank, fg_wait_ms; three scalars
+        tk3 += 4 * P + 4 * blocked + 4   # fg_wait_ms; live_sync_s
     # select_admit: TK1's traffic plus uplink in, service and adm out,
     # the efficiency scalar (req stays in shared memory)
     fused = tk1 + 4 * 3 * P + 4
     return {"select_admit": float(fused), "elig_select": float(tk1),
             "admit_service": float(tk2), "peer_update": float(tk3)}
+
+
+def live_branch_counts(sim, sk, config, scenario, state):
+    """How many peers of the lanes ``state`` each live branch binds, as
+    the plain selection sees the next step: ``floored``, present peers
+    whose playhead the join floor raises; ``gated``, present peers
+    still inside their playback cushion; ``blocked``, foregrounds held
+    by the edge stagger; ``hidden``, wishes that have holders the
+    announce lag still hides."""
+    tg = sk.slot_targets(config, scenario, state)
+    t = state.t_s[:, None]
+    present = tg["present"]
+    flags, _req = sk.elig_select_plain(config, scenario,
+                                       sim.clone_state(state))
+    visible_at = ((tg["next_seg"].to(state.t_s.dtype) + 1.0)
+                  * config.seg_duration_s
+                  + scenario.announce_delay_s[:, None])
+    return {
+        "floored": int((present & (tg["playhead"]
+                                   > state.playhead_s)).sum()),
+        "gated": int((present & (t < scenario.join_s
+                                 + scenario.live_sync_s[:, None])).sum()),
+        "blocked": int(((flags & 16) != 0).sum()),
+        "hidden": int((tg["fg_wants"] & ((flags & 8) != 0)
+                       & (t < visible_at)).sum())}
 
 
 def lane_sums_bytes(sk, B, P):
@@ -1411,6 +1533,251 @@ def phase_lane_sums(sim, sk):
     return worst_ser, worst_rel
 
 
+def phase_live_kernels(sim, sk, sg):
+    """Every step kernel against its plain version on the LIVE_POINTS
+    lanes at the sweep's size, at the two states of LIVE_CHECK_STEPS:
+    ``select_admit``, TK1 and TK2 on the ring and on WIDE_OFFSETS, and
+    ``peer_update`` on both; the live branches shown to bind.  Returns
+    ``{kernel: max abs float error}``."""
+    import torch
+    t0 = time.perf_counter()
+    config = sg.build_config(GRID_PEERS, GRID_SEGMENTS, True, 8)
+    wide = config._replace(neighbor_offsets=WIDE_OFFSETS)
+    grid = [sg.live_grid()[i] for i in LIVE_POINTS]
+    scenario, _joins = build_lanes(sim, sg, config, grid, GRID_WATCH_S)
+    state = sim.init_swarm(config, device="cuda", batch=len(grid))
+    errs, total = {}, {}
+    for n_steps in (LIVE_CHECK_STEPS, LIVE_CHECK_MORE):
+        for _ in range(n_steps):
+            state = sk.plain_step(config, scenario, state)
+        torch.cuda.synchronize()
+        label = (f"live {len(grid)} lanes x {GRID_PEERS:,} peers at "
+                 f"t = {float(state.t_s[0])!r} s")
+        log(f"[11] {label} x {GRID_SEGMENTS} segments (points "
+            f"{list(LIVE_POINTS)}): plain path warmed in "
+            f"{time.perf_counter() - t0:.2f} s")
+        e = compare_kernels(sim, sk, config, scenario, state, label)
+        wide_label = f"{label}, offsets {WIDE_OFFSETS}"
+        for name, v in compare_kernels_pair(sim, sk, wide, scenario, state,
+                                            wide_label).items():
+            e[name] = max(e[name], v)
+        e["peer_update"] = max(e["peer_update"], compare_peer_update(
+            sim, sk, wide, scenario, state, wide_label)[0])
+        counts = live_branch_counts(sim, sk, config, scenario, state)
+        counts["waiting"] = int((state.fg_wait_ms > 0).sum())
+        log(f"  {label}: TK1 + TK2 and peer_update agree on offsets "
+            f"{WIDE_OFFSETS} too; max float err {json.dumps(e)}; peers "
+            f"each live branch binds {json.dumps(counts)}")
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    idle = [name for name, n in total.items() if n == 0]
+    check(not idle, f"live branches idle at both states: {idle}")
+    return errs
+
+
+def phase_live_fixture():
+    """The port's batched live run against the committed live fixture:
+    ratios and series within RUN_TOL, the timeline's clock and count
+    columns equal, the port's joins the fixture's to the bit."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import (REFERENCE_LIVE,
+                                                     run_live_fixture)
+    d = np.load(REFERENCE_LIVE)
+    offload, rebuffer, series, timeline, joins, fg_wait = run_live_fixture(
+        d, "cuda")
+    torch.cuda.synchronize()
+    offload, rebuffer = offload.cpu().numpy(), rebuffer.cpu().numpy()
+    series, timeline = series.cpu().numpy(), timeline.cpu().numpy()
+    errs = {"offload": float(np.abs(offload - d["offload"]).max()),
+            "rebuffer": float(np.abs(rebuffer - d["rebuffer"]).max()),
+            "series": float(np.abs(series - d["series"]).max())}
+    waits = int((fg_wait.cpu().numpy() != d["fg_wait_ms"]).sum())
+    log(f"[12] live fixture {d['shape'].tolist()} (peers, segments, steps, "
+        f"record_every, lanes), points {d['points'].tolist()}: offload "
+        f"{offload.tolist()} (JAX {d['offload'].tolist()}), rebuffer "
+        f"{rebuffer.tolist()} (JAX {d['rebuffer'].tolist()}); max abs err "
+        f"{json.dumps(errs)}; final wait clocks differing from JAX's: "
+        f"{waits} of {fg_wait.numel()}")
+    check(np.array_equal(joins.cpu().numpy(), d["join_s"]),
+          "the port's live joins are not the fixture's")
+    check(max(errs.values()) <= RUN_TOL,
+          "the port's live run disagrees with the JAX live fixture")
+    cols = list(d["columns"])
+    exact = [i for i, c in enumerate(cols)
+             if c in ("t_s", "stalled_peers") or c.startswith("level_")]
+    check(np.array_equal(timeline[..., exact], d["timeline"][..., exact]),
+          "the live fixture's clock or count columns differ")
+
+
+def _rounded(off, reb):
+    return round(off, OFFLOAD_DIGITS), round(reb, REBUFFER_DIGITS)
+
+
+def phase_live_grid(sim, sk, sg, dp):
+    """The live sweep at its real size: the 144-point live grid through
+    ``run_batch_chunked`` with the autotuned chunk, launches checked per
+    chunk, each last row its final ratios, the tail chunk's lanes rerun
+    inside a larger chunk to the bit, and the rows held to the
+    reference's record after its rounding.  Returns what the report
+    needs."""
+    import numpy as np
+    import torch
+    config = sg.build_config(GRID_PEERS, GRID_SEGMENTS, True, 8)
+    grid = sg.live_grid()
+    n_steps = int(GRID_WATCH_S * 1000.0 / config.dt_ms)
+    n_rows = n_steps // GRID_RECORD_EVERY
+    cols = sim.timeline_columns(config)
+
+    def build(knobs):
+        return sg.build_scenario(config, knobs, watch_s=GRID_WATCH_S,
+                                 stagger_s=GRID_STAGGER_S, seed=0,
+                                 device="cuda")
+
+    def run(items, chunk):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = dp.run_batch_chunked(config, items, build, n_steps,
+                                    watch_s=GRID_WATCH_S, chunk=chunk,
+                                    record_every=GRID_RECORD_EVERY)
+        torch.cuda.synchronize()
+        return rows, time.perf_counter() - t0
+
+    chunk = sim.autotune_chunk(config, len(grid), n_steps,
+                               record_every=GRID_RECORD_EVERY,
+                               scenario=build(grid[0])[0], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    rows, wall = run(grid, None)
+    launches = dict(sk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    starts = list(range(0, len(grid), chunk))
+    sizes = [min(chunk, len(grid) - a) for a in starts]
+    peer_steps = len(grid) * GRID_PEERS * n_steps
+    log(f"[13] live grid: {len(grid)} points x {GRID_PEERS:,} peers x "
+        f"{GRID_SEGMENTS} segments x {n_steps} steps, a row every "
+        f"{GRID_RECORD_EVERY} steps; autotuned chunk {chunk} (chunks "
+        f"{sizes}); wall {wall!r} s, {len(grid) / wall!r} grid points/s, "
+        f"{peer_steps / wall:,.0f} peer-steps/s; launches "
+        f"{json.dumps(launches)}; peak memory {peak:,} B")
+    n_chunks = len(sizes)
+    want = {"select_admit": n_steps * n_chunks, "elig_select": 0,
+            "admit_service": 0, "peer_update": n_steps * n_chunks,
+            "lane_sums": 2 * n_chunks,
+            "timeline_row": (n_rows + 1) * n_chunks}
+    check(launches == want, f"live grid launches {launches}, not {want}")
+    for i, (off, reb, tl) in enumerate(rows):
+        check(0.0 <= off <= 1.0 and 0.0 <= reb <= 1.0,
+              f"live point {i}: ratios out of range {off!r} {reb!r}")
+        check(tl.shape == (n_rows, len(cols)) and np.isfinite(tl).all(),
+              f"live point {i}: timeline {tl.shape} not finite")
+        last = tl[-1]
+        check(float(last[cols.index("t_s")]) == GRID_WATCH_S
+              and float(last[cols.index("offload")]) == off
+              and float(last[cols.index("rebuffer")]) == reb,
+              f"live point {i}: the last timeline row {last[:3].tolist()} "
+              f"is not its final ratios {off!r} {reb!r}")
+
+    # the tail chunk's lanes inside a larger chunk, with the lanes before
+    first = len(grid) - LIVE_TAIL_CHUNK
+    check(sizes[-1] < LIVE_TAIL_CHUNK <= len(grid),
+          f"the tail chunk ({sizes[-1]} lanes) does not fit inside "
+          f"{LIVE_TAIL_CHUNK}")
+    tail, wall_tail = run(grid[first:], LIVE_TAIL_CHUNK)
+    check(_rows_equal(tail, rows[first:]),
+          f"points {first}..{len(grid) - 1} in one chunk of "
+          f"{LIVE_TAIL_CHUNK} differ from the autotuned chunks' rows")
+
+    # the reference's record, and HEAD's reference where it was re-run
+    with open(os.path.join(ROOT, REFERENCE_LIVE_SWEEP)) as fh:
+        record = json.load(fh)
+    meta = record["meta"]
+    check((meta["peers"], meta["segments"], meta["watch_s"], meta["live"])
+          == (GRID_PEERS, GRID_SEGMENTS, GRID_WATCH_S, True),
+          f"{REFERENCE_LIVE_SWEEP} is not at this grid's size: {meta}")
+    by_knobs = {tuple(r[k] for k in grid[0]): r for r in record["rows"]}
+    ref = []
+    for i, knobs in enumerate(grid):
+        r = by_knobs[tuple(knobs.values())]
+        ref.append(LIVE_ANCHOR.get(i, (r["offload"], r["rebuffer"])))
+    mine = [_rounded(off, reb) for off, reb, _tl in rows]
+    stalling = sum(reb > 0.0 for _off, reb in mine)
+    ref_stalling = sum(reb > 0.0 for _off, reb in ref)
+    diffs = {i: (abs(m[0] - r[0]), abs(m[1] - r[1]))
+             for i, (m, r) in enumerate(zip(mine, ref)) if m != r}
+    worst = max((max(d) for d in diffs.values()), default=0.0)
+    log(f"    rows equal the reference's at {len(grid) - len(diffs)} of "
+        f"{len(grid)} points after its rounding ({OFFLOAD_DIGITS} and "
+        f"{REBUFFER_DIGITS} digits; {REFERENCE_LIVE_SWEEP}, a TPU's run, "
+        f"and at points {sorted(LIVE_ANCHOR)} the reference at HEAD re-run "
+        f"on a CPU); {stalling} points stall (reference {ref_stalling}); "
+        f"largest difference {worst!r}; points that differ "
+        f"(offload, rebuffer differences) "
+        f"{json.dumps({i: d for i, d in sorted(diffs.items())})}; "
+        f"chunk {LIVE_TAIL_CHUNK} of points {first}..{len(grid) - 1}: "
+        f"{wall_tail!r} s, rows equal to the bit; each last timeline row "
+        f"equals its final ratios")
+    check(stalling == ref_stalling,
+          f"{stalling} live points stall, the reference {ref_stalling}")
+    check(worst <= LIVE_ROW_TOL,
+          f"live rows differ from the reference by {worst!r}, more than "
+          f"{LIVE_ROW_TOL}")
+    return {"config": config, "launches": launches, "chunk": chunk,
+            "n_steps": n_steps, "wall": wall, "build": build, "grid": grid}
+
+
+def phase_live_trace(sim, sk, g):
+    """A LIVE_TRACE_LANES-lane live chunk (the grid's first points): one
+    direct run as graphs timed (its final state kept), the run traced
+    whole (device busy time and idle share), TRACE_STEPS eager steps
+    from its final state traced per kernel, and each kernel's bytes for
+    one of those steps."""
+    import torch
+    config, build = g["config"], g["build"]
+    built = [build(k) for k in g["grid"][:LIVE_TRACE_LANES]]
+    scenario = sim.stack_pytrees([sc for sc, _ in built])
+    del built
+    B = scenario.join_s.shape[0]
+    init = sim.init_swarm(config, device="cuda", batch=B)
+    sk.reset_launch_counts()
+    wall, cap, (final, _series, _tl) = timed_run(
+        sim, sk, config, scenario, init, g["n_steps"], "graph",
+        record_every=GRID_RECORD_EVERY)
+    del _series, _tl
+    busy, wall_ms, traced, others = trace_steps(
+        sim, sk, config, scenario, init, g["n_steps"], "graph",
+        record_every=GRID_RECORD_EVERY)
+    del init
+    _busy, _wall, e_traced, _other = trace_steps(
+        sim, sk, config, scenario, final, TRACE_STEPS, "eager",
+        record_every=GRID_RECORD_EVERY)
+    before, st = sim.clone_state(final), sim.clone_state(final)
+    flags, req, service, adm = sk.select_admit(config, scenario, st)
+    sk.peer_update(config, scenario, st, flags, req, service, adm)
+    nbytes = step_bytes(sim, sk, config, scenario, before, flags, req, adm,
+                        st)
+    del before, st, final
+    bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in nbytes.items()}
+    idle = None if busy is None else 1.0 - busy / wall_ms
+    log(f"[14] live chunk of {B} lanes x {GRID_PEERS:,} peers x "
+        f"{g['n_steps']} steps (graphs): {wall!r} s ({cap!r} s of it in "
+        f"captures; {wall * 1e3 / g['n_steps']!r} ms per step); traced "
+        f"whole: device busy {busy!r} ms per step, idle {idle!r} of the "
+        f"traced host wall ({wall_ms!r} ms per step; per kernel "
+        f"{json.dumps(traced)}; "
+        f"{other_ops(others, g['n_steps'], 'live graph run')})")
+    log(f"    per kernel (launches, traced mean ms), {TRACE_STEPS} eager "
+        f"steps from the final state: {json.dumps(e_traced)}; bytes "
+        f"{json.dumps({k: nbytes[k] for k in MAIN_PATH})}; bound ms at "
+        f"3.35 TB/s {json.dumps({k: bound[k] for k in MAIN_PATH})}; "
+        f"traced / bound "
+        f"{json.dumps({k: e_traced[k][1] / bound[k] for k in MAIN_PATH if k in e_traced})}")
+    return {"traced": e_traced, "bytes": nbytes, "bound_ms": bound,
+            "idle": idle, "wall": wall}
+
+
 def cuda_ms(fn, n):
     """Mean ms of ``n`` calls of ``fn()`` between two CUDA events, as
     the host drives them (for the plain versions)."""
@@ -1549,7 +1916,7 @@ def main() -> int:
                                                  swarm_sim as sim)
     try:
         smi = phase_card()
-        phase_build()
+        regs = phase_build()
         errs_1m = phase_kernels_vs_plain(sim, sk, CHECK_PEERS, SEGMENTS,
                                          CHECK_WARM_STEPS)
         errs_routes = phase_routes(sim, sk)
@@ -1567,6 +1934,10 @@ def main() -> int:
         errs_batch["lane_sums"] = max(errs_batch.get("lane_sums", 0.0),
                                       ls_err)
         sums_rel = max(sums_rel, ls_rel)
+        errs_live = phase_live_kernels(sim, sk, sg)
+        phase_live_fixture()
+        live_grid = phase_live_grid(sim, sk, sg, dp)
+        live = phase_live_trace(sim, sk, live_grid)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1574,7 +1945,7 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err = max(d.get(name, 0.0) for d in (errs, errs_1m, errs_routes,
-                                              errs_batch))
+                                              errs_batch, errs_live))
         wide = {"shape": f"48 x {GRID_PEERS:,}",
                 "launches": b48["launches"].get(name, 0),
                 "launches_in": b48["launches_in"],
@@ -1604,6 +1975,19 @@ def main() -> int:
             wide["library_ms"] = b48["library_ms"]
             entry["max_rel_err_sums"] = sums_rel
         entry["b48"] = wide
+        if name in MAIN_PATH:
+            entry["registers"] = registers_of(regs, name, False)
+            traced = live["traced"].get(name)
+            entry["live"] = {
+                "shape": f"{LIVE_TRACE_LANES} x {GRID_PEERS:,}",
+                "launches": live_grid["launches"][name],
+                "launches_in": "the 144-point live grid",
+                "traced_ms": None if traced is None else traced[1],
+                "traced_in": f"{TRACE_STEPS} eager steps from the traced "
+                             f"chunk's final state",
+                "bytes": live["bytes"][name],
+                "bound_ms": live["bound_ms"][name],
+                "registers": registers_of(regs, name, True)}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,7 +8,19 @@
 // of ops/pallas_elig.py, was retired).  Each kernel below names the
 // reference lines it replaces.  The slice they cover: circulant offsets,
 // one transfer slot (max_concurrency == 1), "spread" holder selection, an
-// admission cap (max_total_serves > 0) and VOD (live == False).
+// admission cap (max_total_serves > 0), VOD and live mode.
+//
+// Live mode (config.live) is a template parameter LIVE of TK1, TK3 and
+// select_admit, so that a VOD step runs kernels compiled without it.  Its
+// branches: the playhead floor at join (live_playhead, which the selection
+// and the update both apply, from the same inputs), the published-only gate
+// on the foreground's wish, P2P visibility after the announce lag, the edge
+// stagger, and the playback cushion.  The stagger's wait clock fg_wait_ms
+// is read by the selection and written only by TK3: the selection reports
+// a foreground blocked on the stagger in slot flag bit 4, and TK3 runs the
+// clock from it (reference :1143-1168).  select_admit's halo requesters
+// read fg_wait_ms of rows another block owns, so no kernel may write it
+// in the launch that selects.
 //
 // Layout: scenario lanes.  Every array carries a leading lane axis of
 // n_lanes (B), and the lane is the grid's y dimension: one launch steps
@@ -64,8 +76,9 @@ static_assert(BLOCK == LS_THREADS,
 // of neighbour (i + o_k) mod P plus that neighbour's presence and p2p_ok.
 // Writes the slot record into its own row of the state (in place: no other
 // thread reads those fields) and two scratch words: slot_flags (bit 0 may,
-// bit 1 active, bit 2 is_p2p, bit 3 have_n) and req, the offset index k of
-// the selected holder for a transfer that places demand, else -1.
+// bit 1 active, bit 2 is_p2p, bit 3 have_n, bit 4 blocked on the live
+// stagger) and req, the offset index k of the selected holder for a
+// transfer that places demand, else -1.
 struct SelectArgs {
   const float* t_s;
   const float* join_s;
@@ -112,6 +125,16 @@ struct SelectArgs {
   float default_estimate_bps;
   float bandwidth_safety;
   int offs[MAX_OFFS];  // normalized offsets, each reduced mod P to [0, P)
+  // live mode, read only by the LIVE instantiations: per peer the stagger
+  // rank and wait clock, per lane the cushion, stagger window and announce
+  // lag; live selects the instantiation
+  const float* edge_rank;
+  const float* fg_wait_ms;
+  const float* live_sync_s;
+  const float* live_spread_s;
+  const float* announce_delay_s;
+  float dt_ms;
+  int live;
 };
 
 __device__ __forceinline__ float corrected(float alpha, float est,
@@ -125,6 +148,17 @@ __device__ __forceinline__ bool is_present(float t, const float* join_s,
                                            const float* leave_s,
                                            long long r) {
   return (t >= join_s[r]) && (t < leave_s[r]);
+}
+
+// Live mode's playhead floor (reference :814-822): a joiner starts
+// live_sync_s behind the edge, its join time, so once t >= join the
+// playhead is at least max(join - live_sync_s, 0).  The selection and TK3
+// both step from the floored playhead, and only TK3 writes it back, so both
+// take it from here.
+__device__ __forceinline__ float live_playhead(float playhead, float join,
+                                               float t, float sync) {
+  const float live_start = fmaxf(join - sync, 0.0f);
+  return fmaxf(playhead, t >= join ? live_start : 0.0f);
 }
 
 // A requester's own inputs to the selection, which TK1 and select_admit
@@ -142,7 +176,22 @@ struct PeerIn {
   int cap_level;
   float margin_off;
   int attempts;
+  float edge_rank;  // live mode only
+  float fg_wait;    // live mode only
 };
+
+// A requester's live inputs (load_live): its floored playhead, its stagger
+// rank and wait clock.  Every requester loads them, select_admit's halo
+// included: the start decision, and so req, depends on them.
+template <bool LIVE>
+__device__ __forceinline__ void load_live(const SelectArgs& a, int lane,
+                                          long long r, float t, PeerIn& in) {
+  if (!LIVE) return;
+  in.playhead =
+      live_playhead(in.playhead, a.join_s[r], t, a.live_sync_s[lane]);
+  in.edge_rank = a.edge_rank[r];
+  in.fg_wait = a.fg_wait_ms[r];
+}
 
 // What a requester wants: slot 0's target and the map bit it asks its
 // neighbours for (word wi, bit bit).
@@ -159,10 +208,11 @@ struct Target {
 
 // The requester half of the selection before eligibility (shared by TK1
 // and select_admit, so that the two round alike), for the requester in row
-// r of lane `lane`.
+// r of lane `lane` at clock t.
+template <bool LIVE>
 __device__ __forceinline__ Target select_target(const SelectArgs& a,
                                                 int lane, long long r,
-                                                const PeerIn& in) {
+                                                const PeerIn& in, float t) {
   const int S = a.n_segments;
   Target tg;
   tg.a0 = (in.fl & 1u) != 0u;
@@ -186,6 +236,10 @@ __device__ __forceinline__ Target select_target(const SelectArgs& a,
   const bool timeline_left = pb < a.end_s;
   tg.fg_wants = in.present && !tg.a0 && timeline_left &&
                 (in.buffer < a.max_buffer_s);
+  // live: only fully published segments are downloadable (:837-840)
+  if (LIVE)
+    tg.fg_wants = tg.fg_wants &&
+                  (((float)tg.next_seg + 1.0f) * a.seg_duration_s <= t);
 
   // slot 0's target (:882-890).  In-place invariant: dl_seg, dl_level and
   // dl_holder_off are read only when a0 holds, and written (by the owner,
@@ -209,13 +263,15 @@ __device__ __forceinline__ Target select_target(const SelectArgs& a,
 // The requester half after eligibility: elig_bits has bit k set where
 // neighbour k holds the target bit and serves (:681-772, serve_ok :805).
 // Writes the requester's outputs only where `owner` holds; returns req.
-// i is the requester's peer index in its lane (the hash's), r its row.
+// i is the requester's peer index in its lane (the hash's), r its row, t
+// the lane's clock.
+template <bool LIVE>
 __device__ __forceinline__ int select_finish(const SelectArgs& a, int lane,
                                              long long i, long long r,
                                              const PeerIn& in,
                                              const Target& tg,
-                                             uint32_t elig_bits,
-                                             bool owner) {
+                                             uint32_t elig_bits, bool owner,
+                                             float t) {
   const float n_count = (float)__popc(elig_bits);
   // requester-side connectivity gate (:905-906): elig_k * p2p_req
   const float n_holders = n_count * in.p2p_req;
@@ -236,9 +292,23 @@ __device__ __forceinline__ int select_finish(const SelectArgs& a, int lane,
           : 0.0f;
   const float want_bytes = want_rate * (a.seg_duration_s / 8.0f);
 
-  // slot 0's start decision, VOD (:1133-1175)
-  const bool start_p2p = tg.fg_wants && have_n && !urgent;
-  const bool start_cdn = tg.fg_wants && !start_p2p;
+  // slot 0's start decision (:1133-1175)
+  bool start_p2p = tg.fg_wants && have_n && !urgent;
+  bool start_cdn = tg.fg_wants && !start_p2p;
+  if (LIVE) {
+    // P2P visibility: the target is announced announce_delay_s after it is
+    // published (:1121-1128, target_seg = next_seg for slot 0); the edge
+    // stagger: the CDN waits for the peer's stable share of the spread,
+    // unless the fetch is urgent (:1143-1164)
+    const bool visible =
+        t >= ((float)tg.next_seg + 1.0f) * a.seg_duration_s +
+                 a.announce_delay_s[lane];
+    const float waited = in.fg_wait + a.dt_ms;
+    const bool cdn_allowed =
+        waited >= in.edge_rank * a.live_spread_s[lane] * 1000.0f;
+    start_p2p = start_p2p && visible;
+    start_cdn = tg.fg_wants && !start_p2p && (cdn_allowed || urgent);
+  }
   const bool may = start_p2p || start_cdn;
   const bool is_p2p = (may ? start_p2p : tg.p0) && have_n;
   const bool active = tg.a0 || may;
@@ -268,8 +338,11 @@ __device__ __forceinline__ int select_finish(const SelectArgs& a, int lane,
   const int req = (demand && sel >= 0) ? sel : -1;
   if (!owner) return req;
   a.req[r] = req;
+  // bit 4: blocked on the stagger, which TK3's wait clock reads (never in
+  // VOD, where every wish starts)
   a.slot_flags[r] = (may ? 1 : 0) | (active ? 2 : 0) | (is_p2p ? 4 : 0) |
-                    (have_n ? 8 : 0);
+                    (have_n ? 8 : 0) |
+                    ((LIVE && tg.fg_wants && !may) ? 16 : 0);
   if (!tg.a0) a.dl_holder_off[r] = off;
   if (may) {
     a.level[r] = tg.want_level;
@@ -283,6 +356,7 @@ __device__ __forceinline__ int select_finish(const SelectArgs& a, int lane,
   return req;
 }
 
+template <bool LIVE>
 __global__ void elig_select_kernel(const SelectArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
@@ -304,7 +378,8 @@ __global__ void elig_select_kernel(const SelectArgs a) {
   in.cap_level = a.abr_cap_level[r];
   in.margin_off = a.urgent_margin_off_s[r];
   in.attempts = a.dl_attempts[r];
-  const Target tg = select_target(a, lane, r, in);
+  load_live<LIVE>(a, lane, r, t, in);
+  const Target tg = select_target<LIVE>(a, lane, r, in, t);
   // circulant eligibility (:681-772): neighbour k is (i + o_k) mod P; the
   // holder side is gated on presence and p2p_ok (serve_ok, :805)
   const uint32_t bm = 1u << tg.bit;
@@ -318,7 +393,7 @@ __global__ void elig_select_kernel(const SelectArgs a) {
     const bool have = (a.avail[j * a.n_words + tg.wi] & bm) != 0u;
     if (have && serve) elig_bits |= 1u << k;
   }
-  select_finish(a, lane, i, r, in, tg, elig_bits, true);
+  select_finish<LIVE>(a, lane, i, r, in, tg, elig_bits, true, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -427,7 +502,7 @@ __device__ __forceinline__ long long wrap(long long x, long long P) {
   return x < 0 ? x + P : x;
 }
 
-template <int KT>
+template <int KT, bool LIVE>
 __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
     select_admit_kernel(const SelectAdmitArgs a) {
   // the serve bits of the neighbour range (bit 0 present, bit 1 serves)
@@ -479,7 +554,8 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
     in.cap_level = s.abr_cap_level[r];
     in.margin_off = s.urgent_margin_off_s[r];
     in.attempts = s.dl_attempts[r];
-    const Target tg = select_target(s, lane, r, in);
+    load_live<LIVE>(s, lane, r, t, in);
+    const Target tg = select_target<LIVE>(s, lane, r, in, t);
     // circulant eligibility (:681-772); the map is not written in this
     // launch, so its words go through the read-only path.  Each neighbour's
     // serve bit is read whatever its map word holds, and the two are
@@ -510,8 +586,8 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
     }
     const long long u = (long long)q - a.o_max;  // position in the tile
     const bool owner = u >= 0 && u < SA_TILE && b + u < P;
-    req_s[q] =
-        (signed char)select_finish(s, lane, i, r, in, tg, elig_bits, owner);
+    req_s[q] = (signed char)select_finish<LIVE>(s, lane, i, r, in, tg,
+                                                elig_bits, owner, t);
   }
   __syncthreads();
 
@@ -544,7 +620,11 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
 // selected holder, then progress after the setup time, completion, BUSY
 // fast-fail, budget failover, byte counters, the cache bit-OR into its own
 // row, the EWMA, playback and the dl_flags word.  Updates the state in
-// place; each thread writes only its own peer's row.
+// place; each thread writes only its own peer's row.  Live mode (LIVE)
+// adds the playhead floor (live_playhead), the playback cushion (playback
+// starts live_sync_s after the join, :1500-1507) and the stagger's wait
+// clock: fg_wait_ms runs on by dt_ms where the selection reported the
+// foreground blocked (slot flag bit 4), else resets (:1165-1166).
 //
 // Epilogue (TK4 lane_sums fused in; reference _scan_swarm's step sums and
 // ratio :1643-1647): the block sums the cdn_bytes and p2p_bytes its
@@ -612,6 +692,11 @@ struct UpdateArgs {
   float slow_alpha;
   float min_sample_ms;
   int offs[MAX_OFFS];
+  // live mode, used only by the LIVE instantiation: the per-lane cushion
+  // and the per-peer wait clock; live selects the instantiation
+  const float* live_sync_s;
+  float* fg_wait_ms;
+  int live;
 };
 
 __device__ __forceinline__ void ewma_update(float alpha, float weight,
@@ -625,6 +710,7 @@ __device__ __forceinline__ void ewma_update(float alpha, float weight,
 }
 
 // One peer's update; returns its new (cdn_bytes, p2p_bytes).
+template <bool LIVE>
 __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
                                               long long p, int lane) {
   const long long P = a.n_peers;
@@ -711,9 +797,18 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
   }
 
   // playback (:1495-1511)
-  const float playhead = a.playhead_s[i];
+  float playhead = a.playhead_s[i];
   float buf = a.buffer_s[i] + buffer_add;
-  const bool can_play = present && (playhead < a.end_s);
+  bool can_play;
+  if (LIVE) {
+    const float join = a.join_s[i];
+    const float sync = a.live_sync_s[lane];
+    playhead = live_playhead(playhead, join, t, sync);
+    can_play = present && (playhead < a.end_s) && (t >= join + sync);
+    a.fg_wait_ms[i] = (fl & 16) ? a.fg_wait_ms[i] + a.dt_ms : 0.0f;
+  } else {
+    can_play = present && (playhead < a.end_s);
+  }
   const float advance = fminf(buf, a.dt_s) * (can_play ? 1.0f : 0.0f);
   a.playhead_s[i] = playhead + advance;
   a.rebuffer_s[i] = a.rebuffer_s[i] + (can_play ? a.dt_s - advance : 0.0f);
@@ -721,13 +816,14 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
   return make_float2(cdn_new, p2p_new);
 }
 
+template <bool LIVE>
 __global__ void __launch_bounds__(BLOCK) peer_update_kernel(
     const UpdateArgs a) {
   __shared__ float2 red[BLOCK / 32];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = blockIdx.y;
   float2 bytes = make_float2(0.0f, 0.0f);
-  if (p < a.n_peers) bytes = update_peer(a, p, lane);
+  if (p < a.n_peers) bytes = update_peer<LIVE>(a, p, lane);
   const float2 b = ls_block_sum(bytes, red);
   if (threadIdx.x >= 32) return;
   // The clock, read before this block's arrival (so that the lane's last
@@ -750,9 +846,15 @@ static inline dim3 grid_for(long long n, int lanes) {
 }
 
 extern "C" int swarm_elig_select(const SelectArgs* args, void* stream) {
-  if (args->n_peers > 0 && args->n_lanes > 0)
-    elig_select_kernel<<<grid_for(args->n_peers, args->n_lanes), BLOCK, 0,
-                         (cudaStream_t)stream>>>(*args);
+  if (args->n_peers > 0 && args->n_lanes > 0) {
+    const dim3 grid = grid_for(args->n_peers, args->n_lanes);
+    if (args->live)
+      elig_select_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+          *args);
+    else
+      elig_select_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+          *args);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -767,9 +869,18 @@ extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
   if (args->partials == nullptr || args->counters == nullptr ||
       args->sums == nullptr || args->t_s == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (args->n_peers > 0 && args->n_lanes > 0)
-    peer_update_kernel<<<grid_for(args->n_peers, args->n_lanes), BLOCK, 0,
-                         (cudaStream_t)stream>>>(*args);
+  if (args->live && (args->live_sync_s == nullptr ||
+                     args->fg_wait_ms == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (args->n_peers > 0 && args->n_lanes > 0) {
+    const dim3 grid = grid_for(args->n_peers, args->n_lanes);
+    if (args->live)
+      peer_update_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+          *args);
+    else
+      peer_update_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+          *args);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -777,14 +888,14 @@ extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
 // grid's y), one thread per requester of the tile and its halo (rounded up
 // to a warp).  A halo wider than
 // SA_MAX_SPAN is refused; the wrapper never sends one.
-template <int KT>
+template <int KT, bool LIVE>
 static int launch_select_admit(const SelectAdmitArgs* a,
                                cudaStream_t stream) {
   const long long P = a->sel.n_peers;
   const int span = a->o_max - a->o_min;
   if (span < 0 || span > SA_MAX_SPAN) return (int)cudaErrorInvalidValue;
   if (P > 0 && a->sel.n_lanes > 0)
-    select_admit_kernel<KT>
+    select_admit_kernel<KT, LIVE>
         <<<dim3((unsigned int)((P + SA_TILE - 1) / SA_TILE),
                 (unsigned int)a->sel.n_lanes),
            (SA_TILE + span + 31) / 32 * 32, 0, stream>>>(*a);
@@ -792,9 +903,12 @@ static int launch_select_admit(const SelectAdmitArgs* a,
 }
 
 extern "C" int swarm_select_admit(const SelectAdmitArgs* args, void* stream) {
-  if (args->sel.n_offs == 8)
-    return launch_select_admit<8>(args, (cudaStream_t)stream);
-  return launch_select_admit<0>(args, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (args->sel.live)
+    return args->sel.n_offs == 8 ? launch_select_admit<8, true>(args, st)
+                                 : launch_select_admit<0, true>(args, st);
+  return args->sel.n_offs == 8 ? launch_select_admit<8, false>(args, st)
+                               : launch_select_admit<0, false>(args, st);
 }
 
 // Load every kernel of this library onto the card now, so that none is
@@ -802,10 +916,15 @@ extern "C" int swarm_select_admit(const SelectAdmitArgs* args, void* stream) {
 // capture.  Called once, when the library is bound.
 extern "C" int swarm_preload(void) {
   cudaFuncAttributes attr;
-  const void* kernels[] = {
-      (const void*)elig_select_kernel, (const void*)admit_service_kernel,
-      (const void*)peer_update_kernel, (const void*)select_admit_kernel<8>,
-      (const void*)select_admit_kernel<0>};
+  const void* kernels[] = {(const void*)elig_select_kernel<false>,
+                           (const void*)elig_select_kernel<true>,
+                           (const void*)admit_service_kernel,
+                           (const void*)peer_update_kernel<false>,
+                           (const void*)peer_update_kernel<true>,
+                           (const void*)select_admit_kernel<8, false>,
+                           (const void*)select_admit_kernel<0, false>,
+                           (const void*)select_admit_kernel<8, true>,
+                           (const void*)select_admit_kernel<0, true>};
   for (const void* k : kernels) {
     const cudaError_t e = cudaFuncGetAttributes(&attr, k);
     if (e != cudaSuccess) return (int)e;

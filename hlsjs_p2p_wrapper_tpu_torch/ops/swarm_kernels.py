@@ -1,4 +1,4 @@
-"""The kernels of the circulant VOD step and of its per-lane
+"""The kernels of the circulant step (VOD and live) and of its per-lane
 reductions, with their plain PyTorch versions and the wrappers that
 choose between them.
 
@@ -48,9 +48,19 @@ holder; TK3 needs every holder's service.  ``select_admit`` does TK1
 and TK2 in one launch by recomputing, in each block, the selection of
 the requesters its holders serve.  Between the passes travel four
 ``[B, P]`` scratch words: ``slot_flags`` (bit 0 may, bit 1 active, bit
-2 is_p2p, bit 3 have_n), ``req`` (the offset index of the selected
-holder of a transfer that places demand, else -1), ``service`` and
-``adm`` (per holder, a bit mask of the admitted offset indices).
+2 is_p2p, bit 3 have_n, bit 4 blocked on the live stagger), ``req``
+(the offset index of the selected holder of a transfer that places
+demand, else -1), ``service`` and ``adm`` (per holder, a bit mask of
+the admitted offset indices).
+
+Live mode.  The selection reads the stagger's wait clock
+``fg_wait_ms`` and reports a foreground blocked on it in bit 4; only
+``peer_update`` writes the clock, from that bit.  So no kernel writes a
+field that another thread of its launch reads: ``select_admit``'s halo
+requesters read ``fg_wait_ms`` of rows that other blocks own.  Both
+passes floor the playhead from the same inputs in the same order
+(``_live_playhead``), since only ``peer_update`` writes it back.  A VOD
+config runs kernels compiled without the live code.
 
 In place: TK1 (and ``select_admit``) writes the slot record into its
 own row of the state and TK3 updates its own row of every field.  Each
@@ -235,6 +245,18 @@ def _present(scenario: SwarmScenario, t: torch.Tensor) -> torch.Tensor:
     return (_col(t) >= scenario.join_s) & (_col(t) < scenario.leave_s)
 
 
+def _live_playhead(scenario: SwarmScenario, state: SwarmState):
+    """Live mode's playhead floor (reference :814-822): a joiner starts
+    ``live_sync_s`` behind the edge, its join time, so once ``t >=
+    join_s`` the playhead is at least ``max(join_s - live_sync_s, 0)``.
+    Selection and playback both step from the floored playhead."""
+    t = _col(state.t_s)
+    live_start = torch.clamp_min(
+        scenario.join_s - _col(scenario.live_sync_s), 0.0)
+    return torch.maximum(state.playhead_s,
+                         torch.where(t >= scenario.join_s, live_start, 0.0))
+
+
 @_lane_api
 def _slot_targets(config: SwarmConfig, scenario: SwarmScenario,
                   state: SwarmState) -> Tuple[torch.Tensor, ...]:
@@ -242,30 +264,37 @@ def _slot_targets(config: SwarmConfig, scenario: SwarmScenario,
     present = _present(scenario, state.t_s)
     dl_active, dl_is_p2p = unpack_dl_flags(state.dl_flags, 1)
     a0 = dl_active[0]
+    playhead = (_live_playhead(scenario, state) if config.live
+                else state.playhead_s)
     estimate = get_estimate(state.ewma, config.fast_half_life_s,
                             config.slow_half_life_s)
     want_level = torch.minimum(_abr_pick(estimate, scenario.bitrates),
                                scenario.abr_cap_level)
-    pb = state.playhead_s + state.buffer_s
+    pb = playhead + state.buffer_s
     next_seg = torch.clamp_max(_div(pb, g.seg).to(torch.int32), g.S - 1)
     timeline_left = pb < g.end_s
     fg_wants = (present & ~a0 & timeline_left
                 & (state.buffer_s < config.max_buffer_s))
+    if config.live:
+        # only fully published segments are downloadable (:837-840)
+        fg_wants = fg_wants & ((next_seg.to(torch.float32) + 1.0) * g.seg
+                               <= _col(state.t_s))
     gi_seg = torch.where(a0, state.dl_seg[..., 0], next_seg)
     gi_level = torch.where(a0, state.dl_level[..., 0], want_level)
     return (present, a0, dl_is_p2p[0], want_level, next_seg, fg_wants,
-            gi_seg, gi_level * g.S + gi_seg)
+            gi_seg, gi_level * g.S + gi_seg, playhead)
 
 
 _TARGETS = ("present", "a0", "p0", "want_level", "next_seg", "fg_wants",
-            "gi_seg", "gi_flat")
+            "gi_seg", "gi_flat", "playhead")
 
 
 def slot_targets(config: SwarmConfig, scenario: SwarmScenario,
                  state: SwarmState) -> dict:
     """What each peer wants next (reference :796-894): presence, the
-    ABR level, the next segment, the foreground's wish and slot 0's
-    flat (level·S + seg) target, by name."""
+    ABR level, the next segment, the foreground's wish, slot 0's flat
+    (level·S + seg) target and the playhead the step starts from (live
+    mode's floor applied), by name."""
     return dict(zip(_TARGETS, _slot_targets(config, scenario, state)))
 
 
@@ -301,8 +330,8 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
     the slot record into ``state`` in place; returns ``(slot_flags,
     req)``."""
     g = geometry(config)
-    (present, a0, p0, want_level, next_seg, fg_wants, gi_seg,
-     gi_flat) = _slot_targets(config, scenario, state)
+    (present, a0, p0, want_level, next_seg, fg_wants, gi_seg, gi_flat,
+     playhead) = _slot_targets(config, scenario, state)
     p2p_req = scenario.p2p_ok
     serve_ok = present & (scenario.p2p_ok > 0.0)
     impl = resolve_eligibility(config, state.avail.device)
@@ -311,7 +340,7 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
     elig = [e * p2p_req for e in elig]
     n = n * p2p_req
 
-    margin_s = next_seg.to(torch.float32) * g.seg - state.playhead_s
+    margin_s = next_seg.to(torch.float32) * g.seg - playhead
     urgent = margin_s < (_col(scenario.urgent_margin_s)
                          + scenario.urgent_margin_off_s)
     budget_ms = torch.minimum(
@@ -328,6 +357,19 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
     have_n = n > 0.0
     start_p2p = fg_wants & have_n & ~urgent
     start_cdn = fg_wants & ~start_p2p
+    if config.live:
+        # P2P visibility (:1121-1128): slot 0's target is announced
+        # announce_delay_s after it is published; the edge stagger
+        # (:1143-1168): with no start yet, the CDN waits for the peer's
+        # stable share of the spread, unless the fetch is urgent
+        t = _col(state.t_s)
+        visible = t >= ((next_seg.to(torch.float32) + 1.0) * g.seg
+                        + _col(scenario.announce_delay_s))
+        waited = state.fg_wait_ms + g.dt_ms
+        cdn_allowed = waited >= (scenario.edge_rank
+                                 * _col(scenario.live_spread_s) * 1000.0)
+        start_p2p = start_p2p & visible
+        start_cdn = fg_wants & ~start_p2p & (cdn_allowed | urgent)
     may = start_p2p | start_cdn
     is_p2p = torch.where(may, start_p2p, p0) & have_n
     active = a0 | may
@@ -360,6 +402,10 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
     slot_flags = (may.to(torch.int32) | (active.to(torch.int32) << 1)
                   | (is_p2p.to(torch.int32) << 2)
                   | (have_n.to(torch.int32) << 3))
+    if config.live:
+        # blocked on the stagger, from which peer_update runs the wait
+        # clock (never set in VOD, where every wish starts)
+        slot_flags = slot_flags | ((fg_wants & ~may).to(torch.int32) << 4)
     return slot_flags, req
 
 
@@ -401,7 +447,12 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     """Plain TK3: the service readback (reference :1297-1303), the
     slot-0 update (:1351-1434, :1467-1493), playback and the repack
     (:1495-1525), then the step's clock advance (``_scan_swarm``'s
-    ``t_s + dt``, a float32 add).  Updates ``state`` in place."""
+    ``t_s + dt``, a float32 add).  In live mode playback steps from the
+    floored playhead and starts ``live_sync_s`` after the join
+    (:1500-1507), and the stagger's wait clock ``fg_wait_ms`` runs on
+    where the selection reported the foreground blocked (slot flag bit
+    4; :1165-1166), else resets; in VOD it is left alone.  Updates
+    ``state`` in place."""
     g = geometry(config)
     dev = req.device
     zeros = torch.zeros(req.shape, dtype=torch.float32, device=dev)
@@ -467,8 +518,16 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
 
     # playback
     buffer_s = state.buffer_s + buffer_add
-    playhead = state.playhead_s
-    can_play = present & (playhead < g.end_s)
+    if config.live:
+        playhead = _live_playhead(scenario, state)
+        can_play = present & (playhead < g.end_s) & (
+            _col(state.t_s) >= scenario.join_s + _col(scenario.live_sync_s))
+        blocked = (slot_flags & 16) != 0
+        state.fg_wait_ms.copy_(torch.where(blocked,
+                                           state.fg_wait_ms + g.dt_ms, zeros))
+    else:
+        playhead = state.playhead_s
+        can_play = present & (playhead < g.end_s)
     advance = torch.clamp_max(buffer_s, g.dt_s) * can_play
     rebuffer = state.rebuffer_s + torch.where(can_play, g.dt_s - advance,
                                               zeros)
@@ -629,7 +688,11 @@ class _SelectArgs(ctypes.Structure):
             "seg_duration_s", "inv_seg_duration_s", "max_buffer_s",
             "end_s", "fast_alpha",
             "slow_alpha", "default_estimate_bps", "bandwidth_safety")] + [
-        ("offs", ctypes.c_int * MAX_OFFS)]
+        ("offs", ctypes.c_int * MAX_OFFS)] + [
+        (name, _P) for name in (
+            "edge_rank", "fg_wait_ms", "live_sync_s", "live_spread_s",
+            "announce_delay_s")] + [
+        ("dt_ms", ctypes.c_float), ("live", ctypes.c_int)]
 
 
 class _AdmitArgs(ctypes.Structure):
@@ -663,7 +726,8 @@ class _UpdateArgs(ctypes.Structure):
         (name, ctypes.c_float) for name in (
             "seg_duration_s", "end_s", "dt_ms", "dt_s", "p2p_bps",
             "fast_alpha", "slow_alpha", "min_sample_ms")] + [
-        ("offs", ctypes.c_int * MAX_OFFS)]
+        ("offs", ctypes.c_int * MAX_OFFS),
+        ("live_sync_s", _P), ("fg_wait_ms", _P), ("live", ctypes.c_int)]
 
 
 class _LaneSumsArgs(ctypes.Structure):
@@ -783,7 +847,8 @@ _F, _I = torch.float32, torch.int32
 
 _SCALARS = frozenset(("urgent_margin_s", "p2p_budget_fraction",
                       "p2p_budget_cap_ms", "p2p_budget_floor_ms",
-                      "p2p_setup_ms", "uplink_efficiency"))
+                      "p2p_setup_ms", "uplink_efficiency", "live_sync_s",
+                      "live_spread_s", "announce_delay_s"))
 
 
 def _scenario_ptrs(scenario: SwarmScenario, names, B, P, L, dev) -> dict:
@@ -799,7 +864,9 @@ def _scenario_ptrs(scenario: SwarmScenario, names, B, P, L, dev) -> dict:
 def _select_args(config: SwarmConfig, scenario: SwarmScenario,
                  state: SwarmState, dev):
     """TK1's arguments (also the selection half of ``select_admit``'s),
-    checked, with fresh ``slot_flags`` and ``req`` outputs."""
+    checked, with fresh ``slot_flags`` and ``req`` outputs.  The live
+    inputs are passed for a VOD config too, whose kernels never read
+    them."""
     g = geometry(config)
     P = g.P
     B = state.t_s.shape[0]
@@ -808,8 +875,11 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
     ptrs = _scenario_ptrs(scenario, (
         "join_s", "leave_s", "p2p_ok", "abr_cap_level",
         "urgent_margin_off_s", "bitrates", "urgent_margin_s",
-        "p2p_budget_fraction", "p2p_budget_cap_ms", "p2p_budget_floor_ms"),
+        "p2p_budget_fraction", "p2p_budget_cap_ms", "p2p_budget_floor_ms",
+        "edge_rank", "live_sync_s", "live_spread_s", "announce_delay_s"),
         B, P, g.L, dev)
+    ptrs["fg_wait_ms"] = _check("fg_wait_ms", state.fg_wait_ms, _F, (B, P),
+                                dev)
     ptrs["t_s"] = _check("t_s", state.t_s, _F, (B,), dev)
     for name in ("playhead_s", "buffer_s"):
         ptrs[name] = _check(name, getattr(state, name), _F, (B, P), dev)
@@ -832,7 +902,8 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
         max_buffer_s=config.max_buffer_s, end_s=g.end_s,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         default_estimate_bps=DEFAULT_ESTIMATE_BPS,
-        bandwidth_safety=BANDWIDTH_SAFETY, offs=_offs_array(g.offs_mod))
+        bandwidth_safety=BANDWIDTH_SAFETY, offs=_offs_array(g.offs_mod),
+        dt_ms=g.dt_ms, live=int(config.live))
     return args, slot_flags, req
 
 
@@ -941,14 +1012,15 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
     P = g.P
     B = state.t_s.shape[0]
     ptrs = _scenario_ptrs(scenario, ("join_s", "leave_s", "cdn_bps",
-                                     "p2p_setup_ms"), B, P, g.L, dev)
+                                     "p2p_setup_ms", "live_sync_s"),
+                          B, P, g.L, dev)
     ptrs["t_s"] = _check("t_s", state.t_s, _F, (B,), dev)
     ptrs["slot_flags"] = _check("slot_flags", slot_flags, _I, (B, P), dev)
     ptrs["req"] = _check("req", req, _I, (B, P), dev)
     ptrs["service"] = _check("service", service, _F, (B, P), dev)
     ptrs["adm_mask"] = _check("adm", adm, _I, (B, P), dev)
     for name in ("playhead_s", "buffer_s", "rebuffer_s", "cdn_bytes",
-                 "p2p_bytes"):
+                 "p2p_bytes", "fg_wait_ms"):
         ptrs[name] = _check(name, getattr(state, name), _F, (B, P), dev)
     for name, t in state.ewma._asdict().items():
         ptrs[name] = _check(name, t, _F, (B, P), dev)
@@ -966,7 +1038,8 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
         n_offs=len(g.offs), seg_duration_s=g.seg, end_s=g.end_s,
         dt_ms=g.dt_ms, dt_s=g.dt_s, p2p_bps=config.p2p_bps,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
-        min_sample_ms=MIN_SAMPLE_DURATION_MS, offs=_offs_array(g.offs_mod))
+        min_sample_ms=MIN_SAMPLE_DURATION_MS, offs=_offs_array(g.offs_mod),
+        live=int(config.live))
     _launch("peer_update", args, dev)
     return sums
 

@@ -1,9 +1,9 @@
 """Batched swarm+ABR simulator on tensors.
 
 Port of the reference's ``ops/swarm_sim.py`` for its main path: the
-circulant VOD step that ``bench.py``'s headline and ``tools/sweep.py``'s
-VOD grid run.  Per peer: playhead, buffer, quality level, a dual-EWMA
-estimator, one foreground transfer slot and a bit-packed
+circulant step that ``bench.py``'s headline and ``tools/sweep.py``'s
+VOD and live grids run.  Per peer: playhead, buffer, quality level, a
+dual-EWMA estimator, one foreground transfer slot and a bit-packed
 ``[P, ceil(L·S/32)]`` per-(level, segment) cache map, stepped every
 ``dt_ms`` on a degree-K circulant overlay (peer i's neighbours are
 ``(i + o) mod P``).  A step is two passes (``ops/swarm_kernels.py``):
@@ -33,7 +33,9 @@ What this port covers, and what raises instead:
 - circulant offsets only (``neighbors=None``); the general ``[P, K]``
   path is queue 1 item 9a;
 - ``max_concurrency == 1``; prefetch slots are item 9b;
-- VOD; live mode is item 9c;
+- VOD and live mode (``config.live``: the playhead floor at join, the
+  published-only gate, P2P visibility after the announce lag, the edge
+  stagger's wait clock ``fg_wait_ms`` and the playback cushion);
 - ``"spread"`` holder selection; ``"adaptive"`` and ``"ranked"`` are
   item 9e;
 - ``max_total_serves > 0``; the uncapped fair share (``cap == 0``) is
@@ -543,9 +545,6 @@ def check_slice(config: SwarmConfig) -> None:
         raise NotImplementedError(
             "prefetch slots (max_concurrency > 1) are not ported yet "
             "(ROADMAP queue 1 item 9b)")
-    if config.live:
-        raise NotImplementedError(
-            "live mode is not ported yet (ROADMAP queue 1 item 9c)")
     if config.holder_selection != "spread":
         raise NotImplementedError(
             f"holder_selection={config.holder_selection!r} is not "

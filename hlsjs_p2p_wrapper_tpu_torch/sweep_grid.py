@@ -1,20 +1,23 @@
-"""The VOD policy grid that users sweep, and how one grid point becomes
-a scenario: copied from the reference's ``tools/sweep.py`` (``LADDERS``
-… ``padded_ladder`` :142-170, ``vod_grid`` :184-199, ``build_config``
-and ``build_scenario`` :258-333, ``sample_grid`` :339-350), VOD only.
+"""The VOD and live policy grids that users sweep, and how one grid
+point becomes a scenario: copied from the reference's ``tools/sweep.py``
+(``LADDERS`` … ``padded_ladder`` :142-170, ``vod_grid`` :184-199,
+``live_grid`` :203-224, ``build_config`` and ``build_scenario``
+:258-333, ``sample_grid`` :339-350), without population overlays.
 
-A grid point is a dict of knobs.  Every point of the VOD grid shares
-one static ``SwarmConfig`` (the ring degree is the only static knob),
-so the whole grid runs as one group of the chunked dispatch
-(``ops/dispatch.py``); everything else is scenario data, one lane per
-point.  Ladders of different lengths share the config's level count,
-padded with ``UNREACHABLE_BITRATE``, a rung the ABR rule never picks.
+A grid point is a dict of knobs.  Every point of a grid shares one
+static ``SwarmConfig`` (the ring degree is the only static knob, and
+``live`` is fixed per grid), so a whole grid runs as one group of the
+chunked dispatch (``ops/dispatch.py``); everything else is scenario
+data, one lane per point, the live cushion ``live_sync_s`` included.
+Ladders of different lengths share the config's level count, padded
+with ``UNREACHABLE_BITRATE``, a rung the ABR rule never picks.
 """
 
 from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import torch
 
 from .core.device import resolve_device
@@ -65,6 +68,29 @@ def vod_grid():
                 ("sd", "hd"), urgents, caps, supply)]
 
 
+def live_grid():
+    """The 144-point live grid: two live cushions × two urgency margins
+    × three edge-stagger windows × three (uplink, CDN) supply points ×
+    two announce lags × two join waves (``"steady"``: everyone at t = 0;
+    ``"crowd"``: a quarter seeds at t = 0, the rest a quarter into the
+    watch window), on the HD ladder with a 6 s P2P budget cap.  One
+    topology degree, so one static config."""
+    spreads = (0.0, 2.0, 8.0)
+    supply = ((1.2, 1.2), (2.4, 2.4), (10.0, 8.0))
+    announces = (0.0, 4.0)
+    waves = ("steady", "crowd")
+    syncs = (6.0, 12.0)
+    urgents = (0.5, 4.0)
+    return [dict(degree=8, ladder="hd", spread_s=sp,
+                 live_sync_s=sync, urgent_margin_s=u,
+                 budget_cap_ms=6_000.0,
+                 announce_delay_s=ann, join_wave=wave,
+                 uplink_mbps=up, cdn_mbps=cd)
+            for sync, u, sp, (up, cd), ann, wave in
+            itertools.product(syncs, urgents, spreads, supply,
+                              announces, waves)]
+
+
 def sample_grid(grid, n):
     """An ``n``-point slice spanning a grid's knob regimes (evenly
     strided through the itertools.product order), the whole grid when
@@ -90,22 +116,22 @@ def build_config(peers, segments, live, degree, live_sync_s=None,
 
 def build_scenario(config, knobs, *, watch_s, stagger_s, seed,
                    population=None, join_s=None, device=None):
-    """One VOD grid point's scenario on ``device`` (the card when None),
+    """One grid point's scenario on ``device`` (the card when None),
     and its join times ``[P]``, which the rebuffer denominator needs.
-    Joins are ``staggered_joins(P, stagger_s, seed)`` unless ``join_s``
-    gives them, and ranks ``stable_ranks(P, seed)``: both are the
-    reference's threefry draws, so the scenario is ``tools/sweep.py``'s
-    at the same seed.  ``watch_s`` is the
-    reference's signature; only the live crowd wave reads it."""
+    Unless ``join_s`` gives them, a VOD point's joins are
+    ``staggered_joins(P, stagger_s, seed)`` and a live point's its join
+    wave's (:func:`_live_joins`); ranks are ``stable_ranks(P, seed)``.
+    The draws are the reference's threefry draws, so the scenario is
+    ``tools/sweep.py``'s at the same seed."""
     if population is not None:
         raise NotImplementedError(
             "population overlays need the population fields, which are "
             "not ported yet (ROADMAP queue 1 item 9d)")
-    if config.live:
-        raise NotImplementedError(
-            "live grid points are not ported yet (ROADMAP queue 1 item 9c)")
     peers = config.n_peers
-    if join_s is None:
+    if join_s is None and config.live:
+        join_s = _live_joins(peers, knobs.get("join_wave", "steady"),
+                            watch_s, device)
+    elif join_s is None:
         join_s = _cached("join", staggered_joins, peers, stagger_s, seed,
                          device=device)
     scenario = make_scenario(
@@ -119,6 +145,19 @@ def build_scenario(config, knobs, *, watch_s, stagger_s, seed,
         announce_delay_s=knobs.get("announce_delay_s", 0.0),
         live_sync_s=knobs.get("live_sync_s"), device=device)
     return scenario, scenario.join_s
+
+
+def _live_joins(peers, wave, watch_s, device=None):
+    """A live grid point's joins ``[P]`` (``tools/sweep.py:306-322``):
+    ``"steady"`` joins everyone at t = 0; ``"crowd"`` keeps every 4th
+    ring index as a seed at t = 0 (interleaved, so every crowd peer has
+    seed neighbours) and joins the rest at ``watch_s / 4``, in float32
+    as the reference rounds it."""
+    if wave != "crowd":
+        return _full(peers, 0.0, device)
+    is_seed = torch.arange(peers, device=resolve_device(device)) % 4 == 0
+    return torch.where(is_seed, _full(peers, 0.0, device),
+                       _full(peers, np.float32(watch_s / 4.0), device))
 
 
 def _full(peers, value, device):

@@ -261,7 +261,7 @@ def test_build_scenario_draws_its_joins_once():
 
 
 @pytest.mark.parametrize("live,population,item", [
-    (True, None, "item 9c"), (False, object(), "item 9d")])
+    (True, object(), "item 9d"), (False, object(), "item 9d")])
 def test_build_scenario_outside_vod_raises(live, population, item):
     config = sg.build_config(P, S, live, 8)
     with pytest.raises(NotImplementedError, match=item):

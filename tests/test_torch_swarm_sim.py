@@ -317,7 +317,7 @@ def test_staggered_joins_is_a_seeded_permutation():
 
 @pytest.mark.parametrize("change,err", [
     ({"max_concurrency": 2}, NotImplementedError),
-    ({"live": True}, NotImplementedError),
+    ({"live": True, "max_concurrency": 2}, NotImplementedError),
     ({"holder_selection": "adaptive"}, NotImplementedError),
     ({"holder_selection": "ranked"}, NotImplementedError),
     ({"max_total_serves": 0}, NotImplementedError),

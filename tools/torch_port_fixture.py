@@ -9,7 +9,9 @@ reference at a fixed shape with the join times it used:
 - ``reference_batch.npz``: ``run_swarm_batch`` over four points of the
   VOD grid (``tools/sweep.py``'s ``sample_grid(vod_grid(), 4)``) with a
   metrics timeline, each lane's final offload and rebuffer, offload
-  series and timeline.
+  series and timeline;
+- ``reference_live.npz``: the same over four points of the live grid
+  (:data:`LIVE_POINTS`), chosen so that every live branch binds.
 
 ``chip_smoke.py`` runs the port on the card with the same joins and
 compares; ``tests/test_torch_fixture.py`` re-runs the reference here
@@ -18,7 +20,7 @@ and fails if a fixture went stale.
 This is the only code of the port's tree that imports JAX.
 
 Run: ``JAX_PLATFORMS=cpu python tools/torch_port_fixture.py``
-(writes both files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``).
+(writes the three files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,16 @@ BATCH_SHAPE = (2048, 64, 200, 20, 4)
 BATCH_STAGGER_S = 20.0
 BATCH_SEED = 0
 BATCH_OUT = os.path.join(TESTING, "reference_batch.npz")
+
+#: the live fixture's points of ``live_grid()``, at BATCH_SHAPE: between
+#: them, stagger windows of 2 and 8 s, announce lags of 0 and 4 s, both
+#: join waves, all three supply points, both cushions and both urgency
+#: margins.  ``sample_grid(live_grid(), 4)`` (points 0, 36, 72, 108) has
+#: no stagger, no announce lag and no crowd, so it would bind no live
+#: branch.  The watch window is the run's 50 s, so the crowd joins at
+#: 12.5 s, inside it.
+LIVE_POINTS = (15, 43, 107, 136)
+LIVE_OUT = os.path.join(TESTING, "reference_live.npz")
 
 
 def reference_run(shape=SHAPE) -> dict:
@@ -118,10 +130,57 @@ def reference_batch(shape=BATCH_SHAPE) -> dict:
     }
 
 
+def reference_live(shape=BATCH_SHAPE, points=LIVE_POINTS) -> dict:
+    """Run the JAX reference's batched sweep path at ``shape`` over
+    ``points`` of ``live_grid()``; returns the fixture's arrays, each
+    lane's joins ``[B, P]`` included (the grid points as a JSON
+    string)."""
+    import json
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sweep
+
+    from hlsjs_p2p_wrapper_tpu.ops.swarm_sim import (
+        init_swarm, offload_ratio_batch, rebuffer_ratio_batch,
+        run_swarm_batch, stack_pytrees, timeline_columns)
+
+    P, S, T, every, lanes = shape
+    grid = [sweep.live_grid()[i] for i in points]
+    assert len(grid) == lanes
+    config = sweep.build_config(P, S, True, 8)
+    watch_s = T * config.dt_ms / 1000.0
+    built = [sweep.build_scenario(config, k, watch_s=watch_s,
+                                  stagger_s=BATCH_STAGGER_S,
+                                  seed=BATCH_SEED) for k in grid]
+    final, series, timeline = run_swarm_batch(
+        config, stack_pytrees([sc for sc, _ in built]),
+        stack_pytrees([init_swarm(config)] * len(grid)), T,
+        record_every=every)
+    joins = jnp.stack([j for _, j in built])
+    return {
+        "join_s": np.asarray(joins, np.float32),
+        "points": np.asarray(points, np.int64),
+        "grid": np.asarray(json.dumps(grid)),
+        "columns": np.asarray(timeline_columns(config)),
+        "offload": np.asarray(offload_ratio_batch(final), np.float64),
+        "rebuffer": np.asarray(rebuffer_ratio_batch(final, watch_s, joins),
+                               np.float64),
+        "fg_wait_ms": np.asarray(final.fg_wait_ms, np.float32),
+        "series": np.asarray(series, np.float32),
+        "timeline": np.asarray(timeline, np.float32),
+        "shape": np.asarray(shape, np.int64),
+        "stagger_s": np.float64(BATCH_STAGGER_S),
+        "seed": np.int64(BATCH_SEED),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--batch-out", default=BATCH_OUT)
+    ap.add_argument("--live-out", default=LIVE_OUT)
     args = ap.parse_args(argv)
     run = reference_run()
     np.savez(args.out, **run)
@@ -133,6 +192,11 @@ def main(argv=None) -> int:
     print(f"wrote {args.batch_out}: offload {batch['offload'].tolist()}, "
           f"rebuffer {batch['rebuffer'].tolist()}, "
           f"shape {batch['shape'].tolist()}")
+    live = reference_live()
+    np.savez(args.live_out, **live)
+    print(f"wrote {args.live_out}: offload {live['offload'].tolist()}, "
+          f"rebuffer {live['rebuffer'].tolist()}, "
+          f"shape {live['shape'].tolist()}")
     return 0
 
 
