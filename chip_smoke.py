@@ -79,14 +79,44 @@ exits nonzero:
    HEAD): the same stalling count, the largest difference bounded;
 14. a 64-lane live chunk run as graphs and traced whole (idle share),
    80 eager steps from its final state traced per kernel, with each
-   kernel's bytes and bound.
+   kernel's bytes and bound;
+15. prefetch slots: the step kernels with three transfer slots
+   (``select_admit``, TK1 + TK2 on the ring and on a wide offset tuple,
+   ``peer_update``) against their plain versions on the prefetch
+   fixture's four cells at 1,048,576 peers × 128 segments, at t = 25 s
+   (a departure wave leaves) and 6 steps later, every prefetch branch
+   shown to bind (absorb, the dedup guard, each abort kind, the
+   cooldown, the attempt rotation); then the generic instantiation at 2
+   and 16 slots;
+16. the port's run against the committed prefetch fixture (the JAX
+   reference's ``run_swarm_batch`` over those cells with three slots);
+17. the spread column of ``tools/policy_ab.py``'s ring table: 20 cells ×
+   262,144 peers × 128 segments × 960 steps, three slots, through
+   ``run_batch_chunked`` with a ``FaultPolicy`` armed and the autotuned
+   chunk, launches checked, a direct run of the 20 lanes equal (each
+   last series entry its final offload), two cells alone equal to the
+   bit, and the rows held to the reference's record
+   ``POLICY_AB_r05.json`` after its rounding (at the cells that
+   ``tools/torch_port_policy_anchor.py`` re-ran, to the reference at
+   HEAD);
+18. that chunk run as graphs and traced whole (idle share), 80 eager
+   steps from its final state traced per kernel, with bytes and bound;
+19. injected faults on the ring grid in chunks of 4 (retries, a
+   recursive bisection, an exhausted budget): rows equal the unfaulted
+   run's to the bit, the reference's counts, a structured failure;
+20. a real CUDA out-of-memory: the allocator capped so that the 48-point
+   VOD grid's one chunk cannot fit but its halves can; without a policy
+   it raises (where the failing allocation landed is printed), with a
+   ``FaultPolicy`` it bisects and returns phase 9's rows to the bit;
+21. after the cap is lifted, phase 16's run again: the card is usable.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
 name and power limit, and the ``{"kernels": [...]}`` line the kernels'
 launches and times (each step kernel's ``live`` entry: phase 14's
-numbers and the live instantiation's registers).  Without a card, or
-outside a checkout, it exits nonzero and prints no result.
+numbers and the live instantiation's registers; its ``prefetch``
+entry: phase 18's and the three-slot instantiation's).  Without a
+card, or outside a checkout, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -240,6 +270,50 @@ LIVE_TRACE_LANES = 64
 #: in the offload of 17 points (the card's float32 sums in another order
 #: than the TPU's, then rounded); every rebuffer equal.  Held to 1e-3.
 LIVE_ROW_TOL = 1e-3
+
+#: prefetch slots (max_concurrency = 3, tools/policy_ab.py's ring).  The
+#: kernel check's lanes: the prefetch fixture's four cells
+#: (tools/torch_port_fixture.py PREFETCH_CELLS, its departure wave on
+#: lane 1) at GRID_PEERS × 128 segments with the fixture's 50 s watch
+#: window (the crowd joins at 12.5 s, the wave departs at 25 s), compared
+#: at two states: after PREFETCH_CHECK_STEPS plain steps (t = 25 s, the
+#: departure) and PREFETCH_CHECK_MORE steps later
+PREFETCH_CHECK_STEPS = 100
+PREFETCH_CHECK_MORE = 6
+PREFETCH_WATCH_S = 50.0
+#: the generic instantiation (CT = 0) against the plain step at (slots,
+#: peers, plain steps before), on the prefetch fixture's four lanes
+GENERIC_SLOTS = ((2, 65_536, 60), (16, 4_096, 60))
+#: the ring grid's peers (tools/policy_ab.py --ring-peers)
+RING_PEERS = 262_144
+#: the reference's run of the policy A/B grid (a TPU, tools/policy_ab.py;
+#: the ring at 262,144 × 128 × 960, seed 0), rows rounded as
+#: tools/policy_ab.py:155-163 rounds them: offload to 4 digits, rebuffer
+#: to 5
+REFERENCE_POLICY_AB = "POLICY_AB_r05.json"
+#: the reference at HEAD, re-run on a CPU at the record's shape by
+#: tools/torch_port_policy_anchor.py: {cell: (offload, rebuffer)}, rounded
+#: as the record.  Where it differs from the record (cells 0, 11 and 17)
+#: the port is held to it, not to the record.
+RING_ANCHOR = {5: (0.2396, 0.00128), 11: (0.4796, 0.00119),
+               0: (0.3556, 0.00119), 17: (0.3185, 0.00128)}
+#: the cells run alone, each as a chunk of its own: the anchored crowd
+#: cell and hetero stagger cell
+RING_ALONE = (5, 11)
+#: the largest difference of a ring row from the reference's after its
+#: rounding.  Measured on an H100 80GB HBM3 at 700 W (PERF.md): 2e-4, in
+#: the offload of 9 cells (the card's float32 sums in another order than
+#: the TPU's, then rounded); every rebuffer equal.  Held to 5e-4.
+RING_ROW_TOL = 5e-4
+#: the injected faults on the ring grid: the chunk, and each plan with
+#: the counts it gives (the reference's for that plan on those chunks,
+#: tests/test_torch_faults.py); the last plan exhausts its budget on
+#: chunk 1, whose cells come back as a structured failure
+FAULT_CHUNK = 4
+FAULT_PLANS = {"transient@0:0x2": {"transient|retry": 2},
+               "oom@0:0x2": {"oom|bisect": 2},
+               "transient@0:1x4": {"transient|retry": 3,
+                                   "transient|giveup": 1}}
 
 
 class SmokeFailure(Exception):
@@ -448,13 +522,13 @@ def kernel_registers(lines):
     return out
 
 
-def registers_of(regs, kernel, live):
+def registers_of(regs, kernel, live, slots=1):
     """The build's registers and spills of ``kernel``'s instantiation on
-    the main path's ring (K = 8 for ``select_admit``), live or VOD."""
-    tag = {("select_admit", False): "select_admit_kernelILi8ELb0E",
-           ("select_admit", True): "select_admit_kernelILi8ELb1E",
-           ("peer_update", False): "peer_update_kernelILb0E",
-           ("peer_update", True): "peer_update_kernelILb1E"}[kernel, live]
+    the main path's ring (K = 8 for ``select_admit``), live or VOD, for
+    ``slots`` transfer slots (1 or 3; 0 the generic instantiation)."""
+    b, ct = int(live), slots
+    tag = {"select_admit": f"select_admit_kernelILi8ELb{b}ELi{ct}EE",
+           "peer_update": f"peer_update_kernelILb{b}ELi{ct}EE"}[kernel]
     found = [v for k, v in regs.items() if tag in k]
     check(len(found) == 1, f"ptxas reported no single {tag} function")
     return found[0]
@@ -859,53 +933,83 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
     input read once and every output written once, counting a
     data-dependent read or write only where this step's data needs it
     (the neighbours' map words that requesters ask for, the slot record
-    of peers that start, the cache word and estimator of peers that
-    complete).  In live mode the selection also reads each requester's
-    stagger rank and wait clock and three lane scalars, and
-    ``peer_update`` writes every wait clock, reads those of the
-    foregrounds blocked on the stagger (the others reset) and reads the
-    cushion.  A kernel's bound is these bytes over the card's memory
-    rate."""
+    of slots that start, the cache word and estimator of slots that
+    complete).  Per (peer, slot) fields count once a slot; with prefetch
+    slots the selection also reads the own map word of each wishing slot
+    and the cooldown of each prefetch slot whose wish reaches it, and
+    ``peer_update`` reads the two per-lane prefetch scalars and rewrites
+    the attempts of slots that abort or complete.  In live mode the
+    selection also reads each requester's stagger rank and wait clock
+    and three lane scalars, and ``peer_update`` writes every wait clock,
+    reads those of the foregrounds blocked on the stagger (the others
+    reset) and reads the cushion.  A kernel's bound is these bytes over
+    the card's memory rate."""
     import torch
     g = sk.geometry(config)
-    P, K = g.P, len(g.offs)
+    P, K, C = g.P, len(g.offs), config.max_concurrency
     tg = sk.slot_targets(config, scenario, state_before)
-    a0 = int(tg["a0"].sum())
-    may = int(((slot_flags & 1) != 0).sum())
-    # distinct (holder row, word) pairs that TK1's requesters read
+    act = tg["active"]
+    n_active = int(act.sum())
+    may = (slot_flags & 1) != 0
+    n_may0 = int(may[..., 0].sum())
+    n_may = int(may.sum())
+    # distinct (holder row, word) pairs that the requesters read
     peer = torch.arange(P, device=req.device)
     wi = (tg["gi_flat"] >> 5).to(torch.int64)
-    keys = torch.stack([((peer + o) % P) * g.W + wi for o in g.offs_mod])
+    keys = torch.stack([((peer + o) % P) * g.W + wi[:, c]
+                        for o in g.offs_mod for c in range(C)])
     words = int(torch.unique(keys).numel()) if K else 0
-    tk1 = (4 * 13 * P          # 13 per-peer arrays read by every thread
-           + 4 * 3 * a0        # dl_seg, dl_level, dl_holder_off (active)
+    tk1 = (4 * (12 + C) * P    # 12 per-peer arrays and each slot's attempts
+           + 4 * 3 * n_active  # dl_seg, dl_level, dl_holder_off (active)
            + 4 * words         # neighbours' wanted map words
            + 4 * (g.L + 5)     # ladder, t_s, four policy scalars
-           + 4 * 2 * P         # slot_flags, req
-           + 4 * (P - a0)      # dl_holder_off of idle slots
-           + 4 * 7 * may)      # the slot record of starts
-    tk2 = 4 * 4 * P + 4        # req, uplink in; service, adm out; eff
+           + 4 * 2 * P * C     # slot_flags, req
+           + 4 * (P * C - n_active)  # dl_holder_off of idle slots
+           + 4 * (7 * n_may0 + 6 * (n_may - n_may0)))  # starts' records
+    if C > 1:
+        present = tg["present"]
+        raw = tg["next_seg"][:, None] + torch.arange(1, C,
+                                                     device=req.device)
+        window = (present[:, None] & ~act[:, 1:] & (raw <= g.S - 1)
+                  & (raw.to(torch.float32) * config.seg_duration_s
+                     < tg["playhead"][:, None] + config.max_buffer_s))
+        wishes = (int(tg["fg_wants"].sum()) + int(
+            (window & (state_before.dl_cooldown_ms[:, 1:] <= 0.0)).sum()))
+        tk1 += 4 * int(window.sum()) + 4 * wishes   # cooldowns, own words
+    tk2 = 4 * (2 * C + 2) * P + 4  # req, uplink in; service, adm out; eff
     placed = int((req >= 0).sum())
-    # slot 0 only turns inactive by completing
-    completed = int(((slot_flags & 2) != 0).sum()
-                    - ((state_after.dl_flags & 1) != 0).sum())
-    tk3 = (4 * 5 * P           # join, leave, cdn_bps, slot_flags, req
+    act_after = torch.stack([((state_after.dl_flags >> (2 * c)) & 1) != 0
+                             for c in range(C)], -1)
+    was = (slot_flags & 2) != 0
+    # slot 0 only turns inactive by completing; a prefetch slot also by
+    # aborting, which bumps its attempts where completing resets them
+    done = was & ~act_after
+    completed = done.clone()
+    completed[:, 1:] &= state_after.dl_attempts[:, 1:] == 0
+    n_completed = int(completed.sum())
+    n_aborted = int(done.sum()) - n_completed
+    tk3 = (4 * 3 * P           # join, leave, cdn_bps
+           + 4 * 2 * P * C     # slot_flags, req
            + 4 * 2 * placed    # adm word and service of the holder
-           + 4 * 10 * P        # 10 state arrays read
-           + 4 * 9 * P         # 9 state arrays written
+           + 4 * (6 + 4 * C) * P  # state arrays read
+           + 4 * (6 + 3 * C) * P  # state arrays written
            + 4 * 2             # t_s, p2p_setup_ms
-           + (8 + 8 + 32) * completed   # seg/level, map word, EWMA
+           + (8 + 8 + 32) * n_completed   # seg/level, map word, EWMA
            # the epilogue: each block's (cdn, p2p) partial and each
            # super-partial written and read back once, the sums, the
            # series entry and the advanced clock
            + 2 * 8 * (sk.sums_blocks(P) + sk.sums_supers(P)) + 8 + 4 + 4)
+    if C > 1:
+        # the request timeout and retry cooldown; attempts written where
+        # a prefetch completes, read and written where one aborts
+        tk3 += 4 * 2 + 4 * int(completed[:, 1:].sum()) + 8 * n_aborted
     if config.live:
-        blocked = int(((slot_flags & 16) != 0).sum())
+        blocked = int(((slot_flags[..., 0] & 16) != 0).sum())
         tk1 += 4 * 2 * P + 4 * 3   # edge_rank, fg_wait_ms; three scalars
         tk3 += 4 * P + 4 * blocked + 4   # fg_wait_ms; live_sync_s
     # select_admit: TK1's traffic plus uplink in, service and adm out,
     # the efficiency scalar (req stays in shared memory)
-    fused = tk1 + 4 * 3 * P + 4
+    fused = tk1 + 4 * (2 + C) * P + 4
     return {"select_admit": float(fused), "elig_select": float(tk1),
             "admit_service": float(tk2), "peer_update": float(tk3)}
 
@@ -930,9 +1034,82 @@ def live_branch_counts(sim, sk, config, scenario, state):
                                    > state.playhead_s)).sum()),
         "gated": int((present & (t < scenario.join_s
                                  + scenario.live_sync_s[:, None])).sum()),
-        "blocked": int(((flags & 16) != 0).sum()),
-        "hidden": int((tg["fg_wants"] & ((flags & 8) != 0)
+        "blocked": int(((flags[..., 0] & 16) != 0).sum()),
+        "hidden": int((tg["fg_wants"] & ((flags[..., 0] & 8) != 0)
                        & (t < visible_at)).sum())}
+
+
+def prefetch_branch_counts(sim, sk, config, scenario, state):
+    """How many (peer, slot) pairs of the lanes ``state`` each prefetch
+    branch binds in the next step, as the plain step sees it:
+    ``absorb``, foreground wishes served from the own cache;
+    ``conflict``, prefetch wishes with holders, uncached (and announced
+    in live mode), held back by the dedup guard; ``lost``, ``timeout``
+    and ``busy``, prefetch aborts on lost holders, on the request
+    timeout and on a BUSY deny; ``cooldown``, prefetch wishes the retry
+    cooldown holds back; ``rotation``, prefetch selections that place
+    demand with ``dl_attempts > 0``."""
+    import torch
+    g = sk.geometry(config)
+    S, C = g.S, config.max_concurrency
+    tg = sk.slot_targets(config, scenario, state)
+    st = sim.clone_state(state)
+    flags, req, service, adm = sk.select_admit_plain(config, scenario, st)
+    after = sim.clone_state(st)
+    sk.peer_update_plain(config, scenario, after, flags, req, service, adm)
+    t = state.t_s[:, None]
+    pre_act, post_act = tg["active"], (flags & 2) != 0
+    pre_flat = state.dl_level * S + state.dl_seg
+    post_flat = st.dl_level * S + st.dl_seg
+    counts = dict(absorb=int(((flags[..., 0] & 32) != 0).sum()),
+                  conflict=0, lost=0, timeout=0, busy=0, cooldown=0,
+                  rotation=0)
+    bit_table = 1 << torch.arange(32, device=req.device)
+    for c in range(1, C):
+        raw = tg["next_seg"] + c
+        target = torch.clamp_max(raw, S - 1)
+        flat = tg["want_level"] * S + target
+        reach = (tg["present"] & ~pre_act[..., c] & (raw <= S - 1)
+                 & (raw.to(torch.float32) * config.seg_duration_s
+                    < tg["playhead"] + config.max_buffer_s))
+        if config.live:
+            reach &= ((raw.to(torch.float32) + 1.0) * config.seg_duration_s
+                      <= t)
+        cooled = state.dl_cooldown_ms[..., c] <= 0.0
+        counts["cooldown"] += int((reach & ~cooled).sum())
+        conflict = torch.zeros_like(reach)
+        for o in range(C):
+            if o < c:
+                conflict |= post_act[..., o] & (post_flat[..., o] == flat)
+            elif o > c:
+                conflict |= pre_act[..., o] & (pre_flat[..., o] == flat)
+        word = torch.gather(state.avail, -1, (flat >> 5).long()[..., None])
+        own = (word[..., 0] & bit_table[flat & 31].to(torch.int32)) != 0
+        have_n = (flags[..., c] & 8) != 0
+        guarded = reach & cooled & have_n & ~own & conflict
+        if config.live:
+            guarded &= t >= ((target.to(torch.float32) + 1.0)
+                             * config.seg_duration_s
+                             + scenario.announce_delay_s[:, None])
+        counts["conflict"] += int(guarded.sum())
+        was = post_act[..., c]
+        aborted = (was & ~(((after.dl_flags >> (2 * c)) & 1) != 0)
+                   & (after.dl_attempts[..., c] > 0))
+        admitted = torch.zeros_like(was)
+        for k, o in enumerate(g.offs):
+            admitted |= (req[..., c] == k) & (
+                ((torch.roll(adm[..., c], -o, -1) >> k) & 1) != 0)
+        elapsed = st.dl_elapsed_ms[..., c] + torch.where(
+            tg["present"], config.dt_ms, 0.0)
+        counts["lost"] += int((aborted & ~have_n).sum())
+        counts["timeout"] += int(
+            (aborted & (elapsed >= scenario.request_timeout_ms[:, None]))
+            .sum())
+        counts["busy"] += int((aborted & ((flags[..., c] & 1) != 0)
+                               & have_n & ~admitted).sum())
+        counts["rotation"] += int((~pre_act[..., c] & (req[..., c] >= 0)
+                                   & (state.dl_attempts[..., c] > 0)).sum())
+    return counts
 
 
 def lane_sums_bytes(sk, B, P):
@@ -1363,6 +1540,7 @@ def phase_grid(sim, sk, sg, dp):
                                record_every=GRID_RECORD_EVERY,
                                scenario=build(grid[0])[0], device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     sk.reset_launch_counts()
     rows, wall = run(None)
     launches = dict(sk.LAUNCHES)
@@ -1474,7 +1652,8 @@ def phase_grid(sim, sk, sg, dp):
         f"series, timelines and ratios equal their lanes to the bit")
     return {"config": config, "scenario": scen48, "final": final48,
             "launches": launches, "wall48": wall48, "wall_eager": wall_e,
-            "n_steps": n_steps}
+            "n_steps": n_steps, "rows": rows, "build": build, "grid": grid,
+            "base": base, "peak": peak}
 
 
 def phase_lane_sums(sim, sk):
@@ -1899,6 +2078,393 @@ def phase_trace48(sim, sk, g):
             "plain_ms": plain, "library_ms": library}
 
 
+def phase_prefetch_kernels(sim, sk):
+    """Every step kernel against its plain version with three transfer
+    slots: the prefetch fixture's lanes at GRID_PEERS × GRID_SEGMENTS,
+    at the two states of PREFETCH_CHECK_STEPS, ``select_admit``, TK1 and
+    TK2 on the ring and on WIDE_OFFSETS, and ``peer_update`` on both;
+    every prefetch branch shown to bind.  Then the generic instantiation
+    at each of GENERIC_SLOTS.  Returns ``{kernel: max abs float
+    error}``."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import (REFERENCE_PREFETCH,
+                                                     prefetch_lanes)
+    t0 = time.perf_counter()
+    d = np.load(REFERENCE_PREFETCH)
+    config, scenario, _joins, _leaves = prefetch_lanes(
+        d, "cuda", peers=GRID_PEERS, segments=GRID_SEGMENTS,
+        watch_s=PREFETCH_WATCH_S)
+    wide = config._replace(neighbor_offsets=WIDE_OFFSETS)
+    B, C = scenario.join_s.shape[0], config.max_concurrency
+    state = sim.init_swarm(config, device="cuda", batch=B)
+    errs, total = {}, {}
+
+    def merge(e):
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+    for n_steps in (PREFETCH_CHECK_STEPS, PREFETCH_CHECK_MORE):
+        for _ in range(n_steps):
+            state = sk.plain_step(config, scenario, state)
+        torch.cuda.synchronize()
+        label = (f"C = {C}, {B} lanes x {GRID_PEERS:,} peers at t = "
+                 f"{float(state.t_s[0])!r} s")
+        log(f"[15] {label} x {GRID_SEGMENTS} segments (the prefetch "
+            f"fixture's cells {str(d['cells'])}, lane "
+            f"{int(d['leave_lane'])} with its departure wave): plain path "
+            f"warmed in {time.perf_counter() - t0:.2f} s")
+        e = compare_kernels(sim, sk, config, scenario, state, label)
+        wide_label = f"{label}, offsets {WIDE_OFFSETS}"
+        for name, v in compare_kernels_pair(sim, sk, wide, scenario, state,
+                                            wide_label).items():
+            e[name] = max(e[name], v)
+        e["peer_update"] = max(e["peer_update"], compare_peer_update(
+            sim, sk, wide, scenario, state, wide_label)[0])
+        counts = prefetch_branch_counts(sim, sk, config, scenario, state)
+        log(f"  {label}: TK1 + TK2 and peer_update agree on offsets "
+            f"{WIDE_OFFSETS} too; max float err {json.dumps(e)}; (peer, "
+            f"slot) pairs each prefetch branch binds {json.dumps(counts)}")
+        merge(e)
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    idle = [name for name, n in total.items() if n == 0]
+    log(f"    prefetch branches over both states: {json.dumps(total)}")
+    check(not idle, f"prefetch branches idle at both states: {idle}")
+    del state, scenario
+    for slots, peers, steps in GENERIC_SLOTS:
+        cfg, scen, _j, _l = prefetch_lanes(
+            d, "cuda", peers=peers, segments=GRID_SEGMENTS,
+            watch_s=PREFETCH_WATCH_S, slots=slots)
+        st = sim.init_swarm(cfg, device="cuda", batch=scen.join_s.shape[0])
+        for _ in range(steps):
+            st = sk.plain_step(cfg, scen, st)
+        label = f"C = {slots} (the generic instantiation), {peers:,} peers"
+        merge(compare_kernels(sim, sk, cfg, scen, st, label))
+        a, b = sim.clone_state(st), sim.clone_state(st)
+        for _ in range(ROUTE_STEPS):
+            a = sim.swarm_step(cfg, scen, a)
+            b = sk.plain_step(cfg, scen, b)
+        merge({"peer_update": compare(f"{label} {ROUTE_STEPS} steps",
+                                      a._asdict(), b._asdict())})
+    return errs
+
+
+def phase_prefetch_fixture(label="[16]"):
+    """The port's batched run with three transfer slots against the
+    committed prefetch fixture: ratios and series within RUN_TOL, the
+    timeline's clock and count columns equal, the port's joins and
+    leaves the fixture's to the bit."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import (REFERENCE_PREFETCH,
+                                                     run_prefetch_fixture)
+    d = np.load(REFERENCE_PREFETCH)
+    offload, rebuffer, series, timeline, joins, leaves = (
+        run_prefetch_fixture(d, "cuda"))
+    torch.cuda.synchronize()
+    offload, rebuffer = offload.cpu().numpy(), rebuffer.cpu().numpy()
+    series, timeline = series.cpu().numpy(), timeline.cpu().numpy()
+    errs = {"offload": float(np.abs(offload - d["offload"]).max()),
+            "rebuffer": float(np.abs(rebuffer - d["rebuffer"]).max()),
+            "series": float(np.abs(series - d["series"]).max())}
+    log(f"{label} prefetch fixture {d['shape'].tolist()} (peers, segments, "
+        f"steps, record_every, lanes), cells {str(d['cells'])}: offload "
+        f"{offload.tolist()} (JAX {d['offload'].tolist()}), rebuffer "
+        f"{rebuffer.tolist()} (JAX {d['rebuffer'].tolist()}); max abs err "
+        f"{json.dumps(errs)}")
+    check(np.array_equal(joins.cpu().numpy(), d["join_s"])
+          and np.array_equal(leaves.cpu().numpy(), d["leave_s"]),
+          "the port's prefetch joins or leaves are not the fixture's")
+    check(max(errs.values()) <= RUN_TOL,
+          "the port's prefetch run disagrees with the JAX prefetch fixture")
+    cols = list(d["columns"])
+    exact = [i for i, c in enumerate(cols)
+             if c in ("t_s", "stalled_peers") or c.startswith("level_")]
+    check(np.array_equal(timeline[..., exact], d["timeline"][..., exact]),
+          "the prefetch fixture's clock or count columns differ")
+
+
+def _ring_run(dp, g, items, chunk, faults=None):
+    """``run_groups_chunked`` of the ring grid's ``items`` in chunks of
+    ``chunk`` (autotuned when None): ``(rows, stats, wall seconds)``."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, stats = dp.run_groups_chunked(
+        [(g["config"], items, g["build"])], g["n_steps"],
+        watch_s=g["watch_s"], chunk=chunk, faults=faults)
+    torch.cuda.synchronize()
+    return results[0], stats[0], time.perf_counter() - t0
+
+
+def phase_ring_grid(sim, sk, pg, dp):
+    """The spread column of tools/policy_ab.py's ring table at its size:
+    20 cells × 262,144 peers × 128 segments × 960 steps, three transfer
+    slots, through ``run_batch_chunked`` with a ``FaultPolicy`` armed and
+    the autotuned chunk; launches checked; a direct run of the 20 lanes
+    gives the same rows, and each last series entry its final offload;
+    two cells alone, each a chunk of its own, give their rows to the bit;
+    the rows held to the reference's record after its rounding (at the
+    cells ``tools/torch_port_policy_anchor.py`` re-ran, to the reference
+    at HEAD).  Returns what the later phases need."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.faults import FaultPolicy
+    config = pg.ring_config(RING_PEERS)
+    cells = pg.cells()
+    n_steps = int(pg.WATCH_S * 1000.0 / config.dt_ms)
+    audience = pg.build_audience(config.n_peers, pg.SEED, device="cuda")
+
+    def build(cell):
+        pattern, wave, up = cell
+        return pg.build_cell_scenario(config, audience, uplink_bps=up * 1e6,
+                                      pattern=pattern, wave=wave,
+                                      watch_s=pg.WATCH_S)
+    g = {"config": config, "cells": cells, "build": build,
+         "n_steps": n_steps, "watch_s": pg.WATCH_S}
+    chunk = sim.autotune_chunk(config, len(cells), n_steps,
+                               scenario=build(cells[0])[0], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    policy = FaultPolicy()
+    rows, stats, wall = _ring_run(dp, g, cells, None, policy)
+    launches = dict(sk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_chunks = -(-len(cells) // chunk)
+    peer_steps = len(cells) * config.n_peers * n_steps
+    log(f"[17] ring spread grid (tools/policy_ab.py): {len(cells)} cells x "
+        f"{config.n_peers:,} peers x {config.n_segments} segments x "
+        f"{n_steps} steps, C = {config.max_concurrency}, a FaultPolicy "
+        f"armed; autotuned chunk {chunk} ({n_chunks} chunk(s)); wall "
+        f"{wall!r} s, {len(cells) / wall!r} cells/s, "
+        f"{peer_steps / wall:,.0f} peer-steps/s; launches "
+        f"{json.dumps(launches)}; peak memory {peak:,} B; fault counts "
+        f"{json.dumps(policy.fault_counts())}")
+    # per chunk: a launch of each step kernel a step; lane_sums once (the
+    # final offload ratio), timeline_row once (the final rebuffer ratio)
+    want = {"select_admit": n_steps * n_chunks, "elig_select": 0,
+            "admit_service": 0, "peer_update": n_steps * n_chunks,
+            "lane_sums": n_chunks, "timeline_row": n_chunks}
+    check(launches == want, f"ring grid launches {launches}, not {want}")
+    check(stats["chunk"] == chunk and not stats["failures"]
+          and policy.fault_counts() == {},
+          f"the ring grid recovered from something: {stats}")
+    for i, (off, reb) in enumerate(rows):
+        check(0.0 <= off <= 1.0 and 0.0 <= reb <= 1.0,
+              f"ring cell {i}: ratios out of range {off!r} {reb!r}")
+
+    # the 20 lanes as one direct run: the dispatch's rows, each last series
+    # entry its final offload
+    built = [build(c) for c in cells]
+    scenario = sim.stack_pytrees([sc for sc, _ in built])
+    joins = torch.stack([j for _, j in built])
+    del built
+    init = sim.init_swarm(config, device="cuda", batch=len(cells))
+    w20, cap20, (final, series) = timed_run(sim, sk, config, scenario, init,
+                                            n_steps, "graph")
+    offs = sim.offload_ratio_batch(final)
+    rebs = sim.rebuffer_ratio_batch(final, pg.WATCH_S, joins)
+    check(torch.equal(series[:, -1], offs),
+          "a ring lane's last series entry is not its final offload")
+    direct = list(zip(offs.tolist(), rebs.tolist()))
+    check(direct == rows, "the direct 20-lane run's rows differ from the "
+                          "dispatch's")
+    del series
+    for i in RING_ALONE:
+        (alone,), _stats, _w = _ring_run(dp, g, [cells[i]], 1)
+        check(alone == rows[i], f"ring cell {i} alone {alone} differs from "
+                                f"its lane {rows[i]}")
+
+    # the reference's record, and HEAD's reference where it was re-run
+    with open(os.path.join(ROOT, REFERENCE_POLICY_AB)) as fh:
+        record = json.load(fh)
+    table = record["topologies"]["ring"]
+    check((table["peers"], record["meta"]["segments"],
+           record["meta"]["watch_s"])
+          == (config.n_peers, config.n_segments, pg.WATCH_S),
+          f"{REFERENCE_POLICY_AB} is not at this grid's size")
+    by_cell = {(r["pattern"], r["wave"], r["uplink_mbps"]): r
+               for r in table["rows"]}
+    ref = [RING_ANCHOR.get(i, (by_cell[c]["spread_offload"],
+                               by_cell[c]["spread_rebuffer"]))
+           for i, c in enumerate(cells)]
+    mine = [_rounded(off, reb) for off, reb in rows]
+    diffs = {i: (abs(m[0] - r[0]), abs(m[1] - r[1]))
+             for i, (m, r) in enumerate(zip(mine, ref)) if m != r}
+    worst = max((max(v) for v in diffs.values()), default=0.0)
+    log(f"    rows (offload, rebuffer) {json.dumps(mine)}; equal to the "
+        f"reference's at {len(cells) - len(diffs)} of {len(cells)} cells "
+        f"after its rounding ({REFERENCE_POLICY_AB}, a TPU's run, and at "
+        f"cells {sorted(RING_ANCHOR)} the reference at HEAD re-run on a "
+        f"CPU); largest difference {worst!r}; cells that differ (offload, "
+        f"rebuffer differences) "
+        f"{json.dumps({i: v for i, v in sorted(diffs.items())})}; the "
+        f"direct 20-lane run (graphs) {w20!r} s ({cap20!r} s of it in "
+        f"captures), rows equal; cells {list(RING_ALONE)} alone equal to "
+        f"the bit; each last series entry equals its final offload")
+    check(worst <= RING_ROW_TOL,
+          f"ring rows differ from the reference by {worst!r}, more than "
+          f"{RING_ROW_TOL}")
+    g.update(launches=launches, chunk=chunk, wall=wall, rows=rows,
+             scenario=scenario, final=final, peak=peak)
+    return g
+
+
+def phase_ring_trace(sim, sk, g):
+    """The ring grid's 20-lane chunk traced: the whole run as graphs
+    (device busy time and idle share), TRACE_STEPS eager steps from its
+    final state per kernel, and each kernel's bytes for one step from
+    that state and its bound."""
+    config, scenario, final = g["config"], g["scenario"], g["final"]
+    B = final.t_s.shape[0]
+    init = sim.init_swarm(config, device="cuda", batch=B)
+    busy, wall_ms, traced, others = trace_steps(
+        sim, sk, config, scenario, init, g["n_steps"], "graph")
+    del init
+    _busy, _wall, e_traced, _other = trace_steps(
+        sim, sk, config, scenario, final, TRACE_STEPS, "eager")
+    before, st = sim.clone_state(final), sim.clone_state(final)
+    flags, req, service, adm = sk.select_admit(config, scenario, st)
+    sk.peer_update(config, scenario, st, flags, req, service, adm)
+    nbytes = step_bytes(sim, sk, config, scenario, before, flags, req, adm,
+                        st)
+    del before, st
+    bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in nbytes.items()}
+    idle = None if busy is None else 1.0 - busy / wall_ms
+    log(f"[18] the ring grid's {B}-lane chunk (C = "
+        f"{config.max_concurrency}, {config.n_peers:,} peers, "
+        f"{g['n_steps']} steps) traced whole as graphs: device busy "
+        f"{busy!r} ms per step, idle {idle!r} of the traced host wall "
+        f"({wall_ms!r} ms per step; per kernel {json.dumps(traced)}; "
+        f"{other_ops(others, g['n_steps'], 'ring graph run')})")
+    log(f"    per kernel (launches, traced mean ms), {TRACE_STEPS} eager "
+        f"steps from the final state: {json.dumps(e_traced)}; bytes "
+        f"{json.dumps({k: nbytes[k] for k in MAIN_PATH})}; bound ms at "
+        f"3.35 TB/s {json.dumps({k: bound[k] for k in MAIN_PATH})}; "
+        f"traced / bound "
+        f"{json.dumps({k: e_traced[k][1] / bound[k] for k in MAIN_PATH if k in e_traced})}")
+    return {"traced": e_traced, "bytes": nbytes, "bound_ms": bound,
+            "idle": idle}
+
+
+def phase_injected_faults(sim, dp, g):
+    """The fault plane on the card: the ring grid in chunks of
+    FAULT_CHUNK, unfaulted and under each plan of FAULT_PLANS (a
+    recording sleep in place of the backoff's): the rows equal the
+    unfaulted run's to the bit, the counts are the plan's, and the cells
+    of a chunk that exhausted its budget come back as a structured
+    failure."""
+    from hlsjs_p2p_wrapper_tpu_torch.engine.faults import (FaultPlan,
+                                                           FaultPolicy)
+    cells = g["cells"]
+    base, _stats, wall0 = _ring_run(dp, g, cells, FAULT_CHUNK)
+    check(base == g["rows"], f"the ring grid in chunks of {FAULT_CHUNK} "
+                             f"differs from its autotuned chunk's rows")
+    walls = {"unfaulted": wall0}
+    for spec, want in FAULT_PLANS.items():
+        sleeps = []
+        policy = FaultPolicy(FaultPlan.parse(spec), sleep=sleeps.append)
+        rows, stats, wall = _ring_run(dp, g, cells, FAULT_CHUNK, policy)
+        walls[spec] = wall
+        counts = policy.fault_counts()
+        check(counts == want, f"{spec}: fault counts {counts}, not {want}")
+        failed = [i for f in stats["failures"] for i in f["items"]]
+        gave_up = want.get("transient|giveup", 0)
+        lost = list(range(FAULT_CHUNK, 2 * FAULT_CHUNK)) if gave_up else []
+        check(failed == lost and all(
+            f["reason"] == "transient" and "injected fault" in f["error"]
+            for f in stats["failures"]),
+            f"{spec}: failures {stats['failures']}")
+        check(all((r is None) if i in lost else (r == base[i])
+                  for i, r in enumerate(rows)),
+              f"{spec}: rows differ from the unfaulted run's")
+        check(len(sleeps) == sum(n for k, n in counts.items()
+                                 if k.endswith("|retry")),
+              f"{spec}: {len(sleeps)} backoffs for counts {counts}")
+    sim.reset_oom_feedback()
+    log(f"[19] injected faults on the ring grid in chunks of {FAULT_CHUNK}: "
+        f"{json.dumps(FAULT_PLANS)}; rows equal the unfaulted run's to the "
+        f"bit, the exhausted chunk's cells a structured failure; wall s "
+        f"(backoffs recorded, not slept) {json.dumps(walls)}")
+    return walls
+
+
+def _oom_site(exc):
+    """Where an out-of-memory error was raised: the innermost frame of
+    the port, and whether a CUDA graph capture was open."""
+    import traceback
+    frames = traceback.extract_tb(exc.__traceback__)
+    ours = [f for f in frames if PACKAGE in f.filename]
+    where = ours[-1] if ours else frames[-1]
+    capturing = any(f.name == "_record" for f in frames)
+    return (f"{os.path.basename(where.filename)}:{where.lineno} "
+            f"({where.name}), "
+            f"{'inside' if capturing else 'outside'} a graph capture")
+
+
+def phase_real_oom(sim, sg, dp, g9):
+    """A real CUDA out-of-memory: the caching allocator capped
+    (``set_per_process_memory_fraction``) so that the 48-point VOD
+    grid's one chunk cannot fit but its halves can.  Without a policy
+    the chunk raises ``torch.OutOfMemoryError`` (where the failing
+    allocation landed is reported); with a ``FaultPolicy`` it bisects,
+    gives nothing up and returns phase 9's rows to the bit.  Then the
+    cap is lifted and the OOM feedback reset."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.faults import FaultPolicy
+    config, grid, build, n_steps = (g9["config"], g9["grid"], g9["build"],
+                                    g9["n_steps"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    base = torch.cuda.memory_allocated()
+    need = g9["peak"] - g9["base"]
+    built = [build(k) for k in grid]
+    held = torch.cuda.memory_allocated() - base
+    del built
+    half = held + (need - held) / 2.0
+    cap = base + (need + half) / 2.0
+    where, sleeps = None, []
+    policy = FaultPolicy(sleep=sleeps.append)
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        try:
+            dp.run_batch_chunked(config, grid, build, n_steps,
+                                 watch_s=GRID_WATCH_S, chunk=len(grid),
+                                 record_every=GRID_RECORD_EVERY)
+        except torch.OutOfMemoryError as exc:
+            where = _oom_site(exc)
+        check(where is not None, f"the {len(grid)}-lane chunk fit under "
+                                 f"the cap of {cap:,.0f} B")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rows = dp.run_batch_chunked(config, grid, build, n_steps,
+                                    watch_s=GRID_WATCH_S, chunk=len(grid),
+                                    record_every=GRID_RECORD_EVERY,
+                                    faults=policy)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bisections = sim.oom_bisections()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        sim.reset_oom_feedback()
+    torch.cuda.empty_cache()
+    counts = policy.fault_counts()
+    log(f"[20] a real CUDA OOM: the allocator capped at {cap:,.0f} B "
+        f"({cap / total!r} of {total:,} B; the {len(grid)}-lane VOD chunk "
+        f"needs {need:,} B beyond {base:,} B held, its {held:,} B of "
+        f"scenarios included); without a policy the chunk ran out of "
+        f"memory at {where}; with a FaultPolicy: fault counts "
+        f"{json.dumps(counts)} ({bisections} bisection(s)), {len(sleeps)} "
+        f"backoff(s), wall {wall!r} s")
+    check(counts.get("oom|bisect", 0) >= 1
+          and not any(k.endswith("|giveup") for k in counts),
+          f"the capped chunk did not recover by bisection: {counts}")
+    check(_rows_equal(rows, g9["rows"]),
+          "the bisected chunk's rows differ from phase 9's")
+    log("    the bisected chunk's rows equal phase 9's to the bit")
+    return {"where": where, "counts": counts, "wall": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1910,6 +2476,7 @@ def main() -> int:
               f"it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from hlsjs_p2p_wrapper_tpu_torch import policy_grid as pg
     from hlsjs_p2p_wrapper_tpu_torch import sweep_grid as sg
     from hlsjs_p2p_wrapper_tpu_torch.ops import (dispatch as dp,
                                                  swarm_kernels as sk,
@@ -1930,6 +2497,7 @@ def main() -> int:
         phase_batch_fixture()
         grid = phase_grid(sim, sk, sg, dp)
         b48 = phase_trace48(sim, sk, grid)
+        del grid["scenario"], grid["final"]
         ls_err, ls_rel = phase_lane_sums(sim, sk)
         errs_batch["lane_sums"] = max(errs_batch.get("lane_sums", 0.0),
                                       ls_err)
@@ -1938,6 +2506,14 @@ def main() -> int:
         phase_live_fixture()
         live_grid = phase_live_grid(sim, sk, sg, dp)
         live = phase_live_trace(sim, sk, live_grid)
+        errs_prefetch = phase_prefetch_kernels(sim, sk)
+        phase_prefetch_fixture()
+        ring = phase_ring_grid(sim, sk, pg, dp)
+        prefetch = phase_ring_trace(sim, sk, ring)
+        phase_injected_faults(sim, dp, ring)
+        phase_real_oom(sim, sg, dp, grid)
+        # the card after the recovery: a run that captures graphs
+        phase_prefetch_fixture("[21] after the real OOM, again the")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1945,7 +2521,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         err = max(d.get(name, 0.0) for d in (errs, errs_1m, errs_routes,
-                                              errs_batch, errs_live))
+                                              errs_batch, errs_live,
+                                              errs_prefetch))
         wide = {"shape": f"48 x {GRID_PEERS:,}",
                 "launches": b48["launches"].get(name, 0),
                 "launches_in": b48["launches_in"],
@@ -1988,6 +2565,18 @@ def main() -> int:
                 "bytes": live["bytes"][name],
                 "bound_ms": live["bound_ms"][name],
                 "registers": registers_of(regs, name, True)}
+            traced = prefetch["traced"].get(name)
+            entry["prefetch"] = {
+                "shape": f"{len(ring['cells'])} x {ring['config'].n_peers:,}"
+                         f", C = {ring['config'].max_concurrency}",
+                "launches": ring["launches"][name],
+                "launches_in": "the ring spread grid of tools/policy_ab.py",
+                "traced_ms": None if traced is None else traced[1],
+                "traced_in": f"{TRACE_STEPS} eager steps from the chunk's "
+                             f"final state",
+                "bytes": prefetch["bytes"][name],
+                "bound_ms": prefetch["bound_ms"][name],
+                "registers": registers_of(regs, name, False, 3)}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

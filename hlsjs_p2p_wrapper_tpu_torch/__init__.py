@@ -7,12 +7,13 @@ a counterpart (``core/``, ``ops/``, ``testing/``).  It imports
 and nothing of the reference package, whose few JAX-free pieces it
 needs are copied here.
 
-It covers the circulant VOD path (``ops/swarm_sim.py``): one
-transfer slot, ``"spread"`` holder selection, an admission cap, for
-one scenario or a stacked batch of scenario lanes, with the metrics
-timeline and the chunked grid dispatch (``ops/dispatch.py``,
-``sweep_grid.py``).  The step and its per-lane reductions run on the
-card as hand-written ``sm_90a`` kernels (``ops/swarm_kernels.py``,
-``csrc/``).  Entry points run on the card unless the caller passes
-``device="cpu"``.
+It covers the circulant path (``ops/swarm_sim.py``), VOD and live: up
+to 16 transfer slots (prefetches), ``"spread"`` holder selection, an
+admission cap, for one scenario or a stacked batch of scenario lanes,
+with the metrics timeline and the chunked grid dispatch with its fault
+plane (``ops/dispatch.py``, ``engine/faults.py``; the grids of
+``sweep_grid.py`` and ``policy_grid.py``).  The step and its per-lane
+reductions run on the card as hand-written ``sm_90a`` kernels
+(``ops/swarm_kernels.py``, ``csrc/``).  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """

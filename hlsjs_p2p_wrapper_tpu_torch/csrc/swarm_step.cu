@@ -7,8 +7,19 @@
 // jnp code that XLA fuses (its one Pallas kernel, the eligibility stencil
 // of ops/pallas_elig.py, was retired).  Each kernel below names the
 // reference lines it replaces.  The slice they cover: circulant offsets,
-// one transfer slot (max_concurrency == 1), "spread" holder selection, an
+// up to 16 transfer slots (max_concurrency), "spread" holder selection, an
 // admission cap (max_total_serves > 0), VOD and live mode.
+//
+// Transfer slots (C = max_concurrency) are a template parameter CT of
+// every step kernel: CT = 1 (the foreground alone), CT = 3 (the policy A/B
+// ring's three slots), and CT = 0, which reads C from the launch's n_slots
+// for any other C <= 16.  Slot 0 is the foreground download, slots 1..
+// P2P-only prefetches (reference :1076-1246, :1436-1466).  Each kernel
+// walks the slots in the reference's order, so that every float add and
+// every EWMA update rounds as the reference's do: the selection slot by
+// slot (its dedup guard reads the processed slots' new records from
+// registers and the later slots' old ones from memory), admission over
+// (slot, offset), the update slot by slot.
 //
 // Live mode (config.live) is a template parameter LIVE of TK1, TK3 and
 // select_admit, so that a VOD step runs kernels compiled without it.  Its
@@ -26,9 +37,11 @@
 // n_lanes (B), and the lane is the grid's y dimension: one launch steps
 // every lane.  TK1-TK3 run one thread per peer of a lane over the grid's x
 // dimension; select_admit runs a tile of one lane's peers per block (see
-// there).  Per-peer fields are [B, P] arrays; the packed cache map `avail`
+// there).  Per-peer fields are [B, P] arrays and per-slot fields [B, P, C]
+// (the entry of slot c of row r at r * C + c); the packed cache map `avail`
 // is [B, P, W] u32 (stored by PyTorch as int32 with the same bit pattern),
-// `dl_flags` is [B, P] u32 (bit 0 = slot 0 active, bit 1 = slot 0 is_p2p).
+// `dl_flags` is [B, P] u32 (bit 2c = slot c active, bit 2c + 1 = slot c
+// is_p2p).
 // Per-lane scalars (the clock t_s, the policy knobs) are [B] device
 // arrays read through pointers, so a step never waits on the host, and the
 // ladder `bitrates` is [B, L].  A lane's rows start at lane * P; that
@@ -63,22 +76,28 @@
 static_assert(BLOCK == LS_THREADS,
               "peer_update's blocks are the offload sums' partials");
 
+// the most transfer slots: two dl_flags bits each in one u32
+#define MAX_SLOTS 16
+// slots the per-slot register arrays of a CT instantiation hold
+#define SLOT_CAP(CT) ((CT) > 0 ? (CT) : MAX_SLOTS)
+
 // ---------------------------------------------------------------------------
 // TK1 elig_select (reference K1 + K2)
 //
 // Replaces: circulant_eligibility (swarm_sim.py:681-772), spread_holder_only
 // (:959-991) through select_holder (:1015-1018), the estimate / ABR level /
 // next segment (:825-840), slot targets (:882-894), urgency and budget
-// (:1060-1074), slot 0's start decision (:1093-1175, VOD branches) and
-// pinning (:1207-1228).
+// (:1060-1074), each slot's start decision (:1093-1183) and pinning
+// (:1207-1228).
 //
-// Per peer i: reads its own row and, for each offset o_k, the wanted word
-// of neighbour (i + o_k) mod P plus that neighbour's presence and p2p_ok.
-// Writes the slot record into its own row of the state (in place: no other
-// thread reads those fields) and two scratch words: slot_flags (bit 0 may,
-// bit 1 active, bit 2 is_p2p, bit 3 have_n, bit 4 blocked on the live
-// stagger) and req, the offset index k of the selected holder for a
-// transfer that places demand, else -1.
+// Per peer i and slot c in order: reads its own row and, for each offset
+// o_k, the wanted word of neighbour (i + o_k) mod P plus that neighbour's
+// presence and p2p_ok.  Writes the slot record into its own row of the
+// state (in place: no other thread reads those fields) and two [B, P, C]
+// scratch words: slot_flags (per slot bit 0 may, bit 1 active, bit 2
+// is_p2p, bit 3 have_n; on slot 0 only, bit 4 blocked on the live stagger
+// and bit 5 absorbed from the own cache) and req, the offset index k of the
+// slot's selected holder where the slot places demand, else -1.
 struct SelectArgs {
   const float* t_s;
   const float* join_s;
@@ -135,6 +154,9 @@ struct SelectArgs {
   const float* announce_delay_s;
   float dt_ms;
   int live;
+  // the prefetch slots' retry cooldown ([B, P, C]) and the slot count C
+  const float* dl_cooldown_ms;
+  int n_slots;
 };
 
 __device__ __forceinline__ float corrected(float alpha, float est,
@@ -175,7 +197,6 @@ struct PeerIn {
   float slow_w;
   int cap_level;
   float margin_off;
-  int attempts;
   float edge_rank;  // live mode only
   float fg_wait;    // live mode only
 };
@@ -193,31 +214,19 @@ __device__ __forceinline__ void load_live(const SelectArgs& a, int lane,
   in.fg_wait = a.fg_wait_ms[r];
 }
 
-// What a requester wants: slot 0's target and the map bit it asks its
-// neighbours for (word wi, bit bit).
-struct Target {
-  bool a0;
-  bool p0;
-  bool fg_wants;
+// What a requester wants, whatever the slot: its ABR level, its next
+// segment and the foreground's wish.
+struct Wish {
   int want_level;
   int next_seg;
-  int gi_seg;
-  int wi;
-  int bit;
+  bool fg_wants;
 };
 
-// The requester half of the selection before eligibility (shared by TK1
-// and select_admit, so that the two round alike), for the requester in row
-// r of lane `lane` at clock t.
 template <bool LIVE>
-__device__ __forceinline__ Target select_target(const SelectArgs& a,
-                                                int lane, long long r,
-                                                const PeerIn& in, float t) {
+__device__ __forceinline__ Wish select_wish(const SelectArgs& a, int lane,
+                                            const PeerIn& in, float t) {
   const int S = a.n_segments;
-  Target tg;
-  tg.a0 = (in.fl & 1u) != 0u;
-  tg.p0 = ((in.fl >> 1) & 1u) != 0u;
-
+  Wish w;
   // estimate and ABR level (:825-830, ewma.get_estimate, _abr_pick)
   const float fast = corrected(a.fast_alpha, in.fast_est, in.fast_w);
   const float slow = corrected(a.slow_alpha, in.slow_est, in.slow_w);
@@ -228,50 +237,145 @@ __device__ __forceinline__ Target select_target(const SelectArgs& a,
   int pick = 0;
   for (int l = 0; l < a.n_levels; ++l)
     if (rates[l] <= thr && l > pick) pick = l;
-  tg.want_level = min(pick, in.cap_level);
+  w.want_level = min(pick, in.cap_level);
 
   // next segment: truncate toward zero, then cap (:831-836)
   const float pb = in.playhead + in.buffer;
-  tg.next_seg = min((int)(pb * a.inv_seg_duration_s), S - 1);
+  w.next_seg = min((int)(pb * a.inv_seg_duration_s), S - 1);
   const bool timeline_left = pb < a.end_s;
-  tg.fg_wants = in.present && !tg.a0 && timeline_left &&
-                (in.buffer < a.max_buffer_s);
+  w.fg_wants = in.present && !(in.fl & 1u) && timeline_left &&
+               (in.buffer < a.max_buffer_s);
   // live: only fully published segments are downloadable (:837-840)
   if (LIVE)
-    tg.fg_wants = tg.fg_wants &&
-                  (((float)tg.next_seg + 1.0f) * a.seg_duration_s <= t);
+    w.fg_wants = w.fg_wants &&
+                 (((float)w.next_seg + 1.0f) * a.seg_duration_s <= t);
+  return w;
+}
 
-  // slot 0's target (:882-890).  In-place invariant: dl_seg, dl_level and
-  // dl_holder_off are read only when a0 holds, and written (by the owner,
-  // in select_finish) only when it does not (`may` implies !a0).
-  // select_admit recomputes the requesters of its halo, whose rows another
-  // block owns and writes in the same launch; a0 comes from dl_flags,
-  // which neither kernel writes, so no thread reads a field that this
-  // launch writes.  Keep these loads under `if (a0)`: never speculative.
-  tg.gi_seg = tg.next_seg;
-  int gi_level = tg.want_level;
-  if (tg.a0) {
-    tg.gi_seg = a.dl_seg[r];
-    gi_level = a.dl_level[r];
+// Each slot's transfer in flight: its active bit and flat (level * S +
+// seg) target, and its stored segment.  Before a slot is processed these
+// are its old record, loaded by load_flight; after, its new one
+// (slot_finish).  In-place invariant: dl_seg, dl_level and dl_holder_off
+// of slot c are read only where slot c is active, and written (by the
+// owner, in slot_finish) only where it is not (`may` implies !active).
+// select_admit recomputes the requesters of its halo, whose rows another
+// block owns and writes in the same launch; the active bits come from
+// dl_flags, which neither kernel writes, so no thread reads a field that
+// this launch writes.  Keep these loads under their slot's own active bit:
+// never speculative.  The dedup guard of slot c reads the processed slots'
+// new records from these registers, never from memory.
+template <int CT>
+struct Flight {
+  uint32_t active;  // bit c: slot c in flight
+  int seg[SLOT_CAP(CT)];
+  int flat[SLOT_CAP(CT)];
+  int attempts[SLOT_CAP(CT)];  // the slot's failed attempts (read only)
+};
+
+// Loads each slot's old record with the requester's other inputs: its
+// attempt count (which the selection never writes) always, its target
+// under its own active bit.
+template <int CT>
+__device__ __forceinline__ void load_flight(const SelectArgs& a, long long r,
+                                            int C, uint32_t fl,
+                                            Flight<CT>& f) {
+  f.active = 0u;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    f.attempts[c] = a.dl_attempts[r * C + c];
+    f.seg[c] = 0;
+    f.flat[c] = 0;
+    if ((fl >> (2 * c)) & 1u) {
+      f.active |= 1u << c;
+      f.seg[c] = a.dl_seg[r * C + c];
+      f.flat[c] = a.dl_level[r * C + c] * a.n_segments + f.seg[c];
+    }
   }
-  const int gi_flat = gi_level * S + tg.gi_seg;
+}
+
+// What slot c asks for: its old active and is_p2p bits, its wish (the
+// foreground's for slot 0; for a prefetch slot the window (:1099-1108): in
+// the timeline, within max_buffer_s of the playhead, its retry cooldown
+// out, published in live mode), its target segment, and the map bit it
+// asks its neighbours for (its stored target while active, :882-894).
+struct Target {
+  bool active;
+  bool p2p;
+  bool wants;
+  int seg;
+  int gi_seg;
+  int wi;
+  int bit;
+};
+
+template <bool LIVE, int CT>
+__device__ __forceinline__ Target slot_target(const SelectArgs& a,
+                                              long long r, int c, int C,
+                                              const PeerIn& in, const Wish& w,
+                                              const Flight<CT>& f, float t) {
+  const int S = a.n_segments;
+  Target tg;
+  tg.active = ((f.active >> c) & 1u) != 0u;
+  tg.p2p = ((in.fl >> (2 * c + 1)) & 1u) != 0u;
+  if (c == 0) {
+    tg.seg = w.next_seg;
+    tg.wants = w.fg_wants;
+  } else {
+    const int raw = w.next_seg + c;
+    tg.seg = min(raw, S - 1);
+    tg.wants = in.present && !tg.active && raw <= S - 1 &&
+               ((float)raw * a.seg_duration_s <
+                in.playhead + a.max_buffer_s) &&
+               a.dl_cooldown_ms[r * C + c] <= 0.0f;
+    if (LIVE)
+      tg.wants = tg.wants &&
+                 (((float)raw + 1.0f) * a.seg_duration_s <= t);
+  }
+  tg.gi_seg = tg.active ? f.seg[c] : tg.seg;
+  const int gi_flat = tg.active ? f.flat[c] : w.want_level * S + tg.seg;
   tg.wi = gi_flat >> 5;
   tg.bit = gi_flat & 31;
   return tg;
 }
 
-// The requester half after eligibility: elig_bits has bit k set where
-// neighbour k holds the target bit and serves (:681-772, serve_ok :805).
-// Writes the requester's outputs only where `owner` holds; returns req.
-// i is the requester's peer index in its lane (the hash's), r its row, t
-// the lane's clock.
-template <bool LIVE>
-__device__ __forceinline__ int select_finish(const SelectArgs& a, int lane,
-                                             long long i, long long r,
-                                             const PeerIn& in,
-                                             const Target& tg,
-                                             uint32_t elig_bits, bool owner,
-                                             float t) {
+// The slot's own cache bit (own_c): with prefetch slots, a foreground wish
+// the cache holds is absorbed, and a prefetch never fetches what is
+// cached.  Read only where the slot wishes; the map is not written while
+// the selection runs.
+__device__ __forceinline__ bool own_bit(const SelectArgs& a, long long r,
+                                        int C, const Target& tg) {
+  return C > 1 && tg.wants &&
+         ((__ldg(&a.avail[r * a.n_words + tg.wi]) >> tg.bit) & 1u);
+}
+
+// The prefetch dedup guard (:1110-1118): slot c's target is already in
+// flight on another slot (the processed slots' new records, the later
+// slots' old ones).
+template <int CT>
+__device__ __forceinline__ bool in_flight_elsewhere(const Flight<CT>& f,
+                                                    int c, int C, int flat) {
+  bool conflict = false;
+#pragma unroll
+  for (int o = 0; o < C; ++o)
+    if (o != c && ((f.active >> o) & 1u) && f.flat[o] == flat)
+      conflict = true;
+  return conflict;
+}
+
+// Slot c's selection after eligibility: elig_bits has bit k set where
+// neighbour k holds the slot's target bit and serves (:681-772, serve_ok
+// :805).  Writes the slot's outputs only where `owner` holds, sets its new
+// flight record, and returns its req.  i is the requester's peer index in
+// its lane (the hash's), r its row, t the lane's clock.
+template <bool LIVE, int CT>
+__device__ __forceinline__ int slot_finish(const SelectArgs& a, int lane,
+                                           long long i, long long r, int c,
+                                           int C, const PeerIn& in,
+                                           const Wish& w, const Target& tg,
+                                           uint32_t elig_bits, bool own,
+                                           bool owner, float t,
+                                           Flight<CT>& f) {
+  const int S = a.n_segments;
   const float n_count = (float)__popc(elig_bits);
   // requester-side connectivity gate (:905-906): elig_k * p2p_req
   const float n_holders = n_count * in.p2p_req;
@@ -279,7 +383,7 @@ __device__ __forceinline__ int select_finish(const SelectArgs& a, int lane,
   const bool have_n = n_holders > 0.0f;
 
   // urgency, budget and segment bytes (:1060-1074)
-  const float margin = (float)tg.next_seg * a.seg_duration_s - in.playhead;
+  const float margin = (float)w.next_seg * a.seg_duration_s - in.playhead;
   const bool urgent = margin < (a.urgent_margin_s[lane] + in.margin_off);
   const float budget =
       fminf(fmaxf(margin * 1000.0f * a.p2p_budget_fraction[lane],
@@ -287,80 +391,103 @@ __device__ __forceinline__ int select_finish(const SelectArgs& a, int lane,
             a.p2p_budget_cap_ms[lane]);
   // the reference's one-hot sum over the ladder: 0 off the ladder
   const float want_rate =
-      (tg.want_level >= 0 && tg.want_level < a.n_levels)
-          ? a.bitrates[(long long)lane * a.n_levels + tg.want_level]
+      (w.want_level >= 0 && w.want_level < a.n_levels)
+          ? a.bitrates[(long long)lane * a.n_levels + w.want_level]
           : 0.0f;
   const float want_bytes = want_rate * (a.seg_duration_s / 8.0f);
 
-  // slot 0's start decision (:1133-1175)
-  bool start_p2p = tg.fg_wants && have_n && !urgent;
-  bool start_cdn = tg.fg_wants && !start_p2p;
-  if (LIVE) {
-    // P2P visibility: the target is announced announce_delay_s after it is
-    // published (:1121-1128, target_seg = next_seg for slot 0); the edge
-    // stagger: the CDN waits for the peer's stable share of the spread,
-    // unless the fetch is urgent (:1143-1164)
-    const bool visible =
-        t >= ((float)tg.next_seg + 1.0f) * a.seg_duration_s +
-                 a.announce_delay_s[lane];
-    const float waited = in.fg_wait + a.dt_ms;
-    const bool cdn_allowed =
-        waited >= in.edge_rank * a.live_spread_s[lane] * 1000.0f;
-    start_p2p = start_p2p && visible;
-    start_cdn = tg.fg_wants && !start_p2p && (cdn_allowed || urgent);
+  bool may, is_p2p;
+  int extra = 0;
+  if (c == 0) {
+    // the foreground's start decision (:1133-1175); with prefetch slots
+    // a wish the own cache holds is absorbed (:1133-1141)
+    const bool absorb = own;
+    const bool wants_dl = tg.wants && !absorb;
+    bool start_p2p = wants_dl && have_n && !urgent;
+    bool start_cdn = wants_dl && !start_p2p;
+    if (LIVE) {
+      // P2P visibility: the target is announced announce_delay_s after it
+      // is published (:1121-1128); the edge stagger: the CDN waits for the
+      // peer's stable share of the spread, unless the fetch is urgent
+      // (:1143-1164)
+      const bool visible =
+          t >= ((float)tg.seg + 1.0f) * a.seg_duration_s +
+                   a.announce_delay_s[lane];
+      const float waited = in.fg_wait + a.dt_ms;
+      const bool cdn_allowed =
+          waited >= in.edge_rank * a.live_spread_s[lane] * 1000.0f;
+      start_p2p = start_p2p && visible;
+      start_cdn = wants_dl && !start_p2p && (cdn_allowed || urgent);
+    }
+    may = start_p2p || start_cdn;
+    is_p2p = (may ? start_p2p : tg.p2p) && have_n;
+    // bit 4: blocked on the stagger, which TK3's wait clock reads (never
+    // in VOD, where every wish starts); bit 5: absorbed
+    extra = ((LIVE && wants_dl && !may) ? 16 : 0) | (absorb ? 32 : 0);
+  } else {
+    // a prefetch start (:1176-1183): P2P only, in the window, uncached,
+    // with holders, announced in live mode, not in flight on another slot
+    may = tg.wants && have_n && !own &&
+          !in_flight_elsewhere<CT>(f, c, C, w.want_level * S + tg.seg);
+    if (LIVE)
+      may = may && (t >= ((float)tg.seg + 1.0f) * a.seg_duration_s +
+                             a.announce_delay_s[lane]);
+    is_p2p = tg.p2p || may;
   }
-  const bool may = start_p2p || start_cdn;
-  const bool is_p2p = (may ? start_p2p : tg.p0) && have_n;
-  const bool active = tg.a0 || may;
+  const bool active = tg.active || may;
 
-  // spread holder selection (:959-991), salt (0 * 2246822519 + 97) mod 2^32:
-  // the rank-th set bit of elig_bits
+  // spread holder selection (:959-991), salt (c * 2246822519 + 97) mod
+  // 2^32, the rank advanced by the slot's failed attempts: the rank-th set
+  // bit of elig_bits
   const uint32_t h = (uint32_t)i * 2654435761u +
-                     (uint32_t)tg.gi_seg * 40503u + 97u;
+                     (uint32_t)tg.gi_seg * 40503u +
+                     ((uint32_t)c * 2246822519u + 97u);
   const uint32_t nu = (uint32_t)fmaxf(n_holders, 1.0f);
-  const int rank = (int)((h % nu + (uint32_t)in.attempts) % nu);
+  const int rank = (int)((h % nu + (uint32_t)f.attempts[c]) % nu);
   int sel = -1;
   if (rank < __popc(elig_bits)) {
     uint32_t rest = elig_bits;
-    for (int r = 0; r < rank; ++r) rest &= rest - 1u;
+    for (int n = 0; n < rank; ++n) rest &= rest - 1u;
     sel = __ffs(rest) - 1;
   }
   const int new_off = sel >= 0 ? sel : 0;
   // pinning (:1207-1228): an active transfer keeps its stored holder,
   // and rides it only while that holder is still eligible
   int off = new_off;
-  if (tg.a0) {
-    off = a.dl_holder_off[r];
+  if (tg.active) {
+    off = a.dl_holder_off[r * C + c];
     sel = (off >= 0 && off < a.n_offs && ((elig_bits >> off) & 1u)) ? off
                                                                     : -1;
   }
   const bool demand = active && is_p2p && in.present;
   const int req = (demand && sel >= 0) ? sel : -1;
+  // the slot's new flight record, which the later slots' guard reads
+  if (may) f.flat[c] = w.want_level * S + tg.seg;
+  f.active = active ? (f.active | (1u << c)) : (f.active & ~(1u << c));
   if (!owner) return req;
-  a.req[r] = req;
-  // bit 4: blocked on the stagger, which TK3's wait clock reads (never in
-  // VOD, where every wish starts)
-  a.slot_flags[r] = (may ? 1 : 0) | (active ? 2 : 0) | (is_p2p ? 4 : 0) |
-                    (have_n ? 8 : 0) |
-                    ((LIVE && tg.fg_wants && !may) ? 16 : 0);
-  if (!tg.a0) a.dl_holder_off[r] = off;
+  const long long rc = r * C + c;
+  a.req[rc] = req;
+  a.slot_flags[rc] = (may ? 1 : 0) | (active ? 2 : 0) | (is_p2p ? 4 : 0) |
+                     (have_n ? 8 : 0) | extra;
+  if (!tg.active) a.dl_holder_off[rc] = off;
   if (may) {
-    a.level[r] = tg.want_level;
-    a.dl_seg[r] = tg.next_seg;
-    a.dl_level[r] = tg.want_level;
-    a.dl_total_bytes[r] = want_bytes;
-    a.dl_done_bytes[r] = 0.0f;
-    a.dl_elapsed_ms[r] = 0.0f;
-    a.dl_budget_ms[r] = budget;
+    if (c == 0) a.level[r] = w.want_level;
+    a.dl_seg[rc] = tg.seg;
+    a.dl_level[rc] = w.want_level;
+    a.dl_total_bytes[rc] = want_bytes;
+    a.dl_done_bytes[rc] = 0.0f;
+    a.dl_elapsed_ms[rc] = 0.0f;
+    a.dl_budget_ms[rc] = budget;
   }
   return req;
 }
 
-template <bool LIVE>
+template <bool LIVE, int CT>
 __global__ void elig_select_kernel(const SelectArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
   if (i >= P) return;
+  const int C = CT > 0 ? CT : a.n_slots;
   const int lane = blockIdx.y;
   const long long lb = (long long)lane * P;  // the lane's first row
   const long long r = lb + i;
@@ -377,35 +504,43 @@ __global__ void elig_select_kernel(const SelectArgs a) {
   in.slow_w = a.slow_weight[r];
   in.cap_level = a.abr_cap_level[r];
   in.margin_off = a.urgent_margin_off_s[r];
-  in.attempts = a.dl_attempts[r];
+  Flight<CT> f;
+  load_flight<CT>(a, r, C, in.fl, f);
   load_live<LIVE>(a, lane, r, t, in);
-  const Target tg = select_target<LIVE>(a, lane, r, in, t);
-  // circulant eligibility (:681-772): neighbour k is (i + o_k) mod P; the
-  // holder side is gated on presence and p2p_ok (serve_ok, :805)
-  const uint32_t bm = 1u << tg.bit;
-  uint32_t elig_bits = 0u;
-  for (int k = 0; k < a.n_offs; ++k) {
-    long long j = i + a.offs[k];
-    if (j >= P) j -= P;
-    j += lb;
-    const bool serve = is_present(t, a.join_s, a.leave_s, j) &&
-                       (a.p2p_ok[j] > 0.0f);
-    const bool have = (a.avail[j * a.n_words + tg.wi] & bm) != 0u;
-    if (have && serve) elig_bits |= 1u << k;
+  const Wish w = select_wish<LIVE>(a, lane, in, t);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const Target tg = slot_target<LIVE, CT>(a, r, c, C, in, w, f, t);
+    // circulant eligibility (:681-772): neighbour k is (i + o_k) mod P;
+    // the holder side is gated on presence and p2p_ok (serve_ok, :805)
+    const uint32_t bm = 1u << tg.bit;
+    uint32_t elig_bits = 0u;
+    for (int k = 0; k < a.n_offs; ++k) {
+      long long j = i + a.offs[k];
+      if (j >= P) j -= P;
+      j += lb;
+      const bool serve = is_present(t, a.join_s, a.leave_s, j) &&
+                         (a.p2p_ok[j] > 0.0f);
+      const bool have = (a.avail[j * a.n_words + tg.wi] & bm) != 0u;
+      if (have && serve) elig_bits |= 1u << k;
+    }
+    const bool own = own_bit(a, r, C, tg);
+    slot_finish<LIVE, CT>(a, lane, i, r, c, C, in, w, tg, elig_bits, own,
+                          true, t, f);
   }
-  select_finish<LIVE>(a, lane, i, r, in, tg, elig_bits, true, t);
 }
 
 // ---------------------------------------------------------------------------
 // TK2 admit_service (reference K3)
 //
 // Replaces: the circulant admission and service of swarm_sim.py:1259-1303
-// (the cap > 0 branch).  Holder side: holder j walks k in offset order over
-// requesters r = (j - o_k) mod P, admits each one whose selected offset is
-// k until max_total_serves, and writes its service
-// uplink * efficiency / max(load, 1) and a bit mask of the admitted k.
-// Requesters read both back in TK3 (one reader per selected edge), so no
-// flag is scattered.
+// (the cap > 0 branch).  Holder side: holder j walks (slot c, offset k) in
+// order over requesters r = (j - o_k) mod P, admits each one whose slot c
+// selected offset k until max_total_serves (one load count across the
+// slots), and writes its service uplink * efficiency / max(load, 1) and,
+// per slot, a bit mask of the admitted k ([B, P, C]).  Requesters read
+// both back in TK3 (one reader per selected edge), so no flag is
+// scattered.
 struct AdmitArgs {
   const int* req;
   const float* uplink_bps;
@@ -417,34 +552,40 @@ struct AdmitArgs {
   int n_offs;
   float cap;
   int offs[MAX_OFFS];
+  int n_slots;
 };
 
+template <int CT>
 __global__ void admit_service_kernel(const AdmitArgs a) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
   if (j >= P) return;
+  const int C = CT > 0 ? CT : a.n_slots;
   const int lane = blockIdx.y;
   const long long lb = (long long)lane * P;
   float cum = 0.0f;
-  uint32_t adm = 0u;
-  for (int k = 0; k < a.n_offs; ++k) {
-    long long r = j - a.offs[k];
-    if (r < 0) r += P;
-    if (a.req[lb + r] == k && cum < a.cap) {
-      cum += 1.0f;
-      adm |= 1u << k;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    uint32_t adm = 0u;
+    for (int k = 0; k < a.n_offs; ++k) {
+      long long r = j - a.offs[k];
+      if (r < 0) r += P;
+      if (a.req[(lb + r) * C + c] == k && cum < a.cap) {
+        cum += 1.0f;
+        adm |= 1u << k;
+      }
     }
+    a.adm_mask[(lb + j) * C + c] = (int)adm;
   }
   a.service[lb + j] =
       a.uplink_bps[lb + j] * a.uplink_efficiency[lane] / fmaxf(cum, 1.0f);
-  a.adm_mask[lb + j] = (int)adm;
 }
 
 // ---------------------------------------------------------------------------
 // select_admit (reference K1 + K2 + K3, one launch)
 //
 // Replaces: the same reference lines as TK1 followed by TK2
-// (swarm_sim.py:681-772, :959-991, :1053-1175, :1207-1228, :1259-1303).
+// (swarm_sim.py:681-772, :959-991, :1053-1183, :1207-1228, :1259-1303).
 // Its outputs equal TK1 then TK2 to the bit; TK1 and TK2 remain the route
 // for offset tuples whose halo is too wide for a tile (the wrapper in
 // ops/swarm_kernels.py picks the route from the offsets before launch).
@@ -459,13 +600,15 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
 //   1. Serve bits (present, present && p2p_ok > 0) of the neighbour range
 //      go to shared memory once, so each neighbour test reads a byte of
 //      shared memory instead of three global arrays.
-//   2. Each requester computes its target (select_target), tests its K
-//      neighbours' map words (K template: the K loads go out together),
-//      finishes its selection (select_finish) and keeps its req in shared
-//      memory; only the block that owns the peer writes its outputs.  The
-//      halo costs span / SA_TILE of recompute.
-//   3. Each holder of the tile walks its K requesters in offset order from
-//      shared memory (admission up to the cap, then its service), as TK2.
+//   2. Each requester, slot by slot, computes the slot's target
+//      (slot_target), tests its K neighbours' map words (K template: the K
+//      loads go out together), finishes its selection (slot_finish) and
+//      keeps its req in shared memory, one entry per (requester, slot);
+//      only the block that owns the peer writes its outputs.  The halo
+//      costs span / SA_TILE of recompute.
+//   3. Each holder of the tile walks its requesters in (slot, offset) order
+//      from shared memory (admission up to the cap, then its service), as
+//      TK2.
 // Each thread loads its requester's inputs from global memory itself, and
 // the map words directly; map rows are never staged whole.  What bounds it
 // on an H100: bytes, as TK1.  PERF.md has the designs that were timed
@@ -482,6 +625,9 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
 // registers for 8 blocks per SM: 48 at 160 threads, no spills (asking for
 // 12 blocks spilled and ran 40% slower, PERF.md)
 #define SA_MIN_BLOCKS 8
+// with prefetch slots a requester carries each slot's flight record
+// besides: 5 blocks per SM leave it 80 registers
+#define SA_SLOT_MIN_BLOCKS 5
 
 struct SelectAdmitArgs {
   SelectArgs sel;  // its offs hold the offsets reduced mod P
@@ -502,15 +648,17 @@ __device__ __forceinline__ long long wrap(long long x, long long P) {
   return x < 0 ? x + P : x;
 }
 
-template <int KT, bool LIVE>
-__global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
+template <int KT, bool LIVE, int CT>
+__global__ void __launch_bounds__(SA_THREADS, CT == 1 ? SA_MIN_BLOCKS
+                                                      : SA_SLOT_MIN_BLOCKS)
     select_admit_kernel(const SelectAdmitArgs a) {
   // the serve bits of the neighbour range (bit 0 present, bit 1 serves)
-  // and the req of the requester range
+  // and the req of each (requester, slot) of the requester range
   __shared__ unsigned char serve_s[SA_TILE + 2 * SA_MAX_SPAN];
-  __shared__ signed char req_s[SA_TILE + SA_MAX_SPAN];
+  __shared__ signed char req_s[(SA_TILE + SA_MAX_SPAN) * SLOT_CAP(CT)];
   const SelectArgs& s = a.sel;
   const long long P = s.n_peers;
+  const int C = CT > 0 ? CT : s.n_slots;
   const int K = KT > 0 ? KT : s.n_offs;
   const int span = a.o_max - a.o_min;
   const int R = SA_TILE + span;
@@ -535,7 +683,8 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
   }
   __syncthreads();
 
-  // 2. requester q = tid: its target, its neighbours' words, its selection
+  // 2. requester q = tid: per slot, its target, its neighbours' words, its
+  // selection
   const int q = tid;
   if (q < R) {
     const long long i = wrap(q0 + q, P);
@@ -553,78 +702,92 @@ __global__ void __launch_bounds__(SA_THREADS, SA_MIN_BLOCKS)
     in.slow_w = s.slow_weight[r];
     in.cap_level = s.abr_cap_level[r];
     in.margin_off = s.urgent_margin_off_s[r];
-    in.attempts = s.dl_attempts[r];
+    Flight<CT> f;
+    load_flight<CT>(s, r, C, in.fl, f);
     load_live<LIVE>(s, lane, r, t, in);
-    const Target tg = select_target<LIVE>(s, lane, r, in, t);
-    // circulant eligibility (:681-772); the map is not written in this
-    // launch, so its words go through the read-only path.  Each neighbour's
-    // serve bit is read whatever its map word holds, and the two are
-    // combined without a branch, so the K shared loads go out together.
-    uint32_t elig_bits = 0u;
-    if (KT > 0) {
-      uint32_t w[KT > 0 ? KT : 1];
+    const Wish w = select_wish<LIVE>(s, lane, in, t);
 #pragma unroll
-      for (int k = 0; k < KT; ++k) {
-        long long j = i + s.offs[k];
-        if (j >= P) j -= P;
-        w[k] = __ldg(&s.avail[(lb + j) * s.n_words + tg.wi]);
-      }
+    for (int c = 0; c < C; ++c) {
+      const Target tg = slot_target<LIVE, CT>(s, r, c, C, in, w, f, t);
+      // circulant eligibility (:681-772); the map is not written in this
+      // launch, so its words go through the read-only path.  Each
+      // neighbour's serve bit is read whatever its map word holds, and the
+      // two are combined without a branch, so the K shared loads go out
+      // together.
+      uint32_t elig_bits = 0u;
+      if (KT > 0) {
+        uint32_t wd[KT > 0 ? KT : 1];
 #pragma unroll
-      for (int k = 0; k < KT; ++k) {
-        const uint32_t serves = (serve_s[hq + a.soffs[k]] >> 1) & 1u;
-        elig_bits |= (((w[k] >> tg.bit) & serves) & 1u) << k;
+        for (int k = 0; k < KT; ++k) {
+          long long j = i + s.offs[k];
+          if (j >= P) j -= P;
+          wd[k] = __ldg(&s.avail[(lb + j) * s.n_words + tg.wi]);
+        }
+#pragma unroll
+        for (int k = 0; k < KT; ++k) {
+          const uint32_t serves = (serve_s[hq + a.soffs[k]] >> 1) & 1u;
+          elig_bits |= (((wd[k] >> tg.bit) & serves) & 1u) << k;
+        }
+      } else {
+        for (int k = 0; k < K; ++k) {
+          long long j = i + s.offs[k];
+          if (j >= P) j -= P;
+          const uint32_t serves = (serve_s[hq + a.soffs[k]] >> 1) & 1u;
+          elig_bits |= (((__ldg(&s.avail[(lb + j) * s.n_words + tg.wi]) >>
+                          tg.bit) &
+                         serves) & 1u) << k;
+        }
       }
-    } else {
-      for (int k = 0; k < K; ++k) {
-        long long j = i + s.offs[k];
-        if (j >= P) j -= P;
-        const uint32_t serves = (serve_s[hq + a.soffs[k]] >> 1) & 1u;
-        elig_bits |= (((__ldg(&s.avail[(lb + j) * s.n_words + tg.wi]) >>
-                        tg.bit) &
-                       serves) & 1u) << k;
-      }
+      const bool own = own_bit(s, r, C, tg);
+      const long long u = (long long)q - a.o_max;  // position in the tile
+      const bool owner = u >= 0 && u < SA_TILE && b + u < P;
+      req_s[q * C + c] = (signed char)slot_finish<LIVE, CT>(
+          s, lane, i, r, c, C, in, w, tg, elig_bits, own, owner, t, f);
     }
-    const long long u = (long long)q - a.o_max;  // position in the tile
-    const bool owner = u >= 0 && u < SA_TILE && b + u < P;
-    req_s[q] = (signed char)select_finish<LIVE>(s, lane, i, r, in, tg,
-                                                elig_bits, owner, t);
   }
   __syncthreads();
 
-  // 3. admission and service of the tile's holders (TK2's walk):
-  // requester (j - o_k) mod P sits at q = jl - o_k + o_max
+  // 3. admission and service of the tile's holders (TK2's walk over
+  // (slot, offset)): requester (j - o_k) mod P sits at q = jl - o_k + o_max
   const float eff = a.uplink_efficiency[lane];
   for (int jl = tid; jl < SA_TILE; jl += blockDim.x) {
     if (b + jl >= P) break;
     const long long j = lb + b + jl;
     float cum = 0.0f;
-    uint32_t adm = 0u;
 #pragma unroll
-    for (int k = 0; k < (KT > 0 ? KT : K); ++k) {
-      if (req_s[jl - a.soffs[k] + a.o_max] == k && cum < a.cap) {
-        cum += 1.0f;
-        adm |= 1u << k;
+    for (int c = 0; c < C; ++c) {
+      uint32_t adm = 0u;
+#pragma unroll
+      for (int k = 0; k < (KT > 0 ? KT : K); ++k) {
+        if (req_s[(jl - a.soffs[k] + a.o_max) * C + c] == k && cum < a.cap) {
+          cum += 1.0f;
+          adm |= 1u << k;
+        }
       }
+      a.adm_mask[j * C + c] = (int)adm;
     }
     a.service[j] = a.uplink_bps[j] * eff / fmaxf(cum, 1.0f);
-    a.adm_mask[j] = (int)adm;
   }
 }
 
 // ---------------------------------------------------------------------------
 // TK3 peer_update (reference K4 + K3's readback)
 //
-// Replaces: swarm_sim.py:1297-1303 (service readback), the slot-0 update
-// :1351-1434 and :1467-1493 with ops/ewma.py update, and playback and the
-// state repack :1495-1525.  Per peer: reads back the service of its
-// selected holder, then progress after the setup time, completion, BUSY
-// fast-fail, budget failover, byte counters, the cache bit-OR into its own
-// row, the EWMA, playback and the dl_flags word.  Updates the state in
-// place; each thread writes only its own peer's row.  Live mode (LIVE)
-// adds the playhead floor (live_playhead), the playback cushion (playback
-// starts live_sync_s after the join, :1500-1507) and the stagger's wait
-// clock: fg_wait_ms runs on by dt_ms where the selection reported the
-// foreground blocked (slot flag bit 4), else resets (:1165-1166).
+// Replaces: swarm_sim.py:1297-1303 (service readback), the per-slot update
+// :1351-1493 with ops/ewma.py update, and playback and the state repack
+// :1495-1525.  Per peer, slot by slot in order: reads back the service of
+// the slot's selected holder, then progress after the setup time,
+// completion; for slot 0 BUSY fast-fail and budget failover, for a
+// prefetch slot its abort (holders lost, the request timeout, a BUSY deny),
+// its retry cooldown and its attempt rotation (:1436-1466); the byte
+// counters, the cache bit-OR into its own row and the EWMA sample.  Then
+// playback (an absorbed foreground adds a segment, :1355) and the dl_flags
+// word.  Updates the state in place; each thread writes only its own
+// peer's row.  Live mode (LIVE) adds the playhead floor (live_playhead),
+// the playback cushion (playback starts live_sync_s after the join,
+// :1500-1507) and the stagger's wait clock: fg_wait_ms runs on by dt_ms
+// where the selection reported the foreground blocked (slot 0's flag bit
+// 4), else resets (:1165-1166).
 //
 // Epilogue (TK4 lane_sums fused in; reference _scan_swarm's step sums and
 // ratio :1643-1647): the block sums the cdn_bytes and p2p_bytes its
@@ -697,6 +860,12 @@ struct UpdateArgs {
   const float* live_sync_s;
   float* fg_wait_ms;
   int live;
+  // the prefetch slots: their attempt counts ([B, P, C]), the per-lane
+  // request timeout and retry cooldown, and the slot count C
+  int* dl_attempts;
+  const float* request_timeout_ms;
+  const float* retry_dead_ms;
+  int n_slots;
 };
 
 __device__ __forceinline__ void ewma_update(float alpha, float weight,
@@ -710,91 +879,124 @@ __device__ __forceinline__ void ewma_update(float alpha, float weight,
 }
 
 // One peer's update; returns its new (cdn_bytes, p2p_bytes).
-template <bool LIVE>
+template <bool LIVE, int CT>
 __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
                                               long long p, int lane) {
   const long long P = a.n_peers;
+  const int C = CT > 0 ? CT : a.n_slots;
   const long long lb = (long long)lane * P;  // the lane's first row
   const long long i = lb + p;                // this peer's row
   const float t = a.t_s[lane];
   const bool present = is_present(t, a.join_s, a.leave_s, i);
-  const int fl = a.slot_flags[i];
-  const bool may = (fl & 1) != 0;
-  const bool active0 = (fl & 2) != 0;
-  const bool is_p2p0 = (fl & 4) != 0;
-  const bool have_n = (fl & 8) != 0;
+  const int fl0 = a.slot_flags[i * C];
+  float cdn_new = a.cdn_bytes[i];
+  float p2p_new = a.p2p_bytes[i];
+  // an absorbed foreground wish adds its segment (slot 0's bit 5, only
+  // with prefetch slots)
+  float buffer_add = (C > 1 && (fl0 & 32)) ? a.seg_duration_s : 0.0f;
+  uint32_t flags = 0u;
 
-  // service readback through the selected edge (:1297-1303)
-  const int k = a.req[i];
-  bool admitted = false;
-  float svc = 0.0f;
-  if (k >= 0) {
-    long long j = p + a.offs[k];
-    if (j >= P) j -= P;
-    j += lb;
-    admitted = ((a.adm_mask[j] >> k) & 1) != 0;
-    if (admitted) svc = a.service[j];
-  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const long long ic = i * C + c;
+    const int fl = c == 0 ? fl0 : a.slot_flags[ic];
+    const bool may = (fl & 1) != 0;
+    const bool active0 = (fl & 2) != 0;
+    const bool is_p2p0 = (fl & 4) != 0;
+    const bool have_n = (fl & 8) != 0;
 
-  // progress (:1362-1394)
-  const float demand = (active0 && is_p2p0 && present) ? 1.0f : 0.0f;
-  const float p2p_rate = fminf(demand * svc, a.p2p_bps);
-  const bool progressing = active0 && present;
-  float elapsed = a.dl_elapsed_ms[i] + (progressing ? a.dt_ms : 0.0f);
-  const float live_ms =
-      fminf(fmaxf(elapsed - a.p2p_setup_ms[lane], 0.0f), a.dt_ms);
-  const float p2p_step = p2p_rate * live_ms * (1.0f / 8000.0f);
-  const float step_bytes = is_p2p0 ? p2p_step
-                                    : a.cdn_bps[i] * a.dt_s * (1.0f / 8.0f);
-  const float total = a.dl_total_bytes[i];
-  const float done0 = a.dl_done_bytes[i];
-  const float cdn_accrue = (progressing && !is_p2p0)
-                               ? fminf(step_bytes, fmaxf(total - done0, 0.0f))
-                               : 0.0f;
-  float done = done0 + (progressing ? step_bytes : 0.0f);
-  const bool completed = progressing && (done >= total);
-  const bool active = active0 && !completed;
-  bool is_p2p = is_p2p0;
+    // service readback through the slot's selected edge (:1297-1303)
+    const int k = a.req[ic];
+    bool admitted = false;
+    float svc = 0.0f;
+    if (k >= 0) {
+      long long j = p + a.offs[k];
+      if (j >= P) j -= P;
+      j += lb;
+      admitted = ((a.adm_mask[j * C + c] >> k) & 1) != 0;
+      if (admitted) svc = a.service[j];
+    }
 
-  // BUSY fast-fail and budget failover (:1397-1427)
-  const bool denied = may && is_p2p && have_n && !admitted;
-  is_p2p = is_p2p && !denied;
-  if (denied) {
-    done = 0.0f;
-    elapsed = 0.0f;
-  }
-  const bool expired = active && is_p2p && (elapsed >= a.dl_budget_ms[i]);
-  is_p2p = is_p2p && !expired;
-  if (expired) {
-    done = 0.0f;
-    elapsed = 0.0f;
-  }
-  const float cdn_new = a.cdn_bytes[i] + cdn_accrue;
-  const float p2p_new =
-      a.p2p_bytes[i] + ((completed && is_p2p) ? total : 0.0f);
-  a.cdn_bytes[i] = cdn_new;
-  a.p2p_bytes[i] = p2p_new;
-  const float buffer_add = 0.0f + (completed ? a.seg_duration_s : 0.0f);
-  a.dl_cooldown_ms[i] = fmaxf(a.dl_cooldown_ms[i] - a.dt_ms, 0.0f);
-  a.dl_done_bytes[i] = done;
-  a.dl_elapsed_ms[i] = elapsed;
-  a.dl_flags[i] = (active ? 1u : 0u) | (is_p2p ? 2u : 0u);
+    // progress (:1362-1394); a prefetch is P2P only
+    const float demand = (active0 && is_p2p0 && present) ? 1.0f : 0.0f;
+    const float p2p_rate = fminf(demand * svc, a.p2p_bps);
+    const bool progressing = active0 && present;
+    float elapsed = a.dl_elapsed_ms[ic] + (progressing ? a.dt_ms : 0.0f);
+    const float live_ms =
+        fminf(fmaxf(elapsed - a.p2p_setup_ms[lane], 0.0f), a.dt_ms);
+    const float p2p_step = p2p_rate * live_ms * (1.0f / 8000.0f);
+    const float step_bytes =
+        (c > 0 || is_p2p0) ? p2p_step : a.cdn_bps[i] * a.dt_s * (1.0f / 8.0f);
+    const float total = a.dl_total_bytes[ic];
+    const float done0 = a.dl_done_bytes[ic];
+    float done = done0 + (progressing ? step_bytes : 0.0f);
+    const bool completed = progressing && (done >= total);
+    bool active = active0 && !completed;
+    bool is_p2p = is_p2p0;
+    float cooldown = fmaxf(a.dl_cooldown_ms[ic] - a.dt_ms, 0.0f);
 
-  if (completed) {
-    // cache insert (:1472): one bit of the own row
-    const int gi_flat = a.dl_level[i] * a.n_segments + a.dl_seg[i];
-    a.avail[i * a.n_words + (gi_flat >> 5)] |= 1u << (gi_flat & 31);
-    // the estimator sample (:1478-1482, ops/ewma.py update)
-    const float d = fmaxf(elapsed, a.min_sample_ms);
-    if (total > 0.0f) {
-      const float bandwidth = 8000.0f * total / d;
-      const float weight = d * (1.0f / 1000.0f);
-      ewma_update(a.fast_alpha, weight, bandwidth, &a.fast_estimate[i],
-                  &a.fast_weight[i]);
-      ewma_update(a.slow_alpha, weight, bandwidth, &a.slow_estimate[i],
-                  &a.slow_weight[i]);
+    if (c == 0) {
+      const float cdn_accrue = (progressing && !is_p2p0)
+                                   ? fminf(step_bytes, fmaxf(total - done0, 0.0f))
+                                   : 0.0f;
+      // BUSY fast-fail and budget failover (:1397-1427)
+      const bool denied = may && is_p2p && have_n && !admitted;
+      is_p2p = is_p2p && !denied;
+      if (denied) {
+        done = 0.0f;
+        elapsed = 0.0f;
+      }
+      const bool expired = active && is_p2p && (elapsed >= a.dl_budget_ms[ic]);
+      is_p2p = is_p2p && !expired;
+      if (expired) {
+        done = 0.0f;
+        elapsed = 0.0f;
+      }
+      cdn_new = cdn_new + cdn_accrue;
+      p2p_new = p2p_new + ((completed && is_p2p) ? total : 0.0f);
+      buffer_add = buffer_add + (completed ? a.seg_duration_s : 0.0f);
+    } else {
+      // prefetch abort (:1436-1466): holders lost, the request timed out,
+      // or the holder denied the start; the slot cools down, and its
+      // attempts rotate the holder rank until one completes
+      const bool aborted =
+          (active && !have_n) ||
+          (active && elapsed >= a.request_timeout_ms[lane]) ||
+          (may && active && have_n && !admitted);
+      active = active && !aborted;
+      if (aborted) {
+        done = 0.0f;
+        elapsed = 0.0f;
+        cooldown = a.retry_dead_ms[lane];
+        a.dl_attempts[ic] = a.dl_attempts[ic] + 1;
+      }
+      if (completed) a.dl_attempts[ic] = 0;
+      p2p_new = p2p_new + (completed ? total : 0.0f);
+    }
+    a.dl_cooldown_ms[ic] = cooldown;
+    a.dl_done_bytes[ic] = done;
+    a.dl_elapsed_ms[ic] = elapsed;
+    flags |= ((active ? 1u : 0u) | (is_p2p ? 2u : 0u)) << (2 * c);
+
+    if (completed) {
+      // cache insert (:1472): one bit of the own row
+      const int gi_flat = a.dl_level[ic] * a.n_segments + a.dl_seg[ic];
+      a.avail[i * a.n_words + (gi_flat >> 5)] |= 1u << (gi_flat & 31);
+      // the estimator sample (:1478-1482, ops/ewma.py update)
+      const float d = fmaxf(elapsed, a.min_sample_ms);
+      if (total > 0.0f) {
+        const float bandwidth = 8000.0f * total / d;
+        const float weight = d * (1.0f / 1000.0f);
+        ewma_update(a.fast_alpha, weight, bandwidth, &a.fast_estimate[i],
+                    &a.fast_weight[i]);
+        ewma_update(a.slow_alpha, weight, bandwidth, &a.slow_estimate[i],
+                    &a.slow_weight[i]);
+      }
     }
   }
+  a.cdn_bytes[i] = cdn_new;
+  a.p2p_bytes[i] = p2p_new;
+  a.dl_flags[i] = flags;
 
   // playback (:1495-1511)
   float playhead = a.playhead_s[i];
@@ -805,7 +1007,7 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
     const float sync = a.live_sync_s[lane];
     playhead = live_playhead(playhead, join, t, sync);
     can_play = present && (playhead < a.end_s) && (t >= join + sync);
-    a.fg_wait_ms[i] = (fl & 16) ? a.fg_wait_ms[i] + a.dt_ms : 0.0f;
+    a.fg_wait_ms[i] = (fl0 & 16) ? a.fg_wait_ms[i] + a.dt_ms : 0.0f;
   } else {
     can_play = present && (playhead < a.end_s);
   }
@@ -816,14 +1018,14 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
   return make_float2(cdn_new, p2p_new);
 }
 
-template <bool LIVE>
+template <bool LIVE, int CT>
 __global__ void __launch_bounds__(BLOCK) peer_update_kernel(
     const UpdateArgs a) {
   __shared__ float2 red[BLOCK / 32];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = blockIdx.y;
   float2 bytes = make_float2(0.0f, 0.0f);
-  if (p < a.n_peers) bytes = update_peer<LIVE>(a, p, lane);
+  if (p < a.n_peers) bytes = update_peer<LIVE, CT>(a, p, lane);
   const float2 b = ls_block_sum(bytes, red);
   if (threadIdx.x >= 32) return;
   // The clock, read before this block's arrival (so that the lane's last
@@ -839,30 +1041,68 @@ __global__ void __launch_bounds__(BLOCK) peer_update_kernel(
 // ---------------------------------------------------------------------------
 // Plain C entry points for ctypes.  Each launches on the caller's stream
 // and returns cudaGetLastError(), so a refused launch reaches the caller.
+// A slot count outside 1..MAX_SLOTS is refused before any launch.
 
 // The grid of a per-peer kernel: peers on x, lanes on y.
 static inline dim3 grid_for(long long n, int lanes) {
   return dim3((unsigned int)((n + BLOCK - 1) / BLOCK), (unsigned int)lanes);
 }
 
+static inline bool slots_ok(int n_slots) {
+  return n_slots >= 1 && n_slots <= MAX_SLOTS;
+}
+
+// The instantiation for a slot count: CT = 1 and CT = 3 compiled for
+// their C, CT = 0 for any other.
+#define FOR_SLOTS(n_slots, CALL) \
+  do {                           \
+    if ((n_slots) == 1)          \
+      CALL(1);                   \
+    else if ((n_slots) == 3)     \
+      CALL(3);                   \
+    else                         \
+      CALL(0);                   \
+  } while (0)
+
+template <int CT>
+static void launch_elig_select(const SelectArgs* a, cudaStream_t st) {
+  const dim3 grid = grid_for(a->n_peers, a->n_lanes);
+  if (a->live)
+    elig_select_kernel<true, CT><<<grid, BLOCK, 0, st>>>(*a);
+  else
+    elig_select_kernel<false, CT><<<grid, BLOCK, 0, st>>>(*a);
+}
+
 extern "C" int swarm_elig_select(const SelectArgs* args, void* stream) {
+  if (!slots_ok(args->n_slots)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (args->n_peers > 0 && args->n_lanes > 0) {
-    const dim3 grid = grid_for(args->n_peers, args->n_lanes);
-    if (args->live)
-      elig_select_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-          *args);
-    else
-      elig_select_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-          *args);
+#define CALL(CT) launch_elig_select<CT>(args, st)
+    FOR_SLOTS(args->n_slots, CALL);
+#undef CALL
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int swarm_admit_service(const AdmitArgs* args, void* stream) {
-  if (args->n_peers > 0 && args->n_lanes > 0)
-    admit_service_kernel<<<grid_for(args->n_peers, args->n_lanes), BLOCK, 0,
-                           (cudaStream_t)stream>>>(*args);
+  if (!slots_ok(args->n_slots)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (args->n_peers > 0 && args->n_lanes > 0) {
+    const dim3 grid = grid_for(args->n_peers, args->n_lanes);
+#define CALL(CT) admit_service_kernel<CT><<<grid, BLOCK, 0, st>>>(*args)
+    FOR_SLOTS(args->n_slots, CALL);
+#undef CALL
+  }
   return (int)cudaGetLastError();
+}
+
+template <int CT>
+static void launch_peer_update(const UpdateArgs* a, cudaStream_t st) {
+  const dim3 grid = grid_for(a->n_peers, a->n_lanes);
+  if (a->live)
+    peer_update_kernel<true, CT><<<grid, BLOCK, 0, st>>>(*a);
+  else
+    peer_update_kernel<false, CT><<<grid, BLOCK, 0, st>>>(*a);
 }
 
 extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
@@ -872,64 +1112,92 @@ extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
   if (args->live && (args->live_sync_s == nullptr ||
                      args->fg_wait_ms == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (!slots_ok(args->n_slots) ||
+      (args->n_slots > 1 &&
+       (args->dl_attempts == nullptr || args->request_timeout_ms == nullptr ||
+        args->retry_dead_ms == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (args->n_peers > 0 && args->n_lanes > 0) {
-    const dim3 grid = grid_for(args->n_peers, args->n_lanes);
-    if (args->live)
-      peer_update_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-          *args);
-    else
-      peer_update_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-          *args);
+#define CALL(CT) launch_peer_update<CT>(args, st)
+    FOR_SLOTS(args->n_slots, CALL);
+#undef CALL
   }
   return (int)cudaGetLastError();
 }
 
 // select_admit's launch: SA_TILE peers of one lane per block (lanes on the
 // grid's y), one thread per requester of the tile and its halo (rounded up
-// to a warp).  A halo wider than
-// SA_MAX_SPAN is refused; the wrapper never sends one.
-template <int KT, bool LIVE>
-static int launch_select_admit(const SelectAdmitArgs* a,
-                               cudaStream_t stream) {
+// to a warp).
+template <int KT, bool LIVE, int CT>
+static void launch_select_admit_kt(const SelectAdmitArgs* a,
+                                   cudaStream_t stream) {
   const long long P = a->sel.n_peers;
   const int span = a->o_max - a->o_min;
-  if (span < 0 || span > SA_MAX_SPAN) return (int)cudaErrorInvalidValue;
-  if (P > 0 && a->sel.n_lanes > 0)
-    select_admit_kernel<KT, LIVE>
-        <<<dim3((unsigned int)((P + SA_TILE - 1) / SA_TILE),
-                (unsigned int)a->sel.n_lanes),
-           (SA_TILE + span + 31) / 32 * 32, 0, stream>>>(*a);
-  return (int)cudaGetLastError();
+  select_admit_kernel<KT, LIVE, CT>
+      <<<dim3((unsigned int)((P + SA_TILE - 1) / SA_TILE),
+              (unsigned int)a->sel.n_lanes),
+         (SA_TILE + span + 31) / 32 * 32, 0, stream>>>(*a);
 }
 
+template <int CT>
+static void launch_select_admit(const SelectAdmitArgs* a, cudaStream_t st) {
+  const bool ring8 = a->sel.n_offs == 8;
+  if (a->sel.live) {
+    if (ring8)
+      launch_select_admit_kt<8, true, CT>(a, st);
+    else
+      launch_select_admit_kt<0, true, CT>(a, st);
+  } else {
+    if (ring8)
+      launch_select_admit_kt<8, false, CT>(a, st);
+    else
+      launch_select_admit_kt<0, false, CT>(a, st);
+  }
+}
+
+// A halo wider than SA_MAX_SPAN is refused; the wrapper never sends one.
 extern "C" int swarm_select_admit(const SelectAdmitArgs* args, void* stream) {
+  const int span = args->o_max - args->o_min;
+  if (span < 0 || span > SA_MAX_SPAN || !slots_ok(args->sel.n_slots))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (args->sel.live)
-    return args->sel.n_offs == 8 ? launch_select_admit<8, true>(args, st)
-                                 : launch_select_admit<0, true>(args, st);
-  return args->sel.n_offs == 8 ? launch_select_admit<8, false>(args, st)
-                               : launch_select_admit<0, false>(args, st);
+  if (args->sel.n_peers > 0 && args->sel.n_lanes > 0) {
+#define CALL(CT) launch_select_admit<CT>(args, st)
+    FOR_SLOTS(args->sel.n_slots, CALL);
+#undef CALL
+  }
+  return (int)cudaGetLastError();
 }
 
 // Load every kernel of this library onto the card now, so that none is
 // loaded lazily at its first launch, which may fall inside a CUDA graph
 // capture.  Called once, when the library is bound.
-extern "C" int swarm_preload(void) {
+template <int CT>
+static cudaError_t preload_slots() {
   cudaFuncAttributes attr;
-  const void* kernels[] = {(const void*)elig_select_kernel<false>,
-                           (const void*)elig_select_kernel<true>,
-                           (const void*)admit_service_kernel,
-                           (const void*)peer_update_kernel<false>,
-                           (const void*)peer_update_kernel<true>,
-                           (const void*)select_admit_kernel<8, false>,
-                           (const void*)select_admit_kernel<0, false>,
-                           (const void*)select_admit_kernel<8, true>,
-                           (const void*)select_admit_kernel<0, true>};
+  const void* kernels[] = {
+      (const void*)elig_select_kernel<false, CT>,
+      (const void*)elig_select_kernel<true, CT>,
+      (const void*)admit_service_kernel<CT>,
+      (const void*)peer_update_kernel<false, CT>,
+      (const void*)peer_update_kernel<true, CT>,
+      (const void*)select_admit_kernel<8, false, CT>,
+      (const void*)select_admit_kernel<0, false, CT>,
+      (const void*)select_admit_kernel<8, true, CT>,
+      (const void*)select_admit_kernel<0, true, CT>};
   for (const void* k : kernels) {
     const cudaError_t e = cudaFuncGetAttributes(&attr, k);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return e;
   }
-  return 0;
+  return cudaSuccess;
+}
+
+extern "C" int swarm_preload(void) {
+  cudaError_t e = preload_slots<1>();
+  if (e == cudaSuccess) e = preload_slots<3>();
+  if (e == cudaSuccess) e = preload_slots<0>();
+  return (int)e;
 }
 
 // Struct sizes, so the Python side can check its ctypes mirrors.

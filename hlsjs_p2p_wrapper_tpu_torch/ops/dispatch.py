@@ -1,7 +1,7 @@
 """The chunked, pipelined dispatch of scenario grids: the reference's
 ``RowEvent``, ``stream_groups_chunked``, ``run_groups_chunked`` and
-``run_batch_chunked`` (``ops/swarm_sim.py`` :1935-2478), their
-no-fault core.
+``run_batch_chunked`` (``ops/swarm_sim.py`` :1935-2478), with its fault
+plane.
 
 A grid is one or more groups of ``(config, items, build)``: one static
 config per group, and ``build(item)`` makes one item's ``(scenario,
@@ -13,20 +13,39 @@ timeline])`` in item order.  Chunks of several groups go round-robin
 built on the host while the card still runs the previous chunk's
 launches, which are drained only then.
 
+The fault plane (``faults``, an ``engine.faults.FaultPolicy``): the
+policy's plan may inject a fault at the top of every dispatch attempt;
+a failed attempt is classified, and an OOM of more than one lane bisects
+the chunk (recursively, with ``note_oom_bisection`` feeding the
+autotuner's memory fraction), a transient, a timeout or a single lane's
+OOM retries after a jittered backoff within ``max_retries``, and a
+dispatch whose budget ran out becomes a structured failure: its items
+in ``stats[g]["failures"]`` and ``RowEvent``s with ``reason``, ``error``
+and a ``None`` metric (``run_*_chunked`` return ``None`` there).  A
+classified fault that surfaces at readback re-dispatches its segment
+through the same recovery, blocking.  An unclassified error re-raises;
+without a policy the first error propagates.
+
 What differs from the reference, and why:
 
-- no padding of a short tail chunk.  The reference repeats the last
-  scenario so that every dispatch reuses one compiled ``[B, P, …]``
-  program; the port's kernels are launched eagerly and take any ``B``,
-  so a tail chunk runs only its own lanes.  ``exact_chunk`` is accepted
-  and changes nothing: it fixed that canonical shape;
-- the fault plane (retries, OOM bisection), the warm-start caches, the
-  journal and tracing are not ported: a ``faults``, ``warm_start``,
-  ``journal``, ``trace`` or ``tracer`` other than None raises
-  ``NotImplementedError`` (ROADMAP queue 1 items 6-8).
-
-Rows do not depend on the chunking: lanes are independent and each
-lane's reductions sum in a fixed order (``ops/swarm_kernels.py``).
+- no padding of a short chunk.  The reference repeats the last scenario
+  so that every dispatch reuses one compiled ``[B, P, …]`` program; the
+  port's kernels are launched eagerly and take any ``B``, so a tail
+  chunk, and each half of a bisected chunk, runs only its own lanes.
+  ``exact_chunk`` is accepted and changes nothing: it fixed that
+  canonical shape.  So where the reference's bisection only narrows a
+  persistent OOM to the lanes that trip it (its halves allocate what
+  the whole chunk did), the port's halves allocate about half: a real
+  out-of-memory chunk recovers by bisection.  The failed attempt's
+  exception, and with it every tensor its frames hold, is released
+  before the halves run, and on the card PyTorch's cache of free memory
+  is emptied (a graph capture cannot free cached blocks mid-way).  Rows
+  still equal the unfaulted run's to the bit, since lanes are
+  independent and each lane's reductions sum in a fixed order
+  (``ops/swarm_kernels.py``);
+- the warm-start caches, the journal and tracing are not ported: a
+  ``warm_start``, ``journal``, ``trace`` or ``tracer`` other than None
+  raises ``NotImplementedError`` (ROADMAP queue 1 items 7-8).
 """
 
 from __future__ import annotations
@@ -36,29 +55,29 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .swarm_sim import (autotune_chunk, init_swarm, offload_ratio_batch,
-                        rebuffer_ratio_batch, run_swarm_batch,
-                        stack_pytrees)
+from .swarm_sim import (autotune_chunk, init_swarm, note_oom_bisection,
+                        offload_ratio_batch, rebuffer_ratio_batch,
+                        run_swarm_batch, stack_pytrees)
 
 #: the dispatch options the port does not take yet, and the ROADMAP
 #: queue 1 item that brings each
-_NOT_PORTED = {"faults": "item 6 (the fault plane)",
-               "warm_start": "item 7 (warm-start caches)",
+_NOT_PORTED = {"warm_start": "item 7 (warm-start caches)",
                "journal": "item 7 (the crash-safe journal)",
                "trace": "item 8 (the flight recorder)",
                "tracer": "item 8 (dispatch spans)"}
 
 
 class RowEvent(NamedTuple):
-    """One completed sweep row, streamed out of
+    """One completed (or failed) sweep row, streamed out of
     :func:`stream_groups_chunked` the moment its chunk drains.
-    ``metric`` is the ``(offload, rebuffer[, timeline])`` tuple.  The
-    fields the reference's caches and fault plane fill (``key``,
-    ``cached``, ``reason``, ``error``) keep their defaults here."""
+    ``metric`` is the ``(offload, rebuffer[, timeline])`` tuple, or
+    None for a row whose recovery budget ran out (``reason`` and
+    ``error`` then carry the failure).  ``key`` and ``cached``, which
+    the reference's row cache fills, keep their defaults here."""
 
     group: int
     index: int               # position in the group's item list
-    metric: object
+    metric: object           # tuple, or None when failed
     key: Optional[str] = None
     cached: bool = False
     reason: Optional[str] = None
@@ -73,6 +92,15 @@ def _refuse_unported(**options) -> None:
                 f"queue 1 {_NOT_PORTED[name]})")
 
 
+def _release_cache(built) -> None:
+    """After an out-of-memory failure on the card, free PyTorch's cache of
+    unused device memory before the re-dispatch: the blocks the failed
+    attempt left cached cannot be freed while a graph capture is open,
+    so they would crowd the next attempt's graph pool."""
+    if built[0][0].join_s.device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def stream_groups_chunked(groups, n_steps: int, *, watch_s: float,
                           chunk: Optional[int] = None,
                           record_every: int = 0, tracer=None,
@@ -82,23 +110,23 @@ def stream_groups_chunked(groups, n_steps: int, *, watch_s: float,
                           trace=None):
     """The dispatch engine as a row stream: a generator of one
     :class:`RowEvent` per grid row as its chunk drains (one chunk
-    behind the card with ``pipeline``).  ``stats_out``, a list, gets
-    one stats dict per group as the groups are prepared (``items``,
-    ``chunk``, ``chunks``, ``row_hits`` (0: no row cache),
-    ``first_dispatch_s``, ``failures`` (empty: no fault plane)); the
-    dicts keep updating as the stream advances.  See the module
-    docstring for what ``exact_chunk`` and the unported options do.
-    The options are checked here, before the first row is asked for."""
-    _refuse_unported(tracer=tracer, warm_start=warm_start, faults=faults,
-                     journal=journal, trace=trace)
+    behind the card with ``pipeline``; a chunk's failed rows after its
+    rows).  ``stats_out``, a list, gets one stats dict per group as the
+    groups are prepared (``items``, ``chunk``, ``chunks``, ``row_hits``
+    (0: no row cache), ``first_dispatch_s``, ``failures``); the dicts
+    keep updating as the stream advances.  See the module docstring
+    for ``faults``, ``exact_chunk`` and the unported options, which are
+    checked here, before the first row is asked for."""
+    _refuse_unported(tracer=tracer, warm_start=warm_start, journal=journal,
+                     trace=trace)
     return _stream(groups, n_steps, watch_s=watch_s, chunk=chunk,
                    record_every=record_every, pipeline=pipeline,
-                   interleave=interleave, stats_out=stats_out,
-                   exact_chunk=exact_chunk)
+                   interleave=interleave, faults=faults,
+                   stats_out=stats_out, exact_chunk=exact_chunk)
 
 
 def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
-            interleave, stats_out, exact_chunk):
+            interleave, faults, stats_out, exact_chunk):
     prepared = []
     for config, items, build in groups:
         items = list(items)
@@ -134,10 +162,12 @@ def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
         for gi, s in enumerate(starts):
             schedule.extend((gi, ci, off) for ci, off in enumerate(s))
 
-    def dispatch(config, built, block):
-        """Stack ``built`` into lanes, step them, and queue the final
-        ratios; the card runs on while the host returns, unless
-        ``block``."""
+    def dispatch(gi, ci, config, built, block):
+        """One attempt: the plan's injection point, then stack
+        ``built`` into lanes, step them, and queue the final ratios;
+        the card runs on while the host returns, unless ``block``."""
+        if faults is not None:
+            faults.before_dispatch(group=gi, chunk=ci)
         scenarios = stack_pytrees([sc for sc, _ in built])
         dev = scenarios.join_s.device
         joins = torch.stack([torch.as_tensor(j, dtype=torch.float32,
@@ -153,27 +183,110 @@ def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
             torch.cuda.current_stream(dev).synchronize()
         return offs, rebs, rows
 
-    def drain(gi, idxs, offs, rebs, rows):
+    def resilient(gi, ci, config, built, start, block):
+        """Dispatch ``built`` (``start``-offset within its chunk) under
+        the policy's bounded recovery.  Returns ``(segments,
+        failures)``: ``(start, n, offs, rebs, rows)`` pieces covering
+        the lanes that dispatched, and ``{"offset", "count", "reason",
+        "error"}`` for lanes whose budget ran out."""
+        attempt = 0
+        while True:
+            result = attempt_once(gi, ci, config, built, start, block,
+                                  attempt)
+            if result is not None:
+                return result
+            attempt += 1
+
+    def attempt_once(gi, ci, config, built, start, block, attempt):
+        """One attempt of :func:`resilient`'s loop: its result, or None
+        to retry."""
+        try:
+            out = dispatch(gi, ci, config, built, block)
+            return [(start, len(built)) + out], []
+        except Exception as exc:  # fault-ok: classified below —
+            # unrecognized reasons (shape errors, typos) re-raise
+            reason = faults.classify(exc) if faults is not None else None
+            if reason is None:
+                raise
+            error = str(exc)
+        # past the except clause the failed attempt's traceback, and the
+        # tensors its frames hold, are released before any re-dispatch
+        if reason == "oom":
+            _release_cache(built)
+            if len(built) > 1:
+                faults.record(reason, "bisect")
+                note_oom_bisection()
+                mid = (len(built) + 1) // 2
+                left = resilient(gi, ci, config, built[:mid], start, block)
+                right = resilient(gi, ci, config, built[mid:],
+                                  start + mid, block)
+                return left[0] + right[0], left[1] + right[1]
+        # a transient, a timeout, or a single lane's OOM (often another
+        # process's burst): jittered backoff within the budget, then a
+        # structured give-up
+        if attempt >= faults.max_retries:
+            faults.record(reason, "giveup")
+            return [], [{"offset": start, "count": len(built),
+                         "reason": reason, "error": error}]
+        faults.record(reason, "retry")
+        faults.sleep_backoff(attempt)
+        return None
+
+    def readback(offs, rebs, rows):
         offs, rebs = offs.cpu().numpy(), rebs.cpu().numpy()
         arr = None if rows is None else rows.cpu().numpy()
-        out = []
-        for lane, (i, o, r) in enumerate(zip(idxs, offs, rebs)):
-            metric = ((float(o), float(r)) if arr is None
-                      else (float(o), float(r), arr[lane]))
-            out.append(RowEvent(gi, i, metric))
-        return out
+        return [((float(o), float(r)) if arr is None
+                 else (float(o), float(r), arr[lane]))
+                for lane, (o, r) in enumerate(zip(offs, rebs))]
+
+    def drain(gi, ci, idxs, config, built, segments, failures):
+        """The chunk's rows, then its failed items, as events."""
+        events = []
+        work = list(segments)
+        while work:
+            start, n, *out = work.pop(0)
+            try:
+                out = readback(*out)
+            except Exception as exc:  # fault-ok: classified — an
+                # unrecognized readback failure re-raises
+                reason = faults.classify(exc) if faults is not None \
+                    else None
+                if reason is None:
+                    raise
+                # an asynchronous fault surfacing at readback: count it,
+                # then re-dispatch the segment through the same
+                # recovery, blocking
+                faults.record(reason, "retry")
+                resegs, refails = resilient(gi, ci, config,
+                                            built[start:start + n], start,
+                                            True)
+                work = resegs + work
+                failures = failures + refails
+                continue
+            events.extend(RowEvent(gi, idxs[start + pos], metric)
+                          for pos, metric in enumerate(out))
+        for failure in failures:
+            items = [idxs[failure["offset"] + j]
+                     for j in range(failure["count"])]
+            stats[gi]["failures"].append({"items": items,
+                                          "reason": failure["reason"],
+                                          "error": failure["error"]})
+            events.extend(RowEvent(gi, i, None, reason=failure["reason"],
+                                   error=failure["error"]) for i in items)
+        return events
 
     pending = None
-    for gi, _ci, off in schedule:
+    for gi, ci, off in schedule:
         config, items, build, batch = prepared[gi]
         idxs = list(range(off, min(off + batch, len(items))))
         built = [build(items[i]) for i in idxs]
         t0 = time.perf_counter()
-        result = dispatch(config, built, not pipeline)
+        segments, failures = resilient(gi, ci, config, built, 0,
+                                       not pipeline)
         if stats[gi]["first_dispatch_s"] is None:
             stats[gi]["first_dispatch_s"] = time.perf_counter() - t0
         stats[gi]["chunks"] += 1
-        entry = (gi, idxs) + result
+        entry = (gi, ci, idxs, config, built, segments, failures)
         if not pipeline:
             yield from drain(*entry)
             continue
@@ -195,9 +308,10 @@ def run_groups_chunked(groups, n_steps: int, *, watch_s: float,
     :func:`stream_groups_chunked` and returns ``(results, stats)``.
     ``results[g]`` lists group ``g``'s per-item ``(offload, rebuffer)``
     floats in item order, with a ``[n_steps // record_every, M]`` numpy
-    timeline appended when ``record_every > 0``; ``stats[g]`` is the
-    group's stats dict.  Chunks are independent, so the schedule
-    (``interleave``, ``pipeline``) never changes a row."""
+    timeline appended when ``record_every > 0``, and None for an item
+    whose recovery budget ran out; ``stats[g]`` is the group's stats
+    dict.  Chunks are independent, so the schedule (``interleave``,
+    ``pipeline``) and the recovery never change a row."""
     groups = [(config, list(items), build)
               for config, items, build in groups]
     results = [[None] * len(items) for _, items, _ in groups]
@@ -207,7 +321,8 @@ def run_groups_chunked(groups, n_steps: int, *, watch_s: float,
             record_every=record_every, tracer=tracer, pipeline=pipeline,
             interleave=interleave, warm_start=warm_start, faults=faults,
             journal=journal, stats_out=stats, trace=trace):
-        results[event.group][event.index] = event.metric
+        if event.metric is not None:
+            results[event.group][event.index] = event.metric
     return results, stats
 
 
@@ -217,13 +332,13 @@ def run_batch_chunked(config, items, build, n_steps: int, *,
                       pipeline: bool = True, warm_start=None, faults=None,
                       journal=None, trace=None):
     """Single-group front end for :func:`run_groups_chunked`: per-item
-    ``(offload, rebuffer[, timeline])`` in item order.  ``chunk=None``
-    autotunes the lanes per dispatch from the card's free memory
-    (``autotune_chunk``)."""
+    ``(offload, rebuffer[, timeline])`` in item order (None for an item
+    whose recovery budget ran out).  ``chunk=None`` autotunes the lanes
+    per dispatch from the card's free memory (``autotune_chunk``)."""
     items = list(items)
     if not items:
         _refuse_unported(tracer=tracer, warm_start=warm_start,
-                         faults=faults, journal=journal, trace=trace)
+                         journal=journal, trace=trace)
         return []
     results, _stats = run_groups_chunked(
         [(config, items, build)], n_steps, watch_s=watch_s, chunk=chunk,

@@ -6,13 +6,14 @@ choose between them.
 kernel                 replaces (reference ``ops/swarm_sim.py``)
 =====================  ==========================================
 TK1 ``elig_select``    ``circulant_eligibility`` :681-772,
-                       ``spread_holder_only`` :959-991, the start
-                       decision :1053-1175, pinning :1207-1228
-TK2 ``admit_service``  circulant admission and service, :1259-1303
-                       (the ``cap > 0`` branch)
+                       ``spread_holder_only`` :959-991, each slot's
+                       start decision :1053-1183, pinning
+                       :1207-1228
+TK2 ``admit_service``  circulant admission in (slot, offset) order
+                       and service, :1259-1303 (``cap > 0``)
 ``select_admit``       TK1 then TK2 in one launch, over tiles of
                        peers with a halo of requesters
-TK3 ``peer_update``    the service readback and the slot-0 update
+TK3 ``peer_update``    the service readback and each slot's update
                        :1351-1525 with ``ewma.update``, and in its
                        epilogue TK4's sums for the step's offload
                        series :1643-1647 and the clock's advance
@@ -47,11 +48,19 @@ selected holder; TK2 needs every requester's demand to admit per
 holder; TK3 needs every holder's service.  ``select_admit`` does TK1
 and TK2 in one launch by recomputing, in each block, the selection of
 the requesters its holders serve.  Between the passes travel four
-``[B, P]`` scratch words: ``slot_flags`` (bit 0 may, bit 1 active, bit
-2 is_p2p, bit 3 have_n, bit 4 blocked on the live stagger), ``req``
-(the offset index of the selected holder of a transfer that places
-demand, else -1), ``service`` and ``adm`` (per holder, a bit mask of
-the admitted offset indices).
+scratch words: per (peer, slot), ``[B, P, C]``, ``slot_flags`` (bit 0
+may, bit 1 active, bit 2 is_p2p, bit 3 have_n; on slot 0 only, bit 4
+blocked on the live stagger and bit 5 absorbed from the own cache),
+``req`` (the offset index of the slot's selected holder where the slot
+places demand, else -1) and ``adm`` (per holder and slot, a bit mask of
+the admitted offset indices); per holder, ``[B, P]``, ``service``.
+
+Transfer slots.  ``C = config.max_concurrency`` slots (at most 16):
+slot 0 the foreground, slots 1.. P2P-only prefetches.  Every kernel
+walks them in the reference's order (the selection slot by slot, the
+admission over (slot, offset), the update slot by slot), so that each
+float add and EWMA update rounds as the reference's do; ``C`` is a
+template parameter of the kernels (``csrc/swarm_step.cu``).
 
 Live mode.  The selection reads the stagger's wait clock
 ``fg_wait_ms`` and reports a foreground blocked on it in bit 4; only
@@ -67,8 +76,10 @@ own row of the state and TK3 updates its own row of every field.  Each
 peer's row has one writer, and the selection has finished reading
 neighbours' rows before TK3 writes them.  Inside ``select_admit`` a
 block reads requester fields of halo peers that another block writes;
-that is sound because each such field is read only when the slot is
-active and written only when it is not (``csrc/swarm_step.cu``).  The
+that is sound because each such field is read only when its slot is
+active and written only when it is not (``csrc/swarm_step.cu``), and
+the prefetch dedup guard reads the slots already processed from the
+requester's registers, not from memory.  The
 plain versions update the state in place too.  Callers that compare two
 steps clone the state first.
 
@@ -261,9 +272,9 @@ def _live_playhead(scenario: SwarmScenario, state: SwarmState):
 def _slot_targets(config: SwarmConfig, scenario: SwarmScenario,
                   state: SwarmState) -> Tuple[torch.Tensor, ...]:
     g = geometry(config)
+    C = config.max_concurrency
     present = _present(scenario, state.t_s)
-    dl_active, dl_is_p2p = unpack_dl_flags(state.dl_flags, 1)
-    a0 = dl_active[0]
+    dl_active, dl_is_p2p = unpack_dl_flags(state.dl_flags, C)
     playhead = (_live_playhead(scenario, state) if config.live
                 else state.playhead_s)
     estimate = get_estimate(state.ewma, config.fast_half_life_s,
@@ -273,39 +284,52 @@ def _slot_targets(config: SwarmConfig, scenario: SwarmScenario,
     pb = playhead + state.buffer_s
     next_seg = torch.clamp_max(_div(pb, g.seg).to(torch.int32), g.S - 1)
     timeline_left = pb < g.end_s
-    fg_wants = (present & ~a0 & timeline_left
+    fg_wants = (present & ~dl_active[0] & timeline_left
                 & (state.buffer_s < config.max_buffer_s))
     if config.live:
         # only fully published segments are downloadable (:837-840)
         fg_wants = fg_wants & ((next_seg.to(torch.float32) + 1.0) * g.seg
                                <= _col(state.t_s))
-    gi_seg = torch.where(a0, state.dl_seg[..., 0], next_seg)
-    gi_level = torch.where(a0, state.dl_level[..., 0], want_level)
-    return (present, a0, dl_is_p2p[0], want_level, next_seg, fg_wants,
-            gi_seg, gi_level * g.S + gi_seg, playhead)
+    # each slot's gather target (:882-894): its stored (level, seg) while
+    # active, else (want_level, next_seg + c capped)
+    gi_segs, gi_flats = [], []
+    for c in range(C):
+        t_seg = (next_seg if c == 0
+                 else torch.clamp_max(next_seg + c, g.S - 1))
+        gi_seg = torch.where(dl_active[c], state.dl_seg[..., c], t_seg)
+        gi_level = torch.where(dl_active[c], state.dl_level[..., c],
+                               want_level)
+        gi_segs.append(gi_seg)
+        gi_flats.append(gi_level * g.S + gi_seg)
+    return (present, want_level, next_seg, fg_wants, playhead,
+            torch.stack(dl_active, -1), torch.stack(dl_is_p2p, -1),
+            torch.stack(gi_segs, -1), torch.stack(gi_flats, -1))
 
 
-_TARGETS = ("present", "a0", "p0", "want_level", "next_seg", "fg_wants",
-            "gi_seg", "gi_flat", "playhead")
+_TARGETS = ("present", "want_level", "next_seg", "fg_wants", "playhead",
+            "active", "is_p2p", "gi_seg", "gi_flat")
 
 
 def slot_targets(config: SwarmConfig, scenario: SwarmScenario,
                  state: SwarmState) -> dict:
-    """What each peer wants next (reference :796-894): presence, the
-    ABR level, the next segment, the foreground's wish, slot 0's flat
-    (level·S + seg) target and the playhead the step starts from (live
-    mode's floor applied), by name."""
+    """What each peer wants next (reference :796-894), by name:
+    presence, the ABR level, the next segment, the foreground's wish,
+    the playhead the step starts from (live mode's floor applied), and
+    per slot (a trailing ``[C]`` axis) the active and is_p2p bits and
+    the gather target: its segment ``gi_seg`` and flat (level·S + seg)
+    bit ``gi_flat``."""
     return dict(zip(_TARGETS, _slot_targets(config, scenario, state)))
 
 
-def _spread_holder_only(elig, n_holders, gi_seg, rot):
-    """Reference :959-991 for slot 0 (salt 0): ONE eligible holder by a
-    u32 hash of (peer, segment, slot), its rank advanced by the slot's
-    failed attempts.  The peer is its index within its lane.  The u32
-    products wrap: int64, masked after each multiply and add."""
+def _spread_holder_only(elig, n_holders, gi_seg, rot, c):
+    """Reference :959-991 for slot ``c``: ONE eligible holder by a u32
+    hash of (peer, segment, slot salt ``(c · 2246822519 + 97) mod
+    2^32``), its rank advanced by the slot's failed attempts ``rot``.
+    The peer is its index within its lane.  The u32 products wrap:
+    int64, masked after each multiply and add."""
     P = gi_seg.shape[-1]
     peer = torch.arange(P, dtype=torch.int64, device=gi_seg.device)
-    salt = (0 * 2246822519 + 97) % (1 << 32)
+    salt = (c * 2246822519 + 97) % (1 << 32)
     h = (peer * 2654435761) & 0xFFFFFFFF
     h = (h + ((gi_seg.to(torch.int64) & 0xFFFFFFFF) * 40503
               & 0xFFFFFFFF)) & 0xFFFFFFFF
@@ -325,20 +349,29 @@ def _spread_holder_only(elig, n_holders, gi_seg, rot):
 @_lane_api
 def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
                       state: SwarmState):
-    """Plain TK1: eligibility, holder selection, slot 0's start
-    decision and pinning (reference :796-1246 for the slice).  Writes
-    the slot record into ``state`` in place; returns ``(slot_flags,
-    req)``."""
+    """Plain TK1: eligibility, holder selection, each slot's start
+    decision and pinning (reference :796-1246 for the slice), slot by
+    slot in the reference's order.  Slot 0 is the foreground: with
+    prefetch slots (C > 1) a wish its own cache holds is absorbed
+    (:1133-1141).  A prefetch slot starts P2P only, in the prefetch
+    window, uncached, with holders and not already in flight on another
+    slot (the dedup guard :1110-1118 against the processed slots' new
+    records and the later slots' old ones; :1176-1183).  Writes each
+    slot record into ``state`` in place; returns ``(slot_flags, req)``,
+    each ``[..., P, C]``: per slot bit 0 may, 1 active, 2 is_p2p, 3
+    have_n, and on slot 0 bit 4 blocked on the live stagger, bit 5
+    absorbed; ``req`` the offset index of the slot's selected holder
+    where the slot places demand, else -1."""
     g = geometry(config)
-    (present, a0, p0, want_level, next_seg, fg_wants, gi_seg, gi_flat,
-     playhead) = _slot_targets(config, scenario, state)
+    C = config.max_concurrency
+    (present, want_level, next_seg, fg_wants, playhead, act, p2p_bits,
+     gi_segs, gi_flats) = _slot_targets(config, scenario, state)
     p2p_req = scenario.p2p_ok
     serve_ok = present & (scenario.p2p_ok > 0.0)
     impl = resolve_eligibility(config, state.avail.device)
-    elig, n, _own = circulant_eligibility(state.avail, serve_ok, list(g.offs),
-                                          [gi_flat], impl=impl)[0]
-    elig = [e * p2p_req for e in elig]
-    n = n * p2p_req
+    elig_slots = circulant_eligibility(
+        state.avail, serve_ok, list(g.offs),
+        [gi_flats[..., c] for c in range(C)], impl=impl)
 
     margin_s = next_seg.to(torch.float32) * g.seg - playhead
     urgent = margin_s < (_col(scenario.urgent_margin_s)
@@ -353,88 +386,140 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
         torch.where(want_level.unsqueeze(-1) == lvl_iota,
                     scenario.bitrates.unsqueeze(-2), zero),
         dim=-1) * (g.seg / 8.0)
+    t = _col(state.t_s)
+    never = torch.zeros_like(present)
+    # each slot's (active, flat target) in flight: the old record until
+    # the slot is processed, then its new one
+    flight = [(act[..., c], state.dl_level[..., c] * g.S + state.dl_seg[..., c])
+              for c in range(C)]
+    flags, reqs = [], []
+    for c in range(C):
+        a_c = act[..., c]
+        if c == 0:
+            target_seg, wants_c = next_seg, fg_wants
+        else:
+            raw = next_seg + c
+            target_seg = torch.clamp_max(raw, g.S - 1)
+            # the prefetch window (:1099-1108): in the timeline, within
+            # max_buffer_s of the playhead, the slot's retry cooldown out
+            in_window = (raw.to(torch.float32) * g.seg
+                         < playhead + config.max_buffer_s)
+            wants_c = (present & ~a_c & (raw <= g.S - 1) & in_window
+                       & (state.dl_cooldown_ms[..., c] <= 0.0))
+            if config.live:
+                wants_c = wants_c & ((raw.to(torch.float32) + 1.0) * g.seg
+                                     <= t)
+        elig, n, own = elig_slots[c]
+        elig = [e * p2p_req for e in elig]
+        n = n * p2p_req
+        have_n = n > 0.0
+        if config.live:
+            # P2P visibility (:1121-1128): the target is announced
+            # announce_delay_s after it is published
+            visible = t >= ((target_seg.to(torch.float32) + 1.0) * g.seg
+                            + _col(scenario.announce_delay_s))
+        if c == 0:
+            absorb = fg_wants & own if C > 1 else never
+            wants_dl = fg_wants & ~absorb
+            start_p2p = wants_dl & have_n & ~urgent
+            start_cdn = wants_dl & ~start_p2p
+            if config.live:
+                # the edge stagger (:1143-1168): with no start yet, the
+                # CDN waits for the peer's stable share of the spread,
+                # unless the fetch is urgent
+                waited = state.fg_wait_ms + g.dt_ms
+                cdn_allowed = waited >= (scenario.edge_rank
+                                         * _col(scenario.live_spread_s)
+                                         * 1000.0)
+                start_p2p = start_p2p & visible
+                start_cdn = wants_dl & ~start_p2p & (cdn_allowed | urgent)
+            may = start_p2p | start_cdn
+            is_p2p = torch.where(may, start_p2p, p2p_bits[..., c]) & have_n
+            # bit 4, blocked on the stagger, from which peer_update runs
+            # the wait clock (never set in VOD, where every wish starts)
+            extra = absorb.to(torch.int32) << 5
+            if config.live:
+                extra = extra | ((wants_dl & ~may).to(torch.int32) << 4)
+        else:
+            target_flat = want_level * g.S + target_seg
+            conflict = never
+            for a_o, f_o in flight[:c] + flight[c + 1:]:
+                conflict = conflict | (a_o & (f_o == target_flat))
+            may = wants_c & have_n & ~conflict & ~own
+            if config.live:
+                may = may & visible
+            is_p2p = p2p_bits[..., c] | may
+            extra = 0
+        active = a_c | may
 
-    have_n = n > 0.0
-    start_p2p = fg_wants & have_n & ~urgent
-    start_cdn = fg_wants & ~start_p2p
-    if config.live:
-        # P2P visibility (:1121-1128): slot 0's target is announced
-        # announce_delay_s after it is published; the edge stagger
-        # (:1143-1168): with no start yet, the CDN waits for the peer's
-        # stable share of the spread, unless the fetch is urgent
-        t = _col(state.t_s)
-        visible = t >= ((next_seg.to(torch.float32) + 1.0) * g.seg
-                        + _col(scenario.announce_delay_s))
-        waited = state.fg_wait_ms + g.dt_ms
-        cdn_allowed = waited >= (scenario.edge_rank
-                                 * _col(scenario.live_spread_s) * 1000.0)
-        start_p2p = start_p2p & visible
-        start_cdn = fg_wants & ~start_p2p & (cdn_allowed | urgent)
-    may = start_p2p | start_cdn
-    is_p2p = torch.where(may, start_p2p, p0) & have_n
-    active = a0 | may
-    level = torch.where(may, want_level, state.level)
+        sel = _spread_holder_only(elig, n, gi_segs[..., c],
+                                  state.dl_attempts[..., c], c)
+        new_off = sum(((s_k > 0).to(torch.int32) * k
+                       for k, s_k in enumerate(sel)),
+                      torch.zeros_like(next_seg))
+        off = torch.where(a_c, state.dl_holder_off[..., c], new_off)
+        sel = [torch.where(a_c, e * (off == k), s_k)
+               for k, (e, s_k) in enumerate(zip(elig, sel))]
+        demand = (active & is_p2p & present).to(torch.float32)
+        req = torch.full_like(next_seg, -1)
+        for k, s_k in enumerate(sel):
+            req = torch.where(s_k * demand > 0.0, torch.full_like(req, k),
+                              req)
 
-    sel = _spread_holder_only(elig, n, gi_seg, state.dl_attempts[..., 0])
-    new_off = sum(((s_k > 0).to(torch.int32) * k
-                   for k, s_k in enumerate(sel)), torch.zeros_like(next_seg))
-    off = torch.where(a0, state.dl_holder_off[..., 0], new_off)
-    sel = [torch.where(a0, e * (off == k), s_k)
-           for k, (e, s_k) in enumerate(zip(elig, sel))]
-    demand = (active & is_p2p & present).to(torch.float32)
-    req = torch.full_like(next_seg, -1)
-    for k, s_k in enumerate(sel):
-        req = torch.where(s_k * demand > 0.0, torch.full_like(req, k), req)
-
-    slot = {name: getattr(state, name)[..., 0] for name in (
-        "dl_seg", "dl_level", "dl_total_bytes", "dl_done_bytes",
-        "dl_elapsed_ms", "dl_budget_ms")}
-    state.level.copy_(level)
-    slot["dl_seg"].copy_(torch.where(may, next_seg, slot["dl_seg"]))
-    slot["dl_level"].copy_(torch.where(may, want_level, slot["dl_level"]))
-    slot["dl_total_bytes"].copy_(
-        torch.where(may, want_bytes, slot["dl_total_bytes"]))
-    for name in ("dl_done_bytes", "dl_elapsed_ms"):
-        slot[name].copy_(torch.where(may, zero, slot[name]))
-    slot["dl_budget_ms"].copy_(
-        torch.where(may, budget_ms, slot["dl_budget_ms"]))
-    state.dl_holder_off[..., 0].copy_(off)
-    slot_flags = (may.to(torch.int32) | (active.to(torch.int32) << 1)
-                  | (is_p2p.to(torch.int32) << 2)
-                  | (have_n.to(torch.int32) << 3))
-    if config.live:
-        # blocked on the stagger, from which peer_update runs the wait
-        # clock (never set in VOD, where every wish starts)
-        slot_flags = slot_flags | ((fg_wants & ~may).to(torch.int32) << 4)
-    return slot_flags, req
+        seg_new = torch.where(may, target_seg, state.dl_seg[..., c])
+        level_new = torch.where(may, want_level, state.dl_level[..., c])
+        flight[c] = (active, level_new * g.S + seg_new)
+        if c == 0:
+            state.level.copy_(torch.where(may, want_level, state.level))
+        state.dl_seg[..., c].copy_(seg_new)
+        state.dl_level[..., c].copy_(level_new)
+        for name, value in (("dl_total_bytes", want_bytes),
+                            ("dl_done_bytes", zero), ("dl_elapsed_ms", zero),
+                            ("dl_budget_ms", budget_ms)):
+            col = getattr(state, name)[..., c]
+            col.copy_(torch.where(may, value, col))
+        state.dl_holder_off[..., c].copy_(off)
+        flags.append(may.to(torch.int32) | (active.to(torch.int32) << 1)
+                     | (is_p2p.to(torch.int32) << 2)
+                     | (have_n.to(torch.int32) << 3) | extra)
+        reqs.append(req)
+    return torch.stack(flags, -1), torch.stack(reqs, -1)
 
 
 @_lane_api
 def admit_service_plain(config: SwarmConfig, scenario: SwarmScenario,
                         req: torch.Tensor):
-    """Plain TK2 (reference :1259-1303, ``cap > 0``): admission in
-    offset order at each holder, then its service.  Returns
-    ``(service f32, adm i32 bit mask)``, shaped as ``req``."""
+    """Plain TK2 (reference :1259-1303, ``cap > 0``): each holder admits
+    its requesters in (slot, offset) order up to the cap, one load
+    count across the slots, then serves at uplink · efficiency / load.
+    ``req`` is ``[..., P, C]``; returns ``(service [..., P] f32, adm
+    [..., P, C] i32)``, ``adm`` per slot a bit mask of the admitted
+    offset indices."""
     g = geometry(config)
-    zeros = torch.zeros(req.shape, dtype=torch.float32, device=req.device)
+    shape = req.shape[:-1]
+    zeros = torch.zeros(shape, dtype=torch.float32, device=req.device)
     cum_j = zeros
-    adm = torch.zeros(req.shape, dtype=torch.int32, device=req.device)
-    for k, o in enumerate(g.offs):
-        contrib_at_j = torch.roll((req == k).to(torch.float32), o, -1)
-        adm_at_j = torch.where((contrib_at_j > 0.0) & (cum_j < g.cap),
-                               contrib_at_j, zeros)
-        cum_j = cum_j + adm_at_j
-        adm = adm | ((adm_at_j > 0.0).to(torch.int32) << k)
+    adms = []
+    for c in range(req.shape[-1]):
+        adm = torch.zeros(shape, dtype=torch.int32, device=req.device)
+        for k, o in enumerate(g.offs):
+            contrib_at_j = torch.roll((req[..., c] == k).to(torch.float32),
+                                      o, -1)
+            adm_at_j = torch.where((contrib_at_j > 0.0) & (cum_j < g.cap),
+                                   contrib_at_j, zeros)
+            cum_j = cum_j + adm_at_j
+            adm = adm | ((adm_at_j > 0.0).to(torch.int32) << k)
+        adms.append(adm)
     service = (scenario.uplink_bps * _col(scenario.uplink_efficiency)
                / torch.clamp_min(cum_j, 1.0))
-    return service, adm
+    return service, torch.stack(adms, -1)
 
 
 def select_admit_plain(config: SwarmConfig, scenario: SwarmScenario,
                        state: SwarmState):
     """Plain ``select_admit``: :func:`elig_select_plain` then
-    :func:`admit_service_plain`.  Writes the slot record into ``state``
-    in place; returns ``(slot_flags, req, service, adm)``."""
+    :func:`admit_service_plain`.  Writes the slot records into
+    ``state`` in place; returns ``(slot_flags, req, service, adm)``."""
     flags, req = elig_select_plain(config, scenario, state)
     return (flags, req) + admit_service_plain(config, scenario, req)
 
@@ -444,77 +529,125 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
                       state: SwarmState, slot_flags: torch.Tensor,
                       req: torch.Tensor, service: torch.Tensor,
                       adm: torch.Tensor) -> None:
-    """Plain TK3: the service readback (reference :1297-1303), the
-    slot-0 update (:1351-1434, :1467-1493), playback and the repack
-    (:1495-1525), then the step's clock advance (``_scan_swarm``'s
-    ``t_s + dt``, a float32 add).  In live mode playback steps from the
+    """Plain TK3: per slot in order, the service readback (reference
+    :1297-1303) and the update (:1351-1493): slot 0's progress, BUSY
+    fast-fail and budget failover; a prefetch slot's abort on lost
+    holders, the request timeout or a BUSY deny, its ``retry_dead_ms``
+    cooldown and its attempt rotation (:1436-1466); each slot's cache
+    insert and EWMA sample, in slot order.  Then playback (an absorbed
+    foreground adds a segment to the buffer, :1355) and the repack
+    (:1495-1525), then the step's clock advance (``_scan_swarm``'s ``t_s
+    + dt``, a float32 add).  In live mode playback steps from the
     floored playhead and starts ``live_sync_s`` after the join
     (:1500-1507), and the stagger's wait clock ``fg_wait_ms`` runs on
-    where the selection reported the foreground blocked (slot flag bit
-    4; :1165-1166), else resets; in VOD it is left alone.  Updates
+    where the selection reported the foreground blocked (slot 0's flag
+    bit 4; :1165-1166), else resets; in VOD it is left alone.  Updates
     ``state`` in place."""
     g = geometry(config)
+    C = config.max_concurrency
     dev = req.device
-    zeros = torch.zeros(req.shape, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(req.shape[:-1], dtype=torch.float32, device=dev)
     present = _present(scenario, state.t_s)
-    may = (slot_flags & 1) != 0
-    s_active = (slot_flags & 2) != 0
-    s_is_p2p = (slot_flags & 4) != 0
-    have_n = (slot_flags & 8) != 0
+    flags0 = slot_flags[..., 0]
+    absorb = (flags0 & 32) != 0
+    cdn_bytes, p2p_bytes = state.cdn_bytes, state.p2p_bytes
+    buffer_add = torch.where(absorb, g.seg, 0.0)
+    ewma = state.ewma
+    insert = torch.zeros_like(state.avail)
+    actives, p2ps = [], []
+    for c in range(C):
+        fl = slot_flags[..., c]
+        may = (fl & 1) != 0
+        s_active = (fl & 2) != 0
+        s_is_p2p = (fl & 4) != 0
+        have_n = (fl & 8) != 0
 
-    # service readback: the admitted edge of each requester
-    svc = zeros
-    admitted_any = torch.zeros(req.shape, dtype=torch.bool, device=dev)
-    for k, o in enumerate(g.offs):
-        adm_k = (req == k) & (((torch.roll(adm, -o, -1) >> k) & 1) != 0)
-        admitted_any = admitted_any | adm_k
-        svc = svc + adm_k.to(torch.float32) * torch.roll(service, -o, -1)
-    demand = (s_active & s_is_p2p & present).to(torch.float32)
+        # service readback: the admitted edge of the slot's requester
+        svc = zeros
+        admitted = torch.zeros(zeros.shape, dtype=torch.bool, device=dev)
+        for k, o in enumerate(g.offs):
+            adm_k = (req[..., c] == k) & (
+                ((torch.roll(adm[..., c], -o, -1) >> k) & 1) != 0)
+            admitted = admitted | adm_k
+            svc = svc + adm_k.to(torch.float32) * torch.roll(service, -o,
+                                                              -1)
+        demand = (s_active & s_is_p2p & present).to(torch.float32)
 
-    total = state.dl_total_bytes[..., 0]
-    s_done = state.dl_done_bytes[..., 0]
-    p2p_rate = torch.clamp_max(demand * svc, config.p2p_bps)
-    progressing = s_active & present
-    elapsed = state.dl_elapsed_ms[..., 0] + torch.where(
-        progressing, g.dt_ms, 0.0)
-    p2p_live_ms = torch.clamp(elapsed - _col(scenario.p2p_setup_ms), 0.0,
-                              g.dt_ms)
-    p2p_step = _div(p2p_rate * p2p_live_ms, 8000.0)
-    step_bytes = torch.where(s_is_p2p, p2p_step,
-                             _div(scenario.cdn_bps * g.dt_s, 8.0))
-    cdn_accrue = torch.where(
-        progressing & ~s_is_p2p,
-        torch.minimum(step_bytes, torch.clamp_min(total - s_done, 0.0)),
-        zeros)
-    done = s_done + torch.where(progressing, step_bytes, zeros)
-    completed = progressing & (done >= total)
-    active = s_active & ~completed
-    is_p2p = s_is_p2p
-    cooled = torch.clamp_min(state.dl_cooldown_ms[..., 0] - g.dt_ms, 0.0)
-    # BUSY fast-fail: a start the holder did not admit flips to the CDN
-    denied = may & is_p2p & have_n & ~admitted_any
-    is_p2p = is_p2p & ~denied
-    done = torch.where(denied, zeros, done)
-    elapsed = torch.where(denied, zeros, elapsed)
-    # budget failover to the CDN, discarding partial bytes
-    expired = active & is_p2p & (elapsed >= state.dl_budget_ms[..., 0])
-    is_p2p = is_p2p & ~expired
-    done = torch.where(expired, zeros, done)
-    elapsed = torch.where(expired, zeros, elapsed)
-    cdn_bytes = state.cdn_bytes + cdn_accrue
-    p2p_bytes = state.p2p_bytes + torch.where(completed & is_p2p, total,
-                                              zeros)
-    buffer_add = zeros + torch.where(completed, g.seg, 0.0)
+        total = state.dl_total_bytes[..., c]
+        s_done = state.dl_done_bytes[..., c]
+        p2p_rate = torch.clamp_max(demand * svc, config.p2p_bps)
+        progressing = s_active & present
+        elapsed = state.dl_elapsed_ms[..., c] + torch.where(
+            progressing, g.dt_ms, 0.0)
+        p2p_live_ms = torch.clamp(elapsed - _col(scenario.p2p_setup_ms), 0.0,
+                                  g.dt_ms)
+        p2p_step = _div(p2p_rate * p2p_live_ms, 8000.0)
+        if c == 0:
+            step_bytes = torch.where(s_is_p2p, p2p_step,
+                                     _div(scenario.cdn_bps * g.dt_s, 8.0))
+            cdn_accrue = torch.where(
+                progressing & ~s_is_p2p,
+                torch.minimum(step_bytes, torch.clamp_min(total - s_done,
+                                                          0.0)),
+                zeros)
+        else:
+            step_bytes = p2p_step
+        done = s_done + torch.where(progressing, step_bytes, zeros)
+        completed = progressing & (done >= total)
+        active = s_active & ~completed
+        is_p2p = s_is_p2p
+        cooled = torch.clamp_min(state.dl_cooldown_ms[..., c] - g.dt_ms, 0.0)
+        if c == 0:
+            # BUSY fast-fail: a start the holder did not admit flips to
+            # the CDN
+            denied = may & is_p2p & have_n & ~admitted
+            is_p2p = is_p2p & ~denied
+            done = torch.where(denied, zeros, done)
+            elapsed = torch.where(denied, zeros, elapsed)
+            # budget failover to the CDN, discarding partial bytes
+            expired = active & is_p2p & (elapsed >= state.dl_budget_ms[..., 0])
+            is_p2p = is_p2p & ~expired
+            done = torch.where(expired, zeros, done)
+            elapsed = torch.where(expired, zeros, elapsed)
+            cdn_bytes = cdn_bytes + cdn_accrue
+            p2p_bytes = p2p_bytes + torch.where(completed & is_p2p, total,
+                                                zeros)
+            buffer_add = buffer_add + torch.where(completed, g.seg, 0.0)
+            cooldown = cooled
+        else:
+            # a prefetch whose holders vanished, whose request timed out
+            # or whose start the holder denied is dropped, and the slot
+            # cools down before asking again; its attempts rotate the
+            # holder rank, and reset once one completes
+            aborted = ((active & ~have_n)
+                       | (active & (elapsed
+                                    >= _col(scenario.request_timeout_ms)))
+                       | (may & active & have_n & ~admitted))
+            active = active & ~aborted
+            done = torch.where(aborted, zeros, done)
+            elapsed = torch.where(aborted, zeros, elapsed)
+            p2p_bytes = p2p_bytes + torch.where(completed, total, zeros)
+            cooldown = torch.where(aborted, _col(scenario.retry_dead_ms),
+                                   cooled)
+            attempts = state.dl_attempts[..., c]
+            attempts.copy_(torch.where(completed, torch.zeros_like(attempts),
+                                       attempts + aborted.to(torch.int32)))
 
-    # cache insert: the slot's own (level, seg) bit
-    Wm = bit_mask_words(state.dl_level[..., 0] * g.S + state.dl_seg[..., 0],
-                        g.W)
-    insert = torch.where(completed.unsqueeze(-1), Wm,
-                         torch.zeros((), dtype=torch.int32, device=dev))
-    sample_ms = torch.clamp_min(elapsed, MIN_SAMPLE_DURATION_MS)
-    ewma = update(state.ewma, torch.where(completed, sample_ms, zeros),
-                  torch.where(completed, total, zeros),
-                  config.fast_half_life_s, config.slow_half_life_s)
+        # cache insert: the slot's own (level, seg) bit
+        Wm = bit_mask_words(state.dl_level[..., c] * g.S
+                            + state.dl_seg[..., c], g.W)
+        insert = insert | torch.where(
+            completed.unsqueeze(-1), Wm,
+            torch.zeros((), dtype=torch.int32, device=dev))
+        sample_ms = torch.clamp_min(elapsed, MIN_SAMPLE_DURATION_MS)
+        ewma = update(ewma, torch.where(completed, sample_ms, zeros),
+                      torch.where(completed, total, zeros),
+                      config.fast_half_life_s, config.slow_half_life_s)
+        state.dl_done_bytes[..., c].copy_(done)
+        state.dl_elapsed_ms[..., c].copy_(elapsed)
+        state.dl_cooldown_ms[..., c].copy_(cooldown)
+        actives.append(active)
+        p2ps.append(is_p2p)
 
     # playback
     buffer_s = state.buffer_s + buffer_add
@@ -522,7 +655,7 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
         playhead = _live_playhead(scenario, state)
         can_play = present & (playhead < g.end_s) & (
             _col(state.t_s) >= scenario.join_s + _col(scenario.live_sync_s))
-        blocked = (slot_flags & 16) != 0
+        blocked = (flags0 & 16) != 0
         state.fg_wait_ms.copy_(torch.where(blocked,
                                            state.fg_wait_ms + g.dt_ms, zeros))
     else:
@@ -540,10 +673,7 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     state.avail.bitwise_or_(insert)
     state.cdn_bytes.copy_(cdn_bytes)
     state.p2p_bytes.copy_(p2p_bytes)
-    state.dl_flags.copy_(pack_dl_flags([active], [is_p2p]))
-    state.dl_done_bytes[..., 0].copy_(done)
-    state.dl_elapsed_ms[..., 0].copy_(elapsed)
-    state.dl_cooldown_ms[..., 0].copy_(cooled)
+    state.dl_flags.copy_(pack_dl_flags(actives, p2ps))
     state.t_s.add_(g.dt_s)
 
 
@@ -692,7 +822,8 @@ class _SelectArgs(ctypes.Structure):
         (name, _P) for name in (
             "edge_rank", "fg_wait_ms", "live_sync_s", "live_spread_s",
             "announce_delay_s")] + [
-        ("dt_ms", ctypes.c_float), ("live", ctypes.c_int)]
+        ("dt_ms", ctypes.c_float), ("live", ctypes.c_int),
+        ("dl_cooldown_ms", _P), ("n_slots", ctypes.c_int)]
 
 
 class _AdmitArgs(ctypes.Structure):
@@ -700,7 +831,8 @@ class _AdmitArgs(ctypes.Structure):
         "req", "uplink_bps", "uplink_efficiency", "service", "adm_mask")] + [
         ("n_peers", ctypes.c_longlong), ("n_lanes", ctypes.c_int),
         ("n_offs", ctypes.c_int),
-        ("cap", ctypes.c_float), ("offs", ctypes.c_int * MAX_OFFS)]
+        ("cap", ctypes.c_float), ("offs", ctypes.c_int * MAX_OFFS),
+        ("n_slots", ctypes.c_int)]
 
 
 class _SelectAdmitArgs(ctypes.Structure):
@@ -727,7 +859,9 @@ class _UpdateArgs(ctypes.Structure):
             "seg_duration_s", "end_s", "dt_ms", "dt_s", "p2p_bps",
             "fast_alpha", "slow_alpha", "min_sample_ms")] + [
         ("offs", ctypes.c_int * MAX_OFFS),
-        ("live_sync_s", _P), ("fg_wait_ms", _P), ("live", ctypes.c_int)]
+        ("live_sync_s", _P), ("fg_wait_ms", _P), ("live", ctypes.c_int),
+        ("dl_attempts", _P), ("request_timeout_ms", _P),
+        ("retry_dead_ms", _P), ("n_slots", ctypes.c_int)]
 
 
 class _LaneSumsArgs(ctypes.Structure):
@@ -848,7 +982,8 @@ _F, _I = torch.float32, torch.int32
 _SCALARS = frozenset(("urgent_margin_s", "p2p_budget_fraction",
                       "p2p_budget_cap_ms", "p2p_budget_floor_ms",
                       "p2p_setup_ms", "uplink_efficiency", "live_sync_s",
-                      "live_spread_s", "announce_delay_s"))
+                      "live_spread_s", "announce_delay_s",
+                      "request_timeout_ms", "retry_dead_ms"))
 
 
 def _scenario_ptrs(scenario: SwarmScenario, names, B, P, L, dev) -> dict:
@@ -870,8 +1005,9 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
     g = geometry(config)
     P = g.P
     B = state.t_s.shape[0]
-    slot_flags = torch.empty((B, P), dtype=_I, device=dev)
-    req = torch.empty((B, P), dtype=_I, device=dev)
+    C = config.max_concurrency
+    slot_flags = torch.empty((B, P, C), dtype=_I, device=dev)
+    req = torch.empty((B, P, C), dtype=_I, device=dev)
     ptrs = _scenario_ptrs(scenario, (
         "join_s", "leave_s", "p2p_ok", "abr_cap_level",
         "urgent_margin_off_s", "bitrates", "urgent_margin_s",
@@ -889,10 +1025,10 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
     ptrs["dl_flags"] = _check("dl_flags", state.dl_flags, _I, (B, P), dev)
     ptrs["level"] = _check("level", state.level, _I, (B, P), dev)
     for name in ("dl_attempts", "dl_seg", "dl_level", "dl_holder_off"):
-        ptrs[name] = _check(name, getattr(state, name), _I, (B, P, 1), dev)
+        ptrs[name] = _check(name, getattr(state, name), _I, (B, P, C), dev)
     for name in ("dl_done_bytes", "dl_total_bytes", "dl_elapsed_ms",
-                 "dl_budget_ms"):
-        ptrs[name] = _check(name, getattr(state, name), _F, (B, P, 1), dev)
+                 "dl_budget_ms", "dl_cooldown_ms"):
+        ptrs[name] = _check(name, getattr(state, name), _F, (B, P, C), dev)
     ptrs["slot_flags"] = slot_flags.data_ptr()
     ptrs["req"] = req.data_ptr()
     args = _SelectArgs(
@@ -903,7 +1039,7 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         default_estimate_bps=DEFAULT_ESTIMATE_BPS,
         bandwidth_safety=BANDWIDTH_SAFETY, offs=_offs_array(g.offs_mod),
-        dt_ms=g.dt_ms, live=int(config.live))
+        dt_ms=g.dt_ms, live=int(config.live), n_slots=C)
     return args, slot_flags, req
 
 
@@ -925,7 +1061,7 @@ def _select_admit_args(config: SwarmConfig, scenario: SwarmScenario,
     B = state.t_s.shape[0]
     sel, slot_flags, req = _select_args(config, scenario, state, dev)
     service = torch.empty((B, g.P), dtype=_F, device=dev)
-    adm = torch.empty((B, g.P), dtype=_I, device=dev)
+    adm = torch.empty((B, g.P, config.max_concurrency), dtype=_I, device=dev)
     args = _SelectAdmitArgs(
         sel=sel,
         uplink_bps=_check("uplink_bps", scenario.uplink_bps, _F, (B, g.P),
@@ -975,17 +1111,18 @@ def admit_service(config: SwarmConfig, scenario: SwarmScenario,
     g = geometry(config)
     P = g.P
     B = req.shape[0]
+    C = config.max_concurrency
     service = torch.empty((B, P), dtype=_F, device=dev)
-    adm = torch.empty((B, P), dtype=_I, device=dev)
+    adm = torch.empty((B, P, C), dtype=_I, device=dev)
     args = _AdmitArgs(
-        req=_check("req", req, _I, (B, P), dev),
+        req=_check("req", req, _I, (B, P, C), dev),
         uplink_bps=_check("uplink_bps", scenario.uplink_bps, _F, (B, P),
                           dev),
         uplink_efficiency=_check("uplink_efficiency",
                                  scenario.uplink_efficiency, _F, (B,), dev),
         service=service.data_ptr(), adm_mask=adm.data_ptr(),
         n_peers=P, n_lanes=B, n_offs=len(g.offs), cap=float(g.cap),
-        offs=_offs_array(g.offs_mod))
+        offs=_offs_array(g.offs_mod), n_slots=C)
     _launch("admit_service", args, dev)
     return service, adm
 
@@ -1011,14 +1148,17 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
     g = geometry(config)
     P = g.P
     B = state.t_s.shape[0]
+    C = config.max_concurrency
     ptrs = _scenario_ptrs(scenario, ("join_s", "leave_s", "cdn_bps",
-                                     "p2p_setup_ms", "live_sync_s"),
+                                     "p2p_setup_ms", "live_sync_s",
+                                     "request_timeout_ms", "retry_dead_ms"),
                           B, P, g.L, dev)
     ptrs["t_s"] = _check("t_s", state.t_s, _F, (B,), dev)
-    ptrs["slot_flags"] = _check("slot_flags", slot_flags, _I, (B, P), dev)
-    ptrs["req"] = _check("req", req, _I, (B, P), dev)
+    ptrs["slot_flags"] = _check("slot_flags", slot_flags, _I, (B, P, C),
+                                dev)
+    ptrs["req"] = _check("req", req, _I, (B, P, C), dev)
     ptrs["service"] = _check("service", service, _F, (B, P), dev)
-    ptrs["adm_mask"] = _check("adm", adm, _I, (B, P), dev)
+    ptrs["adm_mask"] = _check("adm", adm, _I, (B, P, C), dev)
     for name in ("playhead_s", "buffer_s", "rebuffer_s", "cdn_bytes",
                  "p2p_bytes", "fg_wait_ms"):
         ptrs[name] = _check(name, getattr(state, name), _F, (B, P), dev)
@@ -1026,11 +1166,11 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
         ptrs[name] = _check(name, t, _F, (B, P), dev)
     ptrs["avail"] = _check("avail", state.avail, _I, (B, P, g.W), dev)
     ptrs["dl_flags"] = _check("dl_flags", state.dl_flags, _I, (B, P), dev)
-    for name in ("dl_seg", "dl_level"):
-        ptrs[name] = _check(name, getattr(state, name), _I, (B, P, 1), dev)
+    for name in ("dl_seg", "dl_level", "dl_attempts"):
+        ptrs[name] = _check(name, getattr(state, name), _I, (B, P, C), dev)
     for name in ("dl_total_bytes", "dl_budget_ms", "dl_done_bytes",
                  "dl_elapsed_ms", "dl_cooldown_ms"):
-        ptrs[name] = _check(name, getattr(state, name), _F, (B, P, 1), dev)
+        ptrs[name] = _check(name, getattr(state, name), _F, (B, P, C), dev)
     sums, _partials, out = _sums_out(dev, "peer_update", B, P, series,
                                      column)
     args = _UpdateArgs(
@@ -1039,7 +1179,7 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
         dt_ms=g.dt_ms, dt_s=g.dt_s, p2p_bps=config.p2p_bps,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         min_sample_ms=MIN_SAMPLE_DURATION_MS, offs=_offs_array(g.offs_mod),
-        live=int(config.live))
+        live=int(config.live), n_slots=C)
     _launch("peer_update", args, dev)
     return sums
 
@@ -1279,7 +1419,11 @@ def _record(fn, dev: torch.device, pool):
     stream.  Unlike the ``torch.cuda.graph`` context manager, it neither
     synchronizes the card nor empties PyTorch's cache of free device
     memory first: a capture is made once per scan, and emptying the
-    cache sends the allocations after it back to the driver."""
+    cache makes the allocations after it allocate anew.  Where
+    ``fn()`` raises (an out-of-memory error in the capture's pool, say),
+    the capture is ended, so that the stream leaves capture mode and the
+    card stays usable, and ``fn``'s error propagates: an error of ending
+    a capture that the failure invalidated does not replace it."""
     graph = torch.cuda.CUDAGraph()
     stream = _capture_stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
@@ -1287,7 +1431,12 @@ def _record(fn, dev: torch.device, pool):
         graph.capture_begin(*(() if pool is None else (pool,)))
         try:
             fn()
-        finally:
-            graph.capture_end()
+        except BaseException as exc:
+            try:
+                graph.capture_end()
+            except RuntimeError as end_exc:
+                raise exc from end_exc
+            raise
+        graph.capture_end()
     torch.cuda.current_stream(dev).wait_stream(stream)
     return graph

@@ -32,7 +32,9 @@ What this port covers, and what raises instead:
 
 - circulant offsets only (``neighbors=None``); the general ``[P, K]``
   path is queue 1 item 9a;
-- ``max_concurrency == 1``; prefetch slots are item 9b;
+- up to 16 transfer slots (``max_concurrency``): slot 0 the foreground
+  download, slots 1.. P2P-only prefetches with absorb, the dedup guard,
+  abort, cooldown and attempt rotation;
 - VOD and live mode (``config.live``: the playhead floor at join, the
   published-only gate, P2P visibility after the announce lag, the edge
   stagger's wait clock ``fg_wait_ms`` and the playback cushion);
@@ -84,6 +86,34 @@ AUTOTUNE_FALLBACK_BYTES = 4 << 30
 #: autotuner ceiling: lanes beyond this stop amortizing per-dispatch
 #: overhead but keep growing the time to the first row
 MAX_AUTOTUNE_CHUNK = 64
+
+#: bisected OOMs this process has seen (the dispatch's recovery calls
+#: :func:`note_oom_bisection`): each halves the memory fraction later
+#: :func:`autotune_chunk` calls commit, down to 1/16 of the base
+_OOM_BISECTIONS = 0
+
+
+def note_oom_bisection() -> None:
+    """Record one OOM-triggered chunk bisection."""
+    global _OOM_BISECTIONS
+    _OOM_BISECTIONS += 1
+
+
+def oom_bisections() -> int:
+    return _OOM_BISECTIONS
+
+
+def reset_oom_feedback() -> None:
+    """Forget recorded OOM bisections."""
+    global _OOM_BISECTIONS
+    _OOM_BISECTIONS = 0
+
+
+def autotune_memory_fraction() -> float:
+    """The memory fraction :func:`autotune_chunk` commits, halved per
+    bisected OOM of this process (at most four times): a bisected OOM
+    means the footprint model under-counted, so trust it less."""
+    return AUTOTUNE_MEMORY_FRACTION * (0.5 ** min(_OOM_BISECTIONS, 4))
 
 
 class SwarmConfig(NamedTuple):
@@ -541,10 +571,10 @@ def check_slice(config: SwarmConfig) -> None:
         raise NotImplementedError(
             "the general [P, K] neighbor path is not ported yet "
             "(ROADMAP queue 1 item 9a)")
-    if config.max_concurrency != 1:
-        raise NotImplementedError(
-            "prefetch slots (max_concurrency > 1) are not ported yet "
-            "(ROADMAP queue 1 item 9b)")
+    if not 1 <= config.max_concurrency <= 16:
+        raise ValueError(f"max_concurrency={config.max_concurrency} is "
+                         f"outside 1..16, the slots the packed dl_flags "
+                         f"word carries (2 bits per slot in one u32)")
     if config.holder_selection != "spread":
         raise NotImplementedError(
             f"holder_selection={config.holder_selection!r} is not "
@@ -925,7 +955,7 @@ def autotune_chunk(config: SwarmConfig, n_items: int, n_steps: int, *,
                    scenario: Optional[SwarmScenario] = None,
                    device=None) -> int:
     """Memory-derived lanes per dispatch: how many lanes of
-    :func:`batch_lane_bytes` fit in :data:`AUTOTUNE_MEMORY_FRACTION` of
+    :func:`batch_lane_bytes` fit in :func:`autotune_memory_fraction` of
     the card's free memory (``torch.cuda.mem_get_info``, plus what
     PyTorch's allocator holds reserved and unused), or of
     :data:`AUTOTUNE_FALLBACK_BYTES` on the CPU.  Clamps: floor 1 (a
@@ -944,7 +974,7 @@ def autotune_chunk(config: SwarmConfig, n_items: int, n_steps: int, *,
                                   record_every=record_every,
                                   n_neighbors=n_neighbors,
                                   scenario=scenario)
-    fit = int(free * AUTOTUNE_MEMORY_FRACTION // max(lane_bytes, 1))
+    fit = int(free * autotune_memory_fraction() // max(lane_bytes, 1))
     return max(1, min(fit, n_items, MAX_AUTOTUNE_CHUNK))
 
 

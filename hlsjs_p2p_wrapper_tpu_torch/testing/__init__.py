@@ -1,8 +1,8 @@
 """Test infrastructure of the port: moving state between the reference
 and the port (``convert``) and the committed reference runs
 (``reference_run.npz``, ``reference_batch.npz``, ``reference_live.npz``,
-written by ``tools/torch_port_fixture.py``), with the port's runs of
-the two batch fixtures."""
+``reference_prefetch.npz``, written by ``tools/torch_port_fixture.py``),
+with the port's runs of the three batch fixtures."""
 
 import json
 import os
@@ -17,6 +17,9 @@ REFERENCE_BATCH = os.path.join(_HERE, "reference_batch.npz")
 #: the same over four live grid points, with each lane's joins and final
 #: stagger wait clock
 REFERENCE_LIVE = os.path.join(_HERE, "reference_live.npz")
+#: the same over four cells of the policy A/B ring table (three transfer
+#: slots), with each lane's joins and leaves
+REFERENCE_PREFETCH = os.path.join(_HERE, "reference_prefetch.npz")
 
 
 def run_batch_fixture(fixture, device):
@@ -33,6 +36,61 @@ def run_live_fixture(fixture, device):
     ``device``; returns ``(offload [B], rebuffer [B], series [B, T],
     timeline, joins [B, P], final fg_wait_ms [B, P])`` as tensors."""
     return _run(fixture, device, live=True)
+
+
+def prefetch_lanes(fixture, device, *, peers=None, segments=None,
+                   watch_s=None, slots=None):
+    """The prefetch fixture's lanes on ``device``: ``policy_grid``'s ring
+    config and cell scenarios, with the fixture's departure wave on its
+    leave lane, at the fixture's shape unless ``peers``, ``segments``,
+    ``watch_s`` (the crowd's and the wave's clock) or ``slots``
+    (``max_concurrency``) say otherwise.  Returns ``(config, stacked
+    scenarios, joins [B, P], leaves [B, P])``."""
+    import torch
+
+    from .. import policy_grid as pg
+    from ..ops import swarm_sim as sim
+
+    P, S, T, _every, _lanes = (int(x) for x in fixture["shape"])
+    P, S = peers or P, segments or S
+    config = pg.ring_config(P, S)
+    if slots is not None:
+        config = config._replace(max_concurrency=slots)
+    if watch_s is None:
+        watch_s = T * config.dt_ms / 1000.0
+    audience = pg.build_audience(P, int(fixture["seed"]), device=device)
+    built = [pg.build_cell_scenario(config, audience, uplink_bps=up * 1e6,
+                                    pattern=pattern, wave=wave,
+                                    watch_s=watch_s)
+             for pattern, wave, up in json.loads(str(fixture["cells"]))]
+    leave = torch.where(
+        audience["wave_ranks"] < float(fixture["leave_fraction"]),
+        watch_s / 2.0, sim.NEVER_S)
+    scenarios = [sc._replace(leave_s=leave)
+                 if b == int(fixture["leave_lane"]) else sc
+                 for b, (sc, _join) in enumerate(built)]
+    return (config, sim.stack_pytrees(scenarios),
+            torch.stack([j for _, j in built]),
+            torch.stack([sc.leave_s for sc in scenarios]))
+
+
+def run_prefetch_fixture(fixture, device):
+    """The port's ``run_swarm_batch`` at the prefetch fixture's shape and
+    lanes (:func:`prefetch_lanes`, built by the port) on ``device``;
+    returns ``(offload [B], rebuffer [B], series [B, T], timeline, joins
+    [B, P], leaves [B, P])`` as tensors."""
+    from ..ops import swarm_sim as sim
+
+    _P, _S, T, every, lanes = (int(x) for x in fixture["shape"])
+    config, scenarios, joins, leaves = prefetch_lanes(fixture, device)
+    watch_s = T * config.dt_ms / 1000.0
+    final, series, timeline = sim.run_swarm_batch(
+        config, scenarios, sim.init_swarm(config, device=device,
+                                          batch=lanes),
+        T, record_every=every)
+    return (sim.offload_ratio_batch(final),
+            sim.rebuffer_ratio_batch(final, watch_s, joins, leaves), series,
+            timeline, joins, leaves)
 
 
 def _run(fixture, device, live):

@@ -15,7 +15,9 @@ CPU build of PyTorch lacks:
   through ``swarm_kernels.capture``): the scan takes its graph path on
   the CPU, a capture records the callable and each replay runs it;
 - the launch counts: wrappers that count a launch where the kernel
-  would have launched.
+  would have launched;
+- the real out-of-memory phase, which needs the card's allocator, is
+  skipped.
 
 What it cannot show: that a kernel builds, runs or is right, and any
 time; ``chip_smoke.py`` on the card shows those.  A check that needs
@@ -35,7 +37,8 @@ import time
 #: the rehearsal's shapes, in place of chip_smoke.py's
 SIZES = dict(CHECK_PEERS=2_048, PEERS=2_048, GRID_PEERS=2_048, STEPS=400,
              CHECK_WARM_STEPS=60, BACK_TO_BACK=3, WINDOW=10,
-             SUMS_PEERS=(1_000, 1_001, 2_048))
+             SUMS_PEERS=(1_000, 1_001, 2_048), RING_PEERS=2_048,
+             GENERIC_SLOTS=((2, 1_024, 20), (16, 512, 20)))
 #: checks that hold only at the real size (the stalling points of the
 #: grids, the live rows against the reference's record), and checks of
 #: the kernels' bits (the plain versions sum by ``torch.sum``, not in
@@ -128,7 +131,9 @@ def main() -> int:
         strict(cond, msg)
     ns.update(SIZES, check=check,
               phase_build=lambda: print("[2] build: none on the CPU"),
-              registers_of=lambda regs, kernel, live: "not built",
+              registers_of=lambda regs, kernel, live, slots=1: "not built",
+              phase_real_oom=lambda *a: print(
+                  "[20] a real CUDA OOM: needs the card"),
               run_cmd=lambda cmd, timeout=120: "cpu rehearsal, 0 W")
     t0 = time.perf_counter()
     rc = ns["main"]()

@@ -34,8 +34,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     counts, names = out.stdout.splitlines()
     n_modules, bad = counts.split()[0], counts.split()[1:]
-    assert int(n_modules) >= 11   # core, engine, ops, testing and theirs
+    assert int(n_modules) >= 14   # core, engine, ops, testing and theirs
     assert bad == [], f"the port loaded {bad}"
-    for name in ("sweep_grid", "engine.digest", "ops.dispatch",
+    for name in ("sweep_grid", "policy_grid", "engine.digest",
+                 "engine.faults", "engine.telemetry", "ops.dispatch",
                  "ops.swarm_kernels"):
         assert f"hlsjs_p2p_wrapper_tpu_torch.{name}" in names.split()

@@ -215,11 +215,11 @@ def _tiled_select_admit(config, scenario, state, req, tile):
     g = sk.geometry(config)
     P = g.P
     tg = sk.slot_targets(config, scenario, state)
-    wi = (tg["gi_flat"] >> 5).numpy()
-    bit = (tg["gi_flat"] & 31).numpy()
+    wi = (tg["gi_flat"][..., 0] >> 5).numpy()
+    bit = (tg["gi_flat"][..., 0] & 31).numpy()
     avail = port.i32_to_u32(state.avail).numpy()
     serve = (tg["present"] & (scenario.p2p_ok > 0.0)).numpy()
-    req = req.numpy()
+    req = req[..., 0].numpy()
     up = scenario.uplink_bps.numpy()
     eff = np.float32(scenario.uplink_efficiency.numpy())
     owners = np.zeros(P, np.int64)
@@ -272,7 +272,8 @@ def test_fused_tiles_cover_the_ring_and_match_tk1_tk2(P, offsets, tile):
     tg = sk.slot_targets(config, scenario, state)
     serve = tg["present"] & (scenario.p2p_ok > 0.0)
     ref, _n, _own = port.circulant_eligibility(
-        state.avail, serve, list(g.offs), [tg["gi_flat"]], impl="kpass")[0]
+        state.avail, serve, list(g.offs), [tg["gi_flat"][..., 0]],
+        impl="kpass")[0]
     ref_bits = sum((e > 0).to(torch.int64) << k for k, e in enumerate(ref))
     _flags, req = sk.elig_select_plain(config, scenario,
                                        port.clone_state(state))
@@ -283,7 +284,7 @@ def test_fused_tiles_cover_the_ring_and_match_tk1_tk2(P, offsets, tile):
     assert elig == {p: {int(ref_bits[p])} for p in range(P)}
     assert int(ref_bits.count_nonzero()) > 0
     sv, ad = sk.admit_service_plain(config, scenario, req)
-    np.testing.assert_array_equal(adm, ad.numpy())
+    np.testing.assert_array_equal(adm, ad[..., 0].numpy())
     np.testing.assert_array_equal(service, sv.numpy())
 
 

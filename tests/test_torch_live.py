@@ -195,7 +195,7 @@ def test_the_states_bind_every_live_branch():
         flags, _req = sk.elig_select_plain(
             cp, scen, state_from_numpy(r["mid"], "cpu"))
         np.testing.assert_array_equal(r["stepped"]["fg_wait_ms"] > 0,
-                                      ((flags & 16) != 0).numpy())
+                                      ((flags[..., 0] & 16) != 0).numpy())
     assert all(n > 0 for n in total.values()), total
 
 

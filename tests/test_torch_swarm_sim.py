@@ -316,8 +316,9 @@ def test_staggered_joins_is_a_seeded_permutation():
 # ---- the slice's limits ------------------------------------------------------
 
 @pytest.mark.parametrize("change,err", [
-    ({"max_concurrency": 2}, NotImplementedError),
-    ({"live": True, "max_concurrency": 2}, NotImplementedError),
+    ({"max_concurrency": 17}, ValueError),
+    ({"max_concurrency": 3, "holder_selection": "adaptive"},
+     NotImplementedError),
     ({"holder_selection": "adaptive"}, NotImplementedError),
     ({"holder_selection": "ranked"}, NotImplementedError),
     ({"max_total_serves": 0}, NotImplementedError),

@@ -11,7 +11,11 @@ reference at a fixed shape with the join times it used:
   metrics timeline, each lane's final offload and rebuffer, offload
   series and timeline;
 - ``reference_live.npz``: the same over four points of the live grid
-  (:data:`LIVE_POINTS`), chosen so that every live branch binds.
+  (:data:`LIVE_POINTS`), chosen so that every live branch binds;
+- ``reference_prefetch.npz``: the same over four cells of
+  ``tools/policy_ab.py``'s ring table (:data:`PREFETCH_CELLS`, three
+  transfer slots, ``"spread"``), one lane with a departure wave, chosen so
+  that every prefetch branch binds.
 
 ``chip_smoke.py`` runs the port on the card with the same joins and
 compares; ``tests/test_torch_fixture.py`` re-runs the reference here
@@ -20,7 +24,7 @@ and fails if a fixture went stale.
 This is the only code of the port's tree that imports JAX.
 
 Run: ``JAX_PLATFORMS=cpu python tools/torch_port_fixture.py``
-(writes the three files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``).
+(writes the four files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``).
 """
 
 from __future__ import annotations
@@ -59,6 +63,22 @@ BATCH_OUT = os.path.join(TESTING, "reference_batch.npz")
 #: 12.5 s, inside it.
 LIVE_POINTS = (15, 43, 107, 136)
 LIVE_OUT = os.path.join(TESTING, "reference_live.npz")
+
+#: the prefetch fixture's cells of tools/policy_ab.py's ring table
+#: ``(pattern, wave, uplink Mbit/s)``, at BATCH_SHAPE with the tool's
+#: ring config (three slots, "spread").  The watch window is the run's
+#: 50 s, so the crowd joins at 12.5 s.  The tool's cells have no
+#: departures, so an active prefetch never loses its holders; lane
+#: PREFETCH_LEAVE_LANE adds a departure wave (the peers whose wave rank is
+#: below PREFETCH_LEAVE_FRACTION leave at half the watch window) so that
+#: the lost-holder abort binds.  Between the four lanes every prefetch
+#: branch binds: absorb, the dedup guard, each abort kind, the cooldown
+#: and the attempt rotation (tests/test_torch_prefetch.py counts them).
+PREFETCH_CELLS = (("uniform", "crowd", 1.2), ("hetero", "stagger", 1.6),
+                  ("hetero", "crowd", 2.4), ("uniform", "stagger", 10.0))
+PREFETCH_LEAVE_LANE = 1
+PREFETCH_LEAVE_FRACTION = 0.25
+PREFETCH_OUT = os.path.join(TESTING, "reference_prefetch.npz")
 
 
 def reference_run(shape=SHAPE) -> dict:
@@ -176,12 +196,71 @@ def reference_live(shape=BATCH_SHAPE, points=LIVE_POINTS) -> dict:
     }
 
 
+def reference_prefetch(shape=BATCH_SHAPE) -> dict:
+    """Run the JAX reference's batched sweep path at ``shape`` over
+    :data:`PREFETCH_CELLS` with ``tools/policy_ab.py``'s ring config and
+    scenarios (the departure wave on lane :data:`PREFETCH_LEAVE_LANE`);
+    returns the fixture's arrays, each lane's joins and leaves ``[B, P]``
+    included (the cells as a JSON string)."""
+    import json
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import policy_ab
+
+    from hlsjs_p2p_wrapper_tpu.ops.swarm_sim import (
+        NEVER_S, SwarmConfig, init_swarm, offload_ratio_batch,
+        rebuffer_ratio_batch, ring_offsets, run_swarm_batch, stack_pytrees,
+        timeline_columns)
+
+    P, S, T, every, lanes = shape
+    assert len(PREFETCH_CELLS) == lanes
+    config = SwarmConfig(n_peers=P, n_segments=S, n_levels=1,
+                         max_concurrency=3, holder_selection="spread",
+                         neighbor_offsets=ring_offsets(8))
+    watch_s = T * config.dt_ms / 1000.0
+    audience = policy_ab.build_audience(P, BATCH_SEED)
+    built = [policy_ab.build_cell_scenario(
+        config, None, audience, uplink_bps=up * 1e6, pattern=pattern,
+        wave=wave, watch_s=watch_s) for pattern, wave, up in PREFETCH_CELLS]
+    leave = jnp.where(audience["wave_ranks"] < PREFETCH_LEAVE_FRACTION,
+                      watch_s / 2.0, NEVER_S)
+    scenarios = [sc._replace(leave_s=leave) if b == PREFETCH_LEAVE_LANE
+                 else sc for b, (sc, _join) in enumerate(built)]
+    final, series, timeline = run_swarm_batch(
+        config, stack_pytrees(scenarios),
+        stack_pytrees([init_swarm(config)] * lanes), T, record_every=every)
+    joins = jnp.stack([j for _, j in built])
+    leaves = jnp.stack([sc.leave_s for sc in scenarios])
+    return {
+        "join_s": np.asarray(joins, np.float32),
+        "leave_s": np.asarray(leaves, np.float32),
+        "cells": np.asarray(json.dumps(PREFETCH_CELLS)),
+        "leave_lane": np.int64(PREFETCH_LEAVE_LANE),
+        "leave_fraction": np.float64(PREFETCH_LEAVE_FRACTION),
+        "columns": np.asarray(timeline_columns(config)),
+        "offload": np.asarray(offload_ratio_batch(final), np.float64),
+        "rebuffer": np.asarray(rebuffer_ratio_batch(final, watch_s, joins,
+                                                    leaves), np.float64),
+        "series": np.asarray(series, np.float32),
+        "timeline": np.asarray(timeline, np.float32),
+        "shape": np.asarray(shape, np.int64),
+        "seed": np.int64(BATCH_SEED),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--batch-out", default=BATCH_OUT)
     ap.add_argument("--live-out", default=LIVE_OUT)
+    ap.add_argument("--prefetch-out", default=PREFETCH_OUT)
+    ap.add_argument("--only-prefetch", action="store_true",
+                    help="write the prefetch fixture alone")
     args = ap.parse_args(argv)
+    if args.only_prefetch:
+        return _write_prefetch(args.prefetch_out)
     run = reference_run()
     np.savez(args.out, **run)
     print(f"wrote {args.out}: offload {float(run['offload'])!r}, "
@@ -197,6 +276,15 @@ def main(argv=None) -> int:
     print(f"wrote {args.live_out}: offload {live['offload'].tolist()}, "
           f"rebuffer {live['rebuffer'].tolist()}, "
           f"shape {live['shape'].tolist()}")
+    return _write_prefetch(args.prefetch_out)
+
+
+def _write_prefetch(path) -> int:
+    prefetch = reference_prefetch()
+    np.savez(path, **prefetch)
+    print(f"wrote {path}: offload {prefetch['offload'].tolist()}, "
+          f"rebuffer {prefetch['rebuffer'].tolist()}, "
+          f"shape {prefetch['shape'].tolist()}")
     return 0
 
 
