@@ -108,15 +108,38 @@ exits nonzero:
    VOD grid's one chunk cannot fit but its halves can; without a policy
    it raises (where the failing allocation landed is printed), with a
    ``FaultPolicy`` it bisects and returns phase 9's rows to the bit;
-21. after the cap is lifted, phase 16's run again: the card is usable.
+21. after the cap is lifted, phase 16's run again: the card is usable;
+22. the "adaptive" and "ranked" holder policies' kernels: each policy at
+   three slots and at one, VOD, and at three slots live, on the prefetch
+   fixture's four cells at 1,048,576 peers × 128 segments, at t = 25 s
+   and 6 steps later, ``select_admit``, TK1 + TK2 (on the ring and on a
+   wide offset tuple) and ``peer_update`` against their plain versions
+   (the penalty window to the bit), every policy branch shown to bind
+   (adaptive's tier moving the pick off spread's, its own-load key and
+   its penalty window each excluding a holder, the window re-armed at a
+   foreground deny and at each prefetch abort kind, ranked's skip at
+   each of its values); then both policies at 16 and 1,000 peers, where
+   ranked picks by peer id across the ring's wrap, one call and 20
+   steps against the plain step;
+23. the port's runs against the committed policies fixture (the JAX
+   reference's ``run_swarm_batch`` over the prefetch fixture's cells
+   under each policy);
+24. the adaptive and ranked columns of ``tools/policy_ab.py``'s ring
+   table, each as phase 17 runs the spread column (20 cells × 262,144 ×
+   128 × 960, three slots, the autotuned chunk, launches checked, a
+   direct run and two cells alone equal to the bit, the rows within
+   RING_ROW_TOL of ``POLICY_AB_r05.json`` and equal to HEAD's reference
+   at the anchored cells);
+25. each policy's chunk traced as phase 18 traces the spread one.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
 name and power limit, and the ``{"kernels": [...]}`` line the kernels'
 launches and times (each step kernel's ``live`` entry: phase 14's
 numbers and the live instantiation's registers; its ``prefetch``
-entry: phase 18's and the three-slot instantiation's).  Without a
-card, or outside a checkout, it exits nonzero and prints no result.
+entry: phase 18's and the three-slot instantiation's; its ``adaptive``
+and ``ranked`` entries: phase 25's and those instantiations').  Without
+a card, or outside a checkout, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -185,6 +208,9 @@ DEGREE = 8
 #: be equal; a float output may differ by RTOL·|plain| + ATOL (a few
 #: ulps: powf in the kernel and torch.pow may round the EWMA apart)
 RTOL, ATOL = 1e-6, 1e-6
+#: float outputs held to the bit: adaptive's penalty window, which the
+#: kernel drains and re-arms by the plain version's float ops
+EXACT_FLOATS = ("holder_penalty_ms",)
 #: the reductions' sums, kernel vs plain on the card: float32 sums of
 #: up to 1,048,576 values in another order (the kernel's blocks, then
 #: the blocks; torch.sum's own tree), held to 1e-5 relative.  Counts
@@ -292,11 +318,17 @@ RING_PEERS = 262_144
 #: to 5
 REFERENCE_POLICY_AB = "POLICY_AB_r05.json"
 #: the reference at HEAD, re-run on a CPU at the record's shape by
-#: tools/torch_port_policy_anchor.py: {cell: (offload, rebuffer)}, rounded
-#: as the record.  Where it differs from the record (cells 0, 11 and 17)
+#: tools/torch_port_policy_anchor.py: {policy: {cell: (offload,
+#: rebuffer)}}, rounded as the record.  Where it differs from the record
+#: (spread: cells 0, 11 and 17; adaptive: 0, 5 and 11; ranked: 0 and 11)
 #: the port is held to it, not to the record.
-RING_ANCHOR = {5: (0.2396, 0.00128), 11: (0.4796, 0.00119),
-               0: (0.3556, 0.00119), 17: (0.3185, 0.00128)}
+RING_ANCHOR = {
+    "spread": {5: (0.2396, 0.00128), 11: (0.4796, 0.00119),
+               0: (0.3556, 0.00119), 17: (0.3185, 0.00128)},
+    "adaptive": {0: (0.4334, 0.00119), 5: (0.3062, 0.00128),
+                 11: (0.5054, 0.00119), 17: (0.3299, 0.00128)},
+    "ranked": {0: (0.3598, 0.00119), 5: (0.2291, 0.00128),
+               11: (0.5291, 0.00119), 17: (0.3836, 0.00128)}}
 #: the cells run alone, each as a chunk of its own: the anchored crowd
 #: cell and hetero stagger cell
 RING_ALONE = (5, 11)
@@ -310,6 +342,17 @@ RING_ROW_TOL = 5e-4
 #: tests/test_torch_faults.py); the last plan exhausts its budget on
 #: chunk 1, whose cells come back as a structured failure
 FAULT_CHUNK = 4
+#: the holder policies besides "spread", and their kernel check's cases
+#: (policy, slots, live) on the prefetch fixture's lanes, at the two states
+#: of PREFETCH_CHECK_STEPS
+POLICIES = ("adaptive", "ranked")
+POLICY_CASES = tuple((p, c, live) for p in POLICIES
+                     for c, live in ((3, False), (1, False), (3, True)))
+#: peers (the ring of 8, three slots) at which ranked's ids wrap for many
+#: requesters and select_admit's tiles wrap the ring (phase 4's sizes),
+#: and plain steps before the check
+POLICY_WRAP_PEERS = (16, 1000)
+POLICY_WRAP_STEPS = 80
 FAULT_PLANS = {"transient@0:0x2": {"transient|retry": 2},
                "oom@0:0x2": {"oom|bisect": 2},
                "transient@0:1x4": {"transient|retry": 3,
@@ -351,13 +394,16 @@ def _pairs(named_a, named_b):
 def compare(what, named_a, named_b):
     """Kernel outputs ``named_a`` against plain outputs ``named_b``:
     returns the largest float difference; raises on any integer
-    mismatch or a float outside RTOL/ATOL."""
+    mismatch, a float of EXACT_FLOATS not equal to the bit, or another
+    float outside RTOL/ATOL."""
     import torch
     worst = 0.0
     for name, a, b in _pairs(named_a, named_b):
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"{what}: {name} shape/dtype {a.shape}/{a.dtype} vs "
               f"{b.shape}/{b.dtype}")
+        if name in EXACT_FLOATS:
+            a, b = a.view(torch.int32), b.view(torch.int32)
         if not a.is_floating_point():
             bad = int((a != b).sum())
             check(bad == 0, f"{what}: {name} differs at {bad} entries")
@@ -522,13 +568,17 @@ def kernel_registers(lines):
     return out
 
 
-def registers_of(regs, kernel, live, slots=1):
+def registers_of(regs, kernel, live, slots=1, policy="spread"):
     """The build's registers and spills of ``kernel``'s instantiation on
     the main path's ring (K = 8 for ``select_admit``), live or VOD, for
-    ``slots`` transfer slots (1 or 3; 0 the generic instantiation)."""
-    b, ct = int(live), slots
-    tag = {"select_admit": f"select_admit_kernelILi8ELb{b}ELi{ct}EE",
-           "peer_update": f"peer_update_kernelILb{b}ELi{ct}EE"}[kernel]
+    ``slots`` transfer slots (1 or 3; 0 the generic instantiation) and
+    holder ``policy`` (``peer_update``'s penalty instantiation for
+    ``"adaptive"``)."""
+    from hlsjs_p2p_wrapper_tpu_torch.ops.swarm_kernels import POLICY_CODES
+    b, ct, pol = int(live), slots, POLICY_CODES[policy]
+    pen = int(policy == "adaptive")
+    tag = {"select_admit": f"select_admit_kernelILi8ELb{b}ELi{ct}ELi{pol}EE",
+           "peer_update": f"peer_update_kernelILb{b}ELi{ct}ELb{pen}EE"}[kernel]
     found = [v for k, v in regs.items() if tag in k]
     check(len(found) == 1, f"ptxas reported no single {tag} function")
     return found[0]
@@ -942,11 +992,16 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
     selection also reads each requester's stagger rank and wait clock
     and three lane scalars, and ``peer_update`` writes every wait clock,
     reads those of the foregrounds blocked on the stagger (the others
-    reset) and reads the cushion.  A kernel's bound is these bytes over
-    the card's memory rate."""
+    reset) and reads the cushion.  Under ``"adaptive"`` the selection
+    reads each requester's penalty row, and ``peer_update`` reads every
+    row, writes back the rows that were open or re-arm, and reads the
+    holder offset of each deny and abort and the lane's re-arm value;
+    ``"ranked"`` does not read an active slot's stored holder.  A
+    kernel's bound is these bytes over the card's memory rate."""
     import torch
     g = sk.geometry(config)
     P, K, C = g.P, len(g.offs), config.max_concurrency
+    policy = config.holder_selection
     tg = sk.slot_targets(config, scenario, state_before)
     act = tg["active"]
     n_active = int(act.sum())
@@ -960,7 +1015,8 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
                         for o in g.offs_mod for c in range(C)])
     words = int(torch.unique(keys).numel()) if K else 0
     tk1 = (4 * (12 + C) * P    # 12 per-peer arrays and each slot's attempts
-           + 4 * 3 * n_active  # dl_seg, dl_level, dl_holder_off (active)
+           # dl_seg, dl_level and (but for ranked) dl_holder_off (active)
+           + 4 * (2 if policy == "ranked" else 3) * n_active
            + 4 * words         # neighbours' wanted map words
            + 4 * (g.L + 5)     # ladder, t_s, four policy scalars
            + 4 * 2 * P * C     # slot_flags, req
@@ -1007,6 +1063,20 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
         blocked = int(((slot_flags[..., 0] & 16) != 0).sum())
         tk1 += 4 * 2 * P + 4 * 3   # edge_rank, fg_wait_ms; three scalars
         tk3 += 4 * P + 4 * blocked + 4   # fg_wait_ms; live_sync_s
+    if policy == "adaptive":
+        f0 = slot_flags[:, 0]
+        admitted = torch.zeros_like(f0, dtype=torch.bool)
+        for k, o in enumerate(g.offs):
+            admitted |= (req[:, 0] == k) & (
+                ((torch.roll(adm[:, 0], -o, 0) >> k) & 1) != 0)
+        n_denied = int((((f0 & 1) != 0) & ((f0 & 4) != 0)
+                        & ((f0 & 8) != 0) & ~admitted).sum())
+        rows = torch.stack([state_before.holder_penalty_ms,
+                            state_after.holder_penalty_ms]).view(torch.int32)
+        written = int((rows != 0).any(-1).any(0).sum())
+        tk1 += 4 * K * P
+        tk3 += (4 * K * P + 4 * K * written + 4 * (n_denied + n_aborted)
+                + 4)
     # select_admit: TK1's traffic plus uplink in, service and adm out,
     # the efficiency scalar (req stays in shared memory)
     fused = tk1 + 4 * (2 + C) * P + 4
@@ -1109,6 +1179,152 @@ def prefetch_branch_counts(sim, sk, config, scenario, state):
                                & have_n & ~admitted).sum())
         counts["rotation"] += int((~pre_act[..., c] & (req[..., c] >= 0)
                                    & (state.dl_attempts[..., c] > 0)).sum())
+    return counts
+
+
+def _bitmask(cols):
+    """``[..., K]`` booleans as an int64 bit mask (bit k, column k)."""
+    import torch
+    shift = torch.arange(cols.shape[-1], device=cols.device)
+    weights = torch.ones_like(shift) << shift
+    return (cols.to(torch.int64) * weights).sum(-1)
+
+
+def _popcount(x):
+    import torch
+    n = torch.zeros_like(x)
+    for k in range(32):
+        n += (x >> k) & 1
+    return n
+
+
+def signed_offset_picks(config, elig, skip):
+    """What ranked would pick if peer ids followed the signed offsets
+    (no wrap): per requester, from its eligible-offset bit mask
+    ``elig``, the offset index of the (``skip`` + 1)-th eligible holder
+    in signed-offset order (the last where fewer exist), else -1."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_kernels as sk
+    offs = sk.geometry(config).offs
+    n_e = _popcount(elig)
+    target = torch.clamp_max(n_e - 1, skip)
+    seen = torch.zeros_like(n_e)
+    pick = torch.full_like(n_e, -1)
+    for k in sorted(range(len(offs)), key=lambda k: offs[k]):
+        e_k = ((elig >> k) & 1) != 0
+        pick = torch.where(e_k & (seen == target), k, pick)
+        seen += e_k.to(seen.dtype)
+    return pick
+
+
+def eligible_bits(sim, sk, config, scenario, state):
+    """Each slot's eligible-offset bit mask ``[..., P]`` (int64) at the
+    next step, requester-gated as the selection sees it."""
+    import torch
+    g = sk.geometry(config)
+    C = config.max_concurrency
+    tg = sk.slot_targets(config, scenario, state)
+    serve_ok = tg["present"] & (scenario.p2p_ok > 0.0)
+    return [_bitmask(torch.stack(e, -1) > 0) * (scenario.p2p_ok > 0.0)
+            for e, _n, _own in sim.circulant_eligibility(
+                state.avail, serve_ok, list(g.offs),
+                [tg["gi_flat"][..., c] for c in range(C)], impl="kpass")]
+
+
+def policy_branch_counts(sim, sk, config, scenario, state):
+    """How many (peer, slot) pairs of the lanes ``state`` each branch of
+    the holder policy binds in the next step, as the plain step sees it.
+    Under ``"adaptive"``: ``tier``, idle slots whose new holder differs
+    from the one ``"spread"`` picks on the same state; ``own_used`` and
+    ``penalty``, idle slots with an eligible holder that the own-load key
+    or the penalty window keeps out of the lowest tier; ``rearm_deny``,
+    ``rearm_lost``, ``rearm_timeout`` and ``rearm_busy``, the foreground
+    BUSY denies and the prefetch aborts by kind whose holder's window
+    the update re-arms.  Under ``"ranked"``: ``skip_s``, selections that
+    place demand with more than s eligible holders, for each skip s the
+    slots take; ``wrap``, selections that place demand on another holder
+    than an order by signed offset would (the ring's wrap)."""
+    import torch
+    g = sk.geometry(config)
+    C, K = config.max_concurrency, len(g.offs)
+    tg = sk.slot_targets(config, scenario, state)
+    pre_act, pre_p2p = tg["active"], tg["is_p2p"]
+    st = sim.clone_state(state)
+    flags, req, service, adm = sk.select_admit_plain(config, scenario, st)
+    elig = eligible_bits(sim, sk, config, scenario, state)
+    counts = {}
+    if config.holder_selection == "ranked":
+        counts["wrap"] = 0
+        for c in range(C):
+            skip = C - 1 if c == 0 else c - 1
+            placed = req[..., c] >= 0
+            key = f"skip_{skip}"
+            counts[key] = counts.get(key, 0) + int(
+                (placed & (_popcount(elig[c]) > skip)).sum())
+            alt = signed_offset_picks(config, elig[c], skip)
+            counts["wrap"] += int((placed & (alt != req[..., c])).sum())
+        return counts
+    check(config.holder_selection == "adaptive",
+          f"no policy branches for {config.holder_selection!r}")
+    pen = _bitmask(state.holder_penalty_ms > 0.0)
+    post_act, post_p2p = (flags & 2) != 0, (flags & 4) != 0
+    spread = sim.clone_state(state)._replace(
+        holder_penalty_ms=state.holder_penalty_ms[..., :0].contiguous())
+    sk.elig_select_plain(config._replace(holder_selection="spread"),
+                         scenario, spread)
+    counts.update(tier=0, own_used=0, penalty=0)
+    for c in range(C):
+        used = torch.zeros_like(pen)
+        for o in range(C):
+            if o == c:
+                continue
+            a_o, p_o, off = ((post_act[..., o], post_p2p[..., o],
+                              st.dl_holder_off[..., o]) if o < c else
+                             (pre_act[..., o], pre_p2p[..., o],
+                              state.dl_holder_off[..., o]))
+            ok = a_o & p_o & (off >= 0) & (off < K)
+            bit = off.clamp(0, 31).to(torch.int64)
+            used |= torch.where(ok, torch.ones_like(bit) << bit, 0)
+        e = elig[c]
+        tier = torch.zeros_like(e)
+        for part in (e & ~used & ~pen, e & ~used & pen, e & used & ~pen,
+                     e & used & pen):
+            tier = torch.where(tier != 0, tier, part)
+        idle = ~pre_act[..., c]
+        counts["own_used"] += int((idle & ((e & used & ~tier) != 0)).sum())
+        counts["penalty"] += int((idle & ((e & pen & ~tier) != 0)).sum())
+        counts["tier"] += int((idle & (st.dl_holder_off[..., c]
+                                       != spread.dl_holder_off[..., c]))
+                              .sum())
+    after = sim.clone_state(st)
+    sk.peer_update_plain(config, scenario, after, flags, req, service, adm)
+    value = scenario.holder_penalty_ms[:, None]
+    counts.update(rearm_deny=0, rearm_lost=0, rearm_timeout=0, rearm_busy=0)
+    for c in range(C):
+        admitted = torch.zeros_like(post_act[..., c])
+        for k, o in enumerate(g.offs):
+            admitted |= (req[..., c] == k) & (
+                ((torch.roll(adm[..., c], -o, -1) >> k) & 1) != 0)
+        fl = flags[..., c]
+        off = st.dl_holder_off[..., c]
+        armed = (off >= 0) & (off < K) & (torch.gather(
+            after.holder_penalty_ms, -1,
+            off.clamp(0, K - 1).long()[..., None])[..., 0] == value)
+        may, have_n = (fl & 1) != 0, (fl & 8) != 0
+        busy = may & have_n & ~admitted
+        if c == 0:
+            counts["rearm_deny"] += int((armed & busy & ((fl & 4) != 0))
+                                        .sum())
+            continue
+        was = post_act[..., c]
+        aborted = (was & ~(((after.dl_flags >> (2 * c)) & 1) != 0)
+                   & (after.dl_attempts[..., c] > st.dl_attempts[..., c]))
+        elapsed = st.dl_elapsed_ms[..., c] + torch.where(
+            tg["present"], config.dt_ms, 0.0)
+        timeout = elapsed >= scenario.request_timeout_ms[:, None]
+        counts["rearm_lost"] += int((armed & aborted & ~have_n).sum())
+        counts["rearm_timeout"] += int((armed & aborted & timeout).sum())
+        counts["rearm_busy"] += int((armed & aborted & busy).sum())
     return counts
 
 
@@ -2184,6 +2400,137 @@ def phase_prefetch_fixture(label="[16]"):
           "the prefetch fixture's clock or count columns differ")
 
 
+def phase_policy_kernels(sim, sk):
+    """The holder policies' step kernels against their plain versions:
+    each case of POLICY_CASES on the prefetch fixture's lanes at
+    GRID_PEERS × GRID_SEGMENTS, at the two states of
+    PREFETCH_CHECK_STEPS (reached by the kernels' own steps),
+    ``select_admit``, TK1 and TK2 on the ring and on WIDE_OFFSETS, and
+    ``peer_update`` on both, the penalty window to the bit; every policy
+    branch shown to bind (:func:`policy_branch_counts`).  Then both
+    policies at each of POLICY_WRAP_PEERS, where ranked's ids wrap: one
+    call of each kernel and ROUTE_STEPS steps against the plain step.
+    Returns ``({kernel: max abs float error}, {policy: branch counts})``."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import (REFERENCE_PREFETCH,
+                                                     prefetch_lanes)
+    d = np.load(REFERENCE_PREFETCH)
+    errs, total = {}, {p: {} for p in POLICIES}
+
+    def merge(e, counts=None, policy=None):
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+        for name, n in (counts or {}).items():
+            total[policy][name] = total[policy].get(name, 0) + n
+    for policy, slots, live in POLICY_CASES:
+        t0 = time.perf_counter()
+        config, scenario, _j, _l = prefetch_lanes(
+            d, "cuda", peers=GRID_PEERS, segments=GRID_SEGMENTS,
+            watch_s=PREFETCH_WATCH_S, slots=slots, policy=policy)
+        config = config._replace(live=live)
+        wide = config._replace(neighbor_offsets=WIDE_OFFSETS)
+        B = scenario.join_s.shape[0]
+        state = sim.init_swarm(config, device="cuda", batch=B)
+        for n_steps in (PREFETCH_CHECK_STEPS, PREFETCH_CHECK_MORE):
+            for _ in range(n_steps):
+                state = sim.swarm_step(config, scenario, state)
+            torch.cuda.synchronize()
+            label = (f"{policy}, C = {slots}{', live' if live else ''}, "
+                     f"{B} lanes x {GRID_PEERS:,} peers at t = "
+                     f"{float(state.t_s[0])!r} s")
+            windows = (f"; {int((state.holder_penalty_ms > 0).sum())} "
+                       f"penalty windows open" if policy == "adaptive"
+                       else "")
+            log(f"[22] {label} x {GRID_SEGMENTS} segments (the prefetch "
+                f"fixture's cells): warmed by the kernels in "
+                f"{time.perf_counter() - t0:.2f} s{windows}")
+            e = compare_kernels(sim, sk, config, scenario, state, label)
+            wide_label = f"{label}, offsets {WIDE_OFFSETS}"
+            for name, v in compare_kernels_pair(sim, sk, wide, scenario,
+                                                state, wide_label).items():
+                e[name] = max(e[name], v)
+            e["peer_update"] = max(e["peer_update"], compare_peer_update(
+                sim, sk, wide, scenario, state, wide_label)[0])
+            counts = policy_branch_counts(sim, sk, config, scenario, state)
+            log(f"  {label}: TK1 + TK2 and peer_update agree on offsets "
+                f"{WIDE_OFFSETS} too; max float err {json.dumps(e)}; "
+                f"(peer, slot) pairs each {policy} branch binds "
+                f"{json.dumps(counts)}")
+            merge(e, counts, policy)
+        del state, scenario
+    for peers in POLICY_WRAP_PEERS:
+        for policy in POLICIES:
+            cfg, scen, _j, _l = prefetch_lanes(
+                d, "cuda", peers=peers, segments=GRID_SEGMENTS,
+                watch_s=PREFETCH_WATCH_S, policy=policy)
+            st = sim.init_swarm(cfg, device="cuda",
+                                batch=scen.join_s.shape[0])
+            for _ in range(POLICY_WRAP_STEPS):
+                st = sk.plain_step(cfg, scen, st)
+            label = f"{policy}, C = 3, {peers:,} peers (the ring's wrap)"
+            e = compare_kernels(sim, sk, cfg, scen, st, label)
+            counts = policy_branch_counts(sim, sk, cfg, scen, st)
+            a, b = sim.clone_state(st), sim.clone_state(st)
+            for _ in range(ROUTE_STEPS):
+                a = sim.swarm_step(cfg, scen, a)
+                b = sk.plain_step(cfg, scen, b)
+            e["peer_update"] = max(e["peer_update"], compare(
+                f"{label} {ROUTE_STEPS} steps", a._asdict(), b._asdict()))
+            log(f"[22] {label}: the kernels and {ROUTE_STEPS} steps agree "
+                f"with the plain step; max float err {json.dumps(e)}; "
+                f"branch counts {json.dumps(counts)}")
+            merge(e, counts, policy)
+    log(f"    policy branches over every state: {json.dumps(total)}")
+    idle = {p: [n for n, v in c.items() if v == 0] for p, c in total.items()}
+    check(not any(idle.values()), f"policy branches idle: {idle}")
+    check(set(total["ranked"]) >= {f"skip_{s}" for s in range(3)}
+          | {"wrap"}, f"ranked's branches counted: {total['ranked']}")
+    return errs, total
+
+
+def phase_policies_fixture(sim):
+    """The port's batched runs under each of POLICIES against the
+    committed policies fixture: ratios and series within RUN_TOL, the
+    timeline's clock and count columns equal, the joins and leaves the
+    fixture's to the bit."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import (REFERENCE_POLICIES,
+                                                     run_prefetch_fixture)
+    d = np.load(REFERENCE_POLICIES)
+    check(tuple(d["policies"]) == POLICIES,
+          f"the policies fixture holds {list(d['policies'])}")
+    cols = list(d["columns"])
+    exact = [i for i, c in enumerate(cols)
+             if c in ("t_s", "stalled_peers") or c.startswith("level_")]
+    for policy in POLICIES:
+        offload, rebuffer, series, timeline, joins, leaves = (
+            run_prefetch_fixture(d, "cuda", policy))
+        torch.cuda.synchronize()
+        offload, rebuffer = offload.cpu().numpy(), rebuffer.cpu().numpy()
+        series, timeline = series.cpu().numpy(), timeline.cpu().numpy()
+        want = {k: d[f"{policy}_{k}"] for k in ("offload", "rebuffer",
+                                                 "series", "timeline")}
+        errs = {k: float(np.abs(v - want[k]).max())
+                for k, v in (("offload", offload), ("rebuffer", rebuffer),
+                             ("series", series))}
+        log(f"[23] policies fixture, {policy}: {d['shape'].tolist()} "
+            f"(peers, segments, steps, record_every, lanes), cells "
+            f"{str(d['cells'])}: offload {offload.tolist()} (JAX "
+            f"{want['offload'].tolist()}), rebuffer {rebuffer.tolist()} "
+            f"(JAX {want['rebuffer'].tolist()}); max abs err "
+            f"{json.dumps(errs)}")
+        check(np.array_equal(joins.cpu().numpy(), d["join_s"])
+              and np.array_equal(leaves.cpu().numpy(), d["leave_s"]),
+              "the port's joins or leaves are not the policies fixture's")
+        check(max(errs.values()) <= RUN_TOL,
+              f"the port's {policy} run disagrees with the JAX fixture")
+        check(np.array_equal(timeline[..., exact],
+                             want["timeline"][..., exact]),
+              f"the {policy} fixture's clock or count columns differ")
+
+
 def _ring_run(dp, g, items, chunk, faults=None):
     """``run_groups_chunked`` of the ring grid's ``items`` in chunks of
     ``chunk`` (autotuned when None): ``(rows, stats, wall seconds)``."""
@@ -2197,19 +2544,20 @@ def _ring_run(dp, g, items, chunk, faults=None):
     return results[0], stats[0], time.perf_counter() - t0
 
 
-def phase_ring_grid(sim, sk, pg, dp):
-    """The spread column of tools/policy_ab.py's ring table at its size:
-    20 cells × 262,144 peers × 128 segments × 960 steps, three transfer
-    slots, through ``run_batch_chunked`` with a ``FaultPolicy`` armed and
-    the autotuned chunk; launches checked; a direct run of the 20 lanes
-    gives the same rows, and each last series entry its final offload;
-    two cells alone, each a chunk of its own, give their rows to the bit;
-    the rows held to the reference's record after its rounding (at the
-    cells ``tools/torch_port_policy_anchor.py`` re-ran, to the reference
-    at HEAD).  Returns what the later phases need."""
+def phase_ring_grid(sim, sk, pg, dp, policy="spread", tag="[17]"):
+    """The ``policy`` column of tools/policy_ab.py's ring table at its
+    size: 20 cells × 262,144 peers × 128 segments × 960 steps, three
+    transfer slots, through ``run_batch_chunked`` with a ``FaultPolicy``
+    armed and the autotuned chunk; launches checked; a direct run of the
+    20 lanes gives the same rows, and each last series entry its final
+    offload; two cells alone, each a chunk of its own, give their rows
+    to the bit; the rows held to the reference's record after its
+    rounding (at the cells ``tools/torch_port_policy_anchor.py`` re-ran
+    for the policy, to the reference at HEAD).  Returns what the later
+    phases need."""
     import torch
     from hlsjs_p2p_wrapper_tpu_torch.engine.faults import FaultPolicy
-    config = pg.ring_config(RING_PEERS)
+    config = pg.ring_config(RING_PEERS, policy=policy)
     cells = pg.cells()
     n_steps = int(pg.WATCH_S * 1000.0 / config.dt_ms)
     audience = pg.build_audience(config.n_peers, pg.SEED, device="cuda")
@@ -2225,20 +2573,20 @@ def phase_ring_grid(sim, sk, pg, dp):
                                scenario=build(cells[0])[0], device="cuda")
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
-    policy = FaultPolicy()
-    rows, stats, wall = _ring_run(dp, g, cells, None, policy)
+    faults = FaultPolicy()
+    rows, stats, wall = _ring_run(dp, g, cells, None, faults)
     launches = dict(sk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     n_chunks = -(-len(cells) // chunk)
     peer_steps = len(cells) * config.n_peers * n_steps
-    log(f"[17] ring spread grid (tools/policy_ab.py): {len(cells)} cells x "
+    log(f"{tag} ring {policy} grid (tools/policy_ab.py): {len(cells)} cells x "
         f"{config.n_peers:,} peers x {config.n_segments} segments x "
         f"{n_steps} steps, C = {config.max_concurrency}, a FaultPolicy "
         f"armed; autotuned chunk {chunk} ({n_chunks} chunk(s)); wall "
         f"{wall!r} s, {len(cells) / wall!r} cells/s, "
         f"{peer_steps / wall:,.0f} peer-steps/s; launches "
         f"{json.dumps(launches)}; peak memory {peak:,} B; fault counts "
-        f"{json.dumps(policy.fault_counts())}")
+        f"{json.dumps(faults.fault_counts())}")
     # per chunk: a launch of each step kernel a step; lane_sums once (the
     # final offload ratio), timeline_row once (the final rebuffer ratio)
     want = {"select_admit": n_steps * n_chunks, "elig_select": 0,
@@ -2246,7 +2594,7 @@ def phase_ring_grid(sim, sk, pg, dp):
             "lane_sums": n_chunks, "timeline_row": n_chunks}
     check(launches == want, f"ring grid launches {launches}, not {want}")
     check(stats["chunk"] == chunk and not stats["failures"]
-          and policy.fault_counts() == {},
+          and faults.fault_counts() == {},
           f"the ring grid recovered from something: {stats}")
     for i, (off, reb) in enumerate(rows):
         check(0.0 <= off <= 1.0 and 0.0 <= reb <= 1.0,
@@ -2284,8 +2632,9 @@ def phase_ring_grid(sim, sk, pg, dp):
           f"{REFERENCE_POLICY_AB} is not at this grid's size")
     by_cell = {(r["pattern"], r["wave"], r["uplink_mbps"]): r
                for r in table["rows"]}
-    ref = [RING_ANCHOR.get(i, (by_cell[c]["spread_offload"],
-                               by_cell[c]["spread_rebuffer"]))
+    anchor = RING_ANCHOR[policy]
+    ref = [anchor.get(i, (by_cell[c][f"{policy}_offload"],
+                          by_cell[c][f"{policy}_rebuffer"]))
            for i, c in enumerate(cells)]
     mine = [_rounded(off, reb) for off, reb in rows]
     diffs = {i: (abs(m[0] - r[0]), abs(m[1] - r[1]))
@@ -2294,7 +2643,7 @@ def phase_ring_grid(sim, sk, pg, dp):
     log(f"    rows (offload, rebuffer) {json.dumps(mine)}; equal to the "
         f"reference's at {len(cells) - len(diffs)} of {len(cells)} cells "
         f"after its rounding ({REFERENCE_POLICY_AB}, a TPU's run, and at "
-        f"cells {sorted(RING_ANCHOR)} the reference at HEAD re-run on a "
+        f"cells {sorted(anchor)} the reference at HEAD re-run on a "
         f"CPU); largest difference {worst!r}; cells that differ (offload, "
         f"rebuffer differences) "
         f"{json.dumps({i: v for i, v in sorted(diffs.items())})}; the "
@@ -2302,14 +2651,17 @@ def phase_ring_grid(sim, sk, pg, dp):
         f"captures), rows equal; cells {list(RING_ALONE)} alone equal to "
         f"the bit; each last series entry equals its final offload")
     check(worst <= RING_ROW_TOL,
-          f"ring rows differ from the reference by {worst!r}, more than "
-          f"{RING_ROW_TOL}")
+          f"ring {policy} rows differ from the reference by {worst!r}, "
+          f"more than {RING_ROW_TOL}")
+    check(all(mine[i] == r for i, r in anchor.items()),
+          f"ring {policy} rows differ from HEAD's reference at the anchored "
+          f"cells {sorted(anchor)}")
     g.update(launches=launches, chunk=chunk, wall=wall, rows=rows,
-             scenario=scenario, final=final, peak=peak)
+             scenario=scenario, final=final, peak=peak, policy=policy)
     return g
 
 
-def phase_ring_trace(sim, sk, g):
+def phase_ring_trace(sim, sk, g, tag="[18]"):
     """The ring grid's 20-lane chunk traced: the whole run as graphs
     (device busy time and idle share), TRACE_STEPS eager steps from its
     final state per kernel, and each kernel's bytes for one step from
@@ -2330,7 +2682,7 @@ def phase_ring_trace(sim, sk, g):
     del before, st
     bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in nbytes.items()}
     idle = None if busy is None else 1.0 - busy / wall_ms
-    log(f"[18] the ring grid's {B}-lane chunk (C = "
+    log(f"{tag} the ring {g['policy']} grid's {B}-lane chunk (C = "
         f"{config.max_concurrency}, {config.n_peers:,} peers, "
         f"{g['n_steps']} steps) traced whole as graphs: device busy "
         f"{busy!r} ms per step, idle {idle!r} of the traced host wall "
@@ -2511,9 +2863,18 @@ def main() -> int:
         ring = phase_ring_grid(sim, sk, pg, dp)
         prefetch = phase_ring_trace(sim, sk, ring)
         phase_injected_faults(sim, dp, ring)
+        del ring["scenario"], ring["final"]
         phase_real_oom(sim, sg, dp, grid)
         # the card after the recovery: a run that captures graphs
         phase_prefetch_fixture("[21] after the real OOM, again the")
+        errs_policy, _branches = phase_policy_kernels(sim, sk)
+        phase_policies_fixture(sim)
+        rings, traces = {}, {}
+        for policy in POLICIES:
+            rings[policy] = phase_ring_grid(sim, sk, pg, dp, policy, "[24]")
+            traces[policy] = phase_ring_trace(sim, sk, rings[policy],
+                                              "[25]")
+            del rings[policy]["scenario"], rings[policy]["final"]
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2522,7 +2883,7 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         err = max(d.get(name, 0.0) for d in (errs, errs_1m, errs_routes,
                                               errs_batch, errs_live,
-                                              errs_prefetch))
+                                              errs_prefetch, errs_policy))
         wide = {"shape": f"48 x {GRID_PEERS:,}",
                 "launches": b48["launches"].get(name, 0),
                 "launches_in": b48["launches_in"],
@@ -2577,6 +2938,22 @@ def main() -> int:
                 "bytes": prefetch["bytes"][name],
                 "bound_ms": prefetch["bound_ms"][name],
                 "registers": registers_of(regs, name, False, 3)}
+            for policy in POLICIES:
+                ring_p, trace_p = rings[policy], traces[policy]
+                traced = trace_p["traced"].get(name)
+                entry[policy] = {
+                    "shape": f"{len(ring_p['cells'])} x "
+                             f"{ring_p['config'].n_peers:,}, C = "
+                             f"{ring_p['config'].max_concurrency}",
+                    "launches": ring_p["launches"][name],
+                    "launches_in": f"the ring {policy} grid of "
+                                   f"tools/policy_ab.py",
+                    "traced_ms": None if traced is None else traced[1],
+                    "traced_in": f"{TRACE_STEPS} eager steps from the "
+                                 f"chunk's final state",
+                    "bytes": trace_p["bytes"][name],
+                    "bound_ms": trace_p["bound_ms"][name],
+                    "registers": registers_of(regs, name, False, 3, policy)}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -7,7 +7,7 @@
 // jnp code that XLA fuses (its one Pallas kernel, the eligibility stencil
 // of ops/pallas_elig.py, was retired).  Each kernel below names the
 // reference lines it replaces.  The slice they cover: circulant offsets,
-// up to 16 transfer slots (max_concurrency), "spread" holder selection, an
+// up to 16 transfer slots (max_concurrency), the three holder policies, an
 // admission cap (max_total_serves > 0), VOD and live mode.
 //
 // Transfer slots (C = max_concurrency) are a template parameter CT of
@@ -32,6 +32,20 @@
 // clock from it (reference :1143-1168).  select_admit's halo requesters
 // read fg_wait_ms of rows another block owns, so no kernel may write it
 // in the launch that selects.
+//
+// The holder policy (config.holder_selection, reference :993-1051) is a
+// template parameter POL of TK1 and select_admit: POL_SPREAD hashes the
+// requester onto one eligible holder; POL_ADAPTIVE hashes it onto the
+// eligible holders of the lowest tier, scored by the requester's own load
+// on the offset (another of its slots rides it as an active P2P transfer)
+// and by the per-edge penalty window holder_penalty_ms ([B, P, K]);
+// POL_RANKED takes the holder of the (skip + 1)-th lowest peer id, with
+// skip C - 1 for the foreground and c - 1 for prefetch slot c, and is not
+// pinned to its stored holder.  The penalty window has the same one-writer
+// rule as fg_wait_ms: the selection reads it (halo requesters included) and
+// only TK3 writes it, which drains it every step and re-arms it on the
+// holder of a foreground BUSY deny and of every prefetch abort (TK3's PEN
+// instantiation, :1356-1358, :1405-1417, :1459-1466).
 //
 // Layout: scenario lanes.  Every array carries a leading lane axis of
 // n_lanes (B), and the lane is the grid's y dimension: one launch steps
@@ -80,6 +94,11 @@ static_assert(BLOCK == LS_THREADS,
 #define MAX_SLOTS 16
 // slots the per-slot register arrays of a CT instantiation hold
 #define SLOT_CAP(CT) ((CT) > 0 ? (CT) : MAX_SLOTS)
+
+// the holder policies (SelectArgs::policy, the POL template parameter)
+#define POL_SPREAD 0
+#define POL_ADAPTIVE 1
+#define POL_RANKED 2
 
 // ---------------------------------------------------------------------------
 // TK1 elig_select (reference K1 + K2)
@@ -157,6 +176,13 @@ struct SelectArgs {
   // the prefetch slots' retry cooldown ([B, P, C]) and the slot count C
   const float* dl_cooldown_ms;
   int n_slots;
+  // the holder policy, which selects the instantiation; adaptive's penalty
+  // window ([B, P, K], K = n_offs; read only by the POL_ADAPTIVE
+  // instantiations), and ranked's announce order: the offset indices by
+  // offs ascending
+  const float* holder_penalty_ms;
+  int policy;
+  int rank_order[MAX_OFFS];
 };
 
 __device__ __forceinline__ float corrected(float alpha, float est,
@@ -199,7 +225,31 @@ struct PeerIn {
   float margin_off;
   float edge_rank;  // live mode only
   float fg_wait;    // live mode only
+  uint32_t pen_bits;  // POL_ADAPTIVE only: bit k, holder_penalty_ms[k] > 0
 };
+
+// Adaptive's penalty bits of requester row r (K = KT, or n_offs for KT =
+// 0): bit k where its window on offset k is still open.  The selection
+// never writes the window, so it goes through the read-only path; a K = 8
+// row is 32 bytes, two 16-byte loads (the wrapper checks the alignment).
+template <int KT>
+__device__ __forceinline__ uint32_t penalty_bits(const SelectArgs& a,
+                                                 long long r) {
+  if (KT == 8) {
+    const float4* row =
+        reinterpret_cast<const float4*>(a.holder_penalty_ms + r * 8);
+    const float4 lo = __ldg(row), hi = __ldg(row + 1);
+    return (lo.x > 0.0f ? 1u : 0u) | (lo.y > 0.0f ? 2u : 0u) |
+           (lo.z > 0.0f ? 4u : 0u) | (lo.w > 0.0f ? 8u : 0u) |
+           (hi.x > 0.0f ? 16u : 0u) | (hi.y > 0.0f ? 32u : 0u) |
+           (hi.z > 0.0f ? 64u : 0u) | (hi.w > 0.0f ? 128u : 0u);
+  }
+  const int K = a.n_offs;
+  uint32_t bits = 0u;
+  for (int k = 0; k < K; ++k)
+    if (__ldg(&a.holder_penalty_ms[r * K + k]) > 0.0f) bits |= 1u << k;
+  return bits;
+}
 
 // A requester's live inputs (load_live): its floored playhead, its stagger
 // rank and wait clock.  Every requester loads them, select_admit's halo
@@ -253,11 +303,13 @@ __device__ __forceinline__ Wish select_wish(const SelectArgs& a, int lane,
 }
 
 // Each slot's transfer in flight: its active bit and flat (level * S +
-// seg) target, and its stored segment.  Before a slot is processed these
-// are its old record, loaded by load_flight; after, its new one
-// (slot_finish).  In-place invariant: dl_seg, dl_level and dl_holder_off
-// of slot c are read only where slot c is active, and written (by the
-// owner, in slot_finish) only where it is not (`may` implies !active).
+// seg) target, and its stored segment; under POL_ADAPTIVE also its is_p2p
+// bit and holder offset, which adaptive's own-load key reads (:1185-1205).
+// Before a slot is processed these are its old record, loaded by
+// load_flight; after, its new one (slot_finish).  In-place invariant:
+// dl_seg, dl_level and dl_holder_off of slot c are read only where slot c
+// is active, and written (by the owner, in slot_finish) only where it is
+// not (`may` implies !active).
 // select_admit recomputes the requesters of its halo, whose rows another
 // block owns and writes in the same launch; the active bits come from
 // dl_flags, which neither kernel writes, so no thread reads a field that
@@ -267,28 +319,36 @@ __device__ __forceinline__ Wish select_wish(const SelectArgs& a, int lane,
 template <int CT>
 struct Flight {
   uint32_t active;  // bit c: slot c in flight
+  uint32_t p2p;     // bit c: slot c is P2P (POL_ADAPTIVE only)
   int seg[SLOT_CAP(CT)];
   int flat[SLOT_CAP(CT)];
   int attempts[SLOT_CAP(CT)];  // the slot's failed attempts (read only)
+  int off[SLOT_CAP(CT)];       // the slot's holder offset (POL_ADAPTIVE)
 };
 
 // Loads each slot's old record with the requester's other inputs: its
 // attempt count (which the selection never writes) always, its target
-// under its own active bit.
-template <int CT>
+// (and under POL_ADAPTIVE its holder offset) under its own active bit.
+template <int CT, int POL>
 __device__ __forceinline__ void load_flight(const SelectArgs& a, long long r,
                                             int C, uint32_t fl,
                                             Flight<CT>& f) {
   f.active = 0u;
+  f.p2p = 0u;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     f.attempts[c] = a.dl_attempts[r * C + c];
     f.seg[c] = 0;
     f.flat[c] = 0;
+    if (POL == POL_ADAPTIVE) {
+      f.off[c] = 0;
+      if ((fl >> (2 * c + 1)) & 1u) f.p2p |= 1u << c;
+    }
     if ((fl >> (2 * c)) & 1u) {
       f.active |= 1u << c;
       f.seg[c] = a.dl_seg[r * C + c];
       f.flat[c] = a.dl_level[r * C + c] * a.n_segments + f.seg[c];
+      if (POL == POL_ADAPTIVE) f.off[c] = a.dl_holder_off[r * C + c];
     }
   }
 }
@@ -362,12 +422,56 @@ __device__ __forceinline__ bool in_flight_elsewhere(const Flight<CT>& f,
   return conflict;
 }
 
+// Adaptive's tier (:1019-1033): each eligible offset k scores own_used[k]
+// * 2 + (its penalty window open), where own_used[k] says that another slot
+// of the requester rides offset k as an active P2P transfer (the processed
+// slots' new records, the later slots' old ones); the offsets of the
+// lowest score.  A subset of elig_bits, empty only where it is.
+template <int CT>
+__device__ __forceinline__ uint32_t adaptive_tier(const Flight<CT>& f, int c,
+                                                  int C, uint32_t elig_bits,
+                                                  uint32_t pen_bits) {
+  uint32_t used = 0u;
+#pragma unroll
+  for (int o = 0; o < C; ++o)
+    if (o != c && (((f.active & f.p2p) >> o) & 1u) &&
+        (unsigned)f.off[o] < 32u)
+      used |= 1u << f.off[o];
+  uint32_t tier = elig_bits & ~used & ~pen_bits;
+  if (!tier) tier = elig_bits & ~used & pen_bits;
+  if (!tier) tier = elig_bits & used & ~pen_bits;
+  if (!tier) tier = elig_bits & used & pen_bits;
+  return tier;
+}
+
+// Ranked's pick (nth_holder_only, :919-947): the eligible holder of the
+// (skip + 1)-th lowest peer id, the last one found where fewer exist.
+// Holder k is peer (i + offs[k]) mod P; with the offsets in ascending order
+// (rank_order), those that wrap past P - 1 have the lowest ids, so the ids
+// ascend over the wrapped offsets, then the others.  -1 where none is
+// eligible.
+__device__ __forceinline__ int ranked_pick(const SelectArgs& a, long long i,
+                                           uint32_t elig_bits, int skip) {
+  const long long room = a.n_peers - i;  // offs[k] >= room wraps
+  int pick = -1, seen = 0;
+  for (int pass = 0; pass < 2; ++pass)
+    for (int n = 0; n < a.n_offs; ++n) {
+      const int k = a.rank_order[n];
+      if ((a.offs[k] >= room) != (pass == 0)) continue;
+      if ((elig_bits >> k) & 1u) {
+        if (seen <= skip) pick = k;
+        ++seen;
+      }
+    }
+  return pick;
+}
+
 // Slot c's selection after eligibility: elig_bits has bit k set where
 // neighbour k holds the slot's target bit and serves (:681-772, serve_ok
 // :805).  Writes the slot's outputs only where `owner` holds, sets its new
 // flight record, and returns its req.  i is the requester's peer index in
 // its lane (the hash's), r its row, t the lane's clock.
-template <bool LIVE, int CT>
+template <bool LIVE, int CT, int POL>
 __device__ __forceinline__ int slot_finish(const SelectArgs& a, int lane,
                                            long long i, long long r, int c,
                                            int C, const PeerIn& in,
@@ -436,34 +540,52 @@ __device__ __forceinline__ int slot_finish(const SelectArgs& a, int lane,
   }
   const bool active = tg.active || may;
 
-  // spread holder selection (:959-991), salt (c * 2246822519 + 97) mod
-  // 2^32, the rank advanced by the slot's failed attempts: the rank-th set
-  // bit of elig_bits
-  const uint32_t h = (uint32_t)i * 2654435761u +
-                     (uint32_t)tg.gi_seg * 40503u +
-                     ((uint32_t)c * 2246822519u + 97u);
-  const uint32_t nu = (uint32_t)fmaxf(n_holders, 1.0f);
-  const int rank = (int)((h % nu + (uint32_t)f.attempts[c]) % nu);
   int sel = -1;
-  if (rank < __popc(elig_bits)) {
-    uint32_t rest = elig_bits;
-    for (int n = 0; n < rank; ++n) rest &= rest - 1u;
-    sel = __ffs(rest) - 1;
+  if (POL == POL_RANKED) {
+    sel = ranked_pick(a, i, elig_bits, c == 0 ? C - 1 : c - 1);
+  } else {
+    // spread holder selection (:959-991), salt (c * 2246822519 + 97) mod
+    // 2^32, the rank advanced by the slot's failed attempts: the rank-th
+    // set bit of elig_bits, or under adaptive of its lowest tier, whose
+    // count takes the holder count's place
+    const uint32_t pick_bits =
+        POL == POL_ADAPTIVE
+            ? adaptive_tier<CT>(f, c, C, elig_bits, in.pen_bits)
+            : elig_bits;
+    const float n_pick =
+        POL == POL_ADAPTIVE ? (float)__popc(pick_bits) : n_holders;
+    const uint32_t h = (uint32_t)i * 2654435761u +
+                       (uint32_t)tg.gi_seg * 40503u +
+                       ((uint32_t)c * 2246822519u + 97u);
+    const uint32_t nu = (uint32_t)fmaxf(n_pick, 1.0f);
+    const int rank = (int)((h % nu + (uint32_t)f.attempts[c]) % nu);
+    if (rank < __popc(pick_bits)) {
+      uint32_t rest = pick_bits;
+      for (int n = 0; n < rank; ++n) rest &= rest - 1u;
+      sel = __ffs(rest) - 1;
+    }
   }
   const int new_off = sel >= 0 ? sel : 0;
-  // pinning (:1207-1228): an active transfer keeps its stored holder,
-  // and rides it only while that holder is still eligible
+  // pinning (:1207-1228): under spread and adaptive an active transfer
+  // keeps its stored holder, and rides it only while that holder is still
+  // eligible; ranked's pick is made anew every step (its stored holder is
+  // kept, not ridden)
   int off = new_off;
-  if (tg.active) {
-    off = a.dl_holder_off[r * C + c];
+  if (tg.active && POL != POL_RANKED) {
+    off = POL == POL_ADAPTIVE ? f.off[c] : a.dl_holder_off[r * C + c];
     sel = (off >= 0 && off < a.n_offs && ((elig_bits >> off) & 1u)) ? off
                                                                     : -1;
   }
   const bool demand = active && is_p2p && in.present;
   const int req = (demand && sel >= 0) ? sel : -1;
-  // the slot's new flight record, which the later slots' guard reads
+  // the slot's new flight record, which the later slots' guard (and
+  // adaptive's own-load key) reads
   if (may) f.flat[c] = w.want_level * S + tg.seg;
   f.active = active ? (f.active | (1u << c)) : (f.active & ~(1u << c));
+  if (POL == POL_ADAPTIVE) {
+    f.p2p = is_p2p ? (f.p2p | (1u << c)) : (f.p2p & ~(1u << c));
+    f.off[c] = off;
+  }
   if (!owner) return req;
   const long long rc = r * C + c;
   a.req[rc] = req;
@@ -482,7 +604,7 @@ __device__ __forceinline__ int slot_finish(const SelectArgs& a, int lane,
   return req;
 }
 
-template <bool LIVE, int CT>
+template <bool LIVE, int CT, int POL>
 __global__ void elig_select_kernel(const SelectArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
@@ -504,8 +626,9 @@ __global__ void elig_select_kernel(const SelectArgs a) {
   in.slow_w = a.slow_weight[r];
   in.cap_level = a.abr_cap_level[r];
   in.margin_off = a.urgent_margin_off_s[r];
+  if (POL == POL_ADAPTIVE) in.pen_bits = penalty_bits<0>(a, r);
   Flight<CT> f;
-  load_flight<CT>(a, r, C, in.fl, f);
+  load_flight<CT, POL>(a, r, C, in.fl, f);
   load_live<LIVE>(a, lane, r, t, in);
   const Wish w = select_wish<LIVE>(a, lane, in, t);
 #pragma unroll
@@ -525,8 +648,8 @@ __global__ void elig_select_kernel(const SelectArgs a) {
       if (have && serve) elig_bits |= 1u << k;
     }
     const bool own = own_bit(a, r, C, tg);
-    slot_finish<LIVE, CT>(a, lane, i, r, c, C, in, w, tg, elig_bits, own,
-                          true, t, f);
+    slot_finish<LIVE, CT, POL>(a, lane, i, r, c, C, in, w, tg, elig_bits,
+                               own, true, t, f);
   }
 }
 
@@ -628,6 +751,8 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
 // with prefetch slots a requester carries each slot's flight record
 // besides: 5 blocks per SM leave it 80 registers
 #define SA_SLOT_MIN_BLOCKS 5
+// blocks per SM an instantiation asks for: 8 for one slot, 5 for more
+#define SA_BLOCKS(CT) ((CT) == 1 ? SA_MIN_BLOCKS : SA_SLOT_MIN_BLOCKS)
 
 struct SelectAdmitArgs {
   SelectArgs sel;  // its offs hold the offsets reduced mod P
@@ -648,9 +773,8 @@ __device__ __forceinline__ long long wrap(long long x, long long P) {
   return x < 0 ? x + P : x;
 }
 
-template <int KT, bool LIVE, int CT>
-__global__ void __launch_bounds__(SA_THREADS, CT == 1 ? SA_MIN_BLOCKS
-                                                      : SA_SLOT_MIN_BLOCKS)
+template <int KT, bool LIVE, int CT, int POL>
+__global__ void __launch_bounds__(SA_THREADS, SA_BLOCKS(CT))
     select_admit_kernel(const SelectAdmitArgs a) {
   // the serve bits of the neighbour range (bit 0 present, bit 1 serves)
   // and the req of each (requester, slot) of the requester range
@@ -702,8 +826,9 @@ __global__ void __launch_bounds__(SA_THREADS, CT == 1 ? SA_MIN_BLOCKS
     in.slow_w = s.slow_weight[r];
     in.cap_level = s.abr_cap_level[r];
     in.margin_off = s.urgent_margin_off_s[r];
+    if (POL == POL_ADAPTIVE) in.pen_bits = penalty_bits<KT>(s, r);
     Flight<CT> f;
-    load_flight<CT>(s, r, C, in.fl, f);
+    load_flight<CT, POL>(s, r, C, in.fl, f);
     load_live<LIVE>(s, lane, r, t, in);
     const Wish w = select_wish<LIVE>(s, lane, in, t);
 #pragma unroll
@@ -741,7 +866,7 @@ __global__ void __launch_bounds__(SA_THREADS, CT == 1 ? SA_MIN_BLOCKS
       const bool own = own_bit(s, r, C, tg);
       const long long u = (long long)q - a.o_max;  // position in the tile
       const bool owner = u >= 0 && u < SA_TILE && b + u < P;
-      req_s[q * C + c] = (signed char)slot_finish<LIVE, CT>(
+      req_s[q * C + c] = (signed char)slot_finish<LIVE, CT, POL>(
           s, lane, i, r, c, C, in, w, tg, elig_bits, own, owner, t, f);
     }
   }
@@ -787,7 +912,8 @@ __global__ void __launch_bounds__(SA_THREADS, CT == 1 ? SA_MIN_BLOCKS
 // the playback cushion (playback starts live_sync_s after the join,
 // :1500-1507) and the stagger's wait clock: fg_wait_ms runs on by dt_ms
 // where the selection reported the foreground blocked (slot 0's flag bit
-// 4), else resets (:1165-1166).
+// 4), else resets (:1165-1166).  Under "adaptive" (PEN) it also drains and
+// re-arms the row's penalty window (update_penalty).
 //
 // Epilogue (TK4 lane_sums fused in; reference _scan_swarm's step sums and
 // ratio :1643-1647): the block sums the cdn_bytes and p2p_bytes its
@@ -866,6 +992,14 @@ struct UpdateArgs {
   const float* request_timeout_ms;
   const float* retry_dead_ms;
   int n_slots;
+  // adaptive's penalty window ([B, P, K], K = n_offs), each slot's holder
+  // offset ([B, P, C], as the selection left it) and the per-lane value a
+  // failed attempt re-arms the window to; penalty selects the PEN
+  // instantiation
+  float* holder_penalty_ms;
+  const int* dl_holder_off;
+  const float* penalty_ms;
+  int penalty;
 };
 
 __device__ __forceinline__ void ewma_update(float alpha, float weight,
@@ -878,8 +1012,58 @@ __device__ __forceinline__ void ewma_update(float alpha, float weight,
   *total_w = *total_w + weight;
 }
 
+// Adaptive's penalty window of row i (:1356-1358, :1405-1417,
+// :1459-1466): every offset drains by dt_ms, floored at 0, then the
+// offsets in `rearm` (the holders of this step's foreground BUSY deny and
+// prefetch aborts) re-open at the lane's holder_penalty_ms, which is the
+// reference's where() after its drain in slot order (every re-arm writes
+// the same value).  Only this thread touches the row.  A row of +0.0 words
+// that re-arms nothing drains to itself and is not written back.  A K = 8
+// row is 32 bytes, two 16-byte accesses (the wrapper checks the
+// alignment), so a warp's rows are one contiguous kilobyte.
+__device__ __forceinline__ void update_penalty(const UpdateArgs& a,
+                                               long long i, int lane,
+                                               uint32_t rearm) {
+  const int K = a.n_offs;
+  const float dt = a.dt_ms;
+  if (K == 8) {
+    float4* row = reinterpret_cast<float4*>(a.holder_penalty_ms + i * 8);
+    float4 lo = row[0], hi = row[1];
+    const uint32_t open =
+        __float_as_uint(lo.x) | __float_as_uint(lo.y) |
+        __float_as_uint(lo.z) | __float_as_uint(lo.w) |
+        __float_as_uint(hi.x) | __float_as_uint(hi.y) |
+        __float_as_uint(hi.z) | __float_as_uint(hi.w);
+    if (open == 0u && rearm == 0u) return;
+    const float v = rearm ? a.penalty_ms[lane] : 0.0f;
+    lo.x = (rearm & 1u) ? v : fmaxf(lo.x - dt, 0.0f);
+    lo.y = (rearm & 2u) ? v : fmaxf(lo.y - dt, 0.0f);
+    lo.z = (rearm & 4u) ? v : fmaxf(lo.z - dt, 0.0f);
+    lo.w = (rearm & 8u) ? v : fmaxf(lo.w - dt, 0.0f);
+    hi.x = (rearm & 16u) ? v : fmaxf(hi.x - dt, 0.0f);
+    hi.y = (rearm & 32u) ? v : fmaxf(hi.y - dt, 0.0f);
+    hi.z = (rearm & 64u) ? v : fmaxf(hi.z - dt, 0.0f);
+    hi.w = (rearm & 128u) ? v : fmaxf(hi.w - dt, 0.0f);
+    row[0] = lo;
+    row[1] = hi;
+    return;
+  }
+  for (int k = 0; k < K; ++k) {
+    float* w = a.holder_penalty_ms + i * K + k;
+    const bool hit = (rearm >> k) & 1u;
+    const float old = *w;
+    if (__float_as_uint(old) == 0u && !hit) continue;
+    *w = hit ? a.penalty_ms[lane] : fmaxf(old - dt, 0.0f);
+  }
+}
+
+// Bit `off` of a re-arm mask, for a holder offset the window has.
+__device__ __forceinline__ uint32_t rearm_bit(int off, int K) {
+  return (off >= 0 && off < K) ? 1u << off : 0u;
+}
+
 // One peer's update; returns its new (cdn_bytes, p2p_bytes).
-template <bool LIVE, int CT>
+template <bool LIVE, int CT, bool PEN>
 __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
                                               long long p, int lane) {
   const long long P = a.n_peers;
@@ -895,6 +1079,7 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
   // with prefetch slots)
   float buffer_add = (C > 1 && (fl0 & 32)) ? a.seg_duration_s : 0.0f;
   uint32_t flags = 0u;
+  uint32_t rearm = 0u;  // PEN: the offsets whose window re-arms
 
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -945,6 +1130,7 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
       if (denied) {
         done = 0.0f;
         elapsed = 0.0f;
+        if (PEN) rearm |= rearm_bit(a.dl_holder_off[ic], a.n_offs);
       }
       const bool expired = active && is_p2p && (elapsed >= a.dl_budget_ms[ic]);
       is_p2p = is_p2p && !expired;
@@ -969,6 +1155,7 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
         elapsed = 0.0f;
         cooldown = a.retry_dead_ms[lane];
         a.dl_attempts[ic] = a.dl_attempts[ic] + 1;
+        if (PEN) rearm |= rearm_bit(a.dl_holder_off[ic], a.n_offs);
       }
       if (completed) a.dl_attempts[ic] = 0;
       p2p_new = p2p_new + (completed ? total : 0.0f);
@@ -997,6 +1184,7 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
   a.cdn_bytes[i] = cdn_new;
   a.p2p_bytes[i] = p2p_new;
   a.dl_flags[i] = flags;
+  if (PEN) update_penalty(a, i, lane, rearm);
 
   // playback (:1495-1511)
   float playhead = a.playhead_s[i];
@@ -1018,14 +1206,14 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
   return make_float2(cdn_new, p2p_new);
 }
 
-template <bool LIVE, int CT>
+template <bool LIVE, int CT, bool PEN>
 __global__ void __launch_bounds__(BLOCK) peer_update_kernel(
     const UpdateArgs a) {
   __shared__ float2 red[BLOCK / 32];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = blockIdx.y;
   float2 bytes = make_float2(0.0f, 0.0f);
-  if (p < a.n_peers) bytes = update_peer<LIVE, CT>(a, p, lane);
+  if (p < a.n_peers) bytes = update_peer<LIVE, CT, PEN>(a, p, lane);
   const float2 b = ls_block_sum(bytes, red);
   if (threadIdx.x >= 32) return;
   // The clock, read before this block's arrival (so that the lane's last
@@ -1064,17 +1252,41 @@ static inline bool slots_ok(int n_slots) {
       CALL(0);                   \
   } while (0)
 
-template <int CT>
-static void launch_elig_select(const SelectArgs* a, cudaStream_t st) {
+static inline bool policy_ok(const SelectArgs* a) {
+  if (a->policy == POL_SPREAD || a->policy == POL_RANKED) return true;
+  return a->policy == POL_ADAPTIVE && a->holder_penalty_ms != nullptr;
+}
+
+// The instantiation for a holder policy.
+#define FOR_POLICY(policy, CALL)     \
+  do {                               \
+    if ((policy) == POL_ADAPTIVE)    \
+      CALL(POL_ADAPTIVE);            \
+    else if ((policy) == POL_RANKED) \
+      CALL(POL_RANKED);              \
+    else                             \
+      CALL(POL_SPREAD);              \
+  } while (0)
+
+template <int CT, int POL>
+static void launch_elig_select_pol(const SelectArgs* a, cudaStream_t st) {
   const dim3 grid = grid_for(a->n_peers, a->n_lanes);
   if (a->live)
-    elig_select_kernel<true, CT><<<grid, BLOCK, 0, st>>>(*a);
+    elig_select_kernel<true, CT, POL><<<grid, BLOCK, 0, st>>>(*a);
   else
-    elig_select_kernel<false, CT><<<grid, BLOCK, 0, st>>>(*a);
+    elig_select_kernel<false, CT, POL><<<grid, BLOCK, 0, st>>>(*a);
+}
+
+template <int CT>
+static void launch_elig_select(const SelectArgs* a, cudaStream_t st) {
+#define CALL_POL(POL) launch_elig_select_pol<CT, POL>(a, st)
+  FOR_POLICY(a->policy, CALL_POL);
+#undef CALL_POL
 }
 
 extern "C" int swarm_elig_select(const SelectArgs* args, void* stream) {
-  if (!slots_ok(args->n_slots)) return (int)cudaErrorInvalidValue;
+  if (!slots_ok(args->n_slots) || !policy_ok(args))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (args->n_peers > 0 && args->n_lanes > 0) {
 #define CALL(CT) launch_elig_select<CT>(args, st)
@@ -1096,13 +1308,21 @@ extern "C" int swarm_admit_service(const AdmitArgs* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <int CT>
-static void launch_peer_update(const UpdateArgs* a, cudaStream_t st) {
+template <int CT, bool PEN>
+static void launch_peer_update_pen(const UpdateArgs* a, cudaStream_t st) {
   const dim3 grid = grid_for(a->n_peers, a->n_lanes);
   if (a->live)
-    peer_update_kernel<true, CT><<<grid, BLOCK, 0, st>>>(*a);
+    peer_update_kernel<true, CT, PEN><<<grid, BLOCK, 0, st>>>(*a);
   else
-    peer_update_kernel<false, CT><<<grid, BLOCK, 0, st>>>(*a);
+    peer_update_kernel<false, CT, PEN><<<grid, BLOCK, 0, st>>>(*a);
+}
+
+template <int CT>
+static void launch_peer_update(const UpdateArgs* a, cudaStream_t st) {
+  if (a->penalty)
+    launch_peer_update_pen<CT, true>(a, st);
+  else
+    launch_peer_update_pen<CT, false>(a, st);
 }
 
 extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
@@ -1117,6 +1337,10 @@ extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
        (args->dl_attempts == nullptr || args->request_timeout_ms == nullptr ||
         args->retry_dead_ms == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (args->penalty &&
+      (args->holder_penalty_ms == nullptr || args->dl_holder_off == nullptr ||
+       args->penalty_ms == nullptr))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (args->n_peers > 0 && args->n_lanes > 0) {
 #define CALL(CT) launch_peer_update<CT>(args, st)
@@ -1129,37 +1353,46 @@ extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
 // select_admit's launch: SA_TILE peers of one lane per block (lanes on the
 // grid's y), one thread per requester of the tile and its halo (rounded up
 // to a warp).
-template <int KT, bool LIVE, int CT>
+template <int KT, bool LIVE, int CT, int POL>
 static void launch_select_admit_kt(const SelectAdmitArgs* a,
                                    cudaStream_t stream) {
   const long long P = a->sel.n_peers;
   const int span = a->o_max - a->o_min;
-  select_admit_kernel<KT, LIVE, CT>
+  select_admit_kernel<KT, LIVE, CT, POL>
       <<<dim3((unsigned int)((P + SA_TILE - 1) / SA_TILE),
               (unsigned int)a->sel.n_lanes),
          (SA_TILE + span + 31) / 32 * 32, 0, stream>>>(*a);
 }
 
-template <int CT>
-static void launch_select_admit(const SelectAdmitArgs* a, cudaStream_t st) {
+template <int CT, int POL>
+static void launch_select_admit_pol(const SelectAdmitArgs* a,
+                                    cudaStream_t st) {
   const bool ring8 = a->sel.n_offs == 8;
   if (a->sel.live) {
     if (ring8)
-      launch_select_admit_kt<8, true, CT>(a, st);
+      launch_select_admit_kt<8, true, CT, POL>(a, st);
     else
-      launch_select_admit_kt<0, true, CT>(a, st);
+      launch_select_admit_kt<0, true, CT, POL>(a, st);
   } else {
     if (ring8)
-      launch_select_admit_kt<8, false, CT>(a, st);
+      launch_select_admit_kt<8, false, CT, POL>(a, st);
     else
-      launch_select_admit_kt<0, false, CT>(a, st);
+      launch_select_admit_kt<0, false, CT, POL>(a, st);
   }
+}
+
+template <int CT>
+static void launch_select_admit(const SelectAdmitArgs* a, cudaStream_t st) {
+#define CALL_POL(POL) launch_select_admit_pol<CT, POL>(a, st)
+  FOR_POLICY(a->sel.policy, CALL_POL);
+#undef CALL_POL
 }
 
 // A halo wider than SA_MAX_SPAN is refused; the wrapper never sends one.
 extern "C" int swarm_select_admit(const SelectAdmitArgs* args, void* stream) {
   const int span = args->o_max - args->o_min;
-  if (span < 0 || span > SA_MAX_SPAN || !slots_ok(args->sel.n_slots))
+  if (span < 0 || span > SA_MAX_SPAN || !slots_ok(args->sel.n_slots) ||
+      !policy_ok(&args->sel))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (args->sel.n_peers > 0 && args->sel.n_lanes > 0) {
@@ -1173,24 +1406,40 @@ extern "C" int swarm_select_admit(const SelectAdmitArgs* args, void* stream) {
 // Load every kernel of this library onto the card now, so that none is
 // loaded lazily at its first launch, which may fall inside a CUDA graph
 // capture.  Called once, when the library is bound.
-template <int CT>
-static cudaError_t preload_slots() {
+static cudaError_t preload(const void* const* kernels, int n) {
   cudaFuncAttributes attr;
-  const void* kernels[] = {
-      (const void*)elig_select_kernel<false, CT>,
-      (const void*)elig_select_kernel<true, CT>,
-      (const void*)admit_service_kernel<CT>,
-      (const void*)peer_update_kernel<false, CT>,
-      (const void*)peer_update_kernel<true, CT>,
-      (const void*)select_admit_kernel<8, false, CT>,
-      (const void*)select_admit_kernel<0, false, CT>,
-      (const void*)select_admit_kernel<8, true, CT>,
-      (const void*)select_admit_kernel<0, true, CT>};
-  for (const void* k : kernels) {
-    const cudaError_t e = cudaFuncGetAttributes(&attr, k);
+  for (int i = 0; i < n; ++i) {
+    const cudaError_t e = cudaFuncGetAttributes(&attr, kernels[i]);
     if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
+}
+
+template <int CT, int POL>
+static cudaError_t preload_policy() {
+  const void* kernels[] = {
+      (const void*)elig_select_kernel<false, CT, POL>,
+      (const void*)elig_select_kernel<true, CT, POL>,
+      (const void*)select_admit_kernel<8, false, CT, POL>,
+      (const void*)select_admit_kernel<0, false, CT, POL>,
+      (const void*)select_admit_kernel<8, true, CT, POL>,
+      (const void*)select_admit_kernel<0, true, CT, POL>};
+  return preload(kernels, 6);
+}
+
+template <int CT>
+static cudaError_t preload_slots() {
+  const void* kernels[] = {
+      (const void*)admit_service_kernel<CT>,
+      (const void*)peer_update_kernel<false, CT, false>,
+      (const void*)peer_update_kernel<true, CT, false>,
+      (const void*)peer_update_kernel<false, CT, true>,
+      (const void*)peer_update_kernel<true, CT, true>};
+  cudaError_t e = preload(kernels, 5);
+  if (e == cudaSuccess) e = preload_policy<CT, POL_SPREAD>();
+  if (e == cudaSuccess) e = preload_policy<CT, POL_ADAPTIVE>();
+  if (e == cudaSuccess) e = preload_policy<CT, POL_RANKED>();
+  return e;
 }
 
 extern "C" int swarm_preload(void) {

@@ -5,9 +5,9 @@ choose between them.
 =====================  ==========================================
 kernel                 replaces (reference ``ops/swarm_sim.py``)
 =====================  ==========================================
-TK1 ``elig_select``    ``circulant_eligibility`` :681-772,
-                       ``spread_holder_only`` :959-991, each slot's
-                       start decision :1053-1183, pinning
+TK1 ``elig_select``    ``circulant_eligibility`` :681-772, the
+                       holder policies :919-1051, each slot's
+                       start decision :1053-1205, pinning
                        :1207-1228
 TK2 ``admit_service``  circulant admission in (slot, offset) order
                        and service, :1259-1303 (``cap > 0``)
@@ -70,6 +70,15 @@ requesters read ``fg_wait_ms`` of rows that other blocks own.  Both
 passes floor the playhead from the same inputs in the same order
 (``_live_playhead``), since only ``peer_update`` writes it back.  A VOD
 config runs kernels compiled without the live code.
+
+Holder policies.  ``config.holder_selection`` picks the kernels'
+instantiation (:data:`POLICY_CODES`).  ``"adaptive"`` scores each
+eligible holder by the requester's own load on it and by the per-edge
+penalty window ``holder_penalty_ms`` (``[B, P, K]``), which the
+selection reads and only ``peer_update`` writes (it drains the window
+and re-arms it on the holders of BUSY denies and prefetch aborts), as
+with ``fg_wait_ms``; ``"ranked"`` takes holders by peer id and
+recomputes its pick every step.
 
 In place: TK1 (and ``select_admit``) writes the slot record into its
 own row of the state and TK3 updates its own row of every field.  Each
@@ -153,6 +162,7 @@ class Geometry(NamedTuple):
     offs_mod: Tuple[int, ...]   # the same reduced mod P, in [0, P)
     o_hi: int                   # max(offs, 0)
     o_lo: int                   # min(offs, 0)
+    rank_order: Tuple[int, ...]  # offset indices by offs_mod, ascending
     seg: float
     end_s: float
     dt_ms: float
@@ -171,6 +181,8 @@ def geometry(config: SwarmConfig) -> Geometry:
         W=packed_words(config), offs=offs,
         offs_mod=tuple(o % P for o in offs),
         o_hi=max((0, *offs)), o_lo=min((0, *offs)),
+        rank_order=tuple(sorted(range(len(offs)),
+                                key=lambda k: offs[k] % P)),
         seg=config.seg_duration_s,
         end_s=config.n_segments * config.seg_duration_s,
         dt_ms=config.dt_ms, dt_s=config.dt_ms / 1000.0,
@@ -346,6 +358,44 @@ def _spread_holder_only(elig, n_holders, gi_seg, rot, c):
     return out
 
 
+def _adaptive_holder_only(elig, own_used, pen, gi_seg, rot, c):
+    """Reference :1019-1041 for slot ``c``: each eligible offset k scores
+    ``own_used[k] · 2 + (holder_penalty_ms[k] > 0)`` (an ineligible one
+    4), and :func:`_spread_holder_only` picks among the offsets of the
+    lowest score, their count in place of the holder count."""
+    scores = [torch.where(e > 0, u.to(torch.int32) * 2
+                          + (pen[..., k] > 0.0).to(torch.int32),
+                          torch.full_like(gi_seg, 4))
+              for k, (e, u) in enumerate(zip(elig, own_used))]
+    best = scores[0]
+    for s_k in scores[1:]:
+        best = torch.minimum(best, s_k)
+    sel_elig = [e * (s_k == best) for e, s_k in zip(elig, scores)]
+    n_sel = sum(sel_elig, torch.zeros_like(elig[0]))
+    return _spread_holder_only(sel_elig, n_sel, gi_seg, rot, c)
+
+
+def _nth_holder_only(elig, offs_mod, skip: int):
+    """Reference ``nth_holder_only`` (:919-947), circulant: keep the
+    eligible holder of the (``skip`` + 1)-th lowest peer id, ``(i + o)
+    mod P`` (the last one found where fewer exist).  Near the ring's
+    wrap the lowest id is not the lowest offset."""
+    P = elig[0].shape[-1]
+    peer = torch.arange(P, dtype=torch.int32, device=elig[0].device)
+    big = torch.full(elig[0].shape, P, dtype=torch.int32,
+                     device=elig[0].device)
+    ids = [(peer + om) % P for om in offs_mod]
+    masked = [torch.where(e > 0, i, big) for e, i in zip(elig, ids)]
+    prev = torch.full_like(big, -1)
+    for _ in range(skip + 1):
+        nxt = big
+        for m in masked:
+            nxt = torch.minimum(nxt, torch.where(m > prev, m, big))
+        prev = torch.where(nxt < big, nxt, prev)
+    return [((e > 0) & (i == prev)).to(torch.float32)
+            for e, i in zip(elig, ids)]
+
+
 @_lane_api
 def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
                       state: SwarmState):
@@ -356,7 +406,15 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
     (:1133-1141).  A prefetch slot starts P2P only, in the prefetch
     window, uncached, with holders and not already in flight on another
     slot (the dedup guard :1110-1118 against the processed slots' new
-    records and the later slots' old ones; :1176-1183).  Writes each
+    records and the later slots' old ones; :1176-1183).  The holder by
+    ``config.holder_selection`` (:993-1051): ``"spread"`` a hash over the
+    eligible holders, ``"adaptive"`` the same over the lowest tier of
+    the requester's own load on each offset (its other slots' P2P
+    transfers, read by the same rule as the guard, :1185-1205) and the
+    penalty window, ``"ranked"`` the holder of the (C-1)-th (foreground)
+    or (c-1)-th (prefetch slot c) lowest peer id.  An active transfer
+    keeps its stored holder under spread and adaptive; ranked picks
+    anew every step (:1207-1228).  Writes each
     slot record into ``state`` in place; returns ``(slot_flags, req)``,
     each ``[..., P, C]``: per slot bit 0 may, 1 active, 2 is_p2p, 3
     have_n, and on slot 0 bit 4 blocked on the live stagger, bit 5
@@ -388,10 +446,13 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
         dim=-1) * (g.seg / 8.0)
     t = _col(state.t_s)
     never = torch.zeros_like(present)
-    # each slot's (active, flat target) in flight: the old record until
-    # the slot is processed, then its new one
-    flight = [(act[..., c], state.dl_level[..., c] * g.S + state.dl_seg[..., c])
+    # each slot's (active, flat target, holder offset, is_p2p) in flight:
+    # the old record until the slot is processed, then its new one
+    flight = [(act[..., c],
+               state.dl_level[..., c] * g.S + state.dl_seg[..., c],
+               state.dl_holder_off[..., c].clone(), p2p_bits[..., c])
               for c in range(C)]
+    policy = config.holder_selection
     flags, reqs = [], []
     for c in range(C):
         a_c = act[..., c]
@@ -443,7 +504,7 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
         else:
             target_flat = want_level * g.S + target_seg
             conflict = never
-            for a_o, f_o in flight[:c] + flight[c + 1:]:
+            for a_o, f_o, _o, _p in flight[:c] + flight[c + 1:]:
                 conflict = conflict | (a_o & (f_o == target_flat))
             may = wants_c & have_n & ~conflict & ~own
             if config.live:
@@ -452,14 +513,30 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
             extra = 0
         active = a_c | may
 
-        sel = _spread_holder_only(elig, n, gi_segs[..., c],
-                                  state.dl_attempts[..., c], c)
+        rot = state.dl_attempts[..., c]
+        if policy == "ranked":
+            sel = _nth_holder_only(elig, g.offs_mod, C - 1 if c == 0
+                                   else c - 1)
+        elif policy == "adaptive":
+            # the offsets my other slots' P2P transfers ride
+            own_used = []
+            for k in range(len(g.offs)):
+                used = never
+                for a_o, _f, o_o, p_o in flight[:c] + flight[c + 1:]:
+                    used = used | (a_o & p_o & (o_o == k))
+                own_used.append(used)
+            sel = _adaptive_holder_only(elig, own_used,
+                                        state.holder_penalty_ms,
+                                        gi_segs[..., c], rot, c)
+        else:
+            sel = _spread_holder_only(elig, n, gi_segs[..., c], rot, c)
         new_off = sum(((s_k > 0).to(torch.int32) * k
                        for k, s_k in enumerate(sel)),
                       torch.zeros_like(next_seg))
         off = torch.where(a_c, state.dl_holder_off[..., c], new_off)
-        sel = [torch.where(a_c, e * (off == k), s_k)
-               for k, (e, s_k) in enumerate(zip(elig, sel))]
+        if policy != "ranked":
+            sel = [torch.where(a_c, e * (off == k), s_k)
+                   for k, (e, s_k) in enumerate(zip(elig, sel))]
         demand = (active & is_p2p & present).to(torch.float32)
         req = torch.full_like(next_seg, -1)
         for k, s_k in enumerate(sel):
@@ -468,7 +545,7 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
 
         seg_new = torch.where(may, target_seg, state.dl_seg[..., c])
         level_new = torch.where(may, want_level, state.dl_level[..., c])
-        flight[c] = (active, level_new * g.S + seg_new)
+        flight[c] = (active, level_new * g.S + seg_new, off, is_p2p)
         if c == 0:
             state.level.copy_(torch.where(may, want_level, state.level))
         state.dl_seg[..., c].copy_(seg_new)
@@ -541,13 +618,27 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     floored playhead and starts ``live_sync_s`` after the join
     (:1500-1507), and the stagger's wait clock ``fg_wait_ms`` runs on
     where the selection reported the foreground blocked (slot 0's flag
-    bit 4; :1165-1166), else resets; in VOD it is left alone.  Updates
-    ``state`` in place."""
+    bit 4; :1165-1166), else resets; in VOD it is left alone.  Under
+    ``"adaptive"`` the penalty window drains by ``dt_ms`` on every edge
+    and re-arms to the scenario's ``holder_penalty_ms`` on the holder
+    offset of a foreground BUSY deny and of every prefetch abort, in
+    slot order (:1356-1358, :1405-1417, :1459-1466).  Updates ``state``
+    in place."""
     g = geometry(config)
     C = config.max_concurrency
     dev = req.device
     zeros = torch.zeros(req.shape[:-1], dtype=torch.float32, device=dev)
     present = _present(scenario, state.t_s)
+    pen = state.holder_penalty_ms
+    if pen.shape[-1]:
+        pen = torch.clamp_min(pen - g.dt_ms, 0.0)
+        k_iota = torch.arange(pen.shape[-1], dtype=torch.int32, device=dev)
+        rearm = scenario.holder_penalty_ms[:, None, None]
+
+        def penalize(hit, c):
+            off = state.dl_holder_off[..., c]
+            return torch.where(hit[..., None] & (off[..., None] == k_iota),
+                               rearm, pen)
     flags0 = slot_flags[..., 0]
     absorb = (flags0 & 32) != 0
     cdn_bytes, p2p_bytes = state.cdn_bytes, state.p2p_bytes
@@ -602,6 +693,8 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
             # the CDN
             denied = may & is_p2p & have_n & ~admitted
             is_p2p = is_p2p & ~denied
+            if pen.shape[-1]:
+                pen = penalize(denied, c)
             done = torch.where(denied, zeros, done)
             elapsed = torch.where(denied, zeros, elapsed)
             # budget failover to the CDN, discarding partial bytes
@@ -624,6 +717,8 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
                                     >= _col(scenario.request_timeout_ms)))
                        | (may & active & have_n & ~admitted))
             active = active & ~aborted
+            if pen.shape[-1]:
+                pen = penalize(aborted, c)
             done = torch.where(aborted, zeros, done)
             elapsed = torch.where(aborted, zeros, elapsed)
             p2p_bytes = p2p_bytes + torch.where(completed, total, zeros)
@@ -674,6 +769,7 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     state.cdn_bytes.copy_(cdn_bytes)
     state.p2p_bytes.copy_(p2p_bytes)
     state.dl_flags.copy_(pack_dl_flags(actives, p2ps))
+    state.holder_penalty_ms.copy_(pen)
     state.t_s.add_(g.dt_s)
 
 
@@ -823,7 +919,9 @@ class _SelectArgs(ctypes.Structure):
             "edge_rank", "fg_wait_ms", "live_sync_s", "live_spread_s",
             "announce_delay_s")] + [
         ("dt_ms", ctypes.c_float), ("live", ctypes.c_int),
-        ("dl_cooldown_ms", _P), ("n_slots", ctypes.c_int)]
+        ("dl_cooldown_ms", _P), ("n_slots", ctypes.c_int),
+        ("holder_penalty_ms", _P), ("policy", ctypes.c_int),
+        ("rank_order", ctypes.c_int * MAX_OFFS)]
 
 
 class _AdmitArgs(ctypes.Structure):
@@ -861,7 +959,9 @@ class _UpdateArgs(ctypes.Structure):
         ("offs", ctypes.c_int * MAX_OFFS),
         ("live_sync_s", _P), ("fg_wait_ms", _P), ("live", ctypes.c_int),
         ("dl_attempts", _P), ("request_timeout_ms", _P),
-        ("retry_dead_ms", _P), ("n_slots", ctypes.c_int)]
+        ("retry_dead_ms", _P), ("n_slots", ctypes.c_int),
+        ("holder_penalty_ms", _P), ("dl_holder_off", _P),
+        ("penalty_ms", _P), ("penalty", ctypes.c_int)]
 
 
 class _LaneSumsArgs(ctypes.Structure):
@@ -985,6 +1085,23 @@ _SCALARS = frozenset(("urgent_margin_s", "p2p_budget_fraction",
                       "live_spread_s", "announce_delay_s",
                       "request_timeout_ms", "retry_dead_ms"))
 
+#: the kernels' code for each holder policy (``POL_*`` in the source)
+POLICY_CODES = {"spread": 0, "adaptive": 1, "ranked": 2}
+
+
+def _penalty(config: SwarmConfig, state: SwarmState, dev) -> int:
+    """The penalty window's pointer, checked: ``[B, P, K]`` under
+    ``"adaptive"`` (a K = 8 row is read and written as two 16-byte
+    accesses, so the field must be 16-byte aligned), else ``[B, P, 0]``,
+    which no kernel reads."""
+    g = geometry(config)
+    width = len(g.offs) if config.holder_selection == "adaptive" else 0
+    ptr = _check("holder_penalty_ms", state.holder_penalty_ms, _F,
+                 (state.t_s.shape[0], g.P, width), dev)
+    if width and ptr % 16:
+        raise ValueError("holder_penalty_ms is not 16-byte aligned")
+    return ptr
+
 
 def _scenario_ptrs(scenario: SwarmScenario, names, B, P, L, dev) -> dict:
     out = {}
@@ -1031,6 +1148,7 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
         ptrs[name] = _check(name, getattr(state, name), _F, (B, P, C), dev)
     ptrs["slot_flags"] = slot_flags.data_ptr()
     ptrs["req"] = req.data_ptr()
+    ptrs["holder_penalty_ms"] = _penalty(config, state, dev)
     args = _SelectArgs(
         **ptrs, n_peers=P, n_lanes=B, n_words=g.W, n_segments=g.S,
         n_levels=g.L, n_offs=len(g.offs), seg_duration_s=g.seg,
@@ -1039,7 +1157,9 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         default_estimate_bps=DEFAULT_ESTIMATE_BPS,
         bandwidth_safety=BANDWIDTH_SAFETY, offs=_offs_array(g.offs_mod),
-        dt_ms=g.dt_ms, live=int(config.live), n_slots=C)
+        dt_ms=g.dt_ms, live=int(config.live), n_slots=C,
+        policy=POLICY_CODES[config.holder_selection],
+        rank_order=_offs_array(g.rank_order))
     return args, slot_flags, req
 
 
@@ -1153,6 +1273,9 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
                                      "p2p_setup_ms", "live_sync_s",
                                      "request_timeout_ms", "retry_dead_ms"),
                           B, P, g.L, dev)
+    ptrs["penalty_ms"] = _check("holder_penalty_ms (scenario)",
+                                scenario.holder_penalty_ms, _F, (B,), dev)
+    ptrs["holder_penalty_ms"] = _penalty(config, state, dev)
     ptrs["t_s"] = _check("t_s", state.t_s, _F, (B,), dev)
     ptrs["slot_flags"] = _check("slot_flags", slot_flags, _I, (B, P, C),
                                 dev)
@@ -1166,7 +1289,7 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
         ptrs[name] = _check(name, t, _F, (B, P), dev)
     ptrs["avail"] = _check("avail", state.avail, _I, (B, P, g.W), dev)
     ptrs["dl_flags"] = _check("dl_flags", state.dl_flags, _I, (B, P), dev)
-    for name in ("dl_seg", "dl_level", "dl_attempts"):
+    for name in ("dl_seg", "dl_level", "dl_attempts", "dl_holder_off"):
         ptrs[name] = _check(name, getattr(state, name), _I, (B, P, C), dev)
     for name in ("dl_total_bytes", "dl_budget_ms", "dl_done_bytes",
                  "dl_elapsed_ms", "dl_cooldown_ms"):
@@ -1179,7 +1302,8 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
         dt_ms=g.dt_ms, dt_s=g.dt_s, p2p_bps=config.p2p_bps,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         min_sample_ms=MIN_SAMPLE_DURATION_MS, offs=_offs_array(g.offs_mod),
-        live=int(config.live), n_slots=C)
+        live=int(config.live), n_slots=C,
+        penalty=int(config.holder_selection == "adaptive"))
     _launch("peer_update", args, dev)
     return sums
 

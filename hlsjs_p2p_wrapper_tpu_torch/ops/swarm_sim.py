@@ -38,8 +38,10 @@ What this port covers, and what raises instead:
 - VOD and live mode (``config.live``: the playhead floor at join, the
   published-only gate, P2P visibility after the announce lag, the edge
   stagger's wait clock ``fg_wait_ms`` and the playback cushion);
-- ``"spread"`` holder selection; ``"adaptive"`` and ``"ranked"`` are
-  item 9e;
+- the three holder policies: ``"spread"``, ``"adaptive"`` (its tiers
+  by the requester's own load and the per-edge penalty window
+  ``holder_penalty_ms``, ``[P, K]``, zero-width under the other two) and
+  ``"ranked"`` (announce order, by peer id);
 - ``max_total_serves > 0``; the uncapped fair share (``cap == 0``) is
   item 9a's admission work;
 - timelines without the per-cohort columns (``n_cohorts == 0``); the
@@ -418,8 +420,8 @@ def init_swarm(config: SwarmConfig, n_neighbors: Optional[int] = None,
                device=None, batch: Optional[int] = None) -> SwarmState:
     """Zero state on ``device``; with ``batch``, ``batch`` stacked lanes
     of it (``[B, …]`` zeros, built directly).  Only ``"adaptive"``
-    carries a non-empty per-edge penalty field, and the port does not
-    run it yet."""
+    carries a non-empty per-edge penalty field, ``[P, K]`` (``[B, P,
+    K]`` batched) with K the normalized offsets."""
     dev = resolve_device(device)
     P = config.n_peers
     C = config.max_concurrency
@@ -575,10 +577,6 @@ def check_slice(config: SwarmConfig) -> None:
         raise ValueError(f"max_concurrency={config.max_concurrency} is "
                          f"outside 1..16, the slots the packed dl_flags "
                          f"word carries (2 bits per slot in one u32)")
-    if config.holder_selection != "spread":
-        raise NotImplementedError(
-            f"holder_selection={config.holder_selection!r} is not "
-            f"ported yet (ROADMAP queue 1 item 9e)")
     if config.max_total_serves <= 0:
         raise NotImplementedError(
             "the uncapped fair share (max_total_serves == 0) is not "
@@ -586,12 +584,19 @@ def check_slice(config: SwarmConfig) -> None:
 
 
 def _check_step(config: SwarmConfig, state: SwarmState) -> None:
+    """:func:`check_slice`, and the reference's width check of the
+    penalty field (:868-876): K wide under ``"adaptive"``, else 0."""
     check_slice(config)
-    if state.holder_penalty_ms.shape[-1] != 0:
+    width = (len(_normalized_offsets(config.neighbor_offsets,
+                                     config.n_peers))
+             if config.holder_selection == "adaptive" else 0)
+    if state.holder_penalty_ms.shape[-1] != width:
         raise ValueError(
             f"state.holder_penalty_ms is sized for "
-            f"{state.holder_penalty_ms.shape[-1]} neighbors but "
-            f"\"spread\" carries a zero-width field")
+            f"{state.holder_penalty_ms.shape[-1]} neighbors but this "
+            f"config needs {width} (non-adaptive policies carry a "
+            f"zero-width field): build the state with init_swarm(config), "
+            f"or let run_swarm resize a pristine state")
 
 
 def _step(config: SwarmConfig, scenario: SwarmScenario, state: SwarmState,
@@ -815,7 +820,7 @@ def _penalty_width(config: SwarmConfig, scenario: SwarmScenario) -> int:
 def ensure_penalty_width(config: SwarmConfig, scenario: SwarmScenario,
                          state: SwarmState) -> SwarmState:
     """Resize a pristine (all-zero) penalty field of the wrong width;
-    under ``"spread"`` the field has zero width."""
+    only ``"adaptive"`` carries a non-empty one."""
     k_topo = _penalty_width(config, scenario)
     pen = state.holder_penalty_ms
     if pen.shape[-1] != k_topo and not bool(torch.any(pen > 0.0)):

@@ -12,10 +12,10 @@ run as one group of the chunked dispatch (``ops/dispatch.py``).  The
 per-peer draws are the reference's threefry draws (``core/prng.py``),
 so a cell's scenario is ``tools/policy_ab.py``'s at the same seed.
 
-The port runs the ``"spread"`` column of the ring table.  The random
-topology (the general ``[P, K]`` path) and the ``"ranked"`` and
-``"adaptive"`` policies raise ``NotImplementedError`` naming the
-ROADMAP items that bring them (9a, 9e).
+The port runs the three policy columns of the ring table (``"ranked"``,
+``"spread"`` and ``"adaptive"``).  The random topology (the general
+``[P, K]`` path) raises ``NotImplementedError`` naming the ROADMAP item
+that brings it (9a).
 """
 
 from __future__ import annotations
@@ -57,14 +57,10 @@ def cells():
 
 def ring_config(peers: int = RING_PEERS, segments: int = SEGMENTS,
                 policy: str = "spread") -> SwarmConfig:
-    """The tool's ring config for ``policy``; only ``"spread"`` is
-    ported."""
+    """The tool's ring config for ``policy``, one of :data:`POLICIES`
+    (``tools/policy_ab.py:280-284``)."""
     if policy not in POLICIES:
         raise ValueError(f"unknown holder policy {policy!r}")
-    if policy != "spread":
-        raise NotImplementedError(
-            f"holder_selection={policy!r} is not ported yet (ROADMAP "
-            f"queue 1 item 9e)")
     return SwarmConfig(n_peers=peers, n_segments=segments, n_levels=1,
                        max_concurrency=RING_CONCURRENCY,
                        holder_selection=policy,

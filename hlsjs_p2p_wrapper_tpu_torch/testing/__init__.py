@@ -1,8 +1,9 @@
 """Test infrastructure of the port: moving state between the reference
 and the port (``convert``) and the committed reference runs
 (``reference_run.npz``, ``reference_batch.npz``, ``reference_live.npz``,
-``reference_prefetch.npz``, written by ``tools/torch_port_fixture.py``),
-with the port's runs of the three batch fixtures."""
+``reference_prefetch.npz``, ``reference_policies.npz``, written by
+``tools/torch_port_fixture.py``), with the port's runs of the batch
+fixtures."""
 
 import json
 import os
@@ -20,6 +21,10 @@ REFERENCE_LIVE = os.path.join(_HERE, "reference_live.npz")
 #: the same over four cells of the policy A/B ring table (three transfer
 #: slots), with each lane's joins and leaves
 REFERENCE_PREFETCH = os.path.join(_HERE, "reference_prefetch.npz")
+#: the same cells under the "adaptive" and "ranked" holder policies, each
+#: array keyed ``<policy>_<name>`` (the cells, shape, joins and leaves
+#: shared)
+REFERENCE_POLICIES = os.path.join(_HERE, "reference_policies.npz")
 
 
 def run_batch_fixture(fixture, device):
@@ -39,13 +44,13 @@ def run_live_fixture(fixture, device):
 
 
 def prefetch_lanes(fixture, device, *, peers=None, segments=None,
-                   watch_s=None, slots=None):
+                   watch_s=None, slots=None, policy="spread"):
     """The prefetch fixture's lanes on ``device``: ``policy_grid``'s ring
-    config and cell scenarios, with the fixture's departure wave on its
-    leave lane, at the fixture's shape unless ``peers``, ``segments``,
-    ``watch_s`` (the crowd's and the wave's clock) or ``slots``
-    (``max_concurrency``) say otherwise.  Returns ``(config, stacked
-    scenarios, joins [B, P], leaves [B, P])``."""
+    config for ``policy`` and its cell scenarios, with the fixture's
+    departure wave on its leave lane, at the fixture's shape unless
+    ``peers``, ``segments``, ``watch_s`` (the crowd's and the wave's
+    clock) or ``slots`` (``max_concurrency``) say otherwise.  Returns
+    ``(config, stacked scenarios, joins [B, P], leaves [B, P])``."""
     import torch
 
     from .. import policy_grid as pg
@@ -53,7 +58,7 @@ def prefetch_lanes(fixture, device, *, peers=None, segments=None,
 
     P, S, T, _every, _lanes = (int(x) for x in fixture["shape"])
     P, S = peers or P, segments or S
-    config = pg.ring_config(P, S)
+    config = pg.ring_config(P, S, policy)
     if slots is not None:
         config = config._replace(max_concurrency=slots)
     if watch_s is None:
@@ -74,15 +79,18 @@ def prefetch_lanes(fixture, device, *, peers=None, segments=None,
             torch.stack([sc.leave_s for sc in scenarios]))
 
 
-def run_prefetch_fixture(fixture, device):
+def run_prefetch_fixture(fixture, device, policy="spread"):
     """The port's ``run_swarm_batch`` at the prefetch fixture's shape and
-    lanes (:func:`prefetch_lanes`, built by the port) on ``device``;
-    returns ``(offload [B], rebuffer [B], series [B, T], timeline, joins
-    [B, P], leaves [B, P])`` as tensors."""
+    lanes (:func:`prefetch_lanes`, built by the port) under ``policy`` on
+    ``device`` (the policies fixture shares the prefetch fixture's
+    shape, cells and departure wave); returns ``(offload [B], rebuffer
+    [B], series [B, T], timeline, joins [B, P], leaves [B, P])`` as
+    tensors."""
     from ..ops import swarm_sim as sim
 
     _P, _S, T, every, lanes = (int(x) for x in fixture["shape"])
-    config, scenarios, joins, leaves = prefetch_lanes(fixture, device)
+    config, scenarios, joins, leaves = prefetch_lanes(fixture, device,
+                                                      policy=policy)
     watch_s = T * config.dt_ms / 1000.0
     final, series, timeline = sim.run_swarm_batch(
         config, scenarios, sim.init_swarm(config, device=device,

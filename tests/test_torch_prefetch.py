@@ -147,8 +147,9 @@ def _assert_run_matches(r):
 
 def test_policy_grid_is_the_tools():
     """The cells, the ring config, the audience and every cell's
-    scenario and joins equal ``tools/policy_ab.py``'s to the bit; the
-    random topology and the other policies raise, naming their items."""
+    scenario and joins equal ``tools/policy_ab.py``'s to the bit, for
+    each of the three policies; the random topology raises, naming its
+    item, and an unknown policy raises."""
     assert pg.cells() == [(p, w, u) for p in ref_ab.PATTERNS
                           for w in ref_ab.WAVES
                           for u in ref_ab.UPLINK_GRID_MBPS]
@@ -173,8 +174,11 @@ def test_policy_grid_is_the_tools():
             assert got.shape == want.shape, name
             np.testing.assert_array_equal(got, want.astype(got.dtype),
                                           err_msg=name)
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        pg.ring_config(P, S, "adaptive")
+    for policy in pg.POLICIES:
+        assert tuple(pg.ring_config(P, S, policy)) == tuple(
+            _ref_config()._replace(holder_selection=policy))
+    with pytest.raises(ValueError, match="unknown holder policy"):
+        pg.ring_config(P, S, "nearest")
     with pytest.raises(NotImplementedError, match="item 9a"):
         pg.random_config(P, S)
 

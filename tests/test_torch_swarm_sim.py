@@ -317,10 +317,12 @@ def test_staggered_joins_is_a_seeded_permutation():
 
 @pytest.mark.parametrize("change,err", [
     ({"max_concurrency": 17}, ValueError),
-    ({"max_concurrency": 3, "holder_selection": "adaptive"},
+    ({"max_concurrency": 3, "holder_selection": "adaptive",
+      "neighbor_offsets": None}, NotImplementedError),
+    ({"holder_selection": "adaptive", "max_total_serves": 0},
      NotImplementedError),
-    ({"holder_selection": "adaptive"}, NotImplementedError),
-    ({"holder_selection": "ranked"}, NotImplementedError),
+    ({"holder_selection": "ranked", "max_total_serves": 0},
+     NotImplementedError),
     ({"max_total_serves": 0}, NotImplementedError),
     ({"neighbor_offsets": None}, NotImplementedError),
     ({"holder_selection": "nearest"}, ValueError),

@@ -15,7 +15,10 @@ reference at a fixed shape with the join times it used:
 - ``reference_prefetch.npz``: the same over four cells of
   ``tools/policy_ab.py``'s ring table (:data:`PREFETCH_CELLS`, three
   transfer slots, ``"spread"``), one lane with a departure wave, chosen so
-  that every prefetch branch binds.
+  that every prefetch branch binds;
+- ``reference_policies.npz``: the same lanes under the ``"adaptive"`` and
+  ``"ranked"`` holder policies (:data:`POLICIES`), each policy's arrays
+  keyed ``<policy>_<name>``.
 
 ``chip_smoke.py`` runs the port on the card with the same joins and
 compares; ``tests/test_torch_fixture.py`` re-runs the reference here
@@ -24,7 +27,8 @@ and fails if a fixture went stale.
 This is the only code of the port's tree that imports JAX.
 
 Run: ``JAX_PLATFORMS=cpu python tools/torch_port_fixture.py``
-(writes the four files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``).
+(writes the five files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``;
+``--only-prefetch`` and ``--only-policies`` write one of them).
 """
 
 from __future__ import annotations
@@ -79,6 +83,10 @@ PREFETCH_CELLS = (("uniform", "crowd", 1.2), ("hetero", "stagger", 1.6),
 PREFETCH_LEAVE_LANE = 1
 PREFETCH_LEAVE_FRACTION = 0.25
 PREFETCH_OUT = os.path.join(TESTING, "reference_prefetch.npz")
+#: the policies fixture: the prefetch fixture's lanes under these holder
+#: policies (the spread column is the prefetch fixture)
+POLICIES = ("adaptive", "ranked")
+POLICIES_OUT = os.path.join(TESTING, "reference_policies.npz")
 
 
 def reference_run(shape=SHAPE) -> dict:
@@ -196,12 +204,13 @@ def reference_live(shape=BATCH_SHAPE, points=LIVE_POINTS) -> dict:
     }
 
 
-def reference_prefetch(shape=BATCH_SHAPE) -> dict:
+def reference_prefetch(shape=BATCH_SHAPE, policy="spread") -> dict:
     """Run the JAX reference's batched sweep path at ``shape`` over
-    :data:`PREFETCH_CELLS` with ``tools/policy_ab.py``'s ring config and
-    scenarios (the departure wave on lane :data:`PREFETCH_LEAVE_LANE`);
-    returns the fixture's arrays, each lane's joins and leaves ``[B, P]``
-    included (the cells as a JSON string)."""
+    :data:`PREFETCH_CELLS` with ``tools/policy_ab.py``'s ring config for
+    holder policy ``policy`` and its scenarios (the departure wave on lane
+    :data:`PREFETCH_LEAVE_LANE`); returns the fixture's arrays, each
+    lane's joins and leaves ``[B, P]`` included (the cells as a JSON
+    string)."""
     import json
 
     import jax.numpy as jnp
@@ -217,7 +226,7 @@ def reference_prefetch(shape=BATCH_SHAPE) -> dict:
     P, S, T, every, lanes = shape
     assert len(PREFETCH_CELLS) == lanes
     config = SwarmConfig(n_peers=P, n_segments=S, n_levels=1,
-                         max_concurrency=3, holder_selection="spread",
+                         max_concurrency=3, holder_selection=policy,
                          neighbor_offsets=ring_offsets(8))
     watch_s = T * config.dt_ms / 1000.0
     audience = policy_ab.build_audience(P, BATCH_SEED)
@@ -250,17 +259,41 @@ def reference_prefetch(shape=BATCH_SHAPE) -> dict:
     }
 
 
+#: the arrays of a run that differ by policy; the rest the runs share
+_PER_POLICY = ("offload", "rebuffer", "series", "timeline")
+
+
+def reference_policies(shape=BATCH_SHAPE) -> dict:
+    """:func:`reference_prefetch` under each of :data:`POLICIES`: the
+    shared arrays once, and each policy's ``_PER_POLICY`` arrays keyed
+    ``<policy>_<name>``."""
+    out = {"policies": np.asarray(POLICIES)}
+    for policy in POLICIES:
+        run = reference_prefetch(shape, policy)
+        for name, value in run.items():
+            if name in _PER_POLICY:
+                out[f"{policy}_{name}"] = value
+            else:
+                out[name] = value
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--batch-out", default=BATCH_OUT)
     ap.add_argument("--live-out", default=LIVE_OUT)
     ap.add_argument("--prefetch-out", default=PREFETCH_OUT)
+    ap.add_argument("--policies-out", default=POLICIES_OUT)
     ap.add_argument("--only-prefetch", action="store_true",
                     help="write the prefetch fixture alone")
+    ap.add_argument("--only-policies", action="store_true",
+                    help="write the policies fixture alone")
     args = ap.parse_args(argv)
     if args.only_prefetch:
         return _write_prefetch(args.prefetch_out)
+    if args.only_policies:
+        return _write_policies(args.policies_out)
     run = reference_run()
     np.savez(args.out, **run)
     print(f"wrote {args.out}: offload {float(run['offload'])!r}, "
@@ -276,7 +309,18 @@ def main(argv=None) -> int:
     print(f"wrote {args.live_out}: offload {live['offload'].tolist()}, "
           f"rebuffer {live['rebuffer'].tolist()}, "
           f"shape {live['shape'].tolist()}")
-    return _write_prefetch(args.prefetch_out)
+    _write_prefetch(args.prefetch_out)
+    return _write_policies(args.policies_out)
+
+
+def _write_policies(path) -> int:
+    policies = reference_policies()
+    np.savez(path, **policies)
+    for policy in POLICIES:
+        print(f"wrote {path} ({policy}): offload "
+              f"{policies[f'{policy}_offload'].tolist()}, rebuffer "
+              f"{policies[f'{policy}_rebuffer'].tolist()}")
+    return 0
 
 
 def _write_prefetch(path) -> int:

@@ -4,16 +4,18 @@ and hold them to its recorded run, ``POLICY_AB_r05.json``.
 The record is ``tools/policy_ab.py``'s run: the ring topology at
 262,144 peers × 128 segments × 960 steps (a 240 s watch window) with
 three transfer slots, each policy's offload rounded to 4 digits and
-rebuffer to 5.  The port's spread column is held to it on the card
-(``chip_smoke.py``), which is only sound while today's reference still
-gives those rows.  This runs the reference on the CPU through the
-tool's own functions (``build_audience``, ``build_cell_scenario``,
-``run_cells_batched``: the same scenarios and rounding as the record)
-and prints each row beside the recorded one with the run's wall time.
+rebuffer to 5.  The port's spread, adaptive and ranked columns are held
+to it on the card (``chip_smoke.py``), which is only sound while today's
+reference still gives those rows.  This runs the reference on the CPU
+through the tool's own functions (``build_audience``,
+``build_cell_scenario``, ``run_cells_batched``: the same scenarios and
+rounding as the record) and prints each row beside the recorded one
+with the run's wall time.
 
 Run: ``JAX_PLATFORMS=cpu python tools/torch_port_policy_anchor.py
-[--cells 5 11]`` (indices into the tool's 20 cells; each cell is one
-lane of one batched run, a few minutes on a CPU).
+[--policy adaptive] [--cells 0 5 11 17]`` (a column of the table, and
+indices into the tool's 20 cells; each cell is one lane of one batched
+run, a few minutes on a CPU).
 """
 
 from __future__ import annotations
@@ -32,14 +34,18 @@ RECORD = os.path.join(ROOT, "POLICY_AB_r05.json")
 #: cell 5: uniform/crowd at 1.2 Mbit/s (a flash crowd that stalls);
 #: cell 11: hetero/stagger at 1.6 Mbit/s
 DEFAULT_CELLS = (5, 11)
-POLICY = "spread"
+#: the record's columns, in the tool's order
+POLICIES = ("ranked", "spread", "adaptive")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cells", type=int, nargs="+",
                     default=list(DEFAULT_CELLS))
+    ap.add_argument("--policy", choices=POLICIES, default="spread",
+                    help="the column of the table to re-run")
     args = ap.parse_args(argv)
+    policy = args.policy
     import policy_ab
 
     from hlsjs_p2p_wrapper_tpu.ops.swarm_sim import SwarmConfig, ring_offsets
@@ -54,7 +60,7 @@ def main(argv=None) -> int:
                 for r in table["rows"]}
     config = SwarmConfig(n_peers=peers, n_segments=meta["segments"],
                          n_levels=1, max_concurrency=3,
-                         holder_selection=POLICY,
+                         holder_selection=policy,
                          neighbor_offsets=ring_offsets(meta["degree"]))
     audience = policy_ab.build_audience(peers, meta["seed"])
     chosen = [cells[i] for i in args.cells]
@@ -66,17 +72,17 @@ def main(argv=None) -> int:
     same = True
     for i, cell, (offload, rebuffer) in zip(args.cells, chosen, rows):
         want = recorded[cell]
-        equal = (offload == want[f"{POLICY}_offload"]
-                 and rebuffer == want[f"{POLICY}_rebuffer"])
+        equal = (offload == want[f"{policy}_offload"]
+                 and rebuffer == want[f"{policy}_rebuffer"])
         same = same and equal
-        print(json.dumps({"cell": i, "pattern": cell[0], "wave": cell[1],
-                          "uplink_mbps": cell[2], "offload": offload,
-                          "rebuffer": rebuffer,
-                          "recorded_offload": want[f"{POLICY}_offload"],
-                          "recorded_rebuffer": want[f"{POLICY}_rebuffer"],
+        print(json.dumps({"cell": i, "policy": policy, "pattern": cell[0],
+                          "wave": cell[1], "uplink_mbps": cell[2],
+                          "offload": offload, "rebuffer": rebuffer,
+                          "recorded_offload": want[f"{policy}_offload"],
+                          "recorded_rebuffer": want[f"{policy}_rebuffer"],
                           "equal": equal}), flush=True)
-    print(json.dumps({"all_equal": same, "cells": len(chosen),
-                      "chunk": chunk, "wall_s": wall}))
+    print(json.dumps({"policy": policy, "all_equal": same,
+                      "cells": len(chosen), "chunk": chunk, "wall_s": wall}))
     return 0
 
 

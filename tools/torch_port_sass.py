@@ -1,0 +1,123 @@
+"""Compare the SASS of one kernel of the port's ``csrc/swarm_step.cu`` as
+two checkouts build it.
+
+Builds each checkout's ``hlsjs_p2p_wrapper_tpu_torch/csrc/swarm_step.cu``
+into a cubin with this checkout's ``nvcc`` flags and macros
+(``ops/_build.py``, ``swarm_kernels.DEFINES``), disassembles both with
+``cuobjdump -sass``, takes from each the function whose mangled name
+matches its pattern, and prints one JSON line: each listing's
+instruction count (``NOP`` padding included), the lines that differ,
+the lines that still differ once constant-bank offsets (where the
+kernel's arguments live, which move when an argument struct grows) and
+branch targets are masked, and how many more of each opcode this
+checkout's listing holds.  Both listings and the diff go under
+``--out``.
+
+Run on a machine with the CUDA toolkit, from the root of a checkout:
+``python3 tools/torch_port_sass.py --other PARENT_CHECKOUT`` (defaults:
+``select_admit_kernel<8, false, 1>``, which is ``<8, false, 1,
+POL_SPREAD>`` here).
+"""
+
+from __future__ import annotations
+
+import argparse
+import difflib
+import json
+import os
+import re
+import subprocess
+import sys
+from collections import Counter
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+SOURCE = os.path.join("hlsjs_p2p_wrapper_tpu_torch", "csrc", "swarm_step.cu")
+
+
+def listing(checkout: str, pattern: str, out_dir: str, tag: str):
+    """The SASS lines of the function matching ``pattern`` in
+    ``checkout``'s build, and its mangled name."""
+    from hlsjs_p2p_wrapper_tpu_torch.ops import _build
+    from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_kernels as sk
+    flags = [f for f in _build.flags(sk.DEFINES)
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cubin = os.path.join(out_dir, f"{tag}.cubin")
+    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", cubin,
+                    os.path.join(checkout, SOURCE)], check=True,
+                   capture_output=True, text=True)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                          capture_output=True, text=True).stdout
+    functions = re.split(r"\n\s*Function : ", sass)[1:]
+    found = [f for f in functions if re.search(pattern, f.splitlines()[0])]
+    if len(found) != 1:
+        raise SystemExit(f"{tag}: {len(found)} functions match {pattern!r}")
+    lines = found[0].splitlines()
+    body = [ln for ln in lines[1:] if re.match(r"\s*/\*[0-9a-f]{4}\*/", ln)]
+    with open(os.path.join(out_dir, f"{tag}.sass"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return lines[0].strip(), body
+
+
+def opcodes(body) -> Counter:
+    """Each opcode's count in a listing (predicates dropped)."""
+    return Counter(m.group(1) for m in (
+        re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                 ln) for ln in body) if m)
+
+
+def instruction(line: str, masked: bool) -> str:
+    """One SASS line without its address and encoding; ``masked`` also
+    hides constant-bank offsets and branch targets."""
+    text = re.sub(r"/\*[0-9a-f]{4}\*/", "", line)
+    text = re.sub(r"/\* 0x[0-9a-f]+ \*/", "", text).strip()
+    if masked:
+        text = re.sub(r"c\[0x[0-9a-f]+\]\[0x[0-9a-f]+\]", "c[*][*]", text)
+        text = re.sub(r"(BRA|BSSY|CALL\.REL\.NOINC|BREAK|SYNCS)(.*?)"
+                      r"0x[0-9a-f]+", r"\1\2<target>", text)
+    return text
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", required=True,
+                    help="the checkout to compare with (its root)")
+    ap.add_argument("--kernel",
+                    default=r"select_admit_kernelILi8ELb0ELi1ELi0EE",
+                    help="mangled-name pattern of the kernel here")
+    ap.add_argument("--other-kernel",
+                    default=r"select_admit_kernelILi8ELb0ELi1EE",
+                    help="mangled-name pattern of the kernel there")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                  "torch_kernels", "sass"))
+    args = ap.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    name_a, here = listing(ROOT, args.kernel, args.out, "here")
+    name_b, there = listing(os.path.abspath(args.other), args.other_kernel,
+                            args.out, "other")
+    report = {"here": name_a, "other": name_b,
+              "instructions": {"here": len(here), "other": len(there)}}
+    ops_here, ops_there = opcodes(here), opcodes(there)
+    report["opcodes_here_minus_other"] = {
+        op: ops_here[op] - ops_there[op]
+        for op in sorted(set(ops_here) | set(ops_there))
+        if ops_here[op] != ops_there[op]}
+    for masked in (False, True):
+        a = [instruction(ln, masked) for ln in there]
+        b = [instruction(ln, masked) for ln in here]
+        diff = list(difflib.unified_diff(a, b, "other", "here", lineterm="",
+                                         n=0))
+        changed = [ln for ln in diff
+                   if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+        key = "masked" if masked else "raw"
+        report[f"{key}_lines_differing"] = len(changed)
+        with open(os.path.join(args.out, f"diff_{key}.txt"), "w") as fh:
+            fh.write("\n".join(diff) + "\n")
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
