@@ -130,7 +130,34 @@ exits nonzero:
    direct run and two cells alone equal to the bit, the rows within
    RING_ROW_TOL of ``POLICY_AB_r05.json`` and equal to HEAD's reference
    at the anchored cells);
-25. each policy's chunk traced as phase 18 traces the spread one.
+25. each policy's chunk traced as phase 18 traces the spread one;
+26. the general ``[P, K]`` path's gather kernels (TK1, TK2 and TK3 in
+   their gather forms) against their plain versions on ``tools/
+   policy_ab.py``'s random mesh: the prefetch fixture's four cells at 4
+   × 262,144 peers × 128 segments, each policy at three slots, VOD and
+   live, and spread uncapped, at t = 25 s and 6 steps later; then each
+   policy on meshes of 16 peers (degree 20: every row padded) and 1,000
+   (degree 8 padded to 10), one call and 20 steps against the plain
+   step; the line ``gather branches over every state`` must show
+   padding, inbound edges walked beyond K, denied and over-cap demands
+   nonzero; then the ring uncapped at the main path's shape (the fused
+   kernel, TK1 + TK2, TK3), with the demands a cap would have denied;
+27. the port's runs against the committed general fixture (the JAX
+   reference's ``run_swarm_batch`` over the prefetch fixture's cells on
+   the random mesh: spread and adaptive capped, ranked uncapped);
+28. the random half of ``tools/policy_ab.py`` at the tool's size, each
+   policy: 20 cells × 8,192 peers × 128 × 960, three slots, one chunk,
+   a ``FaultPolicy`` armed, launches checked (three gather kernels a
+   step), a direct run and two cells alone equal to the bit, the rows
+   within RANDOM_ROW_TOL of ``POLICY_AB_r05.json``'s random table after
+   its rounding and equal to HEAD's reference at the cells of
+   RANDOM_ANCHOR (``tools/torch_port_policy_anchor.py --topology
+   random``); each chunk traced as phase 18 traces the ring's, with the
+   gather kernels' CUDA-event and plain times;
+29. the same at 262,144 peers, the size a user runs on this card (no
+   record: its checks are phase 26's and the lanes alone equal to the
+   batch), with grid wall, cells/s, peer-steps/s, peak memory, the idle
+   share and each gather kernel's times, bytes and bound.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -138,8 +165,11 @@ name and power limit, and the ``{"kernels": [...]}`` line the kernels'
 launches and times (each step kernel's ``live`` entry: phase 14's
 numbers and the live instantiation's registers; its ``prefetch``
 entry: phase 18's and the three-slot instantiation's; its ``adaptive``
-and ``ranked`` entries: phase 25's and those instantiations').  Without
-a card, or outside a checkout, it exits nonzero and prints no result.
+and ``ranked`` entries: phase 25's and those instantiations'; its
+``uncapped`` entry: phase 26's check on the ring; each gather kernel:
+phase 29's launches over the three policies and times on the spread
+chunk, with an entry per size and policy).  Without a card, or outside
+a checkout, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -232,6 +262,9 @@ KERNELS = {
     "peer_update": (SOURCE, f"{REF}:1351"),
     "lane_sums": (REDUCE_SOURCE, f"{REF}:1643 + :2607"),
     "timeline_row": (REDUCE_SOURCE, f"{REF}:1559"),
+    "elig_select_gather": (SOURCE, f"{REF}:859 + :907"),
+    "admit_gather": (SOURCE, f"{REF}:1304"),
+    "peer_update_gather": (SOURCE, f"{REF}:1347 + :1351"),
 }
 #: the kernels the single-scenario main path launches, once a step
 #: each (peer_update writes the offload series); TK1 and TK2 are the
@@ -353,6 +386,41 @@ POLICY_CASES = tuple((p, c, live) for p in POLICIES
 #: and plain steps before the check
 POLICY_WRAP_PEERS = (16, 1000)
 POLICY_WRAP_STEPS = 80
+#: the general [P, K] path: tools/policy_ab.py's random mesh (degree 8).
+#: The kernel check's lanes: the prefetch fixture's four cells at
+#: GATHER_PEERS × GRID_SEGMENTS on the mesh, each policy at three slots,
+#: VOD and live, and spread uncapped, at the two states of
+#: PREFETCH_CHECK_STEPS; then small meshes (peers, degree, k_pad) where
+#: rows hold self-padding (degree >= P collapses to everyone else plus
+#: padding; k_pad pads) and holders' in-degree passes K, one call and
+#: ROUTE_STEPS steps against the plain step, each policy
+GATHER_PEERS = 262_144
+GATHER_SMALL = ((16, 20, None), (1000, 8, 10))
+#: the random half of the policy grid: the tool's size (the record's,
+#: tools/policy_ab.py --peers) and the size a user runs on this card
+RANDOM_PEERS = 8_192
+RANDOM_PEERS_LARGE = 262_144
+#: the reference at HEAD on the random mesh, re-run on a CPU at the
+#: record's shape by tools/torch_port_policy_anchor.py --topology random:
+#: {policy: {cell: (offload, rebuffer)}}, rounded as the record.  Where it
+#: differs from the record (spread: cells 0 and 11; adaptive: 0, 5 and 11;
+#: ranked: 0 and 11, each by 1e-4 or 2e-4 of offload) the port is held to
+#: it, not to the record.
+RANDOM_ANCHOR = {
+    "spread": {0: (0.3612, 0.00119), 5: (0.2282, 0.00128),
+               11: (0.4778, 0.00119), 17: (0.3482, 0.00128)},
+    "adaptive": {0: (0.4384, 0.00119), 5: (0.3123, 0.00128),
+                 11: (0.5011, 0.00119), 17: (0.3558, 0.00128)},
+    "ranked": {0: (0.3558, 0.00119), 5: (0.3219, 0.00128),
+               11: (0.5055, 0.00119), 17: (0.3742, 0.00128)}}
+#: the largest difference of a random-mesh row from the record's after its
+#: rounding.  Measured on an H100 80GB HBM3 at 700 W (PERF.md): 2e-4, in
+#: the offload of 8 or 9 cells of each column (the card's float32 sums in
+#: another order than the TPU's, then rounded); every rebuffer equal.  Held
+#: to 5e-4, as the ring's RING_ROW_TOL.
+RANDOM_ROW_TOL = 5e-4
+#: steps of the plain versions timed beside the gather kernels
+PLAIN_STEPS = 3
 FAULT_PLANS = {"transient@0:0x2": {"transient|retry": 2},
                "oom@0:0x2": {"oom|bisect": 2},
                "transient@0:1x4": {"transient|retry": 3,
@@ -368,7 +436,20 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+#: wall seconds by phase tag ("[9]"): the time before each log line goes
+#: to the tag the line starts with, or to the last tag logged
+PHASE_WALLS = {}
+_CLOCK = {"start": time.perf_counter(), "last": time.perf_counter(),
+          "tag": "[1]"}
+
+
 def log(msg=""):
+    now = time.perf_counter()
+    if msg.startswith("[") and "]" in msg:
+        _CLOCK["tag"] = msg[:msg.index("]") + 1]
+    tag = _CLOCK["tag"]
+    PHASE_WALLS[tag] = PHASE_WALLS.get(tag, 0.0) + now - _CLOCK["last"]
+    _CLOCK["last"] = now
     print(msg, flush=True)
 
 
@@ -497,6 +578,69 @@ def compare_peer_update(sim, sk, config, scenario, state, label):
     return max(err, ser_err), rel
 
 
+def compare_gather(sim, sk, config, scenario, state, label):
+    """The general path's kernels against their plain versions on the
+    same inputs: TK1-gather, TK2-gather on the plain TK1's req (its
+    admitted flags where a slot placed demand: the kernel writes no
+    other), TK3-gather as :func:`compare_peer_update` holds it.  Returns
+    ``{kernel: max abs float error}``."""
+    import torch
+    a, b = sim.clone_state(state), sim.clone_state(state)
+    fk, rk = sk.elig_select_gather(config, scenario, a)
+    fp, rp = sk.elig_select_plain(config, scenario, b)
+    sv_k, adm_k = sk.admit_gather(config, scenario, rp)
+    sv_p, adm_p = sk.admit_service_plain(config, scenario, rp)
+    torch.cuda.synchronize()
+    placed = rp >= 0
+    errs = {"elig_select_gather": compare(
+                f"{label} elig_select_gather",
+                {"slot_flags": fk, "req": rk, **a._asdict()},
+                {"slot_flags": fp, "req": rp, **b._asdict()}),
+            "admit_gather": compare(
+                f"{label} admit_gather",
+                {"service": sv_k, "adm": torch.where(placed, adm_k, 0)},
+                {"service": sv_p, "adm": adm_p})}
+    errs["peer_update_gather"], rel = compare_peer_update(
+        sim, sk, config, scenario, state, label)
+    log(f"  {label}: the three gather kernels agree with their plain "
+        f"versions ({int((state.dl_flags & 1).sum())} transfers in "
+        f"flight, {int(placed.sum())} demands placed); max float err "
+        f"{json.dumps(errs)}; sums rel err {rel!r}")
+    return errs
+
+
+def gather_branch_counts(sim, sk, config, scenario, state):
+    """What of the general path binds in the next step, as the plain
+    step sees it: ``padding``, self entries of the neighbour lists (no
+    edge); ``beyond_k``, inbound edges walked past column K (a holder of
+    in-degree above K) whose requester's slot contributes to it;
+    ``denied``, contributions the cap did not admit; ``over_cap``, holders
+    with more contributions than a cap of 2 admits (uncapped, the
+    demands the cap would have denied)."""
+    import torch
+    g = sk.geometry(config)
+    nbr = scenario.neighbors
+    P, K = g.P, nbr.shape[-1]
+    peer = torch.arange(P, device=nbr.device)
+    _flags, req = sk.elig_select_plain(config, scenario,
+                                       sim.clone_state(state))
+    _svc, adm = sk.admit_service_plain(config, scenario, req)
+    in_e = scenario.in_edges.long()
+    ok = in_e >= 0
+    flat = torch.clamp_min(in_e, 0)
+    lanes = torch.arange(in_e.shape[0], device=nbr.device)[:, None, None]
+    src, col = flat // max(K, 1), flat % max(K, 1)
+    beyond, n_contrib = 0, 0
+    for c in range(config.max_concurrency):
+        contrib = ok & (req[..., c][lanes, src] == col)
+        beyond += int(contrib[..., K:].sum())
+        n_contrib = n_contrib + contrib.sum(-1)
+    return {"padding": int((nbr == peer[:, None]).sum()),
+            "beyond_k": beyond,
+            "denied": int(((req >= 0) & (adm == 0)).sum()),
+            "over_cap": int((n_contrib > 2).sum())}
+
+
 def compare_kernels_pair(sim, sk, config, scenario, state, label):
     """TK1 then TK2, called directly, against their plain versions (TK2
     on the plain TK1's req)."""
@@ -578,7 +722,12 @@ def registers_of(regs, kernel, live, slots=1, policy="spread"):
     b, ct, pol = int(live), slots, POLICY_CODES[policy]
     pen = int(policy == "adaptive")
     tag = {"select_admit": f"select_admit_kernelILi8ELb{b}ELi{ct}ELi{pol}EE",
-           "peer_update": f"peer_update_kernelILb{b}ELi{ct}ELb{pen}EE"}[kernel]
+           "peer_update": f"peer_update_kernelILb{b}ELi{ct}ELb{pen}EE",
+           "elig_select_gather":
+               f"elig_select_gather_kernelILb{b}ELi{ct}ELi{pol}EE",
+           "admit_gather": f"admit_gather_kernelILi{ct}EE",
+           "peer_update_gather":
+               f"peer_update_gather_kernelILb{b}ELi{ct}ELb{pen}EE"}[kernel]
     found = [v for k, v in regs.items() if tag in k]
     check(len(found) == 1, f"ptxas reported no single {tag} function")
     return found[0]
@@ -663,7 +812,8 @@ def phase_routes(sim, sk):
                  "peer_update": n} if fused else
                 {"select_admit": 0, "elig_select": n, "admit_service": n,
                  "peer_update": n})
-        want.update(lane_sums=0, timeline_row=0)
+        want.update(lane_sums=0, timeline_row=0,
+                    **{k: 0 for k in sk.GATHER_PATH})
         check(launches == want, f"{label}: launches {launches}, not {want}")
         check(placed > 0, f"{label}: no transfer placed demand")
         err = compare(f"{label} {n} steps", a._asdict(), b._asdict())
@@ -746,9 +896,20 @@ def _stages(sk, config, scenario, route):
     ``fn(state, outputs so far, series, column) -> outputs``:
     ``"fused"`` is the main path (select_admit, then TK3 with the
     offload sums in its epilogue), ``"pair"`` TK1, TK2 and TK3 called
-    directly, ``"plain"`` and ``"plain_pair"`` the plain versions of the
-    one and the other (TK3's is ``peer_update_plain`` then
-    ``lane_sums_plain``)."""
+    directly, ``"gather"`` the general path's gather forms of the three,
+    ``"plain"`` and ``"plain_pair"`` the plain versions of the one and the
+    other (TK3's is ``peer_update_plain`` then ``lane_sums_plain``)."""
+    if route == "gather":
+        def pu(st, o, ser, s):
+            return sk.peer_update(config, scenario, st, *o, series=ser,
+                                  column=s)
+        return [("elig_select_gather",
+                 lambda st, o, ser, s: sk.elig_select_gather(config, scenario,
+                                                             st)),
+                ("admit_gather",
+                 lambda st, o, ser, s: o + sk.admit_gather(config, scenario,
+                                                           o[1])),
+                ("peer_update_gather", pu)]
     if route in ("fused", "plain"):
         sa = sk.select_admit if route == "fused" else sk.select_admit_plain
         first = [("select_admit",
@@ -939,9 +1100,12 @@ def trace_steps(sim, sk, config, scenario, state0, n_steps, route,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_steps
     per_kernel, others, other_ms, any_op = _traced(prof, n_steps)
-    stage_route = "fused" if route in ("graph", "eager") else route
-    per_step = {name: 1.0 for name, _fn in _stages(sk, config, scenario,
-                                                    stage_route)}
+    if route in ("graph", "eager"):
+        per_step = dict.fromkeys(sk.GATHER_PATH if sk.geometry(config).general
+                                 else MAIN_PATH, 1.0)
+    else:
+        per_step = {name: 1.0
+                    for name, _fn in _stages(sk, config, scenario, route)}
     if record_every:
         per_step["timeline_row"] = 1.0 / record_every
     if not any_op or not all(name in per_kernel for name in per_step):
@@ -1000,7 +1164,8 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
     kernel's bound is these bytes over the card's memory rate."""
     import torch
     g = sk.geometry(config)
-    P, K, C = g.P, len(g.offs), config.max_concurrency
+    K = scenario.neighbors.shape[-1] if g.general else len(g.offs)
+    P, C = g.P, config.max_concurrency
     policy = config.holder_selection
     tg = sk.slot_targets(config, scenario, state_before)
     act = tg["active"]
@@ -1011,9 +1176,11 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
     # distinct (holder row, word) pairs that the requesters read
     peer = torch.arange(P, device=req.device)
     wi = (tg["gi_flat"] >> 5).to(torch.int64)
-    keys = torch.stack([((peer + o) % P) * g.W + wi[:, c]
-                        for o in g.offs_mod for c in range(C)])
-    words = int(torch.unique(keys).numel()) if K else 0
+    words = 0   # the general path's gathers: gather_kernel_bytes
+    if g.offs:
+        keys = torch.stack([((peer + o) % P) * g.W + wi[:, c]
+                            for o in g.offs_mod for c in range(C)])
+        words = int(torch.unique(keys).numel())
     tk1 = (4 * (12 + C) * P    # 12 per-peer arrays and each slot's attempts
            # dl_seg, dl_level and (but for ranked) dl_holder_off (active)
            + 4 * (2 if policy == "ranked" else 3) * n_active
@@ -1065,7 +1232,8 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
         tk3 += 4 * P + 4 * blocked + 4   # fg_wait_ms; live_sync_s
     if policy == "adaptive":
         f0 = slot_flags[:, 0]
-        admitted = torch.zeros_like(f0, dtype=torch.bool)
+        admitted = (req[:, 0] >= 0) & (adm[:, 0] != 0) if g.general else (
+            torch.zeros_like(f0, dtype=torch.bool))
         for k, o in enumerate(g.offs):
             admitted |= (req[:, 0] == k) & (
                 ((torch.roll(adm[:, 0], -o, 0) >> k) & 1) != 0)
@@ -1082,6 +1250,62 @@ def kernel_bytes(sk, config, scenario, state_before, slot_flags, req, adm,
     fused = tk1 + 4 * (2 + C) * P + 4
     return {"select_admit": float(fused), "elig_select": float(tk1),
             "admit_service": float(tk2), "peer_update": float(tk3)}
+
+
+def _sectors(words):
+    """Bytes of the 32-byte sectors that 4-byte accesses at the word
+    indices ``words`` touch: a random gather moves a sector for its 4
+    useful bytes."""
+    import torch
+    return 32 * int(torch.unique(words // 8).numel()) if words.numel() else 0
+
+
+def gather_kernel_bytes(sk, config, scenario, state_before, slot_flags, req,
+                        adm, state_after):
+    """:func:`kernel_bytes` for the general path's gather kernels, one
+    lane: what TK1, TK2 and TK3 move on the ring besides their
+    neighbours' reads, plus the gathers counted as the sectors they
+    touch.  TK1-gather reads each requester's neighbour row and one map
+    word of every serving neighbour a slot (the join, leave and p2p_ok
+    it gathers for each neighbour are the per-peer arrays
+    :func:`kernel_bytes` counts once, as it counts the ring's neighbour
+    reads); TK2-gather reads each
+    holder's inbound edges up to the first padding entry, the req of
+    every inbound edge's (requester, slot) and writes the admitted flag
+    where a slot placed demand; TK3-gather reads, where a slot placed
+    demand, the neighbour id and its own flag, and where it was admitted
+    the holder's service."""
+    import torch
+    base = kernel_bytes(sk, config, scenario, state_before, slot_flags, req,
+                        adm, state_after)
+    g = sk.geometry(config)
+    P, C = g.P, config.max_concurrency
+    nbr = scenario.neighbors.long()
+    K = nbr.shape[-1]
+    peer = torch.arange(P, device=nbr.device)
+    tg = sk.slot_targets(config, scenario, state_before)
+    present = tg["present"]
+    real = nbr != peer[:, None]
+    serving = real & present[nbr] & (scenario.p2p_ok[nbr] > 0.0)
+    wi = (tg["gi_flat"] >> 5).long()
+    words = torch.cat([(nbr * g.W + wi[:, c, None])[serving]
+                       for c in range(C)])
+    tk1 = base["elig_select"] + 4 * K * P + _sectors(words)
+    in_e = scenario.in_edges.long()
+    k_in = in_e.shape[-1]
+    deg = (in_e >= 0).sum(-1)
+    flat = in_e[in_e >= 0]
+    src = flat // max(K, 1)
+    placed = req >= 0
+    slot_words = (peer[:, None] * C + torch.arange(C, device=nbr.device))
+    tk2 = (4 * int(torch.clamp_max(deg + 1, k_in).sum())
+           + _sectors(torch.cat([src * C + c for c in range(C)]))
+           + _sectors(slot_words[placed]) + 4 * 2 * P + 4)
+    holder = torch.gather(nbr, 1, torch.clamp_min(req, 0).long())
+    admitted = placed & (adm != 0)
+    tk3 = base["peer_update"] + _sectors(holder[admitted])
+    return {"elig_select_gather": float(tk1), "admit_gather": float(tk2),
+            "peer_update_gather": float(tk3)}
 
 
 def live_branch_counts(sim, sk, config, scenario, state):
@@ -1345,16 +1569,20 @@ def timeline_bytes(B, P, n_cols):
 
 def step_bytes(sim, sk, config, scenario, state_before, slot_flags, req,
                adm, state_after):
-    """:func:`kernel_bytes` of one step, summed over its lanes (a single
-    scenario is one lane), and ``lane_sums``' on the same lanes."""
+    """:func:`kernel_bytes` (on the general path
+    :func:`gather_kernel_bytes`) of one step, summed over its lanes (a
+    single scenario is one lane), and ``lane_sums``' on the same
+    lanes."""
     if not sim.is_lanes(state_before):
         scenario, state_before, state_after = (
             sim.as_lanes(x) for x in (scenario, state_before, state_after))
         slot_flags, req, adm = (x[None] for x in (slot_flags, req, adm))
     B = state_before.t_s.shape[0]
     total = {}
+    count = (gather_kernel_bytes if config.neighbor_offsets is None
+             else kernel_bytes)
     for b in range(B):
-        for name, v in kernel_bytes(
+        for name, v in count(
                 sk, config, sim.lane(scenario, b),
                 sim.lane(state_before, b), slot_flags[b], req[b], adm[b],
                 sim.lane(state_after, b)).items():
@@ -1777,7 +2005,8 @@ def phase_grid(sim, sk, sg, dp):
     want = {"select_admit": n_steps * n_chunks, "elig_select": 0,
             "admit_service": 0, "peer_update": n_steps * n_chunks,
             "lane_sums": 2 * n_chunks,
-            "timeline_row": (n_rows + 1) * n_chunks}
+            "timeline_row": (n_rows + 1) * n_chunks,
+            **{k: 0 for k in sk.GATHER_PATH}}
     check(launches == want, f"grid launches {launches}, not {want}")
     offs = [r[0] for r in rows]
     rebs = [r[1] for r in rows]
@@ -2061,7 +2290,8 @@ def phase_live_grid(sim, sk, sg, dp):
     want = {"select_admit": n_steps * n_chunks, "elig_select": 0,
             "admit_service": 0, "peer_update": n_steps * n_chunks,
             "lane_sums": 2 * n_chunks,
-            "timeline_row": (n_rows + 1) * n_chunks}
+            "timeline_row": (n_rows + 1) * n_chunks,
+            **{k: 0 for k in sk.GATHER_PATH}}
     check(launches == want, f"live grid launches {launches}, not {want}")
     for i, (off, reb, tl) in enumerate(rows):
         check(0.0 <= off <= 1.0 and 0.0 <= reb <= 1.0,
@@ -2531,6 +2761,172 @@ def phase_policies_fixture(sim):
               f"the {policy} fixture's clock or count columns differ")
 
 
+def _random_lanes(d, policy, slots=3, live=False, cap=2, peers=None):
+    """The prefetch fixture's lanes on the random mesh at ``peers``
+    (GATHER_PEERS when None) × GRID_SEGMENTS (its departure wave on its
+    leave lane), the card's."""
+    from hlsjs_p2p_wrapper_tpu_torch.testing import prefetch_lanes
+    config, scenario, _j, _l = prefetch_lanes(
+        d, "cuda", peers=peers or GATHER_PEERS, segments=GRID_SEGMENTS,
+        watch_s=PREFETCH_WATCH_S, slots=slots, policy=policy,
+        topology="random", max_total_serves=cap)
+    return config._replace(live=live), scenario
+
+
+def _init(sim, config, scenario, batch=None):
+    """A fresh state for ``scenario``'s lanes: on the general path with
+    the penalty field as wide as its neighbour lists."""
+    K = (scenario.neighbors.shape[-1] if config.neighbor_offsets is None
+         else None)
+    return sim.init_swarm(config, K, device="cuda", batch=batch)
+
+
+def _denied_by_cap(sim, sk, config, scenario, state, cap=2):
+    """On the ring, the demands of the next step that a cap of ``cap``
+    would deny: demands placed minus the bits a capped admission sets."""
+    import torch
+    _f, req = sk.elig_select_plain(config, scenario, sim.clone_state(state))
+    _s, adm = sk.admit_service_plain(
+        config._replace(max_total_serves=cap), scenario, req)
+    bits = sum(int(((adm >> k) & 1).sum()) for k in range(32))
+    return int((req >= 0).sum()) - bits
+
+
+def phase_gather_kernels(sim, sk):
+    """The general path's kernels and the uncapped fair share against
+    their plain versions.  On the random mesh at GATHER_PEERS: each policy
+    at three slots, VOD and live, and spread uncapped, on the prefetch
+    fixture's four cells, at the two states of PREFETCH_CHECK_STEPS
+    (reached by the kernels' own steps), TK1-gather, TK2-gather and
+    TK3-gather (:func:`compare_gather`); then each policy on the meshes of
+    GATHER_SMALL, one call and ROUTE_STEPS steps against the plain step;
+    every gather branch shown to bind (:func:`gather_branch_counts`).
+    Then the ring uncapped at the main path's shape: the fused kernel,
+    TK1 + TK2 and TK3 against their plain versions, with the demands a
+    cap would have denied.  Returns ``{kernel: max abs float error}``."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import REFERENCE_PREFETCH
+    d = np.load(REFERENCE_PREFETCH)
+    errs, total = {}, {}
+
+    def merge(e, counts=None):
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+        for name, n in (counts or {}).items():
+            total[name] = total.get(name, 0) + n
+    cases = ([(p, live, 2) for p in ("spread", "adaptive", "ranked")
+              for live in (False, True)] + [("spread", False, 0)])
+    for policy, live, cap in cases:
+        t0 = time.perf_counter()
+        config, scenario = _random_lanes(d, policy, live=live, cap=cap)
+        B = scenario.join_s.shape[0]
+        state = _init(sim, config, scenario, B)
+        for n_steps in (PREFETCH_CHECK_STEPS, PREFETCH_CHECK_MORE):
+            for _ in range(n_steps):
+                state = sim.swarm_step(config, scenario, state)
+            torch.cuda.synchronize()
+            label = (f"random mesh, {policy}, C = 3{', live' if live else ''}"
+                     f"{', uncapped' if cap == 0 else ''}, {B} lanes x "
+                     f"{GATHER_PEERS:,} peers at t = "
+                     f"{float(state.t_s[0])!r} s")
+            log(f"[26] {label} x {GRID_SEGMENTS} segments: warmed by the "
+                f"kernels in {time.perf_counter() - t0:.2f} s")
+            counts = gather_branch_counts(sim, sk, config, scenario, state)
+            log(f"  {label}: branch counts {json.dumps(counts)}")
+            merge(compare_gather(sim, sk, config, scenario, state, label),
+                  counts)
+        del state, scenario
+    for peers, degree, k_pad in GATHER_SMALL:
+        nbr = sim.random_neighbors(peers, degree, 0, k_pad, device="cuda")
+        inv = sim.invert_neighbors(nbr, device="cuda")
+        for policy in ("spread", "adaptive", "ranked"):
+            config, scen = _random_lanes(d, policy, peers=peers)
+            B = scen.join_s.shape[0]
+            scen = scen._replace(
+                neighbors=nbr.expand(B, *nbr.shape).contiguous(),
+                in_edges=inv.expand(B, *inv.shape).contiguous())
+            st = _init(sim, config, scen, B)
+            for _ in range(POLICY_WRAP_STEPS):
+                st = sk.plain_step(config, scen, st)
+            label = (f"random mesh {peers:,} peers, degree {degree}, k_pad "
+                     f"{k_pad}, {policy}, C = 3")
+            counts = gather_branch_counts(sim, sk, config, scen, st)
+            e = compare_gather(sim, sk, config, scen, st, label)
+            a, b = sim.clone_state(st), sim.clone_state(st)
+            for _ in range(ROUTE_STEPS):
+                a = sim.swarm_step(config, scen, a)
+                b = sk.plain_step(config, scen, b)
+            e["peer_update_gather"] = max(e["peer_update_gather"], compare(
+                f"{label} {ROUTE_STEPS} steps", a._asdict(), b._asdict()))
+            log(f"[26] {label}: {ROUTE_STEPS} steps agree with the plain "
+                f"step; branch counts {json.dumps(counts)}")
+            merge(e, counts)
+    log(f"    gather branches over every state: {json.dumps(total)}")
+    idle = [name for name, n in total.items() if n == 0]
+    check(not idle, f"gather branches idle over every state: {idle}")
+    # the ring uncapped at the main path's shape
+    config, scenario, state = make_case(sim, sk, PEERS, SEGMENTS, 0, "cuda")
+    config = config._replace(max_total_serves=0)
+    for _ in range(CHECK_WARM_STEPS):
+        state = sim.swarm_step(config, scenario, state)
+    label = f"ring uncapped, {PEERS:,} peers x {SEGMENTS} segments"
+    would = _denied_by_cap(sim, sk, config, scenario, state)
+    e = compare_kernels(sim, sk, config, scenario, state, label)
+    log(f"[26] {label}: {would} demands of the next step a cap of 2 would "
+        f"deny, all admitted")
+    check(would > 0, f"{label}: no holder above the cap, the uncapped "
+                     f"branch does not bind")
+    errs["uncapped"] = max(e.values())
+    merge(e)
+    return errs, total
+
+
+def phase_general_fixture(sim):
+    """The port's batched runs of the committed general fixture (the
+    prefetch fixture's lanes on the random mesh, each of its runs):
+    ratios and series within RUN_TOL, the timeline's clock and count
+    columns equal, the joins and leaves the fixture's to the bit."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import (REFERENCE_GENERAL,
+                                                     general_runs,
+                                                     run_prefetch_fixture)
+    d = np.load(REFERENCE_GENERAL)
+    cols = list(d["columns"])
+    exact = [i for i, c in enumerate(cols)
+             if c in ("t_s", "stalled_peers") or c.startswith("level_")]
+    worst = 0.0
+    for name, policy, cap in general_runs(d):
+        offload, rebuffer, series, timeline, joins, leaves = (
+            run_prefetch_fixture(d, "cuda", policy, topology="random",
+                                 max_total_serves=cap))
+        torch.cuda.synchronize()
+        offload, rebuffer = offload.cpu().numpy(), rebuffer.cpu().numpy()
+        series, timeline = series.cpu().numpy(), timeline.cpu().numpy()
+        want = {k: d[f"{name}_{k}"] for k in ("offload", "rebuffer",
+                                               "series", "timeline")}
+        errs = {k: float(np.abs(v - want[k]).max())
+                for k, v in (("offload", offload), ("rebuffer", rebuffer),
+                             ("series", series))}
+        worst = max(worst, *errs.values())
+        log(f"[27] general fixture, {name} ({policy}, max_total_serves "
+            f"{cap}): {d['shape'].tolist()} (peers, segments, steps, "
+            f"record_every, lanes) on the random mesh: offload "
+            f"{offload.tolist()} (JAX {want['offload'].tolist()}), rebuffer "
+            f"{rebuffer.tolist()} (JAX {want['rebuffer'].tolist()}); max abs "
+            f"err {json.dumps(errs)}")
+        check(np.array_equal(joins.cpu().numpy(), d["join_s"])
+              and np.array_equal(leaves.cpu().numpy(), d["leave_s"]),
+              "the port's joins or leaves are not the general fixture's")
+        check(max(errs.values()) <= RUN_TOL,
+              f"the port's {name} run disagrees with the general fixture")
+        check(np.array_equal(timeline[..., exact],
+                             want["timeline"][..., exact]),
+              f"the {name} fixture's clock or count columns differ")
+    return worst
+
+
 def _ring_run(dp, g, items, chunk, faults=None):
     """``run_groups_chunked`` of the ring grid's ``items`` in chunks of
     ``chunk`` (autotuned when None): ``(rows, stats, wall seconds)``."""
@@ -2544,20 +2940,28 @@ def _ring_run(dp, g, items, chunk, faults=None):
     return results[0], stats[0], time.perf_counter() - t0
 
 
-def phase_ring_grid(sim, sk, pg, dp, policy="spread", tag="[17]"):
-    """The ``policy`` column of tools/policy_ab.py's ring table at its
-    size: 20 cells × 262,144 peers × 128 segments × 960 steps, three
-    transfer slots, through ``run_batch_chunked`` with a ``FaultPolicy``
-    armed and the autotuned chunk; launches checked; a direct run of the
-    20 lanes gives the same rows, and each last series entry its final
-    offload; two cells alone, each a chunk of its own, give their rows
-    to the bit; the rows held to the reference's record after its
+def phase_ring_grid(sim, sk, pg, dp, policy="spread", tag="[17]",
+                    topology="ring", peers=RING_PEERS):
+    """The ``policy`` column of one of tools/policy_ab.py's tables: the
+    ring (``topology="ring"``, at 262,144 peers as the tool runs it) or
+    the random mesh (``"random"``, the general path), 20 cells × ``peers``
+    × 128 segments × 960 steps, three transfer slots, through
+    ``run_batch_chunked`` with a ``FaultPolicy`` armed and the autotuned
+    chunk; launches checked; a direct run of the 20 lanes gives the same
+    rows, and each last series entry its final offload; two cells alone,
+    each a chunk of its own, give their rows to the bit; where the
+    record holds the table at ``peers``, the rows held to it after its
     rounding (at the cells ``tools/torch_port_policy_anchor.py`` re-ran
     for the policy, to the reference at HEAD).  Returns what the later
     phases need."""
     import torch
     from hlsjs_p2p_wrapper_tpu_torch.engine.faults import FaultPolicy
-    config = pg.ring_config(RING_PEERS, policy=policy)
+    mesh = None
+    if topology == "random":
+        config = pg.random_config(peers, policy=policy)
+        mesh = pg.random_topology(peers, pg.SEED, device="cuda")
+    else:
+        config = pg.ring_config(peers, policy=policy)
     cells = pg.cells()
     n_steps = int(pg.WATCH_S * 1000.0 / config.dt_ms)
     audience = pg.build_audience(config.n_peers, pg.SEED, device="cuda")
@@ -2566,7 +2970,7 @@ def phase_ring_grid(sim, sk, pg, dp, policy="spread", tag="[17]"):
         pattern, wave, up = cell
         return pg.build_cell_scenario(config, audience, uplink_bps=up * 1e6,
                                       pattern=pattern, wave=wave,
-                                      watch_s=pg.WATCH_S)
+                                      watch_s=pg.WATCH_S, neighbors=mesh)
     g = {"config": config, "cells": cells, "build": build,
          "n_steps": n_steps, "watch_s": pg.WATCH_S}
     chunk = sim.autotune_chunk(config, len(cells), n_steps,
@@ -2579,7 +2983,8 @@ def phase_ring_grid(sim, sk, pg, dp, policy="spread", tag="[17]"):
     peak = torch.cuda.max_memory_allocated()
     n_chunks = -(-len(cells) // chunk)
     peer_steps = len(cells) * config.n_peers * n_steps
-    log(f"{tag} ring {policy} grid (tools/policy_ab.py): {len(cells)} cells x "
+    log(f"{tag} {topology} {policy} grid (tools/policy_ab.py): "
+        f"{len(cells)} cells x "
         f"{config.n_peers:,} peers x {config.n_segments} segments x "
         f"{n_steps} steps, C = {config.max_concurrency}, a FaultPolicy "
         f"armed; autotuned chunk {chunk} ({n_chunks} chunk(s)); wall "
@@ -2589,16 +2994,18 @@ def phase_ring_grid(sim, sk, pg, dp, policy="spread", tag="[17]"):
         f"{json.dumps(faults.fault_counts())}")
     # per chunk: a launch of each step kernel a step; lane_sums once (the
     # final offload ratio), timeline_row once (the final rebuffer ratio)
-    want = {"select_admit": n_steps * n_chunks, "elig_select": 0,
-            "admit_service": 0, "peer_update": n_steps * n_chunks,
-            "lane_sums": n_chunks, "timeline_row": n_chunks}
-    check(launches == want, f"ring grid launches {launches}, not {want}")
+    want = {name: 0 for name in sk.LAUNCHES}
+    want.update(lane_sums=n_chunks, timeline_row=n_chunks)
+    for name in (MAIN_PATH if mesh is None else sk.GATHER_PATH):
+        want[name] = n_steps * n_chunks
+    check(launches == want, f"{topology} grid launches {launches}, not "
+                            f"{want}")
     check(stats["chunk"] == chunk and not stats["failures"]
           and faults.fault_counts() == {},
           f"the ring grid recovered from something: {stats}")
     for i, (off, reb) in enumerate(rows):
         check(0.0 <= off <= 1.0 and 0.0 <= reb <= 1.0,
-              f"ring cell {i}: ratios out of range {off!r} {reb!r}")
+              f"{topology} cell {i}: ratios out of range {off!r} {reb!r}")
 
     # the 20 lanes as one direct run: the dispatch's rows, each last series
     # entry its final offload
@@ -2606,7 +3013,7 @@ def phase_ring_grid(sim, sk, pg, dp, policy="spread", tag="[17]"):
     scenario = sim.stack_pytrees([sc for sc, _ in built])
     joins = torch.stack([j for _, j in built])
     del built
-    init = sim.init_swarm(config, device="cuda", batch=len(cells))
+    init = _init(sim, config, scenario, len(cells))
     w20, cap20, (final, series) = timed_run(sim, sk, config, scenario, init,
                                             n_steps, "graph")
     offs = sim.offload_ratio_batch(final)
@@ -2625,50 +3032,63 @@ def phase_ring_grid(sim, sk, pg, dp, policy="spread", tag="[17]"):
     # the reference's record, and HEAD's reference where it was re-run
     with open(os.path.join(ROOT, REFERENCE_POLICY_AB)) as fh:
         record = json.load(fh)
-    table = record["topologies"]["ring"]
-    check((table["peers"], record["meta"]["segments"],
-           record["meta"]["watch_s"])
-          == (config.n_peers, config.n_segments, pg.WATCH_S),
-          f"{REFERENCE_POLICY_AB} is not at this grid's size")
-    by_cell = {(r["pattern"], r["wave"], r["uplink_mbps"]): r
-               for r in table["rows"]}
-    anchor = RING_ANCHOR[policy]
-    ref = [anchor.get(i, (by_cell[c][f"{policy}_offload"],
-                          by_cell[c][f"{policy}_rebuffer"]))
-           for i, c in enumerate(cells)]
+    table = record["topologies"][topology]
+    check((record["meta"]["segments"], record["meta"]["watch_s"])
+          == (config.n_segments, pg.WATCH_S),
+          f"{REFERENCE_POLICY_AB} is not at this grid's segments and watch "
+          f"window")
     mine = [_rounded(off, reb) for off, reb in rows]
-    diffs = {i: (abs(m[0] - r[0]), abs(m[1] - r[1]))
-             for i, (m, r) in enumerate(zip(mine, ref)) if m != r}
-    worst = max((max(v) for v in diffs.values()), default=0.0)
-    log(f"    rows (offload, rebuffer) {json.dumps(mine)}; equal to the "
-        f"reference's at {len(cells) - len(diffs)} of {len(cells)} cells "
-        f"after its rounding ({REFERENCE_POLICY_AB}, a TPU's run, and at "
-        f"cells {sorted(anchor)} the reference at HEAD re-run on a "
-        f"CPU); largest difference {worst!r}; cells that differ (offload, "
-        f"rebuffer differences) "
-        f"{json.dumps({i: v for i, v in sorted(diffs.items())})}; the "
-        f"direct 20-lane run (graphs) {w20!r} s ({cap20!r} s of it in "
-        f"captures), rows equal; cells {list(RING_ALONE)} alone equal to "
-        f"the bit; each last series entry equals its final offload")
-    check(worst <= RING_ROW_TOL,
-          f"ring {policy} rows differ from the reference by {worst!r}, "
-          f"more than {RING_ROW_TOL}")
-    check(all(mine[i] == r for i, r in anchor.items()),
-          f"ring {policy} rows differ from HEAD's reference at the anchored "
-          f"cells {sorted(anchor)}")
+    held = f"the direct 20-lane run (graphs) {w20!r} s ({cap20!r} s of it "\
+        f"in captures), rows equal; cells {list(RING_ALONE)} alone equal "\
+        f"to the bit; each last series entry equals its final offload"
+    if table["peers"] != config.n_peers:
+        log(f"    rows (offload, rebuffer) {json.dumps(mine)}; no record at "
+            f"{config.n_peers:,} peers ({REFERENCE_POLICY_AB} holds the "
+            f"{topology} table at {table['peers']:,}); {held}")
+    else:
+        by_cell = {(r["pattern"], r["wave"], r["uplink_mbps"]): r
+                   for r in table["rows"]}
+        anchor, tol = ((RING_ANCHOR, RING_ROW_TOL) if mesh is None
+                       else (RANDOM_ANCHOR, RANDOM_ROW_TOL))
+        anchor = anchor[policy]
+        ref = [anchor.get(i, (by_cell[c][f"{policy}_offload"],
+                              by_cell[c][f"{policy}_rebuffer"]))
+               for i, c in enumerate(cells)]
+        diffs = {i: (abs(m[0] - r[0]), abs(m[1] - r[1]))
+                 for i, (m, r) in enumerate(zip(mine, ref)) if m != r}
+        worst = max((max(v) for v in diffs.values()), default=0.0)
+        log(f"    rows (offload, rebuffer) {json.dumps(mine)}; equal to the "
+            f"reference's at {len(cells) - len(diffs)} of {len(cells)} "
+            f"cells after its rounding ({REFERENCE_POLICY_AB}, a TPU's run, "
+            f"and at cells {sorted(anchor)} the reference at HEAD re-run on "
+            f"a CPU); largest difference {worst!r}; cells that differ "
+            f"(offload, rebuffer differences) "
+            f"{json.dumps({i: v for i, v in sorted(diffs.items())})}; {held}")
+        check(worst <= tol,
+              f"{topology} {policy} rows differ from the reference by "
+              f"{worst!r}, more than {tol}")
+        check(all(mine[i] == r for i, r in anchor.items()),
+              f"{topology} {policy} rows differ from HEAD's reference at "
+              f"the anchored cells {sorted(anchor)}")
+        g["worst"] = worst
     g.update(launches=launches, chunk=chunk, wall=wall, rows=rows,
-             scenario=scenario, final=final, peak=peak, policy=policy)
+             scenario=scenario, final=final, peak=peak, policy=policy,
+             topology=topology, peer_steps_per_s=peer_steps / wall)
     return g
 
 
 def phase_ring_trace(sim, sk, g, tag="[18]"):
-    """The ring grid's 20-lane chunk traced: the whole run as graphs
+    """A policy grid's 20-lane chunk traced: the whole run as graphs
     (device busy time and idle share), TRACE_STEPS eager steps from its
     final state per kernel, and each kernel's bytes for one step from
-    that state and its bound."""
+    that state and its bound; CUDA-event times over WINDOW steps from
+    that state of TK1 and TK2 on the ring, and on the general path of
+    each gather kernel, with its plain version's over PLAIN_STEPS."""
     config, scenario, final = g["config"], g["scenario"], g["final"]
+    general = config.neighbor_offsets is None
+    path = sk.GATHER_PATH if general else MAIN_PATH
     B = final.t_s.shape[0]
-    init = sim.init_swarm(config, device="cuda", batch=B)
+    init = _init(sim, config, scenario, B)
     busy, wall_ms, traced, others = trace_steps(
         sim, sk, config, scenario, init, g["n_steps"], "graph")
     del init
@@ -2682,20 +3102,40 @@ def phase_ring_trace(sim, sk, g, tag="[18]"):
     del before, st
     bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in nbytes.items()}
     idle = None if busy is None else 1.0 - busy / wall_ms
-    log(f"{tag} the ring {g['policy']} grid's {B}-lane chunk (C = "
-        f"{config.max_concurrency}, {config.n_peers:,} peers, "
+    out = {"traced": e_traced, "bytes": nbytes, "bound_ms": bound,
+           "idle": idle, "busy_ms": busy, "wall_ms": wall_ms}
+    log(f"{tag} the {g['topology']} {g['policy']} grid's {B}-lane chunk "
+        f"(C = {config.max_concurrency}, {config.n_peers:,} peers, "
         f"{g['n_steps']} steps) traced whole as graphs: device busy "
         f"{busy!r} ms per step, idle {idle!r} of the traced host wall "
         f"({wall_ms!r} ms per step; per kernel {json.dumps(traced)}; "
-        f"{other_ops(others, g['n_steps'], 'ring graph run')})")
+        f"{other_ops(others, g['n_steps'], 'policy grid graph run')})")
     log(f"    per kernel (launches, traced mean ms), {TRACE_STEPS} eager "
         f"steps from the final state: {json.dumps(e_traced)}; bytes "
-        f"{json.dumps({k: nbytes[k] for k in MAIN_PATH})}; bound ms at "
-        f"3.35 TB/s {json.dumps({k: bound[k] for k in MAIN_PATH})}; "
+        f"{json.dumps({k: nbytes[k] for k in path})}; bound ms at "
+        f"3.35 TB/s {json.dumps({k: bound[k] for k in path})}; "
         f"traced / bound "
-        f"{json.dumps({k: e_traced[k][1] / bound[k] for k in MAIN_PATH if k in e_traced})}")
-    return {"traced": e_traced, "bytes": nbytes, "bound_ms": bound,
-            "idle": idle}
+        f"{json.dumps({k: e_traced[k][1] / bound[k] for k in path if k in e_traced})}")
+    if not general:
+        # TK1 + TK2, the route of wide spans, from the same state
+        pair, _step = time_window(sim, sk, config, scenario, final, WINDOW,
+                                  "pair")
+        out["pair_ms"] = pair
+        log(f"    TK1 + TK2 from the final state (CUDA events, {WINDOW} "
+            f"eager steps): ms {json.dumps(pair)}; bytes "
+            f"{json.dumps({k: nbytes[k] for k in pair})}; bound ms "
+            f"{json.dumps({k: bound[k] for k in pair})}")
+    if general:
+        ms, _step = time_window(sim, sk, config, scenario, final, WINDOW,
+                                "gather")
+        plain, _step = time_window(sim, sk, config, scenario, final,
+                                   PLAIN_STEPS, "plain_pair")
+        plain = dict(zip(sk.GATHER_PATH, plain.values()))
+        out.update(ms=ms, plain_ms=plain)
+        log(f"    CUDA events, {WINDOW} eager steps from the final state: "
+            f"ms {json.dumps(ms)}; the plain versions over {PLAIN_STEPS} "
+            f"steps: ms {json.dumps(plain)}")
+    return out
 
 
 def phase_injected_faults(sim, dp, g):
@@ -2817,6 +3257,40 @@ def phase_real_oom(sim, sg, dp, g9):
     return {"where": where, "counts": counts, "wall": wall}
 
 
+def gather_entry(name, source, replaces, randoms, errs_gather, regs):
+    """The ``kernels`` line's entry of a gather kernel: launches over the
+    random half at RANDOM_PEERS_LARGE (each policy's grid), its
+    CUDA-event, traced and plain times, bytes and bound on the spread
+    grid's chunk there, and per (size, policy) the same besides."""
+    big = randoms[(RANDOM_PEERS_LARGE, "spread")]
+    tr = big["trace"]
+    traced = tr["traced"].get(name)
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces,
+             "launches": sum(randoms[(RANDOM_PEERS_LARGE, p)]["launches"]
+                             [name] for p in POLICIES + ("spread",)),
+             "launches_in": f"the random half of tools/policy_ab.py at "
+                            f"{RANDOM_PEERS_LARGE:,} peers, each policy",
+             "max_abs_err": errs_gather.get(name, 0.0),
+             "shape": f"{len(big['cells'])} x {RANDOM_PEERS_LARGE:,}, "
+                      f"C = {big['config'].max_concurrency}, spread",
+             "ms": tr["ms"][name], "plain_ms": tr["plain_ms"][name],
+             "traced_ms": None if traced is None else traced[1],
+             "bytes": tr["bytes"][name], "bound_ms": tr["bound_ms"][name],
+             "bound_by": "bytes", "library_ms": None,
+             "registers": registers_of(regs, name, False, 3)}
+    for (peers, policy), r in sorted(randoms.items()):
+        t = r["trace"]
+        traced = t["traced"].get(name)
+        entry[f"{policy}_{peers}"] = {
+            "launches": r["launches"][name], "ms": t["ms"][name],
+            "plain_ms": t["plain_ms"][name],
+            "traced_ms": None if traced is None else traced[1],
+            "bytes": t["bytes"][name], "bound_ms": t["bound_ms"][name],
+            "registers": registers_of(regs, name, False, 3, policy)}
+    return entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2875,15 +3349,31 @@ def main() -> int:
             traces[policy] = phase_ring_trace(sim, sk, rings[policy],
                                               "[25]")
             del rings[policy]["scenario"], rings[policy]["final"]
+        errs_gather, _gather_counts = phase_gather_kernels(sim, sk)
+        phase_general_fixture(sim)
+        randoms = {}
+        for tag, peers in (("[28]", RANDOM_PEERS),
+                           ("[29]", RANDOM_PEERS_LARGE)):
+            for policy in pg.POLICIES:
+                r = phase_ring_grid(sim, sk, pg, dp, policy, tag, "random",
+                                    peers)
+                r["trace"] = phase_ring_trace(sim, sk, r, tag)
+                del r["scenario"], r["final"]
+                randoms[(peers, policy)] = r
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        if name in sk.GATHER_PATH:
+            kernels.append(gather_entry(name, source, replaces, randoms,
+                                        errs_gather, regs))
+            continue
         err = max(d.get(name, 0.0) for d in (errs, errs_1m, errs_routes,
                                               errs_batch, errs_live,
-                                              errs_prefetch, errs_policy))
+                                              errs_prefetch, errs_policy,
+                                              errs_gather))
         wide = {"shape": f"48 x {GRID_PEERS:,}",
                 "launches": b48["launches"].get(name, 0),
                 "launches_in": b48["launches_in"],
@@ -2954,7 +3444,14 @@ def main() -> int:
                     "bytes": trace_p["bytes"][name],
                     "bound_ms": trace_p["bound_ms"][name],
                     "registers": registers_of(regs, name, False, 3, policy)}
+            entry["uncapped"] = {
+                "shape": f"1 x {PEERS:,}, ring of {DEGREE}",
+                "max_abs_err": errs_gather.get(name, 0.0),
+                "checked_in": "[26], against the plain version"}
         kernels.append(entry)
+    log(f"wall s by phase (up to each line, by its tag): "
+        f"{json.dumps({k: round(v, 2) for k, v in PHASE_WALLS.items()})}; "
+        f"total {time.perf_counter() - _CLOCK['start']:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

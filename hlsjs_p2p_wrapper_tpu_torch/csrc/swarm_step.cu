@@ -1,14 +1,21 @@
-// One step of the circulant VOD swarm simulator as sm_90a kernels: on the
-// main path select_admit then TK3 (two launches, TK3 with the offset
-// series' sums and the clock's advance in its epilogue); for an offset
-// tuple whose halo is too wide for select_admit's tile, TK1, TK2 and TK3.
+// One step of the swarm simulator as sm_90a kernels: on the circulant main
+// path select_admit then TK3 (two launches, TK3 with the offset series'
+// sums and the clock's advance in its epilogue); for an offset tuple whose
+// halo is too wide for select_admit's tile, TK1, TK2 and TK3; on the
+// general [P, K] neighbour-list path the gather forms of TK1, TK2 and TK3
+// (elig_select_gather_kernel, admit_gather_kernel and
+// peer_update_gather_kernel).
 //
 // The reference is hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py, whose step is
 // jnp code that XLA fuses (its one Pallas kernel, the eligibility stencil
 // of ops/pallas_elig.py, was retired).  Each kernel below names the
-// reference lines it replaces.  The slice they cover: circulant offsets,
-// up to 16 transfer slots (max_concurrency), the three holder policies, an
-// admission cap (max_total_serves > 0), VOD and live mode.
+// reference lines it replaces.  The slice they cover: circulant offsets and
+// general neighbour lists, up to 16 transfer slots (max_concurrency), the
+// three holder policies, VOD and live mode, an admission cap
+// (max_total_serves > 0) and the uncapped fair share, which the wrapper
+// passes as cap = +inf: every demand is admitted, so TK3 never sees a BUSY
+// deny or an admission abort (reference :1291-1297, :1336-1346), and the
+// kernels are the capped ones.
 //
 // Transfer slots (C = max_concurrency) are a template parameter CT of
 // every step kernel: CT = 1 (the foreground alone), CT = 3 (the policy A/B
@@ -89,6 +96,10 @@
 #define BLOCK 256
 static_assert(BLOCK == LS_THREADS,
               "peer_update's blocks are the offload sums' partials");
+
+// the general path's gathers issued together: neighbours (TK1) or inbound
+// edges (TK2) a run
+#define GATHER_RUN 8
 
 // the most transfer slots: two dl_flags bits each in one u32
 #define MAX_SLOTS 16
@@ -183,6 +194,10 @@ struct SelectArgs {
   const float* holder_penalty_ms;
   int policy;
   int rank_order[MAX_OFFS];
+  // the general path (read only by elig_select_gather_kernel): the
+  // neighbour list [B, P, K], K = n_offs, of lane-local peer ids (a self
+  // entry is padding)
+  const int* neighbors;
 };
 
 __device__ __forceinline__ float corrected(float alpha, float est,
@@ -466,12 +481,41 @@ __device__ __forceinline__ int ranked_pick(const SelectArgs& a, long long i,
   return pick;
 }
 
+// Ranked's pick on the general path (nth_holder_only :948-957): the
+// eligible neighbour of the (skip + 1)-th lowest peer id, the last one found
+// where fewer exist; the ids are row r's entries, distinct where they are
+// real (make_scenario refuses a repeated one under ranked).  -1 where none
+// is eligible.
+__device__ __forceinline__ int ranked_pick_ids(const SelectArgs& a,
+                                               long long r,
+                                               uint32_t elig_bits, int skip) {
+  const int* row = a.neighbors + r * a.n_offs;
+  int prev = -1, pick = -1;
+  for (int s = 0; s <= skip; ++s) {
+    int best = 0, best_k = -1;
+    for (uint32_t rest = elig_bits; rest; rest &= rest - 1u) {
+      const int k = __ffs(rest) - 1;
+      const int id = __ldg(&row[k]);
+      if (id > prev && (best_k < 0 || id < best)) {
+        best = id;
+        best_k = k;
+      }
+    }
+    if (best_k < 0) break;
+    prev = best;
+    pick = best_k;
+  }
+  return pick;
+}
+
 // Slot c's selection after eligibility: elig_bits has bit k set where
 // neighbour k holds the slot's target bit and serves (:681-772, serve_ok
 // :805).  Writes the slot's outputs only where `owner` holds, sets its new
 // flight record, and returns its req.  i is the requester's peer index in
-// its lane (the hash's), r its row, t the lane's clock.
-template <bool LIVE, int CT, int POL>
+// its lane (the hash's), r its row, t the lane's clock.  NBR: the general
+// path, where bit k is the row's k-th neighbour and ranked picks by the ids
+// the row holds.
+template <bool LIVE, int CT, int POL, bool NBR = false>
 __device__ __forceinline__ int slot_finish(const SelectArgs& a, int lane,
                                            long long i, long long r, int c,
                                            int C, const PeerIn& in,
@@ -542,7 +586,8 @@ __device__ __forceinline__ int slot_finish(const SelectArgs& a, int lane,
 
   int sel = -1;
   if (POL == POL_RANKED) {
-    sel = ranked_pick(a, i, elig_bits, c == 0 ? C - 1 : c - 1);
+    sel = NBR ? ranked_pick_ids(a, r, elig_bits, c == 0 ? C - 1 : c - 1)
+              : ranked_pick(a, i, elig_bits, c == 0 ? C - 1 : c - 1);
   } else {
     // spread holder selection (:959-991), salt (c * 2246822519 + 97) mod
     // 2^32, the rank advanced by the slot's failed attempts: the rank-th
@@ -654,6 +699,105 @@ __global__ void elig_select_kernel(const SelectArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// TK1 elig_select, gather form: the general [P, K] neighbour-list path
+//
+// Replaces: the general branch's eligibility (swarm_sim.py:859-866,
+// :907-917: nbr_valid, serve_ok[nbr], avail_p[nbr, gi_flat >> 5]) and its
+// holder policies and pinning (:948-957, :981-991, :1021-1040,
+// :1199-1228), with every other line TK1 replaces.
+//
+// One thread a requester, as TK1.  It loads its [K] neighbour row once
+// and, once for every slot, the serve bits of its real edges (not a self
+// entry, the holder present and p2p_ok); per wishing slot it then gathers
+// one map word of each serving neighbour.  Bit k of elig_bits is the
+// row's k-th entry, so the selection, the pinning to the stored holder
+// index k and adaptive's per-edge window read k as on the ring; ranked
+// picks by the ids the row holds (ranked_pick_ids).
+//
+// What bounds it on an H100: the random gathers, each one 32-byte sector
+// for 4 useful bytes (a map word, or the three serve fields of a
+// neighbour), and their latency: a thread's gathers are issued
+// GATHER_RUN at a time, so that they are in flight together.  A lane's map
+// at 262,144 peers x 128 segments is 4 MB: the lanes in flight (grid y)
+// fit in the 50 MB L2.
+template <bool LIVE, int CT, int POL>
+__global__ void elig_select_gather_kernel(const SelectArgs a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long P = a.n_peers;
+  if (i >= P) return;
+  const int C = CT > 0 ? CT : a.n_slots;
+  const int K = a.n_offs;
+  const int lane = blockIdx.y;
+  const long long lb = (long long)lane * P;  // the lane's first row
+  const long long r = lb + i;
+  const float t = a.t_s[lane];
+  PeerIn in;
+  in.present = is_present(t, a.join_s, a.leave_s, r);
+  in.p2p_req = a.p2p_ok[r];
+  in.fl = a.dl_flags[r];
+  in.playhead = a.playhead_s[r];
+  in.buffer = a.buffer_s[r];
+  in.fast_est = a.fast_estimate[r];
+  in.fast_w = a.fast_weight[r];
+  in.slow_est = a.slow_estimate[r];
+  in.slow_w = a.slow_weight[r];
+  in.cap_level = a.abr_cap_level[r];
+  in.margin_off = a.urgent_margin_off_s[r];
+  if (POL == POL_ADAPTIVE) in.pen_bits = penalty_bits<0>(a, r);
+  Flight<CT> f;
+  load_flight<CT, POL>(a, r, C, in.fl, f);
+  load_live<LIVE>(a, lane, r, t, in);
+  const Wish w = select_wish<LIVE>(a, lane, in, t);
+  // the row's real edges whose holder serves (nbr_valid * present_nbr),
+  // GATHER_RUN neighbours at a time: their loads go out together
+  const int* row = a.neighbors + r * K;
+  uint32_t serve_bits = 0u;
+  for (int k0 = 0; k0 < K; k0 += GATHER_RUN) {
+    long long j[GATHER_RUN];
+    float join[GATHER_RUN], leave[GATHER_RUN], ok[GATHER_RUN];
+#pragma unroll
+    for (int u = 0; u < GATHER_RUN; ++u)
+      j[u] = k0 + u < K ? (long long)__ldg(&row[k0 + u]) : i;
+#pragma unroll
+    for (int u = 0; u < GATHER_RUN; ++u) {
+      join[u] = leave[u] = ok[u] = 0.0f;
+      if (j[u] != i) {  // a self entry pads the row
+        join[u] = __ldg(&a.join_s[lb + j[u]]);
+        leave[u] = __ldg(&a.leave_s[lb + j[u]]);
+        ok[u] = __ldg(&a.p2p_ok[lb + j[u]]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < GATHER_RUN; ++u)
+      if (j[u] != i && t >= join[u] && t < leave[u] && ok[u] > 0.0f)
+        serve_bits |= 1u << (k0 + u);
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const Target tg = slot_target<LIVE, CT>(a, r, c, C, in, w, f, t);
+    const uint32_t bm = 1u << tg.bit;
+    uint32_t elig_bits = 0u;
+    for (int k0 = 0; k0 < K; k0 += GATHER_RUN) {
+      uint32_t word[GATHER_RUN];
+#pragma unroll
+      for (int u = 0; u < GATHER_RUN; ++u) {
+        const int k = k0 + u;
+        word[u] = 0u;
+        if (k < K && ((serve_bits >> k) & 1u))
+          word[u] = __ldg(
+              &a.avail[(lb + __ldg(&row[k])) * a.n_words + tg.wi]);
+      }
+#pragma unroll
+      for (int u = 0; u < GATHER_RUN; ++u)
+        if (word[u] & bm) elig_bits |= 1u << (k0 + u);
+    }
+    const bool own = own_bit(a, r, C, tg);
+    slot_finish<LIVE, CT, POL, true>(a, lane, i, r, c, C, in, w, tg,
+                                     elig_bits, own, true, t, f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // TK2 admit_service (reference K3)
 //
 // Replaces: the circulant admission and service of swarm_sim.py:1259-1303
@@ -673,9 +817,14 @@ struct AdmitArgs {
   long long n_peers;
   int n_lanes;
   int n_offs;
-  float cap;
+  float cap;  // +inf: the uncapped fair share
   int offs[MAX_OFFS];
   int n_slots;
+  // the general path (admit_gather_kernel): the inbound edge lists [B, P,
+  // n_in] (flat i * K + k, K = n_offs, ascending, padded with -1 at the
+  // end); there adm_mask is per (requester, slot) the admitted flag
+  const int* in_edges;
+  int n_in;
 };
 
 template <int CT>
@@ -699,6 +848,64 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
       }
     }
     a.adm_mask[(lb + j) * C + c] = (int)adm;
+  }
+  a.service[lb + j] =
+      a.uplink_bps[lb + j] * a.uplink_efficiency[lane] / fmaxf(cum, 1.0f);
+}
+
+// ---------------------------------------------------------------------------
+// TK2 admit_gather: the general path's admission and service
+//
+// Replaces: swarm_sim.py:1304-1349.  Holder j walks, slot by slot, its
+// inbound edge list in_edges[j] in order (requester-id-major, as the
+// reference's cumsum over the row): edge f = i * K + k contributes where
+// requester i's slot c selected its k-th neighbour (req[i, c] == k) and is
+// admitted while the holder's count, across the slots, is below the cap
+// (+inf uncapped).  Then service[j] = uplink * efficiency / max(load, 1).
+//
+// The admitted flag goes to the requester's side, adm_mask[i, c], which TK3
+// reads: a requester does not know its position in j's row, so it cannot
+// read a holder-indexed mask as on the ring.  The flag has exactly one
+// writer, the one holder that slot selected, so it needs no atomics; it is
+// written wherever req[i, c] >= 0, and TK3 reads it only there, so no pass
+// clears it.  What bounds it: the gathers of req, one 32-byte sector per
+// edge walked, and their latency: GATHER_RUN edges' loads are issued
+// together (req is read-only here, so they may pass the flag stores).
+template <int CT>
+__global__ void admit_gather_kernel(const AdmitArgs a) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long P = a.n_peers;
+  if (j >= P) return;
+  const int C = CT > 0 ? CT : a.n_slots;
+  const int K = a.n_offs;
+  const int lane = blockIdx.y;
+  const long long lb = (long long)lane * P;
+  const int* edges = a.in_edges + (lb + j) * a.n_in;
+  float cum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    // GATHER_RUN edges at a time: their req loads go out together, then
+    // the admission walks them in order
+    for (int e0 = 0; e0 < a.n_in; e0 += GATHER_RUN) {
+      int fl[GATHER_RUN], rq[GATHER_RUN];
+#pragma unroll
+      for (int u = 0; u < GATHER_RUN; ++u)
+        fl[u] = e0 + u < a.n_in ? __ldg(&edges[e0 + u]) : -1;
+#pragma unroll
+      for (int u = 0; u < GATHER_RUN; ++u)
+        rq[u] = fl[u] >= 0 ? __ldg(&a.req[(lb + fl[u] / K) * C + c]) : -1;
+#pragma unroll
+      for (int u = 0; u < GATHER_RUN; ++u) {
+        if (fl[u] < 0) continue;  // the padding trails the row
+        const int i = fl[u] / K;
+        if (rq[u] == fl[u] - i * K) {
+          const bool admit = cum < a.cap;
+          if (admit) cum += 1.0f;
+          a.adm_mask[(lb + i) * C + c] = admit ? 1 : 0;
+        }
+      }
+      if (fl[GATHER_RUN - 1] < 0) break;
+    }
   }
   a.service[lb + j] =
       a.uplink_bps[lb + j] * a.uplink_efficiency[lane] / fmaxf(cum, 1.0f);
@@ -1000,6 +1207,9 @@ struct UpdateArgs {
   const int* dl_holder_off;
   const float* penalty_ms;
   int penalty;
+  // the general path (peer_update_gather_kernel): the neighbour list [B, P,
+  // K], K = n_offs; there adm_mask holds the requester's admitted flags
+  const int* neighbors;
 };
 
 __device__ __forceinline__ void ewma_update(float alpha, float weight,
@@ -1062,8 +1272,10 @@ __device__ __forceinline__ uint32_t rearm_bit(int off, int K) {
   return (off >= 0 && off < K) ? 1u << off : 0u;
 }
 
-// One peer's update; returns its new (cdn_bytes, p2p_bytes).
-template <bool LIVE, int CT, bool PEN>
+// One peer's update; returns its new (cdn_bytes, p2p_bytes).  NBR: the
+// general path, where the slot's holder is its row's req-th neighbour and
+// its admitted flag is its own (admit_gather_kernel).
+template <bool LIVE, int CT, bool PEN, bool NBR = false>
 __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
                                               long long p, int lane) {
   const long long P = a.n_peers;
@@ -1090,15 +1302,22 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
     const bool is_p2p0 = (fl & 4) != 0;
     const bool have_n = (fl & 8) != 0;
 
-    // service readback through the slot's selected edge (:1297-1303)
+    // service readback through the slot's selected edge (:1297-1303; on
+    // the general path :1347-1349)
     const int k = a.req[ic];
     bool admitted = false;
     float svc = 0.0f;
     if (k >= 0) {
-      long long j = p + a.offs[k];
-      if (j >= P) j -= P;
-      j += lb;
-      admitted = ((a.adm_mask[j * C + c] >> k) & 1) != 0;
+      long long j;
+      if (NBR) {
+        j = lb + __ldg(&a.neighbors[i * a.n_offs + k]);
+        admitted = a.adm_mask[ic] != 0;
+      } else {
+        j = p + a.offs[k];
+        if (j >= P) j -= P;
+        j += lb;
+        admitted = ((a.adm_mask[j * C + c] >> k) & 1) != 0;
+      }
       if (admitted) svc = a.service[j];
     }
 
@@ -1206,14 +1425,15 @@ __device__ __forceinline__ float2 update_peer(const UpdateArgs& a,
   return make_float2(cdn_new, p2p_new);
 }
 
-template <bool LIVE, int CT, bool PEN>
-__global__ void __launch_bounds__(BLOCK) peer_update_kernel(
-    const UpdateArgs a) {
+// The whole of TK3 for one thread: its peer's update, then the block's
+// sums and the lane's epilogue.
+template <bool LIVE, int CT, bool PEN, bool NBR>
+__device__ __forceinline__ void update_and_sum(const UpdateArgs& a) {
   __shared__ float2 red[BLOCK / 32];
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = blockIdx.y;
   float2 bytes = make_float2(0.0f, 0.0f);
-  if (p < a.n_peers) bytes = update_peer<LIVE, CT, PEN>(a, p, lane);
+  if (p < a.n_peers) bytes = update_peer<LIVE, CT, PEN, NBR>(a, p, lane);
   const float2 b = ls_block_sum(bytes, red);
   if (threadIdx.x >= 32) return;
   // The clock, read before this block's arrival (so that the lane's last
@@ -1224,6 +1444,24 @@ __global__ void __launch_bounds__(BLOCK) peer_update_kernel(
                      const_cast<float*>(a.t_s), t + a.dt_s};
   ls_block_epilogue(b, a.partials, a.counters, a.n_lanes, gridDim.x,
                     blockIdx.x, lane, out);
+}
+
+template <bool LIVE, int CT, bool PEN>
+__global__ void __launch_bounds__(BLOCK) peer_update_kernel(
+    const UpdateArgs a) {
+  update_and_sum<LIVE, CT, PEN, false>(a);
+}
+
+// TK3 peer_update, gather form: the general path.  Replaces, besides TK3's
+// lines, the general branch's readback (swarm_sim.py:1347-1349): the
+// holder of slot c is neighbors[i, req], the admitted flag the requester's
+// own.  With the uncapped fair share (:1398, :1445) every demand was
+// admitted, so no deny or admission abort fires; svc reaches nothing but
+// the P2P rate (:1363).
+template <bool LIVE, int CT, bool PEN>
+__global__ void __launch_bounds__(BLOCK) peer_update_gather_kernel(
+    const UpdateArgs a) {
+  update_and_sum<LIVE, CT, PEN, true>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1296,6 +1534,55 @@ extern "C" int swarm_elig_select(const SelectArgs* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The gather form of TK1: the neighbour list given, at most MAX_OFFS wide
+// (the selection's bit masks).
+template <int CT, int POL>
+static void launch_elig_select_gather_pol(const SelectArgs* a,
+                                          cudaStream_t st) {
+  const dim3 grid = grid_for(a->n_peers, a->n_lanes);
+  if (a->live)
+    elig_select_gather_kernel<true, CT, POL><<<grid, BLOCK, 0, st>>>(*a);
+  else
+    elig_select_gather_kernel<false, CT, POL><<<grid, BLOCK, 0, st>>>(*a);
+}
+
+template <int CT>
+static void launch_elig_select_gather(const SelectArgs* a,
+                                      cudaStream_t st) {
+#define CALL_POL(POL) launch_elig_select_gather_pol<CT, POL>(a, st)
+  FOR_POLICY(a->policy, CALL_POL);
+#undef CALL_POL
+}
+
+extern "C" int swarm_elig_select_gather(const SelectArgs* args,
+                                        void* stream) {
+  if (!slots_ok(args->n_slots) || !policy_ok(args) || args->n_offs < 0 ||
+      args->n_offs > MAX_OFFS ||
+      (args->n_offs > 0 && args->neighbors == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (args->n_peers > 0 && args->n_lanes > 0) {
+#define CALL(CT) launch_elig_select_gather<CT>(args, st)
+    FOR_SLOTS(args->n_slots, CALL);
+#undef CALL
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int swarm_admit_gather(const AdmitArgs* args, void* stream) {
+  if (!slots_ok(args->n_slots) || args->n_in < 0 ||
+      (args->n_in > 0 && (args->in_edges == nullptr || args->n_offs <= 0)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (args->n_peers > 0 && args->n_lanes > 0) {
+    const dim3 grid = grid_for(args->n_peers, args->n_lanes);
+#define CALL(CT) admit_gather_kernel<CT><<<grid, BLOCK, 0, st>>>(*args)
+    FOR_SLOTS(args->n_slots, CALL);
+#undef CALL
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int swarm_admit_service(const AdmitArgs* args, void* stream) {
   if (!slots_ok(args->n_slots)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -1308,42 +1595,68 @@ extern "C" int swarm_admit_service(const AdmitArgs* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <int CT, bool PEN>
+template <int CT, bool PEN, bool NBR>
 static void launch_peer_update_pen(const UpdateArgs* a, cudaStream_t st) {
   const dim3 grid = grid_for(a->n_peers, a->n_lanes);
-  if (a->live)
-    peer_update_kernel<true, CT, PEN><<<grid, BLOCK, 0, st>>>(*a);
-  else
-    peer_update_kernel<false, CT, PEN><<<grid, BLOCK, 0, st>>>(*a);
+  if (NBR) {
+    if (a->live)
+      peer_update_gather_kernel<true, CT, PEN><<<grid, BLOCK, 0, st>>>(*a);
+    else
+      peer_update_gather_kernel<false, CT, PEN><<<grid, BLOCK, 0, st>>>(*a);
+  } else {
+    if (a->live)
+      peer_update_kernel<true, CT, PEN><<<grid, BLOCK, 0, st>>>(*a);
+    else
+      peer_update_kernel<false, CT, PEN><<<grid, BLOCK, 0, st>>>(*a);
+  }
 }
 
-template <int CT>
+template <int CT, bool NBR>
 static void launch_peer_update(const UpdateArgs* a, cudaStream_t st) {
   if (a->penalty)
-    launch_peer_update_pen<CT, true>(a, st);
+    launch_peer_update_pen<CT, true, NBR>(a, st);
   else
-    launch_peer_update_pen<CT, false>(a, st);
+    launch_peer_update_pen<CT, false, NBR>(a, st);
 }
 
-extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
+// The arguments TK3 needs in both forms, and on the general path the
+// neighbour list.
+static bool update_args_ok(const UpdateArgs* args, bool nbr) {
   if (args->partials == nullptr || args->counters == nullptr ||
       args->sums == nullptr || args->t_s == nullptr)
-    return (int)cudaErrorInvalidValue;
+    return false;
   if (args->live && (args->live_sync_s == nullptr ||
                      args->fg_wait_ms == nullptr))
-    return (int)cudaErrorInvalidValue;
+    return false;
   if (!slots_ok(args->n_slots) ||
       (args->n_slots > 1 &&
        (args->dl_attempts == nullptr || args->request_timeout_ms == nullptr ||
         args->retry_dead_ms == nullptr)))
-    return (int)cudaErrorInvalidValue;
+    return false;
   if (args->penalty &&
       (args->holder_penalty_ms == nullptr || args->dl_holder_off == nullptr ||
        args->penalty_ms == nullptr))
-    return (int)cudaErrorInvalidValue;
+    return false;
+  return !nbr || args->n_offs == 0 || args->neighbors != nullptr;
+}
+
+extern "C" int swarm_peer_update(const UpdateArgs* args, void* stream) {
+  if (!update_args_ok(args, false)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (args->n_peers > 0 && args->n_lanes > 0) {
-#define CALL(CT) launch_peer_update<CT>(args, st)
+#define CALL(CT) launch_peer_update<CT, false>(args, st)
+    FOR_SLOTS(args->n_slots, CALL);
+#undef CALL
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int swarm_peer_update_gather(const UpdateArgs* args,
+                                        void* stream) {
+  if (!update_args_ok(args, true)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (args->n_peers > 0 && args->n_lanes > 0) {
+#define CALL(CT) launch_peer_update<CT, true>(args, st)
     FOR_SLOTS(args->n_slots, CALL);
 #undef CALL
   }
@@ -1423,8 +1736,10 @@ static cudaError_t preload_policy() {
       (const void*)select_admit_kernel<8, false, CT, POL>,
       (const void*)select_admit_kernel<0, false, CT, POL>,
       (const void*)select_admit_kernel<8, true, CT, POL>,
-      (const void*)select_admit_kernel<0, true, CT, POL>};
-  return preload(kernels, 6);
+      (const void*)select_admit_kernel<0, true, CT, POL>,
+      (const void*)elig_select_gather_kernel<false, CT, POL>,
+      (const void*)elig_select_gather_kernel<true, CT, POL>};
+  return preload(kernels, 8);
 }
 
 template <int CT>
@@ -1434,8 +1749,13 @@ static cudaError_t preload_slots() {
       (const void*)peer_update_kernel<false, CT, false>,
       (const void*)peer_update_kernel<true, CT, false>,
       (const void*)peer_update_kernel<false, CT, true>,
-      (const void*)peer_update_kernel<true, CT, true>};
-  cudaError_t e = preload(kernels, 5);
+      (const void*)peer_update_kernel<true, CT, true>,
+      (const void*)admit_gather_kernel<CT>,
+      (const void*)peer_update_gather_kernel<false, CT, false>,
+      (const void*)peer_update_gather_kernel<true, CT, false>,
+      (const void*)peer_update_gather_kernel<false, CT, true>,
+      (const void*)peer_update_gather_kernel<true, CT, true>};
+  cudaError_t e = preload(kernels, 10);
   if (e == cudaSuccess) e = preload_policy<CT, POL_SPREAD>();
   if (e == cudaSuccess) e = preload_policy<CT, POL_ADAPTIVE>();
   if (e == cudaSuccess) e = preload_policy<CT, POL_RANKED>();

@@ -5,13 +5,18 @@ plane.
 
 A grid is one or more groups of ``(config, items, build)``: one static
 config per group, and ``build(item)`` makes one item's ``(scenario,
-join_s)``.  Each group's items are cut into chunks of ``chunk`` lanes
-(``autotune_chunk`` when None), each chunk is stacked and stepped as one
-``run_swarm_batch``, and every row comes back as ``(offload, rebuffer[,
-timeline])`` in item order.  Chunks of several groups go round-robin
-(``interleave``), and with ``pipeline`` the next chunk's scenarios are
-built on the host while the card still runs the previous chunk's
-launches, which are drained only then.
+join_s)``.  On the general ``[P, K]`` path each scenario carries its
+neighbour list and inbound edge lists, which stack with the lanes (the
+lanes of one chunk share a width), go through every retry and bisection
+with them, and count in the autotuner's footprint at their real widths
+(``batch_lane_bytes`` from a built lane).  Each group's items are cut
+into chunks of ``chunk`` lanes (``autotune_chunk`` when None), each
+chunk is stacked and stepped as one ``run_swarm_batch``, and every row
+comes back as ``(offload, rebuffer[, timeline])`` in item order.
+Chunks of several groups go round-robin (``interleave``), and with
+``pipeline`` the next chunk's scenarios are built on the host while the
+card still runs the previous chunk's launches, which are drained only
+then.
 
 The fault plane (``faults``, an ``engine.faults.FaultPolicy``): the
 policy's plan may inject a fault at the top of every dispatch attempt;

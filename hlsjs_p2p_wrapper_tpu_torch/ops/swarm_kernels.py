@@ -1,6 +1,6 @@
-"""The kernels of the circulant step (VOD and live) and of its per-lane
-reductions, with their plain PyTorch versions and the wrappers that
-choose between them.
+"""The kernels of the swarm step (VOD and live, circulant and general
+``[P, K]`` topology) and of its per-lane reductions, with their plain
+PyTorch versions and the wrappers that choose between them.
 
 =====================  ==========================================
 kernel                 replaces (reference ``ops/swarm_sim.py``)
@@ -10,13 +10,22 @@ TK1 ``elig_select``    ``circulant_eligibility`` :681-772, the
                        start decision :1053-1205, pinning
                        :1207-1228
 TK2 ``admit_service``  circulant admission in (slot, offset) order
-                       and service, :1259-1303 (``cap > 0``)
+                       and service, :1259-1303 (the uncapped fair
+                       share :1291-1297 as an infinite cap)
 ``select_admit``       TK1 then TK2 in one launch, over tiles of
                        peers with a halo of requesters
 TK3 ``peer_update``    the service readback and each slot's update
                        :1351-1525 with ``ewma.update``, and in its
                        epilogue TK4's sums for the step's offload
                        series :1643-1647 and the clock's advance
+TK1 gather form        the general path's eligibility by gather
+``elig_select_gather`` :859-866, :907-917, its policies and
+                       pinning (:948-957, :981-991, :1021-1040,
+                       :1199-1228), the rest as TK1
+TK2 ``admit_gather``   the general path's admission over the
+                       inbound edge lists and service :1304-1349
+TK3 gather form        TK3 with the general path's readback
+``peer_update_gather`` :1347-1349
 TK4 ``lane_sums``      the same sums outside the step: a timeline's
                        first interval, ``offload_ratio`` :2607-2611
 TK5 ``timeline_row``   ``_timeline_row`` :1559-1627 (no cohort
@@ -27,9 +36,15 @@ A step is :func:`select_admit` then :func:`peer_update`, which also
 sums each lane's byte counters, writes the step's column of the
 offload series and advances the lane's clock; every ``record_every``
 steps :func:`timeline_row` writes a row.  The route of
-``select_admit`` is chosen from the offsets before launch
+``select_admit`` is chosen from the config before launch
 (:func:`fused_route`): the fused kernel where the halo fits its tile
-(the main path), else TK1 then TK2.
+(the main path), else TK1 then TK2; on the general ``[P, K]`` path
+(``config.neighbor_offsets`` None, the neighbour list
+``scenario.neighbors``) TK1 then TK2 in their gather forms, and
+:func:`peer_update` takes its gather form too.  The uncapped fair share
+(``max_total_serves <= 0``) is the capped kernels with an infinite cap:
+every demand is admitted, so no BUSY deny or admission abort fires, as
+in the reference's uncapped branch.
 
 Lanes.  Every function here works on stacked scenario lanes (``t_s``
 of shape ``[B]``, see ``swarm_sim``); the step's functions also take a
@@ -53,7 +68,9 @@ may, bit 1 active, bit 2 is_p2p, bit 3 have_n; on slot 0 only, bit 4
 blocked on the live stagger and bit 5 absorbed from the own cache),
 ``req`` (the offset index of the slot's selected holder where the slot
 places demand, else -1) and ``adm`` (per holder and slot, a bit mask of
-the admitted offset indices); per holder, ``[B, P]``, ``service``.
+the admitted offset indices; on the general path per requester and
+slot the admitted flag, written where ``req >= 0`` and read only
+there); per holder, ``[B, P]``, ``service``.
 
 Transfer slots.  ``C = config.max_concurrency`` slots (at most 16):
 slot 0 the foreground, slots 1.. P2P-only prefetches.  Every kernel
@@ -126,8 +143,8 @@ from .ewma import _div, get_estimate, update
 from .swarm_sim import (BANDWIDTH_SAFETY, SwarmConfig, SwarmScenario,
                         SwarmState, _abr_pick, _normalized_offsets,
                         as_lanes, bit_mask_words, circulant_eligibility,
-                        pack_dl_flags, packed_words, resolve_eligibility,
-                        unpack_dl_flags)
+                        gather_eligibility, pack_dl_flags, packed_words,
+                        resolve_eligibility, unpack_dl_flags)
 
 SOURCE = "swarm_step.cu"
 REDUCE_SOURCE = "swarm_reduce.cu"
@@ -135,15 +152,23 @@ MAX_OFFS = 32
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES = {"select_admit": 0, "elig_select": 0, "admit_service": 0,
-            "peer_update": 0, "lane_sums": 0, "timeline_row": 0}
+            "peer_update": 0, "lane_sums": 0, "timeline_row": 0,
+            "elig_select_gather": 0, "admit_gather": 0,
+            "peer_update_gather": 0}
 #: the kernel each launching wrapper launches, once a call, on the card;
 #: :func:`select_admit` launches through ``select_admit_fused`` or
-#: through ``elig_select`` then ``admit_service`` (:func:`fused_route`)
+#: through ``elig_select`` then ``admit_service`` (:func:`fused_route`),
+#: or on the general path ``elig_select_gather`` then ``admit_gather``
 KERNEL_OF = {"select_admit_fused": "select_admit",
              "elig_select": "elig_select", "admit_service": "admit_service",
              "peer_update": "peer_update", "lane_sums": "lane_sums",
              "timeline_row": "timeline_row",
-             "rebuffer_ratio_lanes": "timeline_row"}
+             "rebuffer_ratio_lanes": "timeline_row",
+             "elig_select_gather": "elig_select_gather",
+             "admit_gather": "admit_gather",
+             "peer_update_gather": "peer_update_gather"}
+#: the step kernels of the general [P, K] path, a launch each a step
+GATHER_PATH = ("elig_select_gather", "admit_gather", "peer_update_gather")
 
 
 def reset_launch_counts() -> None:
@@ -169,13 +194,19 @@ class Geometry(NamedTuple):
     dt_s: float
     fast_alpha: float
     slow_alpha: float
-    cap: int
+    cap: float                  # max_total_serves, +inf when uncapped
+    general: bool               # the [P, K] path (no offsets)
 
 
 @functools.lru_cache(maxsize=64)
 def geometry(config: SwarmConfig) -> Geometry:
+    """The config's geometry; on the general path (no offsets) the
+    offset fields are empty and K comes from the scenario's neighbour
+    list."""
     P = config.n_peers
-    offs = tuple(_normalized_offsets(config.neighbor_offsets, P))
+    general = config.neighbor_offsets is None
+    offs = () if general else tuple(
+        _normalized_offsets(config.neighbor_offsets, P))
     return Geometry(
         P=P, S=config.n_segments, L=config.n_levels,
         W=packed_words(config), offs=offs,
@@ -188,7 +219,9 @@ def geometry(config: SwarmConfig) -> Geometry:
         dt_ms=config.dt_ms, dt_s=config.dt_ms / 1000.0,
         fast_alpha=math.exp(math.log(0.5) / config.fast_half_life_s),
         slow_alpha=math.exp(math.log(0.5) / config.slow_half_life_s),
-        cap=config.max_total_serves)
+        cap=(float(config.max_total_serves) if config.max_total_serves > 0
+             else math.inf),
+        general=general)
 
 
 #: peers per block of ``select_admit``
@@ -227,9 +260,10 @@ MAX_EDGES = 32
 
 def fused_route(config: SwarmConfig) -> bool:
     """Whether :func:`select_admit` runs its fused kernel for
-    ``config`` (else TK1 then TK2): decided from the offsets alone."""
+    ``config`` (else TK1 then TK2, in their gather forms on the general
+    path): decided from the offsets alone."""
     g = geometry(config)
-    return g.o_hi - g.o_lo <= MAX_FUSED_SPAN
+    return not g.general and g.o_hi - g.o_lo <= MAX_FUSED_SPAN
 
 
 def reduce_blocks(n_peers: int) -> int:
@@ -375,16 +409,18 @@ def _adaptive_holder_only(elig, own_used, pen, gi_seg, rot, c):
     return _spread_holder_only(sel_elig, n_sel, gi_seg, rot, c)
 
 
-def _nth_holder_only(elig, offs_mod, skip: int):
-    """Reference ``nth_holder_only`` (:919-947), circulant: keep the
-    eligible holder of the (``skip`` + 1)-th lowest peer id, ``(i + o)
-    mod P`` (the last one found where fewer exist).  Near the ring's
-    wrap the lowest id is not the lowest offset."""
+def _nth_holder_only(elig, ids, skip: int):
+    """Reference ``nth_holder_only`` (:919-957): keep the eligible
+    holder of the (``skip`` + 1)-th lowest peer id (the last one found
+    where fewer exist).  ``ids`` lists each neighbour column's peer ids:
+    on the ring ``(i + o) mod P``, where near the wrap the lowest id is
+    not the lowest offset; on the general path the neighbour list's
+    columns."""
+    if not elig:
+        return []
     P = elig[0].shape[-1]
-    peer = torch.arange(P, dtype=torch.int32, device=elig[0].device)
     big = torch.full(elig[0].shape, P, dtype=torch.int32,
                      device=elig[0].device)
-    ids = [(peer + om) % P for om in offs_mod]
     masked = [torch.where(e > 0, i, big) for e, i in zip(elig, ids)]
     prev = torch.full_like(big, -1)
     for _ in range(skip + 1):
@@ -394,6 +430,16 @@ def _nth_holder_only(elig, offs_mod, skip: int):
         prev = torch.where(nxt < big, nxt, prev)
     return [((e > 0) & (i == prev)).to(torch.float32)
             for e, i in zip(elig, ids)]
+
+
+def _holder_ids(g: Geometry, scenario: SwarmScenario, like: torch.Tensor):
+    """Each neighbour column's peer ids, ``[..., P]`` int32 each: on the
+    ring ``(i + o) mod P`` per offset, on the general path the neighbour
+    list's columns."""
+    if g.general:
+        return list(scenario.neighbors.unbind(-1))
+    peer = torch.arange(g.P, dtype=torch.int32, device=like.device)
+    return [(peer + om) % g.P for om in g.offs_mod]
 
 
 @_lane_api
@@ -414,8 +460,11 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
     penalty window, ``"ranked"`` the holder of the (C-1)-th (foreground)
     or (c-1)-th (prefetch slot c) lowest peer id.  An active transfer
     keeps its stored holder under spread and adaptive; ranked picks
-    anew every step (:1207-1228).  Writes each
-    slot record into ``state`` in place; returns ``(slot_flags, req)``,
+    anew every step (:1207-1228).  On the general path the eligibility
+    gathers the neighbour list's entries (:859-866, :907-917; a self
+    entry is padding) and offset index k is the list's column k.  Writes
+    each slot record into ``state`` in place; returns ``(slot_flags,
+    req)``,
     each ``[..., P, C]``: per slot bit 0 may, 1 active, 2 is_p2p, 3
     have_n, and on slot 0 bit 4 blocked on the live stagger, bit 5
     absorbed; ``req`` the offset index of the slot's selected holder
@@ -426,10 +475,18 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
      gi_segs, gi_flats) = _slot_targets(config, scenario, state)
     p2p_req = scenario.p2p_ok
     serve_ok = present & (scenario.p2p_ok > 0.0)
-    impl = resolve_eligibility(config, state.avail.device)
-    elig_slots = circulant_eligibility(
-        state.avail, serve_ok, list(g.offs),
-        [gi_flats[..., c] for c in range(C)], impl=impl)
+    targets = [gi_flats[..., c] for c in range(C)]
+    if g.general:
+        elig_slots = gather_eligibility(state.avail, serve_ok,
+                                        scenario.neighbors, targets)
+        n_nbr = scenario.neighbors.shape[-1]
+    else:
+        elig_slots = circulant_eligibility(
+            state.avail, serve_ok, list(g.offs), targets,
+            impl=resolve_eligibility(config, state.avail.device))
+        n_nbr = len(g.offs)
+    ids = _holder_ids(g, scenario, next_seg) if (
+        config.holder_selection == "ranked") else None
 
     margin_s = next_seg.to(torch.float32) * g.seg - playhead
     urgent = margin_s < (_col(scenario.urgent_margin_s)
@@ -515,12 +572,11 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
 
         rot = state.dl_attempts[..., c]
         if policy == "ranked":
-            sel = _nth_holder_only(elig, g.offs_mod, C - 1 if c == 0
-                                   else c - 1)
+            sel = _nth_holder_only(elig, ids, C - 1 if c == 0 else c - 1)
         elif policy == "adaptive":
             # the offsets my other slots' P2P transfers ride
             own_used = []
-            for k in range(len(g.offs)):
+            for k in range(n_nbr):
                 used = never
                 for a_o, _f, o_o, p_o in flight[:c] + flight[c + 1:]:
                     used = used | (a_o & p_o & (o_o == k))
@@ -566,13 +622,16 @@ def elig_select_plain(config: SwarmConfig, scenario: SwarmScenario,
 @_lane_api
 def admit_service_plain(config: SwarmConfig, scenario: SwarmScenario,
                         req: torch.Tensor):
-    """Plain TK2 (reference :1259-1303, ``cap > 0``): each holder admits
-    its requesters in (slot, offset) order up to the cap, one load
-    count across the slots, then serves at uplink · efficiency / load.
-    ``req`` is ``[..., P, C]``; returns ``(service [..., P] f32, adm
-    [..., P, C] i32)``, ``adm`` per slot a bit mask of the admitted
-    offset indices."""
+    """Plain TK2 (reference :1259-1303): each holder admits its
+    requesters in (slot, offset) order up to the cap (none when
+    uncapped), one load count across the slots, then serves at uplink ·
+    efficiency / load.  ``req`` is ``[..., P, C]``; returns ``(service
+    [..., P] f32, adm [..., P, C] i32)``, ``adm`` per slot a bit mask of
+    the admitted offset indices.  On the general path the plain TK2 of
+    :func:`admit_gather`."""
     g = geometry(config)
+    if g.general:
+        return _admit_gather_plain(g, scenario, req)
     shape = req.shape[:-1]
     zeros = torch.zeros(shape, dtype=torch.float32, device=req.device)
     cum_j = zeros
@@ -587,6 +646,48 @@ def admit_service_plain(config: SwarmConfig, scenario: SwarmScenario,
             cum_j = cum_j + adm_at_j
             adm = adm | ((adm_at_j > 0.0).to(torch.int32) << k)
         adms.append(adm)
+    service = (scenario.uplink_bps * _col(scenario.uplink_efficiency)
+               / torch.clamp_min(cum_j, 1.0))
+    return service, torch.stack(adms, -1)
+
+
+def _admit_gather_plain(g: Geometry, scenario: SwarmScenario,
+                        req: torch.Tensor):
+    """Plain ``admit_gather`` on lanes (reference :1304-1349): per slot,
+    holder j gathers the contributions of its inbound edges
+    ``in_edges[j]`` (flat ``i·K + k``, where requester i's slot selected
+    column k), admits them in row order while its count plus those
+    before them stays below the cap, and the admitted flags go back to
+    the requesters.  Returns ``(service [B, P], adm [B, P, C])``, ``adm``
+    the requester's admitted flag (0 where it placed no demand)."""
+    in_e = scenario.in_edges
+    B, P, _k_in = in_e.shape
+    K = scenario.neighbors.shape[-1]
+    dev = req.device
+    ok = in_e >= 0
+    flat = torch.clamp_min(in_e, 0).long()
+    src = (flat // max(K, 1)).reshape(B, -1)
+    col = (flat % max(K, 1)).to(torch.int32)
+    cum_j = torch.zeros((B, P), dtype=torch.float32, device=dev)
+    # scatter target of each inbound edge: its requester's flat slot, or
+    # the spare entry past the end for padding
+    target = torch.where(ok, flat, P * K).reshape(B, -1)
+    adms = []
+    for c in range(req.shape[-1]):
+        r_c = req[..., c]
+        contrib = ok & (torch.gather(r_c, -1, src).reshape(in_e.shape) == col)
+        got = contrib.to(torch.float32)
+        prior = torch.cumsum(got, dim=-1) - got
+        adm = torch.where(contrib & (cum_j.unsqueeze(-1) + prior < g.cap),
+                          got, 0.0)
+        cum_j = cum_j + torch.sum(adm, dim=-1)
+        adm_flat = torch.zeros((B, P * K + 1), dtype=torch.float32,
+                               device=dev).scatter_reduce(
+                                   -1, target, adm.reshape(B, -1), "amax")
+        placed = r_c >= 0
+        at = torch.where(placed, torch.arange(P, device=dev) * K
+                         + r_c.long(), P * K)
+        adms.append((torch.gather(adm_flat, -1, at) > 0.0).to(torch.int32))
     service = (scenario.uplink_bps * _col(scenario.uplink_efficiency)
                / torch.clamp_min(cum_j, 1.0))
     return service, torch.stack(adms, -1)
@@ -622,8 +723,11 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
     ``"adaptive"`` the penalty window drains by ``dt_ms`` on every edge
     and re-arms to the scenario's ``holder_penalty_ms`` on the holder
     offset of a foreground BUSY deny and of every prefetch abort, in
-    slot order (:1356-1358, :1405-1417, :1459-1466).  Updates ``state``
-    in place."""
+    slot order (:1356-1358, :1405-1417, :1459-1466).  On the general
+    path a slot's holder is its neighbour list's ``req``-th entry and its
+    admitted flag its own (``adm``, as :func:`admit_gather` gives it).
+    Uncapped, every demand was admitted, so no deny or admission abort
+    fires (:1398, :1445).  Updates ``state`` in place."""
     g = geometry(config)
     C = config.max_concurrency
     dev = req.device
@@ -654,8 +758,18 @@ def peer_update_plain(config: SwarmConfig, scenario: SwarmScenario,
         have_n = (fl & 8) != 0
 
         # service readback: the admitted edge of the slot's requester
-        svc = zeros
-        admitted = torch.zeros(zeros.shape, dtype=torch.bool, device=dev)
+        if g.general:
+            # its holder is the list's req-th neighbour (:1347-1349)
+            placed = req[..., c] >= 0
+            holder = torch.gather(scenario.neighbors, -1, torch.clamp_min(
+                req[..., c], 0).long().unsqueeze(-1))[..., 0]
+            admitted = placed & (adm[..., c] != 0)
+            svc = torch.where(admitted, torch.gather(service, -1,
+                                                     holder.long()), zeros)
+        else:
+            svc = zeros
+            admitted = torch.zeros(zeros.shape, dtype=torch.bool,
+                                   device=dev)
         for k, o in enumerate(g.offs):
             adm_k = (req[..., c] == k) & (
                 ((torch.roll(adm[..., c], -o, -1) >> k) & 1) != 0)
@@ -921,7 +1035,7 @@ class _SelectArgs(ctypes.Structure):
         ("dt_ms", ctypes.c_float), ("live", ctypes.c_int),
         ("dl_cooldown_ms", _P), ("n_slots", ctypes.c_int),
         ("holder_penalty_ms", _P), ("policy", ctypes.c_int),
-        ("rank_order", ctypes.c_int * MAX_OFFS)]
+        ("rank_order", ctypes.c_int * MAX_OFFS), ("neighbors", _P)]
 
 
 class _AdmitArgs(ctypes.Structure):
@@ -930,7 +1044,7 @@ class _AdmitArgs(ctypes.Structure):
         ("n_peers", ctypes.c_longlong), ("n_lanes", ctypes.c_int),
         ("n_offs", ctypes.c_int),
         ("cap", ctypes.c_float), ("offs", ctypes.c_int * MAX_OFFS),
-        ("n_slots", ctypes.c_int)]
+        ("n_slots", ctypes.c_int), ("in_edges", _P), ("n_in", ctypes.c_int)]
 
 
 class _SelectAdmitArgs(ctypes.Structure):
@@ -961,7 +1075,7 @@ class _UpdateArgs(ctypes.Structure):
         ("dl_attempts", _P), ("request_timeout_ms", _P),
         ("retry_dead_ms", _P), ("n_slots", ctypes.c_int),
         ("holder_penalty_ms", _P), ("dl_holder_off", _P),
-        ("penalty_ms", _P), ("penalty", ctypes.c_int)]
+        ("penalty_ms", _P), ("penalty", ctypes.c_int), ("neighbors", _P)]
 
 
 class _LaneSumsArgs(ctypes.Structure):
@@ -988,14 +1102,23 @@ _ENTRY = {"elig_select": (SOURCE, "swarm_elig_select", _SelectArgs),
           "admit_service": (SOURCE, "swarm_admit_service", _AdmitArgs),
           "peer_update": (SOURCE, "swarm_peer_update", _UpdateArgs),
           "select_admit": (SOURCE, "swarm_select_admit", _SelectAdmitArgs),
+          "elig_select_gather": (SOURCE, "swarm_elig_select_gather",
+                                 _SelectArgs),
+          "admit_gather": (SOURCE, "swarm_admit_gather", _AdmitArgs),
+          "peer_update_gather": (SOURCE, "swarm_peer_update_gather",
+                                 _UpdateArgs),
           "lane_sums": (REDUCE_SOURCE, "reduce_lane_sums", _LaneSumsArgs),
           "timeline_row": (REDUCE_SOURCE, "reduce_timeline_row",
                            _TimelineArgs)}
-#: each source's macros, its entry point that reports its structs'
-#: sizes (in ``_ENTRY`` order), and the one that loads its kernels onto
-#: the card (so that none loads lazily inside a graph capture)
-_SOURCES = {SOURCE: (DEFINES, "swarm_args_sizes", "swarm_preload"),
-            REDUCE_SOURCE: ((), "reduce_args_sizes", "reduce_preload")}
+#: each source's macros, its entry point that reports its structs' sizes
+#: (of the structs listed, in that order), and the one that loads its
+#: kernels onto the card (so that none loads lazily inside a graph
+#: capture)
+_SOURCES = {SOURCE: (DEFINES, "swarm_args_sizes", "swarm_preload",
+                     (_SelectArgs, _AdmitArgs, _UpdateArgs,
+                      _SelectAdmitArgs)),
+            REDUCE_SOURCE: ((), "reduce_args_sizes", "reduce_preload",
+                            (_LaneSumsArgs, _TimelineArgs))}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1004,20 +1127,19 @@ def _lib(source: str) -> ctypes.CDLL:
     the ctypes mirrors against the C structs' sizes, and load its
     kernels onto the card."""
     from . import _build
-    defines, sizes_fn, preload_fn = _SOURCES[source]
+    defines, sizes_fn, preload_fn, structs = _SOURCES[source]
     lib = _build.load(source, defines)
-    entries = [(fn, args) for src, fn, args in _ENTRY.values()
-               if src == source]
-    for fn, _args in entries:
-        f = getattr(lib, fn)
-        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        f.restype = ctypes.c_int
+    for src, fn, _args in _ENTRY.values():
+        if src == source:
+            f = getattr(lib, fn)
+            f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            f.restype = ctypes.c_int
     get_sizes = getattr(lib, sizes_fn)
     get_sizes.argtypes = [ctypes.c_void_p]
     get_sizes.restype = ctypes.c_int
-    sizes = (ctypes.c_longlong * len(entries))()
+    sizes = (ctypes.c_longlong * len(structs))()
     get_sizes(sizes)
-    want = [ctypes.sizeof(a) for _fn, a in entries]
+    want = [ctypes.sizeof(a) for a in structs]
     if list(sizes) != want:
         raise RuntimeError(f"{source}: kernel argument structs disagree "
                            f"with their ctypes mirrors: C {list(sizes)} vs "
@@ -1036,7 +1158,7 @@ def build_kernels(force: bool = False) -> dict:
     ``nvcc`` each, started together; they build on first launch
     otherwise.  Returns the build's report (``_build.build``)."""
     from . import _build
-    info = _build.build({src: d for src, (d, _s, _p) in _SOURCES.items()},
+    info = _build.build({src: v[0] for src, v in _SOURCES.items()},
                         force=force)
     for src in _SOURCES:
         _lib(src)
@@ -1089,18 +1211,38 @@ _SCALARS = frozenset(("urgent_margin_s", "p2p_budget_fraction",
 POLICY_CODES = {"spread": 0, "adaptive": 1, "ranked": 2}
 
 
-def _penalty(config: SwarmConfig, state: SwarmState, dev) -> int:
+def _n_nbr(config: SwarmConfig, scenario: SwarmScenario) -> int:
+    """K: the normalized offsets, or the general path's list width."""
+    g = geometry(config)
+    return scenario.neighbors.shape[-1] if g.general else len(g.offs)
+
+
+def _penalty(config: SwarmConfig, scenario: SwarmScenario,
+             state: SwarmState, dev) -> int:
     """The penalty window's pointer, checked: ``[B, P, K]`` under
     ``"adaptive"`` (a K = 8 row is read and written as two 16-byte
     accesses, so the field must be 16-byte aligned), else ``[B, P, 0]``,
     which no kernel reads."""
     g = geometry(config)
-    width = len(g.offs) if config.holder_selection == "adaptive" else 0
+    width = (_n_nbr(config, scenario)
+             if config.holder_selection == "adaptive" else 0)
     ptr = _check("holder_penalty_ms", state.holder_penalty_ms, _F,
                  (state.t_s.shape[0], g.P, width), dev)
     if width and ptr % 16:
         raise ValueError("holder_penalty_ms is not 16-byte aligned")
     return ptr
+
+
+def _neighbors(config: SwarmConfig, scenario: SwarmScenario, B: int,
+               dev) -> int:
+    """The general path's neighbour list ``[B, P, K]``, checked: at most
+    :data:`MAX_OFFS` wide (the kernels' bit masks)."""
+    g = geometry(config)
+    K = scenario.neighbors.shape[-1]
+    if K > MAX_OFFS:
+        raise ValueError(f"a neighbour list {K} wide; the kernels take at "
+                         f"most {MAX_OFFS} neighbours a peer")
+    return _check("neighbors", scenario.neighbors, _I, (B, g.P, K), dev)
 
 
 def _scenario_ptrs(scenario: SwarmScenario, names, B, P, L, dev) -> dict:
@@ -1115,10 +1257,10 @@ def _scenario_ptrs(scenario: SwarmScenario, names, B, P, L, dev) -> dict:
 
 def _select_args(config: SwarmConfig, scenario: SwarmScenario,
                  state: SwarmState, dev):
-    """TK1's arguments (also the selection half of ``select_admit``'s),
-    checked, with fresh ``slot_flags`` and ``req`` outputs.  The live
-    inputs are passed for a VOD config too, whose kernels never read
-    them."""
+    """TK1's arguments (also the selection half of ``select_admit``'s,
+    and on the general path its gather form's), checked, with fresh
+    ``slot_flags`` and ``req`` outputs.  The live inputs are passed for
+    a VOD config too, whose kernels never read them."""
     g = geometry(config)
     P = g.P
     B = state.t_s.shape[0]
@@ -1148,10 +1290,12 @@ def _select_args(config: SwarmConfig, scenario: SwarmScenario,
         ptrs[name] = _check(name, getattr(state, name), _F, (B, P, C), dev)
     ptrs["slot_flags"] = slot_flags.data_ptr()
     ptrs["req"] = req.data_ptr()
-    ptrs["holder_penalty_ms"] = _penalty(config, state, dev)
+    ptrs["holder_penalty_ms"] = _penalty(config, scenario, state, dev)
+    if g.general:
+        ptrs["neighbors"] = _neighbors(config, scenario, B, dev)
     args = _SelectArgs(
         **ptrs, n_peers=P, n_lanes=B, n_words=g.W, n_segments=g.S,
-        n_levels=g.L, n_offs=len(g.offs), seg_duration_s=g.seg,
+        n_levels=g.L, n_offs=_n_nbr(config, scenario), seg_duration_s=g.seg,
         inv_seg_duration_s=float(np.float32(1.0) / np.float32(g.seg)),
         max_buffer_s=config.max_buffer_s, end_s=g.end_s,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
@@ -1175,6 +1319,22 @@ def elig_select(config: SwarmConfig, scenario: SwarmScenario,
     return slot_flags, req
 
 
+@_lane_api
+def elig_select_gather(config: SwarmConfig, scenario: SwarmScenario,
+                       state: SwarmState):
+    """TK1's gather form, the general ``[P, K]`` path: same signature and
+    outputs as :func:`elig_select_plain` (which takes both paths)."""
+    if not geometry(config).general:
+        raise ValueError("elig_select_gather runs the general [P, K] path "
+                         "(config.neighbor_offsets None)")
+    dev = state.avail.device
+    if dev.type != "cuda":
+        return elig_select_plain(config, scenario, state)
+    args, slot_flags, req = _select_args(config, scenario, state, dev)
+    _launch("elig_select_gather", args, dev)
+    return slot_flags, req
+
+
 def _select_admit_args(config: SwarmConfig, scenario: SwarmScenario,
                        state: SwarmState, dev):
     g = geometry(config)
@@ -1189,7 +1349,7 @@ def _select_admit_args(config: SwarmConfig, scenario: SwarmScenario,
         uplink_efficiency=_check("uplink_efficiency",
                                  scenario.uplink_efficiency, _F, (B,), dev),
         service=service.data_ptr(), adm_mask=adm.data_ptr(),
-        cap=float(g.cap), o_max=g.o_hi, o_min=g.o_lo,
+        cap=g.cap, o_max=g.o_hi, o_min=g.o_lo,
         soffs=_offs_array(g.offs))
     return args, (slot_flags, req, service, adm)
 
@@ -1200,7 +1360,10 @@ def select_admit(config: SwarmConfig, scenario: SwarmScenario,
     """TK1 and TK2 of one step: same signature and outputs as
     :func:`select_admit_plain`.  On every device it takes the fused
     kernel (:func:`select_admit_fused`) where :func:`fused_route` holds,
-    else TK1 then TK2."""
+    else TK1 then TK2; on the general path their gather forms."""
+    if geometry(config).general:
+        flags, req = elig_select_gather(config, scenario, state)
+        return (flags, req) + admit_gather(config, scenario, req)
     if not fused_route(config):
         flags, req = elig_select(config, scenario, state)
         return (flags, req) + admit_service(config, scenario, req)
@@ -1221,19 +1384,22 @@ def select_admit_fused(config: SwarmConfig, scenario: SwarmScenario,
     return out
 
 
-@_lane_api
-def admit_service(config: SwarmConfig, scenario: SwarmScenario,
-                  req: torch.Tensor):
-    """TK2.  Same signature and outputs as :func:`admit_service_plain`."""
-    dev = req.device
-    if dev.type != "cuda":
-        return admit_service_plain(config, scenario, req)
+def _admit_args(config: SwarmConfig, scenario: SwarmScenario,
+                req: torch.Tensor, dev):
+    """TK2's arguments (either form), checked, with fresh ``service``
+    and ``adm`` outputs."""
     g = geometry(config)
     P = g.P
     B = req.shape[0]
     C = config.max_concurrency
     service = torch.empty((B, P), dtype=_F, device=dev)
     adm = torch.empty((B, P, C), dtype=_I, device=dev)
+    extra = {}
+    if g.general:
+        n_in = scenario.in_edges.shape[-1]
+        _neighbors(config, scenario, B, dev)
+        extra = dict(in_edges=_check("in_edges", scenario.in_edges, _I,
+                                     (B, P, n_in), dev), n_in=n_in)
     args = _AdmitArgs(
         req=_check("req", req, _I, (B, P, C), dev),
         uplink_bps=_check("uplink_bps", scenario.uplink_bps, _F, (B, P),
@@ -1241,30 +1407,49 @@ def admit_service(config: SwarmConfig, scenario: SwarmScenario,
         uplink_efficiency=_check("uplink_efficiency",
                                  scenario.uplink_efficiency, _F, (B,), dev),
         service=service.data_ptr(), adm_mask=adm.data_ptr(),
-        n_peers=P, n_lanes=B, n_offs=len(g.offs), cap=float(g.cap),
-        offs=_offs_array(g.offs_mod), n_slots=C)
+        n_peers=P, n_lanes=B, n_offs=_n_nbr(config, scenario), cap=g.cap,
+        offs=_offs_array(g.offs_mod), n_slots=C, **extra)
+    return args, service, adm
+
+
+@_lane_api
+def admit_service(config: SwarmConfig, scenario: SwarmScenario,
+                  req: torch.Tensor):
+    """TK2.  Same signature and outputs as :func:`admit_service_plain`."""
+    dev = req.device
+    if dev.type != "cuda":
+        return admit_service_plain(config, scenario, req)
+    args, service, adm = _admit_args(config, scenario, req, dev)
     _launch("admit_service", args, dev)
     return service, adm
 
 
 @_lane_api
-def peer_update(config: SwarmConfig, scenario: SwarmScenario,
-                state: SwarmState, slot_flags: torch.Tensor,
-                req: torch.Tensor, service: torch.Tensor,
-                adm: torch.Tensor, *, series=None,
-                column: int = 0) -> torch.Tensor:
-    """TK3 with TK4's sums and the clock's advance in its epilogue:
-    :func:`peer_update_plain` (which advances ``t_s``) then
-    :func:`lane_sums_plain` on the updated state, in one launch.
-    Updates ``state`` in place and returns each lane's ``[B, 2]`` (cdn,
-    p2p) sums; with ``series`` (a ``[B, n]`` float32 tensor) it also
-    writes the offload ratio into ``series[:, column]``.  The sums are
-    the bits :func:`lane_sums` gives on the updated state."""
-    dev = state.avail.device
+def admit_gather(config: SwarmConfig, scenario: SwarmScenario,
+                 req: torch.Tensor):
+    """TK2's gather form, the general ``[P, K]`` path: the admission over
+    each holder's inbound edge lists ``scenario.in_edges``, in their
+    order, and its service.  Same signature as
+    :func:`admit_service_plain`; ``adm`` holds per requester and slot
+    its admitted flag, defined where ``req >= 0`` (the kernel writes
+    nothing elsewhere; the plain version 0)."""
+    if not geometry(config).general:
+        raise ValueError("admit_gather runs the general [P, K] path "
+                         "(config.neighbor_offsets None)")
+    dev = req.device
     if dev.type != "cuda":
-        peer_update_plain(config, scenario, state, slot_flags, req, service,
-                          adm)
-        return lane_sums_plain(state, series, column)
+        return admit_service_plain(config, scenario, req)
+    args, service, adm = _admit_args(config, scenario, req, dev)
+    _launch("admit_gather", args, dev)
+    return service, adm
+
+
+def _update_args(config: SwarmConfig, scenario: SwarmScenario,
+                 state: SwarmState, slot_flags, req, service, adm, series,
+                 column: int, dev):
+    """TK3's arguments (either form), checked, its ``[B, 2]`` sums output
+    and its partials scratch, which the caller holds until the launch is
+    queued."""
     g = geometry(config)
     P = g.P
     B = state.t_s.shape[0]
@@ -1275,7 +1460,9 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
                           B, P, g.L, dev)
     ptrs["penalty_ms"] = _check("holder_penalty_ms (scenario)",
                                 scenario.holder_penalty_ms, _F, (B,), dev)
-    ptrs["holder_penalty_ms"] = _penalty(config, state, dev)
+    ptrs["holder_penalty_ms"] = _penalty(config, scenario, state, dev)
+    if g.general:
+        ptrs["neighbors"] = _neighbors(config, scenario, B, dev)
     ptrs["t_s"] = _check("t_s", state.t_s, _F, (B,), dev)
     ptrs["slot_flags"] = _check("slot_flags", slot_flags, _I, (B, P, C),
                                 dev)
@@ -1294,17 +1481,71 @@ def peer_update(config: SwarmConfig, scenario: SwarmScenario,
     for name in ("dl_total_bytes", "dl_budget_ms", "dl_done_bytes",
                  "dl_elapsed_ms", "dl_cooldown_ms"):
         ptrs[name] = _check(name, getattr(state, name), _F, (B, P, C), dev)
-    sums, _partials, out = _sums_out(dev, "peer_update", B, P, series,
-                                     column)
+    sums, partials, out = _sums_out(dev, "peer_update", B, P, series,
+                                    column)
     args = _UpdateArgs(
         **ptrs, **out, n_peers=P, n_lanes=B, n_words=g.W, n_segments=g.S,
-        n_offs=len(g.offs), seg_duration_s=g.seg, end_s=g.end_s,
-        dt_ms=g.dt_ms, dt_s=g.dt_s, p2p_bps=config.p2p_bps,
+        n_offs=_n_nbr(config, scenario), seg_duration_s=g.seg,
+        end_s=g.end_s, dt_ms=g.dt_ms, dt_s=g.dt_s, p2p_bps=config.p2p_bps,
         fast_alpha=g.fast_alpha, slow_alpha=g.slow_alpha,
         min_sample_ms=MIN_SAMPLE_DURATION_MS, offs=_offs_array(g.offs_mod),
         live=int(config.live), n_slots=C,
         penalty=int(config.holder_selection == "adaptive"))
+    return args, sums, partials
+
+
+@_lane_api
+def peer_update(config: SwarmConfig, scenario: SwarmScenario,
+                state: SwarmState, slot_flags: torch.Tensor,
+                req: torch.Tensor, service: torch.Tensor,
+                adm: torch.Tensor, *, series=None,
+                column: int = 0) -> torch.Tensor:
+    """TK3 with TK4's sums and the clock's advance in its epilogue:
+    :func:`peer_update_plain` (which advances ``t_s``) then
+    :func:`lane_sums_plain` on the updated state, in one launch.
+    Updates ``state`` in place and returns each lane's ``[B, 2]`` (cdn,
+    p2p) sums; with ``series`` (a ``[B, n]`` float32 tensor) it also
+    writes the offload ratio into ``series[:, column]``.  The sums are
+    the bits :func:`lane_sums` gives on the updated state.  On the
+    general ``[P, K]`` path it takes :func:`peer_update_gather`."""
+    if geometry(config).general:
+        return peer_update_gather(config, scenario, state, slot_flags, req,
+                                  service, adm, series=series,
+                                  column=column)
+    dev = state.avail.device
+    if dev.type != "cuda":
+        peer_update_plain(config, scenario, state, slot_flags, req, service,
+                          adm)
+        return lane_sums_plain(state, series, column)
+    args, sums, _partials = _update_args(config, scenario, state,
+                                         slot_flags, req, service, adm,
+                                         series, column, dev)
     _launch("peer_update", args, dev)
+    return sums
+
+
+@_lane_api
+def peer_update_gather(config: SwarmConfig, scenario: SwarmScenario,
+                       state: SwarmState, slot_flags: torch.Tensor,
+                       req: torch.Tensor, service: torch.Tensor,
+                       adm: torch.Tensor, *, series=None,
+                       column: int = 0) -> torch.Tensor:
+    """TK3's gather form, the general ``[P, K]`` path: as
+    :func:`peer_update`, with each slot's holder the neighbour list's
+    ``req``-th entry and ``adm`` the requesters' admitted flags
+    (:func:`admit_gather`)."""
+    if not geometry(config).general:
+        raise ValueError("peer_update_gather runs the general [P, K] path "
+                         "(config.neighbor_offsets None)")
+    dev = state.avail.device
+    if dev.type != "cuda":
+        peer_update_plain(config, scenario, state, slot_flags, req, service,
+                          adm)
+        return lane_sums_plain(state, series, column)
+    args, sums, _partials = _update_args(config, scenario, state,
+                                         slot_flags, req, service, adm,
+                                         series, column, dev)
+    _launch("peer_update_gather", args, dev)
     return sums
 
 

@@ -8,9 +8,10 @@ dual-EWMA estimator, one foreground transfer slot and a bit-packed
 ``dt_ms`` on a degree-K circulant overlay (peer i's neighbours are
 ``(i + o) mod P``).  A step is two passes (``ops/swarm_kernels.py``):
 eligibility, holder selection and admission with uplink share
-(``select_admit``), then the per-peer update.  On the card each pass is
-hand-written kernels (one launch each on the main path); on the CPU
-each is its plain PyTorch version.
+(``select_admit``), then the per-peer update; on the general ``[P, K]``
+topology neighbour k of peer i is ``neighbors[i, k]`` instead.  On the
+card each pass is hand-written kernels (one launch each on the main
+path); on the CPU each is its plain PyTorch version.
 
 Scenario lanes.  The reference ``vmap``s its scan over a stacked
 scenario axis (:func:`run_swarm_batch`); the port writes that axis out.
@@ -30,8 +31,10 @@ CUDA graphs and replays them, the counterpart of the reference's
 
 What this port covers, and what raises instead:
 
-- circulant offsets only (``neighbors=None``); the general ``[P, K]``
-  path is queue 1 item 9a;
+- both topologies: circulant offsets (``config.neighbor_offsets``) and
+  the general ``[P, K]`` neighbour lists (``neighbor_offsets=None`` and
+  a ``neighbors`` array, :func:`random_neighbors` and the other topology
+  helpers), whose step is TK1, TK2 and TK3 in their gather forms;
 - up to 16 transfer slots (``max_concurrency``): slot 0 the foreground
   download, slots 1.. P2P-only prefetches with absorb, the dedup guard,
   abort, cooldown and attempt rotation;
@@ -42,8 +45,9 @@ What this port covers, and what raises instead:
   by the requester's own load and the per-edge penalty window
   ``holder_penalty_ms``, ``[P, K]``, zero-width under the other two) and
   ``"ranked"`` (announce order, by peer id);
-- ``max_total_serves > 0``; the uncapped fair share (``cap == 0``) is
-  item 9a's admission work;
+- an admission cap (``max_total_serves > 0``) and the uncapped fair
+  share (``max_total_serves <= 0``: every demand is admitted, so no BUSY
+  deny and no admission abort);
 - timelines without the per-cohort columns (``n_cohorts == 0``); the
   cohort columns come with the population fields, item 9d.
 
@@ -162,8 +166,13 @@ class SwarmScenario(NamedTuple):
     reference."""
 
     bitrates: torch.Tensor      # [L] bits/s ladder
-    neighbors: torch.Tensor     # [P, 0] i32 placeholder (circulant mode)
-    in_edges: torch.Tensor      # [P, 0] i32 placeholder (circulant mode)
+    neighbors: torch.Tensor     # [P, K] i32; row i = whom i downloads
+    #                             from (self entries are padding); [P, 0]
+    #                             in circulant mode
+    in_edges: torch.Tensor      # [P, K_in] i32; row j = the flat slots
+    #                             i·K + k pointing at j (-1 = padding),
+    #                             :func:`invert_neighbors`; [P, 0] in
+    #                             circulant mode
     cdn_bps: torch.Tensor       # [P] per-peer CDN rate
     uplink_bps: torch.Tensor    # [P] per-peer serving capacity
     join_s: torch.Tensor        # [P] arrival time
@@ -296,17 +305,39 @@ def make_scenario(config: SwarmConfig, bitrates, neighbors, cdn_bps,
     """Normalize optional arrays to their defaults (everyone joins at
     t=0, never leaves, serves at the downlink cap, rank 0) and policy
     scalars to the config's values, as 0-dim float32 tensors on
-    ``device``.  Circulant mode only: ``neighbors`` must be None."""
+    ``device``.  With ``config.neighbor_offsets`` set (circulant mode)
+    ``neighbors`` is None (or a ``[P, 0]`` placeholder); without, it is
+    the ``[P, K]`` neighbour list, checked and inverted into the inbound
+    edge lists (:func:`invert_neighbors`) on ``device``.  Refused,
+    besides the reference's refusals: entries outside ``[0, P)``, and
+    under ``"ranked"`` a row that names one peer twice (the reference's
+    pick then rides both edges and stores the sum of their indices as
+    its holder)."""
     dev = resolve_device(device)
     P = config.n_peers
-    if neighbors is not None:
-        raise NotImplementedError(
-            "the general [P, K] neighbor path is not ported yet "
-            "(ROADMAP queue 1 item 9a); set config.neighbor_offsets and "
-            "pass neighbors=None")
-    if config.neighbor_offsets is None:
-        raise ValueError("neighbors=None requires "
-                         "config.neighbor_offsets (circulant mode)")
+    if neighbors is None:
+        if config.neighbor_offsets is None:
+            raise ValueError("neighbors=None requires "
+                             "config.neighbor_offsets (circulant mode)")
+        neighbors = torch.zeros((P, 0), dtype=torch.int32)
+    elif not torch.is_tensor(neighbors):
+        neighbors = np.asarray(neighbors)
+    if config.neighbor_offsets is not None and neighbors.shape[-1] > 0:
+        raise ValueError(
+            "both config.neighbor_offsets and a neighbors array were "
+            "given; pass neighbors=None for circulant mode, or unset "
+            "neighbor_offsets to use the [P, K] topology")
+    if len(neighbors.shape) != 2 or neighbors.shape[0] != P:
+        raise ValueError(f"neighbors of shape {tuple(neighbors.shape)}, "
+                         f"expected ({P}, K)")
+    neighbors = (neighbors.to(device=dev, dtype=torch.int32)
+                 if torch.is_tensor(neighbors)
+                 else torch.from_numpy(neighbors.astype(np.int32)).to(dev))
+    if neighbors.shape[-1] == 0:
+        # no edges: the inverse is [P, 0] too (circulant mode)
+        in_edges = torch.zeros((P, 0), dtype=torch.int32, device=dev)
+    else:
+        in_edges = _checked_inverse(config, neighbors)
 
     def f32(value):
         return torch.from_numpy(np.array(value, np.float32)).to(dev)
@@ -332,8 +363,8 @@ def make_scenario(config: SwarmConfig, bitrates, neighbors, cdn_bps,
 
     scen = SwarmScenario(
         bitrates=f32(_np(bitrates)),
-        neighbors=torch.zeros((P, 0), dtype=torch.int32, device=dev),
-        in_edges=torch.zeros((P, 0), dtype=torch.int32, device=dev),
+        neighbors=neighbors,
+        in_edges=in_edges,
         cdn_bps=per_peer(cdn_bps, 0.0),
         uplink_bps=per_peer(uplink_bps, config.p2p_bps),
         join_s=per_peer(join_s, 0.0),
@@ -421,7 +452,9 @@ def init_swarm(config: SwarmConfig, n_neighbors: Optional[int] = None,
     """Zero state on ``device``; with ``batch``, ``batch`` stacked lanes
     of it (``[B, …]`` zeros, built directly).  Only ``"adaptive"``
     carries a non-empty per-edge penalty field, ``[P, K]`` (``[B, P,
-    K]`` batched) with K the normalized offsets."""
+    K]`` batched) with K the normalized offsets, or on the general
+    ``[P, K]`` path ``n_neighbors`` (pass ``neighbors.shape[-1]``; without
+    it the field is empty, and ``run_swarm`` resizes it)."""
     dev = resolve_device(device)
     P = config.n_peers
     C = config.max_concurrency
@@ -559,44 +592,76 @@ def circulant_eligibility(avail_p: torch.Tensor, present: torch.Tensor,
     return out
 
 
+def gather_eligibility(avail_p: torch.Tensor, present: torch.Tensor,
+                       neighbors: torch.Tensor, gi_flats):
+    """General-path eligibility (reference :859-866, :907-917) for
+    every transfer slot, on one scenario (``avail_p`` ``[P, W]``,
+    ``neighbors`` ``[P, K]``) or on lanes (a leading ``[B]``): neighbour
+    k of peer i is ``neighbors[..., i, k]``, a lane-local id, and a self
+    entry is padding.  Returns what :func:`circulant_eligibility`
+    returns, one ``(elig, n_holders, own)`` triple per slot with ``elig``
+    a list of K ``[..., P]`` 0/1 float32 columns (``nbr_valid · have ·
+    present_nbr``) and ``n_holders`` their sum."""
+    dev = avail_p.device
+    P, W = avail_p.shape[-2:]
+    K = neighbors.shape[-1]
+    lead = tuple(avail_p.shape[:-2])
+    peer = torch.arange(P, dtype=neighbors.dtype, device=dev)
+    valid = (neighbors != peer[:, None]).to(torch.float32)
+    nbr = neighbors.long().reshape(lead + (P * K,))
+    present_nbr = torch.gather(present.to(torch.float32), -1, nbr).reshape(
+        neighbors.shape)
+    words = avail_p.reshape(lead + (P * W,))
+    table = _bit_table(dev)
+    zeros = torch.zeros(present.shape, dtype=torch.float32, device=dev)
+    out = []
+    for gf in gi_flats:
+        wi = (gf >> 5).long()
+        bitmask = table[(gf & 31).long()]
+        got = torch.gather(words, -1, (nbr.reshape(neighbors.shape) * W
+                                       + wi.unsqueeze(-1)).reshape(
+                                           lead + (P * K,)))
+        have = ((got.reshape(neighbors.shape) & bitmask.unsqueeze(-1)) != 0)
+        elig = valid * have.to(torch.float32) * present_nbr
+        own = (torch.gather(avail_p, -1, wi.unsqueeze(-1))[..., 0]
+               & bitmask) != 0
+        cols = list(elig.unbind(-1))
+        out.append((cols, torch.sum(elig, dim=-1) if K else zeros, own))
+    return out
+
+
 # ---- the step -------------------------------------------------------------
 
 def check_slice(config: SwarmConfig) -> None:
-    """Raise for a configuration the port does not run yet, naming the
-    ROADMAP item that brings it."""
+    """Raise for a configuration the port does not run: an unknown
+    holder policy or eligibility formulation, or more transfer slots
+    than the packed flag word carries."""
     if config.holder_selection not in ("adaptive", "spread", "ranked"):
         raise ValueError(f"unknown holder_selection "
                          f"{config.holder_selection!r}")
     if config.eligibility not in ("auto", "stencil", "kpass"):
         raise ValueError(f"unknown eligibility {config.eligibility!r}")
-    if config.neighbor_offsets is None:
-        raise NotImplementedError(
-            "the general [P, K] neighbor path is not ported yet "
-            "(ROADMAP queue 1 item 9a)")
     if not 1 <= config.max_concurrency <= 16:
         raise ValueError(f"max_concurrency={config.max_concurrency} is "
                          f"outside 1..16, the slots the packed dl_flags "
                          f"word carries (2 bits per slot in one u32)")
-    if config.max_total_serves <= 0:
-        raise NotImplementedError(
-            "the uncapped fair share (max_total_serves == 0) is not "
-            "ported yet (ROADMAP queue 1 item 9a)")
 
 
-def _check_step(config: SwarmConfig, state: SwarmState) -> None:
+def _check_step(config: SwarmConfig, scenario: SwarmScenario,
+                state: SwarmState) -> None:
     """:func:`check_slice`, and the reference's width check of the
-    penalty field (:868-876): K wide under ``"adaptive"``, else 0."""
+    penalty field (:868-876): K wide under ``"adaptive"``, else 0, with
+    K from the offsets or, on the general path, the scenario."""
     check_slice(config)
-    width = (len(_normalized_offsets(config.neighbor_offsets,
-                                     config.n_peers))
-             if config.holder_selection == "adaptive" else 0)
+    width = _penalty_width(config, scenario)
     if state.holder_penalty_ms.shape[-1] != width:
         raise ValueError(
             f"state.holder_penalty_ms is sized for "
             f"{state.holder_penalty_ms.shape[-1]} neighbors but this "
             f"config needs {width} (non-adaptive policies carry a "
-            f"zero-width field): build the state with init_swarm(config), "
-            f"or let run_swarm resize a pristine state")
+            f"zero-width field): on the [P, K] path build the state with "
+            f"init_swarm(config, n_neighbors=K), or let run_swarm resize "
+            f"a pristine state")
 
 
 def _step(config: SwarmConfig, scenario: SwarmScenario, state: SwarmState,
@@ -616,14 +681,15 @@ def swarm_step(config: SwarmConfig, scenario: SwarmScenario,
     """One ``dt_ms`` tick for every peer, of one scenario or of every
     lane of a stacked one.  Two passes: eligibility, holder selection,
     admission and service (``select_admit``), then the per-peer update
-    (``ops/swarm_kernels.py``).  On a CUDA state each pass launches its
-    kernel over all lanes at once; on a CPU state the plain PyTorch
-    versions run.
+    (``ops/swarm_kernels.py``; on the general ``[P, K]`` path three
+    launches: TK1, TK2 and TK3 in their gather forms).  On a CUDA state
+    each pass launches its kernel over all lanes at once; on a CPU state
+    the plain PyTorch versions run.
 
     The state's tensors, the clock ``t_s`` included, are updated IN
     PLACE (the clock's float32 add is the reference's), and the state
     is returned: clone a state (:func:`clone_state`) to keep it."""
-    _check_step(config, state)
+    _check_step(config, scenario, state)
     _step(config, scenario, state)
     return state
 
@@ -671,7 +737,7 @@ def _scan(config, scenario, state, n_steps, record_every, graph):
     from . import swarm_kernels as sk
     if record_every < 0:
         raise ValueError(f"record_every must be >= 0, got {record_every}")
-    _check_step(config, state)
+    _check_step(config, scenario, state)
     single = not is_lanes(state)
     if single:
         scenario, state = as_lanes(scenario), as_lanes(state)
@@ -1032,3 +1098,172 @@ def ring_offsets(degree: int = 8,
     if k_pad is not None and k_pad > len(offs):
         offs = offs + (0,) * (k_pad - len(offs))
     return offs
+
+
+def full_offsets(n_peers: int) -> Tuple[int, ...]:
+    """Everyone-sees-everyone as circulant offsets 1..P-1: the tracker
+    topology (:func:`full_neighbors`) in offset form."""
+    return tuple(range(1, n_peers))
+
+
+# ---- the general [P, K] topology -------------------------------------------
+# Copies of the reference's host-side helpers (reference
+# swarm_sim.py:2741-2769, :2821-2915): the same arrays, returned as int32
+# tensors on ``device`` (the card when None).  The lists are drawn with
+# NumPy; the inversion and the checks run where the list lies.
+
+def _check_neighbors(config: SwarmConfig, nbr: torch.Tensor) -> None:
+    """The neighbour list's range, and under ``"ranked"`` no row naming
+    one peer twice (:func:`make_scenario`), checked where ``nbr``
+    lies."""
+    P = config.n_peers
+    if nbr.numel() and bool((nbr.min() < 0) | (nbr.max() >= P)):
+        raise ValueError(f"neighbors holds peer ids outside [0, {P})")
+    if config.holder_selection == "ranked" and nbr.shape[1] > 1:
+        srt = torch.sort(nbr, dim=1).values
+        self_id = torch.arange(P, device=nbr.device)[:, None]
+        if bool(((srt[:, 1:] == srt[:, :-1])
+                 & (srt[:, 1:] != self_id)).any()):
+            raise ValueError(
+                "a neighbour row names one peer twice: \"ranked\" would "
+                "ride both edges; give each row distinct peers (self "
+                "entries pad)")
+
+
+#: the last neighbour lists :func:`make_scenario` checked and inverted:
+#: ``[list, its version, inverse, its version, checked for "ranked"]``.
+#: A policy grid's cells share one list, which is then checked and
+#: inverted once (each costs host syncs).  An entry holds its list, so
+#: the identity it is found by is never reused while it lives; the
+#: versions catch in-place writes.
+_INVERTED: list = []
+
+
+def _checked_inverse(config: SwarmConfig,
+                     neighbors: torch.Tensor) -> torch.Tensor:
+    """:func:`_check_neighbors` and :func:`invert_neighbors` of
+    ``neighbors``, or the inverse of this same unchanged list from a
+    recent call (checked again under ``"ranked"`` if it was not
+    then)."""
+    ranked = config.holder_selection == "ranked"
+    for entry in _INVERTED:
+        nbr, version, inv, inv_version, ranked_ok = entry
+        if (nbr is neighbors and version == neighbors._version
+                and inv_version == inv._version):
+            if ranked and not ranked_ok:
+                _check_neighbors(config, neighbors)
+                entry[4] = True
+            return inv
+    _check_neighbors(config, neighbors)
+    inv = invert_neighbors(neighbors, device=neighbors.device)
+    _INVERTED[:] = _INVERTED[-3:] + [
+        [neighbors, neighbors._version, inv, inv._version, ranked]]
+    return inv
+
+
+def invert_neighbors(neighbors, device=None) -> torch.Tensor:
+    """The inverse of a ``[P, K]`` neighbour matrix: row j lists the
+    flat outbound slots ``i·K + k`` with ``nbr[i, k] == j`` (and ``i !=
+    j``) in ascending order, padded with -1 to ``K_in = max(max
+    in-degree, K)``.  Holder j's admission walks its row in this order.
+    The reference's NumPy steps as PyTorch ops on ``device`` (a stable
+    sort by holder), so a list on the card is inverted there."""
+    nbr = (neighbors if torch.is_tensor(neighbors)
+           else torch.from_numpy(np.asarray(neighbors)))
+    nbr = nbr.to(device=resolve_device(device), dtype=torch.int64)
+    P, K = nbr.shape
+    dev = nbr.device
+    src = torch.arange(P, device=dev).repeat_interleave(K)
+    dst = nbr.reshape(-1)
+    real = dst != src
+    dst_s, order = torch.sort(dst[real], stable=True)
+    flat_s = torch.nonzero(real).reshape(-1)[order]
+    counts = torch.bincount(dst_s, minlength=P)
+    k_in = max(int(counts.max()) if P else 0, K)
+    in_edges = torch.full((P, k_in), -1, dtype=torch.int32, device=dev)
+    pos = (torch.arange(dst_s.numel(), device=dev)
+           - (torch.cumsum(counts, 0) - counts)[dst_s])
+    in_edges[dst_s, pos] = flat_s.to(torch.int32)
+    return in_edges
+
+
+def _pad_neighbors(nbr: np.ndarray, n_peers: int, k_pad: Optional[int],
+                   device=None) -> torch.Tensor:
+    """Pad a ``[P, K]`` neighbour matrix to ``k_pad`` columns with
+    self-indices (= no edge)."""
+    if k_pad is not None:
+        if k_pad < nbr.shape[1]:
+            raise ValueError(f"k_pad={k_pad} < degree {nbr.shape[1]}")
+        pad = np.repeat(np.arange(n_peers)[:, None],
+                        k_pad - nbr.shape[1], axis=1)
+        nbr = np.concatenate([nbr, pad], axis=1)
+    return torch.from_numpy(np.asarray(nbr).astype(np.int32)).to(
+        resolve_device(device))
+
+
+def ring_neighbors(n_peers: int, degree: int = 8,
+                   k_pad: Optional[int] = None, device=None) -> torch.Tensor:
+    """Symmetric ring neighbour lists ``[P, degree]`` (``degree//2``
+    each way), in :func:`ring_offsets`' order; duplicates (degree >= P)
+    and self-hits collapse to self-padding."""
+    half = max(degree // 2, 1)
+    offsets = np.concatenate([np.arange(1, half + 1),
+                              -np.arange(1, half + 1)])
+    idx = np.arange(n_peers)
+    nbr = (idx[:, None] + offsets[None, :]) % n_peers
+    dup = np.zeros_like(nbr, dtype=bool)
+    for a in range(nbr.shape[1]):
+        for b in range(a):
+            dup[:, a] |= nbr[:, a] == nbr[:, b]
+    nbr = np.where(dup, idx[:, None], nbr)
+    return _pad_neighbors(nbr, n_peers, k_pad, device)
+
+
+def random_neighbors(n_peers: int, degree: int = 8, seed: int = 0,
+                     k_pad: Optional[int] = None,
+                     device=None) -> torch.Tensor:
+    """Uniform-random ``[P, degree]`` neighbour lists (distinct,
+    non-self): the tracker-fed mesh, where peer neighbourhoods overlap
+    globally.  The reference's draws to the bit: the same
+    ``np.random.default_rng(seed)`` calls in the same order.  Degree >=
+    P collapses to everyone else plus self-padding."""
+    rng = np.random.default_rng(seed)
+    real = min(degree, n_peers - 1)
+    nbr = np.repeat(np.arange(n_peers)[:, None], degree, axis=1)
+    for i in range(n_peers):
+        picks = rng.choice(n_peers - 1, size=real, replace=False)
+        picks[picks >= i] += 1  # skip self, stay uniform
+        nbr[i, :real] = picks
+    return _pad_neighbors(nbr, n_peers, k_pad, device)
+
+
+def full_neighbors(n_peers: int, k_pad: Optional[int] = None,
+                   device=None) -> torch.Tensor:
+    """Everyone sees everyone (minus self) as ``[P, P-1]`` lists."""
+    idx = np.arange(n_peers)
+    nbr = (idx[:, None] + np.arange(1, n_peers)[None, :]) % n_peers
+    return _pad_neighbors(nbr, n_peers, k_pad, device)
+
+
+def isolated_neighbors(n_peers: int, k: int = 1,
+                       device=None) -> torch.Tensor:
+    """No edges at all (every entry is self-padding): the all-CDN
+    control topology."""
+    return _pad_neighbors(np.repeat(np.arange(n_peers)[:, None], k, axis=1),
+                          n_peers, None, device)
+
+
+def neighbors_from_adjacency(adjacency, k_pad: Optional[int] = None,
+                             device=None) -> torch.Tensor:
+    """A dense 0/1 ``[P, P]`` adjacency (row i = whom i downloads from)
+    as padded ``[P, K]`` neighbour lists, K = the largest row degree
+    (or ``k_pad``)."""
+    adj = np.array(_np(adjacency)) > 0
+    n_peers = adj.shape[0]
+    np.fill_diagonal(adj, False)  # self-edges are meaningless
+    degree = max(int(adj.sum(axis=1).max()), 1)
+    nbr = np.repeat(np.arange(n_peers)[:, None], degree, axis=1)
+    for i in range(n_peers):
+        cols = np.flatnonzero(adj[i])
+        nbr[i, :len(cols)] = cols
+    return _pad_neighbors(nbr, n_peers, k_pad, device)

@@ -1,9 +1,9 @@
 """Test infrastructure of the port: moving state between the reference
 and the port (``convert``) and the committed reference runs
 (``reference_run.npz``, ``reference_batch.npz``, ``reference_live.npz``,
-``reference_prefetch.npz``, ``reference_policies.npz``, written by
-``tools/torch_port_fixture.py``), with the port's runs of the batch
-fixtures."""
+``reference_prefetch.npz``, ``reference_policies.npz``,
+``reference_general.npz``, written by ``tools/torch_port_fixture.py``),
+with the port's runs of the batch fixtures."""
 
 import json
 import os
@@ -25,6 +25,10 @@ REFERENCE_PREFETCH = os.path.join(_HERE, "reference_prefetch.npz")
 #: array keyed ``<policy>_<name>`` (the cells, shape, joins and leaves
 #: shared)
 REFERENCE_POLICIES = os.path.join(_HERE, "reference_policies.npz")
+#: the same cells on the random mesh (the general [P, K] path), one run
+#: per entry of its ``runs`` (a policy and its ``max_total_serves``, 0
+#: the uncapped fair share), each array keyed ``<run>_<name>``
+REFERENCE_GENERAL = os.path.join(_HERE, "reference_general.npz")
 
 
 def run_batch_fixture(fixture, device):
@@ -44,12 +48,15 @@ def run_live_fixture(fixture, device):
 
 
 def prefetch_lanes(fixture, device, *, peers=None, segments=None,
-                   watch_s=None, slots=None, policy="spread"):
-    """The prefetch fixture's lanes on ``device``: ``policy_grid``'s ring
-    config for ``policy`` and its cell scenarios, with the fixture's
-    departure wave on its leave lane, at the fixture's shape unless
-    ``peers``, ``segments``, ``watch_s`` (the crowd's and the wave's
-    clock) or ``slots`` (``max_concurrency``) say otherwise.  Returns
+                   watch_s=None, slots=None, policy="spread",
+                   topology="ring", max_total_serves=None):
+    """The prefetch fixture's lanes on ``device``: ``policy_grid``'s
+    config for ``policy`` on ``topology`` (``"ring"``, or ``"random"``:
+    the random mesh of ``random_topology`` at the fixture's seed) and
+    its cell scenarios, with the fixture's departure wave on its leave
+    lane, at the fixture's shape unless ``peers``, ``segments``,
+    ``watch_s`` (the crowd's and the wave's clock), ``slots``
+    (``max_concurrency``) or ``max_total_serves`` say otherwise.  Returns
     ``(config, stacked scenarios, joins [B, P], leaves [B, P])``."""
     import torch
 
@@ -58,15 +65,23 @@ def prefetch_lanes(fixture, device, *, peers=None, segments=None,
 
     P, S, T, _every, _lanes = (int(x) for x in fixture["shape"])
     P, S = peers or P, segments or S
-    config = pg.ring_config(P, S, policy)
+    seed = int(fixture["seed"])
+    mesh = None
+    if topology == "random":
+        config = pg.random_config(P, S, policy)
+        mesh = pg.random_topology(P, seed, device=device)
+    else:
+        config = pg.ring_config(P, S, policy)
     if slots is not None:
         config = config._replace(max_concurrency=slots)
+    if max_total_serves is not None:
+        config = config._replace(max_total_serves=max_total_serves)
     if watch_s is None:
         watch_s = T * config.dt_ms / 1000.0
-    audience = pg.build_audience(P, int(fixture["seed"]), device=device)
+    audience = pg.build_audience(P, seed, device=device)
     built = [pg.build_cell_scenario(config, audience, uplink_bps=up * 1e6,
                                     pattern=pattern, wave=wave,
-                                    watch_s=watch_s)
+                                    watch_s=watch_s, neighbors=mesh)
              for pattern, wave, up in json.loads(str(fixture["cells"]))]
     leave = torch.where(
         audience["wave_ranks"] < float(fixture["leave_fraction"]),
@@ -79,18 +94,19 @@ def prefetch_lanes(fixture, device, *, peers=None, segments=None,
             torch.stack([sc.leave_s for sc in scenarios]))
 
 
-def run_prefetch_fixture(fixture, device, policy="spread"):
+def run_prefetch_fixture(fixture, device, policy="spread", **lanes_kw):
     """The port's ``run_swarm_batch`` at the prefetch fixture's shape and
-    lanes (:func:`prefetch_lanes`, built by the port) under ``policy`` on
-    ``device`` (the policies fixture shares the prefetch fixture's
-    shape, cells and departure wave); returns ``(offload [B], rebuffer
-    [B], series [B, T], timeline, joins [B, P], leaves [B, P])`` as
-    tensors."""
+    lanes (:func:`prefetch_lanes`, built by the port, with ``lanes_kw``:
+    the general fixture's ``topology="random"`` and its
+    ``max_total_serves``) under ``policy`` on ``device`` (the policies
+    and general fixtures share the prefetch fixture's shape, cells and
+    departure wave); returns ``(offload [B], rebuffer [B], series [B,
+    T], timeline, joins [B, P], leaves [B, P])`` as tensors."""
     from ..ops import swarm_sim as sim
 
     _P, _S, T, every, lanes = (int(x) for x in fixture["shape"])
-    config, scenarios, joins, leaves = prefetch_lanes(fixture, device,
-                                                      policy=policy)
+    config, scenarios, joins, leaves = prefetch_lanes(
+        fixture, device, policy=policy, **lanes_kw)
     watch_s = T * config.dt_ms / 1000.0
     final, series, timeline = sim.run_swarm_batch(
         config, scenarios, sim.init_swarm(config, device=device,
@@ -99,6 +115,13 @@ def run_prefetch_fixture(fixture, device, policy="spread"):
     return (sim.offload_ratio_batch(final),
             sim.rebuffer_ratio_batch(final, watch_s, joins, leaves), series,
             timeline, joins, leaves)
+
+
+def general_runs(fixture):
+    """The general fixture's runs: ``[(name, policy, max_total_serves)]``
+    in its order."""
+    return [(str(name), str(policy), int(cap))
+            for name, policy, cap in json.loads(str(fixture["runs"]))]
 
 
 def _run(fixture, device, live):

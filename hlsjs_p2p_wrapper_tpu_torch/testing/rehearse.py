@@ -38,7 +38,9 @@ import time
 SIZES = dict(CHECK_PEERS=2_048, PEERS=2_048, GRID_PEERS=2_048, STEPS=400,
              CHECK_WARM_STEPS=60, BACK_TO_BACK=3, WINDOW=10,
              SUMS_PEERS=(1_000, 1_001, 2_048), RING_PEERS=2_048,
-             GENERIC_SLOTS=((2, 1_024, 20), (16, 512, 20)))
+             GENERIC_SLOTS=((2, 1_024, 20), (16, 512, 20)),
+             GATHER_PEERS=2_048, RANDOM_PEERS=512,
+             RANDOM_PEERS_LARGE=1_024)
 #: checks that hold only at the real size (the stalling points of the
 #: grids, the live rows against the reference's record), and checks of
 #: the kernels' bits (the plain versions sum by ``torch.sum``, not in
@@ -90,12 +92,15 @@ def _stub_cuda(torch):
 def _count_launches(sk):
     """Wrap each launching wrapper so that it adds one to the count of
     its kernel (``swarm_kernels.KERNEL_OF``) where that kernel would
-    launch."""
+    launch: a call that routed to another counted wrapper (``peer_update``
+    on the general path) is counted there only."""
     def counted(name, fn):
         @functools.wraps(fn)
         def wrapped(*args, **kw):
+            before = sum(sk.LAUNCHES.values())
             out = fn(*args, **kw)
-            sk.LAUNCHES[name] += 1
+            if sum(sk.LAUNCHES.values()) == before:
+                sk.LAUNCHES[name] += 1
             return out
         return wrapped
     for wrapper, kernel in sk.KERNEL_OF.items():

@@ -277,9 +277,9 @@ def test_lanes_batched_alone_and_chunked_agree(policy):
 
 def test_policy_grid_and_the_slice_take_every_policy():
     """``ring_config`` gives the tool's ring config for each policy; the
-    slice takes adaptive and ranked at 1 to 16 slots, VOD and live; the
-    general path and the uncapped fair share still raise naming item 9a,
-    and the random topology too."""
+    slice takes adaptive and ranked at 1 to 16 slots, VOD and live, and
+    on the general path and with the uncapped fair share, which are
+    ported; ``random_config`` gives the tool's random-mesh config."""
     for policy in pg.POLICIES:
         cfg = pg.ring_config(P, S, policy)
         assert tuple(cfg) == tuple(_ref_config(policy))
@@ -289,10 +289,9 @@ def test_policy_grid_and_the_slice_take_every_policy():
                                               live=live))
         for change in ({"neighbor_offsets": None},
                        {"max_total_serves": 0}):
-            with pytest.raises(NotImplementedError, match="item 9a"):
-                port.check_slice(cfg._replace(**change))
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        pg.random_config(P, S, "adaptive")
+            port.check_slice(cfg._replace(**change))
+        assert tuple(pg.random_config(P, S, policy)) == tuple(
+            _ref_config(policy)._replace(neighbor_offsets=None))
 
 
 def test_the_penalty_width_is_checked_and_carried():

@@ -148,8 +148,9 @@ def _assert_run_matches(r):
 def test_policy_grid_is_the_tools():
     """The cells, the ring config, the audience and every cell's
     scenario and joins equal ``tools/policy_ab.py``'s to the bit, for
-    each of the three policies; the random topology raises, naming its
-    item, and an unknown policy raises."""
+    each of the three policies; the random topology's config is the
+    tool's (the general path is ported), and an unknown policy
+    raises."""
     assert pg.cells() == [(p, w, u) for p in ref_ab.PATTERNS
                           for w in ref_ab.WAVES
                           for u in ref_ab.UPLINK_GRID_MBPS]
@@ -179,8 +180,8 @@ def test_policy_grid_is_the_tools():
             _ref_config()._replace(holder_selection=policy))
     with pytest.raises(ValueError, match="unknown holder policy"):
         pg.ring_config(P, S, "nearest")
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        pg.random_config(P, S)
+    assert tuple(pg.random_config(P, S)) == tuple(
+        _ref_config()._replace(neighbor_offsets=None))
 
 
 @pytest.mark.parametrize("record_every", [0, 40])

@@ -318,21 +318,35 @@ def test_staggered_joins_is_a_seeded_permutation():
 @pytest.mark.parametrize("change,err", [
     ({"max_concurrency": 17}, ValueError),
     ({"max_concurrency": 3, "holder_selection": "adaptive",
-      "neighbor_offsets": None}, NotImplementedError),
-    ({"holder_selection": "adaptive", "max_total_serves": 0},
-     NotImplementedError),
-    ({"holder_selection": "ranked", "max_total_serves": 0},
-     NotImplementedError),
-    ({"max_total_serves": 0}, NotImplementedError),
-    ({"neighbor_offsets": None}, NotImplementedError),
+      "neighbor_offsets": None}, None),
+    ({"holder_selection": "adaptive", "max_total_serves": 0}, None),
+    ({"holder_selection": "ranked", "max_total_serves": 0}, None),
+    ({"max_total_serves": 0}, None),
+    ({"neighbor_offsets": None}, None),
     ({"holder_selection": "nearest"}, ValueError),
     ({"eligibility": "fast"}, ValueError),
 ])
 def test_outside_the_slice_raises(change, err):
+    """What the port refuses raises; the general ``[P, K]`` path and the
+    uncapped fair share, which it runs since they were ported, pass the
+    check and run a few steps (on ``ring_neighbors`` where the config
+    has no offsets)."""
     _, cp = _configs(16, 8)
     cfg = cp._replace(**change)
-    with pytest.raises(err):
-        port.check_slice(cfg)
+    if err is not None:
+        with pytest.raises(err):
+            port.check_slice(cfg)
+        return
+    port.check_slice(cfg)
+    nbr = (port.ring_neighbors(16, 8, device="cpu")
+           if cfg.neighbor_offsets is None else None)
+    final, series = port.run_swarm(
+        cfg, BITRATES, nbr, np.full(16, 8e6, np.float32),
+        port.init_swarm(cfg, device="cpu"), 8,
+        port.staggered_joins(16, 1.0, device="cpu"), device="cpu")
+    assert bool(torch.isfinite(series).all())
+    assert tuple(final.holder_penalty_ms.shape) == (
+        16, 8 if cfg.holder_selection == "adaptive" else 0)
 
 
 def test_record_every_and_neighbors_raise():
@@ -347,6 +361,8 @@ def test_record_every_and_neighbors_raise():
         port.run_swarm(cp._replace(n_cohorts=2), BITRATES, None,
                        np.full(16, 8e6), state, 2, record_every=1,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9a"):
+    # the general path is ported: a neighbour list beside
+    # offsets is the reference's ambiguity refusal
+    with pytest.raises(ValueError, match="both"):
         port.make_scenario(cp, BITRATES, np.zeros((16, 2), np.int32),
                            np.full(16, 8e6), device="cpu")

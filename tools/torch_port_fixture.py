@@ -18,7 +18,12 @@ reference at a fixed shape with the join times it used:
   that every prefetch branch binds;
 - ``reference_policies.npz``: the same lanes under the ``"adaptive"`` and
   ``"ranked"`` holder policies (:data:`POLICIES`), each policy's arrays
-  keyed ``<policy>_<name>``.
+  keyed ``<policy>_<name>``;
+- ``reference_general.npz``: the same lanes on ``tools/policy_ab.py``'s
+  random mesh (``random_neighbors(P, 8, seed)``, the general ``[P, K]``
+  path), one run per entry of :data:`GENERAL_RUNS` (a policy and its
+  admission cap, 0 the uncapped fair share), each run's arrays keyed
+  ``<run>_<name>``.
 
 ``chip_smoke.py`` runs the port on the card with the same joins and
 compares; ``tests/test_torch_fixture.py`` re-runs the reference here
@@ -27,8 +32,9 @@ and fails if a fixture went stale.
 This is the only code of the port's tree that imports JAX.
 
 Run: ``JAX_PLATFORMS=cpu python tools/torch_port_fixture.py``
-(writes the five files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``;
-``--only-prefetch`` and ``--only-policies`` write one of them).
+(writes the six files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``;
+``--only-prefetch``, ``--only-policies`` and ``--only-general`` write one
+of them).
 """
 
 from __future__ import annotations
@@ -87,6 +93,12 @@ PREFETCH_OUT = os.path.join(TESTING, "reference_prefetch.npz")
 #: policies (the spread column is the prefetch fixture)
 POLICIES = ("adaptive", "ranked")
 POLICIES_OUT = os.path.join(TESTING, "reference_policies.npz")
+#: the general fixture: the prefetch fixture's lanes on the random mesh,
+#: runs ``(name, policy, max_total_serves)``: spread and adaptive capped as
+#: the tool runs them, ranked uncapped
+GENERAL_RUNS = (("spread", "spread", 2), ("adaptive", "adaptive", 2),
+                ("ranked_uncapped", "ranked", 0))
+GENERAL_OUT = os.path.join(TESTING, "reference_general.npz")
 
 
 def reference_run(shape=SHAPE) -> dict:
@@ -204,10 +216,13 @@ def reference_live(shape=BATCH_SHAPE, points=LIVE_POINTS) -> dict:
     }
 
 
-def reference_prefetch(shape=BATCH_SHAPE, policy="spread") -> dict:
+def reference_prefetch(shape=BATCH_SHAPE, policy="spread", topology="ring",
+                       max_total_serves=2) -> dict:
     """Run the JAX reference's batched sweep path at ``shape`` over
-    :data:`PREFETCH_CELLS` with ``tools/policy_ab.py``'s ring config for
-    holder policy ``policy`` and its scenarios (the departure wave on lane
+    :data:`PREFETCH_CELLS` with ``tools/policy_ab.py``'s config for
+    holder policy ``policy`` on ``topology`` (``"ring"``, or ``"random"``:
+    the tool's random mesh at the fixture's seed) with admission cap
+    ``max_total_serves``, and its scenarios (the departure wave on lane
     :data:`PREFETCH_LEAVE_LANE`); returns the fixture's arrays, each
     lane's joins and leaves ``[B, P]`` included (the cells as a JSON
     string)."""
@@ -220,18 +235,24 @@ def reference_prefetch(shape=BATCH_SHAPE, policy="spread") -> dict:
 
     from hlsjs_p2p_wrapper_tpu.ops.swarm_sim import (
         NEVER_S, SwarmConfig, init_swarm, offload_ratio_batch,
-        rebuffer_ratio_batch, ring_offsets, run_swarm_batch, stack_pytrees,
-        timeline_columns)
+        random_neighbors, rebuffer_ratio_batch, ring_offsets,
+        run_swarm_batch, stack_pytrees, timeline_columns)
 
     P, S, T, every, lanes = shape
     assert len(PREFETCH_CELLS) == lanes
+    neighbors, n_nbr = None, None
+    offsets = ring_offsets(8)
+    if topology == "random":
+        neighbors, offsets = random_neighbors(P, 8, BATCH_SEED), None
+        n_nbr = neighbors.shape[1]
     config = SwarmConfig(n_peers=P, n_segments=S, n_levels=1,
                          max_concurrency=3, holder_selection=policy,
-                         neighbor_offsets=ring_offsets(8))
+                         neighbor_offsets=offsets,
+                         max_total_serves=max_total_serves)
     watch_s = T * config.dt_ms / 1000.0
     audience = policy_ab.build_audience(P, BATCH_SEED)
     built = [policy_ab.build_cell_scenario(
-        config, None, audience, uplink_bps=up * 1e6, pattern=pattern,
+        config, neighbors, audience, uplink_bps=up * 1e6, pattern=pattern,
         wave=wave, watch_s=watch_s) for pattern, wave, up in PREFETCH_CELLS]
     leave = jnp.where(audience["wave_ranks"] < PREFETCH_LEAVE_FRACTION,
                       watch_s / 2.0, NEVER_S)
@@ -239,7 +260,8 @@ def reference_prefetch(shape=BATCH_SHAPE, policy="spread") -> dict:
                  else sc for b, (sc, _join) in enumerate(built)]
     final, series, timeline = run_swarm_batch(
         config, stack_pytrees(scenarios),
-        stack_pytrees([init_swarm(config)] * lanes), T, record_every=every)
+        stack_pytrees([init_swarm(config, n_nbr)] * lanes), T,
+        record_every=every)
     joins = jnp.stack([j for _, j in built])
     leaves = jnp.stack([sc.leave_s for sc in scenarios])
     return {
@@ -278,6 +300,19 @@ def reference_policies(shape=BATCH_SHAPE) -> dict:
     return out
 
 
+def reference_general(shape=BATCH_SHAPE) -> dict:
+    """:func:`reference_prefetch` on the random mesh for each run of
+    :data:`GENERAL_RUNS`: the shared arrays once, and each run's
+    ``_PER_POLICY`` arrays keyed ``<run>_<name>``."""
+    import json
+    out = {"runs": np.asarray(json.dumps(GENERAL_RUNS))}
+    for name, policy, cap in GENERAL_RUNS:
+        run = reference_prefetch(shape, policy, "random", cap)
+        for key, value in run.items():
+            out[f"{name}_{key}" if key in _PER_POLICY else key] = value
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=OUT)
@@ -285,11 +320,16 @@ def main(argv=None) -> int:
     ap.add_argument("--live-out", default=LIVE_OUT)
     ap.add_argument("--prefetch-out", default=PREFETCH_OUT)
     ap.add_argument("--policies-out", default=POLICIES_OUT)
+    ap.add_argument("--general-out", default=GENERAL_OUT)
     ap.add_argument("--only-prefetch", action="store_true",
                     help="write the prefetch fixture alone")
     ap.add_argument("--only-policies", action="store_true",
                     help="write the policies fixture alone")
+    ap.add_argument("--only-general", action="store_true",
+                    help="write the general fixture alone")
     args = ap.parse_args(argv)
+    if args.only_general:
+        return _write_general(args.general_out)
     if args.only_prefetch:
         return _write_prefetch(args.prefetch_out)
     if args.only_policies:
@@ -310,7 +350,18 @@ def main(argv=None) -> int:
           f"rebuffer {live['rebuffer'].tolist()}, "
           f"shape {live['shape'].tolist()}")
     _write_prefetch(args.prefetch_out)
-    return _write_policies(args.policies_out)
+    _write_policies(args.policies_out)
+    return _write_general(args.general_out)
+
+
+def _write_general(path) -> int:
+    general = reference_general()
+    np.savez(path, **general)
+    for name, _policy, _cap in GENERAL_RUNS:
+        print(f"wrote {path} ({name}): offload "
+              f"{general[f'{name}_offload'].tolist()}, rebuffer "
+              f"{general[f'{name}_rebuffer'].tolist()}")
+    return 0
 
 
 def _write_policies(path) -> int:

@@ -1,22 +1,23 @@
-"""Compare the SASS of one kernel of the port's ``csrc/swarm_step.cu`` as
-two checkouts build it.
+"""Compare the SASS of kernels of the port's ``csrc/swarm_step.cu`` as
+two checkouts build them.
 
 Builds each checkout's ``hlsjs_p2p_wrapper_tpu_torch/csrc/swarm_step.cu``
 into a cubin with this checkout's ``nvcc`` flags and macros
-(``ops/_build.py``, ``swarm_kernels.DEFINES``), disassembles both with
-``cuobjdump -sass``, takes from each the function whose mangled name
-matches its pattern, and prints one JSON line: each listing's
-instruction count (``NOP`` padding included), the lines that differ,
-the lines that still differ once constant-bank offsets (where the
-kernel's arguments live, which move when an argument struct grows) and
-branch targets are masked, and how many more of each opcode this
-checkout's listing holds.  Both listings and the diff go under
-``--out``.
+(``ops/_build.py``, ``swarm_kernels.DEFINES``), once each, disassembles
+both with ``cuobjdump -sass``, takes from each the function whose
+mangled name matches each pattern, and prints one JSON line a pattern:
+each listing's instruction count (``NOP`` padding included), the lines
+that differ, the lines that still differ once constant-bank offsets
+(where the kernel's arguments live, which move when an argument struct
+grows) and branch targets are masked, and how many more of each opcode this
+checkout's listing holds.  Both listings and the diffs go under
+``--out``, a directory a pattern.
 
 Run on a machine with the CUDA toolkit, from the root of a checkout:
-``python3 tools/torch_port_sass.py --other PARENT_CHECKOUT`` (defaults:
-``select_admit_kernel<8, false, 1>``, which is ``<8, false, 1,
-POL_SPREAD>`` here).
+``python3 tools/torch_port_sass.py --other PARENT_CHECKOUT [--kernel
+PATTERN ...]`` (default: ``select_admit_kernel<8, false, 1, POL_SPREAD>``;
+``--other-kernel`` gives the other checkout's patterns where its
+names differ).
 """
 
 from __future__ import annotations
@@ -35,9 +36,9 @@ sys.path.insert(0, ROOT)
 SOURCE = os.path.join("hlsjs_p2p_wrapper_tpu_torch", "csrc", "swarm_step.cu")
 
 
-def listing(checkout: str, pattern: str, out_dir: str, tag: str):
-    """The SASS lines of the function matching ``pattern`` in
-    ``checkout``'s build, and its mangled name."""
+def disassemble(checkout: str, out_dir: str, tag: str) -> list:
+    """``checkout``'s build of the source as SASS, one entry per
+    function."""
     from hlsjs_p2p_wrapper_tpu_torch.ops import _build
     from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_kernels as sk
     flags = [f for f in _build.flags(sk.DEFINES)
@@ -50,7 +51,12 @@ def listing(checkout: str, pattern: str, out_dir: str, tag: str):
                              "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
                           capture_output=True, text=True).stdout
-    functions = re.split(r"\n\s*Function : ", sass)[1:]
+    return re.split(r"\n\s*Function : ", sass)[1:]
+
+
+def listing(functions: list, pattern: str, out_dir: str, tag: str):
+    """The SASS lines of the function matching ``pattern`` among
+    ``functions``, and its mangled name."""
     found = [f for f in functions if re.search(pattern, f.splitlines()[0])]
     if len(found) != 1:
         raise SystemExit(f"{tag}: {len(found)} functions match {pattern!r}")
@@ -84,19 +90,34 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="the checkout to compare with (its root)")
-    ap.add_argument("--kernel",
-                    default=r"select_admit_kernelILi8ELb0ELi1ELi0EE",
-                    help="mangled-name pattern of the kernel here")
-    ap.add_argument("--other-kernel",
-                    default=r"select_admit_kernelILi8ELb0ELi1EE",
-                    help="mangled-name pattern of the kernel there")
+    ap.add_argument("--kernel", nargs="+",
+                    default=[r"select_admit_kernelILi8ELb0ELi1ELi0EE"],
+                    help="mangled-name patterns of the kernels here")
+    ap.add_argument("--other-kernel", nargs="+",
+                    help="the patterns there, one per --kernel (default: "
+                         "the same)")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "torch_kernels", "sass"))
     args = ap.parse_args(argv)
+    others = args.other_kernel or args.kernel
+    if len(others) != len(args.kernel):
+        ap.error("--other-kernel needs one pattern per --kernel")
     os.makedirs(args.out, exist_ok=True)
-    name_a, here = listing(ROOT, args.kernel, args.out, "here")
-    name_b, there = listing(os.path.abspath(args.other), args.other_kernel,
-                            args.out, "other")
+    here_fns = disassemble(ROOT, args.out, "here")
+    there_fns = disassemble(os.path.abspath(args.other), args.out, "other")
+    for n, (pattern, other) in enumerate(zip(args.kernel, others)):
+        out = os.path.join(args.out, str(n))
+        os.makedirs(out, exist_ok=True)
+        print(json.dumps(compare(here_fns, there_fns, pattern, other, out)))
+    return 0
+
+
+def compare(here_fns, there_fns, pattern, other, out):
+    """One kernel's report: its listing here against the other
+    checkout's, raw and with argument offsets and branch targets
+    masked; the listings and diffs go under ``out``."""
+    name_a, here = listing(here_fns, pattern, out, "here")
+    name_b, there = listing(there_fns, other, out, "other")
     report = {"here": name_a, "other": name_b,
               "instructions": {"here": len(here), "other": len(there)}}
     ops_here, ops_there = opcodes(here), opcodes(there)
@@ -113,10 +134,9 @@ def main(argv=None) -> int:
                    if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
         key = "masked" if masked else "raw"
         report[f"{key}_lines_differing"] = len(changed)
-        with open(os.path.join(args.out, f"diff_{key}.txt"), "w") as fh:
+        with open(os.path.join(out, f"diff_{key}.txt"), "w") as fh:
             fh.write("\n".join(diff) + "\n")
-    print(json.dumps(report))
-    return 0
+    return report
 
 
 if __name__ == "__main__":
