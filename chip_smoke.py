@@ -157,7 +157,39 @@ exits nonzero:
 29. the same at 262,144 peers, the size a user runs on this card (no
    record: its checks are phase 26's and the lanes alone equal to the
    batch), with grid wall, cells/s, peer-steps/s, peak memory, the idle
-   share and each gather kernel's times, bytes and bound.
+   share and each gather kernel's times, bytes and bound;
+30. the population plane (``engine/population.py``): the step kernels
+   against their plain versions under the example population
+   (``examples/population_cellular_broadband.json`` at mix 0.5) at t =
+   62 s, after the cellular wave: the sweep's VOD and live lanes at 4 ×
+   1,048,576, three slots on the ring under each policy at 4 × 1,048,576
+   and on the random mesh under adaptive at 4 × 262,144, with the line
+   ``population fields binding over every case`` showing requesters and
+   holders gated off P2P, picks clipped by the ladder cap, foregrounds
+   urgent only by the cohort's offset and session departures nonzero;
+31. the port's runs against the committed population fixture (the JAX
+   reference with the example population over three VOD mixture points
+   and a live one, with the cohort columns);
+32. the mixture grid (``tools/sweep.py --population``): the 48-point VOD
+   grid crossed with the spec's mix fractions, 144 points × 1,048,576 ×
+   128 × 960, a row every 40 steps with the cohort columns, through
+   ``run_groups_chunked`` with the autotuned chunk and a ``FaultPolicy``
+   armed: one dispatch group, launches checked, the cdn_only cohort's
+   offload 0 in every row, every row's cohort peers summing to its level
+   counts, the points of POPULATION_ANCHOR within POPULATION_ROW_TOL of
+   HEAD's reference (``tools/torch_port_population_anchor.py``); its
+   first 48 points as one direct run equal to the dispatch's rows, the
+   cdn_only cohort's P2P bytes 0, traced (idle share, busy ms a step,
+   the per-kernel split);
+33. TK5's cohort instantiation (``timeline_row_cohorts``) against its
+   plain version: on that run's final state one interval on, with the
+   spec's 2 cohorts and 8 seeded labels, the stall digest off and on,
+   and at 16 and 1,000 peers; counts equal, ratios within REDUCE_RTOL,
+   lanes alone equal to their batched rows to the bit; timed beside the
+   instantiation without cohorts;
+34. the degenerate population (one cohort, everything inherited) at 4
+   sampled points of the VOD and the live grid at 1,048,576 peers:
+   offload and rebuffer equal the homogeneous rows to the bit.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -168,7 +200,8 @@ entry: phase 18's and the three-slot instantiation's; its ``adaptive``
 and ``ranked`` entries: phase 25's and those instantiations'; its
 ``uncapped`` entry: phase 26's check on the ring; each gather kernel:
 phase 29's launches over the three policies and times on the spread
-chunk, with an entry per size and policy).  Without a card, or outside
+chunk, with an entry per size and policy; ``timeline_row_cohorts``:
+phase 32's launches and phase 33's times).  Without a card, or outside
 a checkout, it exits nonzero and prints no result.
 """
 
@@ -425,6 +458,46 @@ FAULT_PLANS = {"transient@0:0x2": {"transient|retry": 2},
                "oom@0:0x2": {"oom|bisect": 2},
                "transient@0:1x4": {"transient|retry": 3,
                                    "transient|giveup": 1}}
+
+#: the population plane (engine/population.py): the example spec that
+#: tools/sweep.py --population documents (60% broadband on lognormal
+#: uplinks arriving over 60 s, 40% cdn_only cellular capped at level 1,
+#: urgent 2 s earlier, arriving in one wave at 60 s with 600 s sessions;
+#: mixture axis 0, 0.25, 0.5 cellular)
+POPULATION_SPEC = "examples/population_cellular_broadband.json"
+#: the step kernels' check under the example population at mix 0.5, from
+#: the state the kernels' own steps reach after POPULATION_CHECK_STEPS
+#: steps (t = 62 s: the cellular wave of 60-62 s in): the VOD lanes
+#: (mixture points of VOD points 0, 29, 42 and 47), the live lanes (of
+#: live points 15, 43, 107 and 136), and for three slots (the ring under
+#: each policy, the random mesh under adaptive) four lanes of the spec at
+#: these default CDN rates (Mb/s) with the HD ladder
+POPULATION_CHECK_STEPS = 248
+POPULATION_VOD_LANES = (2, 89, 128, 143)
+POPULATION_LIVE_LANES = (47, 131, 323, 410)
+POPULATION_CDN_MBPS = (1.2, 2.4, 4.0, 8.0)
+#: the reference at HEAD at points of the mixture grid (VOD point i at
+#: the m-th mix fraction is point 3 i + m), re-run on a CPU at 1,048,576 ×
+#: 128 × 960 by tools/torch_port_population_anchor.py: {point: (offload,
+#: rebuffer)}, rounded as a sweep's rows (4 and 5 digits).  No TPU record
+#: of this grid exists.
+POPULATION_ANCHOR = {2: (0.3871, 0.00426), 87: (0.6425, 0.00462),
+                     88: (0.4997, 0.00438), 141: (0.646, 0.0),
+                     142: (0.5625, 0.0)}
+#: the anchored rows against the port's unrounded ones: the rounding
+#: (5e-5 in offload) and the card's float32 sums in another order
+POPULATION_ROW_TOL = 2e-4
+#: lanes of the mixture grid's direct chunk (its first points), traced
+#: and held to the dispatch's rows; steps of its whole-run trace (a
+#: quarter of the run); TK5's cohort check runs on its final state
+POPULATION_TRACE_LANES = 48
+POPULATION_TRACE_STEPS = 240
+#: TK5's cohort check: cohort counts (2 the spec's labels, 8 seeded
+#: labels), and small swarms (peers) where blocks are partial
+COHORT_COUNTS = (2, 8)
+COHORT_PEERS = (16, 1000)
+#: the degenerate population's sampled points of each grid
+DEGENERATE_POINTS = 4
 
 
 class SmokeFailure(Exception):
@@ -728,6 +801,12 @@ def registers_of(regs, kernel, live, slots=1, policy="spread"):
            "admit_gather": f"admit_gather_kernelILi{ct}EE",
            "peer_update_gather":
                f"peer_update_gather_kernelILb{b}ELi{ct}ELb{pen}EE"}[kernel]
+    return regs_of_entry(regs, tag)
+
+
+def regs_of_entry(regs, tag):
+    """The build's registers and spills of the one entry function whose
+    mangled name holds ``tag``."""
     found = [v for k, v in regs.items() if tag in k]
     check(len(found) == 1, f"ptxas reported no single {tag} function")
     return found[0]
@@ -812,7 +891,7 @@ def phase_routes(sim, sk):
                  "peer_update": n} if fused else
                 {"select_admit": 0, "elig_select": n, "admit_service": n,
                  "peer_update": n})
-        want.update(lane_sums=0, timeline_row=0,
+        want.update(lane_sums=0, timeline_row=0, timeline_row_cohorts=0,
                     **{k: 0 for k in sk.GATHER_PATH})
         check(launches == want, f"{label}: launches {launches}, not {want}")
         check(placed > 0, f"{label}: no transfer placed demand")
@@ -1559,12 +1638,13 @@ def lane_sums_bytes(sk, B, P):
     return float(8 * B * P + 16 * B * sk.sums_supers(P) + 12 * B)
 
 
-def timeline_bytes(B, P, n_cols):
+def timeline_bytes(B, P, n_cols, cohorts=False):
     """TK5 in row mode reads rebuffer, the previous rebuffer, join,
     leave and level ([B, P] each), writes the previous rebuffer, reads
     this step's and the previous sums and writes them back, and writes
-    one row of ``n_cols`` floats a lane."""
-    return float(24 * B * P + 24 * B + 4 * n_cols * B)
+    one row of ``n_cols`` floats a lane; its cohort instantiation also
+    reads ``cohort_id``, ``p2p_bytes`` and ``cdn_bytes``."""
+    return float((36 if cohorts else 24) * B * P + 24 * B + 4 * n_cols * B)
 
 
 def step_bytes(sim, sk, config, scenario, state_before, slot_flags, req,
@@ -1804,13 +1884,14 @@ def phase_fixture(sim):
           <= RUN_TOL, "the port disagrees with the JAX fixture")
 
 
-def build_lanes(sim, sg, config, grid, watch_s):
-    """The stacked scenarios of ``grid``'s points on the card, and their
-    joins ``[B, P]``."""
+def build_lanes(sim, sg, config, grid, watch_s, population=None):
+    """The stacked scenarios of ``grid``'s points on the card (with
+    ``population``'s overlay when given), and their joins ``[B, P]``."""
     import torch
     built = [sg.build_scenario(config, k, watch_s=watch_s,
                                stagger_s=GRID_STAGGER_S, seed=0,
-                               device="cuda") for k in grid]
+                               population=population, device="cuda")
+             for k in grid]
     return (sim.stack_pytrees([sc for sc, _ in built]),
             torch.stack([j for _, j in built]))
 
@@ -2006,7 +2087,7 @@ def phase_grid(sim, sk, sg, dp):
             "admit_service": 0, "peer_update": n_steps * n_chunks,
             "lane_sums": 2 * n_chunks,
             "timeline_row": (n_rows + 1) * n_chunks,
-            **{k: 0 for k in sk.GATHER_PATH}}
+            "timeline_row_cohorts": 0, **{k: 0 for k in sk.GATHER_PATH}}
     check(launches == want, f"grid launches {launches}, not {want}")
     offs = [r[0] for r in rows]
     rebs = [r[1] for r in rows]
@@ -2291,7 +2372,7 @@ def phase_live_grid(sim, sk, sg, dp):
             "admit_service": 0, "peer_update": n_steps * n_chunks,
             "lane_sums": 2 * n_chunks,
             "timeline_row": (n_rows + 1) * n_chunks,
-            **{k: 0 for k in sk.GATHER_PATH}}
+            "timeline_row_cohorts": 0, **{k: 0 for k in sk.GATHER_PATH}}
     check(launches == want, f"live grid launches {launches}, not {want}")
     for i, (off, reb, tl) in enumerate(rows):
         check(0.0 <= off <= 1.0 and 0.0 <= reb <= 1.0,
@@ -3257,6 +3338,496 @@ def phase_real_oom(sim, sg, dp, g9):
     return {"where": where, "counts": counts, "wall": wall}
 
 
+# ---- the population plane ---------------------------------------------------
+
+def _population_spec():
+    from hlsjs_p2p_wrapper_tpu_torch.engine.population import load_spec
+    return load_spec(os.path.join(ROOT, POPULATION_SPEC))
+
+
+def _spec_lanes(sim, config, spec, neighbors=None):
+    """Four lanes of ``spec`` at mix 0.5 on the card, one a default CDN
+    rate of POPULATION_CDN_MBPS, with the HD ladder."""
+    from hlsjs_p2p_wrapper_tpu_torch.testing import population_lanes
+    lanes = [population_lanes(config, spec, (0.5,), BITRATES,
+                              cdn_bps=cdn * 1e6, uplink_bps=2.4e6,
+                              device="cuda", neighbors=neighbors)[0]
+             for cdn in POPULATION_CDN_MBPS]
+    return sim.stack_pytrees([sim.lane(sc, 0) for sc in lanes])
+
+
+def population_cases(sim, sg, pg, spec):
+    """``(label, config, scenario)`` of the step kernels' check under the
+    example population: the sweep's VOD and live lanes (the ring, one
+    slot), three slots on the ring under each policy, and three slots on
+    the random mesh under adaptive."""
+    n_cohorts = len(spec.cohorts)
+    for live, points in ((False, POPULATION_VOD_LANES),
+                         (True, POPULATION_LIVE_LANES)):
+        config = sg.build_config(GRID_PEERS, GRID_SEGMENTS, live, 8,
+                                 n_cohorts=n_cohorts)
+        grid = sg.population_grid(sg.live_grid() if live else sg.vod_grid(),
+                                  spec)
+        scenario, _joins = build_lanes(sim, sg, config,
+                                       [grid[i] for i in points],
+                                       GRID_WATCH_S, population=spec)
+        yield (f"{'live' if live else 'VOD'} ring, C = 1, "
+               f"{GRID_PEERS:,} peers", config, scenario)
+    for policy in pg.POLICIES:
+        config = pg.ring_config(GRID_PEERS, GRID_SEGMENTS, policy)._replace(
+            n_levels=len(BITRATES), n_cohorts=n_cohorts)
+        yield (f"ring {policy}, C = 3, {GRID_PEERS:,} peers", config,
+               _spec_lanes(sim, config, spec))
+    config = pg.random_config(GATHER_PEERS, GRID_SEGMENTS,
+                              "adaptive")._replace(n_levels=len(BITRATES),
+                                                   n_cohorts=n_cohorts)
+    mesh = pg.random_topology(GATHER_PEERS, pg.SEED, device="cuda")
+    yield (f"random mesh adaptive, C = 3, {GATHER_PEERS:,} peers", config,
+           _spec_lanes(sim, config, spec, mesh))
+
+
+def phase_population_kernels(sim, sk, sg, pg):
+    """The step kernels against their plain versions under the example
+    population (mix 0.5) on each path of :func:`population_cases`, at the
+    state the kernels' own steps reach at t = 62 s, with the population
+    fields shown to bind (``testing.population_binding``): requesters and
+    holders the ``p2p_ok`` gate holds off P2P, picks clipped by
+    ``abr_cap_level``, foregrounds urgent only by ``urgent_margin_off_s``,
+    peers whose session ended."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import population_binding
+    spec = _population_spec()
+    log(f"[30] the step kernels under the example population "
+        f"({POPULATION_SPEC}, mix 0.5), {POPULATION_CHECK_STEPS} steps in")
+    errs, total = {}, {}
+    for label, config, scenario in population_cases(sim, sg, pg, spec):
+        B = scenario.join_s.shape[0]
+        state = _init(sim, config, scenario, B)
+        sim._scan_swarm(config, scenario, state, POPULATION_CHECK_STEPS)
+        torch.cuda.synchronize()
+        binds = population_binding(config, scenario, state)
+        check(binds["gate_requesters"] > 0 and binds["gate_holders"] > 0
+              and binds["departed"] > 0,
+              f"{label}: the p2p_ok gate or the sessions bind nowhere "
+              f"{binds}")
+        if config.neighbor_offsets is None:
+            e = compare_gather(sim, sk, config, scenario, state, label)
+        else:
+            e = compare_kernels(sim, sk, config, scenario, state, label)
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+        for name, v in binds.items():
+            total[name] = total.get(name, 0) + v
+        log(f"  {label}: population fields binding at t = "
+            f"{float(state.t_s[0])!r} s {json.dumps(binds)}")
+        del state, scenario
+    log(f"    population fields binding over every case "
+        f"{json.dumps(total)}; max float err {json.dumps(errs)}")
+    check(all(v > 0 for v in total.values()),
+          f"a population field binds in no case: {total}")
+    return errs
+
+
+def _exact_columns(cols):
+    """The timeline's count columns (and its clock): equal, not close."""
+    return [i for i, c in enumerate(cols)
+            if c in ("t_s", "stalled_peers") or c.startswith("level_")
+            or c.endswith(("_peers", "_stalled"))]
+
+
+def phase_population_fixture():
+    """The port's batched runs against the committed population fixture
+    (the JAX reference with the example population over three VOD
+    mixture points and a live one): offload, rebuffer, the series and the
+    timeline's other columns within RUN_TOL (its rates relative), its
+    counts (cohort columns included) equal."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import (REFERENCE_POPULATION,
+                                                     run_population_fixture)
+    d = np.load(REFERENCE_POPULATION)
+    runs = run_population_fixture(d, "cuda")
+    torch.cuda.synchronize()
+    worst = {}
+    for key, (offload, rebuffer, series, tl, _p2p) in runs.items():
+        cols = [str(c) for c in d[f"{key}_columns"]]
+        tl, want = tl.cpu().numpy(), d[f"{key}_timeline"]
+        exact = _exact_columns(cols)
+        rates = [i for i, c in enumerate(cols) if c.endswith("_rate_bps")]
+        other = [i for i in range(len(cols)) if i not in exact + rates]
+        errs = {
+            "offload": float(np.abs(offload.cpu().numpy()
+                                    - d[f"{key}_offload"]).max()),
+            "rebuffer": float(np.abs(rebuffer.cpu().numpy()
+                                     - d[f"{key}_rebuffer"]).max()),
+            "series": float(np.abs(series.cpu().numpy()
+                                   - d[f"{key}_series"]).max()),
+            "timeline": float(np.abs(tl[..., other]
+                                     - want[..., other]).max()),
+            "rates_rel": float((np.abs(tl[..., rates] - want[..., rates])
+                                / np.maximum(np.abs(want[..., rates]),
+                                             1.0)).max())}
+        check(max(errs.values()) <= RUN_TOL,
+              f"the port's {key} population run disagrees with the fixture "
+              f"{errs}")
+        check(np.array_equal(tl[..., exact], want[..., exact]),
+              f"the population fixture's {key} count columns differ")
+        check(bool((tl[..., cols.index("cohort_1_offload")] == 0).all()),
+              f"the {key} cdn_only cohort's offload is not 0")
+        worst[key] = errs
+    log(f"[31] population fixture {d['shape'].tolist()} (peers, segments, "
+        f"steps, record_every): max abs err {json.dumps(worst)}; counts, "
+        f"cohort columns included, equal")
+
+
+def phase_population_grid(sim, sk, sg, dp):
+    """The mixture grid at its real size: ``tools/sweep.py --population
+    examples/population_cellular_broadband.json``, the 48-point VOD grid
+    crossed with the spec's mix fractions (144 points × 1,048,576 peers
+    × 128 segments × 960 steps, a row every 40 steps with the cohort
+    columns), through ``run_groups_chunked`` with the autotuned chunk and
+    a ``FaultPolicy`` armed: one dispatch group, launches checked, every
+    row's cohort peers summing to its level counts, the cdn_only cohort's
+    offload 0 in every row, each last row its final offload, the anchored
+    points within POPULATION_ROW_TOL of HEAD's reference.  Then the first
+    POPULATION_TRACE_LANES points as one direct run (graphs), equal to
+    the dispatch's rows, the cdn_only cohort's P2P bytes 0, traced whole
+    for POPULATION_TRACE_STEPS steps and per kernel over TRACE_STEPS
+    eager steps from its final state."""
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.faults import FaultPolicy
+    spec = _population_spec()
+    config = sg.build_config(GRID_PEERS, GRID_SEGMENTS, False, 8,
+                             n_cohorts=len(spec.cohorts))
+    grid = sg.population_grid(sg.vod_grid(), spec)
+    n_steps = int(GRID_WATCH_S * 1000.0 / config.dt_ms)
+    n_rows = n_steps // GRID_RECORD_EVERY
+    cols = sim.timeline_columns(config)
+
+    def build(knobs):
+        return sg.build_scenario(config, knobs, watch_s=GRID_WATCH_S,
+                                 stagger_s=GRID_STAGGER_S, seed=0,
+                                 population=spec, device="cuda")
+
+    chunk = sim.autotune_chunk(config, len(grid), n_steps,
+                               record_every=GRID_RECORD_EVERY,
+                               scenario=build(grid[0])[0], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    faults = FaultPolicy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, stats = dp.run_groups_chunked(
+        [(config, grid, build)], n_steps, watch_s=GRID_WATCH_S,
+        record_every=GRID_RECORD_EVERY, faults=faults)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rows = results[0]
+    sizes = [min(chunk, len(grid) - a) for a in range(0, len(grid), chunk)]
+    n_chunks = len(sizes)
+    peer_steps = len(grid) * GRID_PEERS * n_steps
+    log(f"[32] mixture grid (tools/sweep.py --population {POPULATION_SPEC}"
+        f"): {len(grid)} points x {GRID_PEERS:,} peers x {GRID_SEGMENTS} "
+        f"segments x {n_steps} steps, a row every {GRID_RECORD_EVERY} "
+        f"steps with {len(spec.cohorts)} cohorts' columns, a FaultPolicy "
+        f"armed; {len(stats)} dispatch group(s), autotuned chunk {chunk} "
+        f"(chunks {sizes}); wall {wall!r} s, {len(grid) / wall!r} grid "
+        f"points/s, {peer_steps / wall:,.0f} peer-steps/s; launches "
+        f"{json.dumps(launches)}; peak memory {peak:,} B; fault counts "
+        f"{json.dumps(faults.fault_counts())}")
+    check(len(stats) == 1 and stats[0]["chunk"] == chunk
+          and not stats[0]["failures"] and faults.fault_counts() == {},
+          f"the mixture grid is not one clean dispatch group: {stats}")
+    # per chunk: a launch of each step kernel a step, replayed from the
+    # graphs; lane_sums for the timeline's first interval and the final
+    # offload; the cohort row once a row; timeline_row (no cohorts) once,
+    # for the final rebuffer ratio
+    want = {name: 0 for name in sk.LAUNCHES}
+    want.update(select_admit=n_steps * n_chunks,
+                peer_update=n_steps * n_chunks, lane_sums=2 * n_chunks,
+                timeline_row=n_chunks,
+                timeline_row_cohorts=n_rows * n_chunks)
+    check(launches == want, f"mixture grid launches {launches}, not {want}")
+    levels = [cols.index(f"level_{i}_peers") for i in range(config.n_levels)]
+    peers_k = [cols.index(f"cohort_{k}_peers")
+               for k in range(config.n_cohorts)]
+    cell_off = cols.index("cohort_1_offload")
+    for i, (off, reb, tl) in enumerate(rows):
+        check(0.0 <= off <= 1.0 and 0.0 <= reb <= 1.0,
+              f"mixture point {i}: ratios out of range {off!r} {reb!r}")
+        check(tl.shape == (n_rows, len(cols)) and np.isfinite(tl).all(),
+              f"mixture point {i}: timeline {tl.shape} not finite")
+        check(np.array_equal(tl[:, peers_k].sum(axis=1),
+                             tl[:, levels].sum(axis=1)),
+              f"mixture point {i}: cohort peers do not sum to the level "
+              f"counts")
+        check(bool((tl[:, cell_off] == 0.0).all()),
+              f"mixture point {i}: the cdn_only cohort's offload is not 0")
+        check(float(tl[-1, cols.index("t_s")]) == GRID_WATCH_S
+              and float(tl[-1, cols.index("offload")]) == off,
+              f"mixture point {i}: the last row is not its final offload")
+    diffs = {i: (abs(rows[i][0] - o), abs(rows[i][1] - r))
+             for i, (o, r) in POPULATION_ANCHOR.items()}
+    worst = max(max(v) for v in diffs.values())
+    stalling = sum(r > 0.0 for _o, r, _t in rows)
+    log(f"    at the points HEAD's reference re-ran on a CPU "
+        f"(tools/torch_port_population_anchor.py; point: (offload, "
+        f"rebuffer) differences) {json.dumps(diffs)}, largest {worst!r}; "
+        f"offload {min(r[0] for r in rows)!r} .. "
+        f"{max(r[0] for r in rows)!r}, {stalling} of {len(grid)} points "
+        f"stall; every row's cohort peers sum to its level counts and the "
+        f"cdn_only cohort's offload is 0 in every row")
+    check(worst <= POPULATION_ROW_TOL,
+          f"mixture rows differ from HEAD's reference by {worst!r}")
+
+    built = [build(k) for k in grid[:POPULATION_TRACE_LANES]]
+    scenario = sim.stack_pytrees([sc for sc, _ in built])
+    joins = torch.stack([j for _, j in built])
+    del built
+    B = scenario.join_s.shape[0]
+    init = sim.init_swarm(config, device="cuda", batch=B)
+    sk.reset_launch_counts()
+    w_d, cap, (final, series, tl) = timed_run(
+        sim, sk, config, scenario, init, n_steps, "graph",
+        record_every=GRID_RECORD_EVERY)
+    direct = [(float(o), float(r), t) for o, r, t in zip(
+        sim.offload_ratio_batch(final).tolist(),
+        sim.rebuffer_ratio_batch(final, GRID_WATCH_S, joins).tolist(),
+        tl.cpu().numpy())]
+    check(_rows_equal(direct, rows[:B]),
+          f"the direct {B}-lane run's rows differ from the dispatch's")
+    cell = scenario.cohort_id == 1
+    cell_p2p = float(final.p2p_bytes[cell].sum())
+    check(cell_p2p == 0.0 and bool(cell.any()),
+          f"the cdn_only cohort moved {cell_p2p!r} P2P bytes")
+    del series, tl
+    busy, wall_ms, traced, others = trace_steps(
+        sim, sk, config, scenario, init, POPULATION_TRACE_STEPS, "graph",
+        record_every=GRID_RECORD_EVERY)
+    del init
+    _b, _w, e_traced, _o = trace_steps(
+        sim, sk, config, scenario, final, TRACE_STEPS, "eager",
+        record_every=GRID_RECORD_EVERY)
+    before, st = sim.clone_state(final), sim.clone_state(final)
+    flags, req, service, adm = sk.select_admit(config, scenario, st)
+    sk.peer_update(config, scenario, st, flags, req, service, adm)
+    nbytes = step_bytes(sim, sk, config, scenario, before, flags, req, adm,
+                        st)
+    del before, st
+    idle = None if busy is None else 1.0 - busy / wall_ms
+    log(f"    the first {B} points as one direct run (graphs): {w_d!r} s "
+        f"({cap!r} s of it in captures; {w_d * 1e3 / n_steps!r} ms per "
+        f"step), rows equal to the dispatch's, the cdn_only cohort's P2P "
+        f"bytes 0; traced whole over {POPULATION_TRACE_STEPS} steps: "
+        f"device busy {busy!r} ms per step, idle {idle!r} of the traced "
+        f"host wall ({wall_ms!r} ms per step; per kernel "
+        f"{json.dumps(traced)}; "
+        f"{other_ops(others, POPULATION_TRACE_STEPS, 'mixture graph run')})")
+    log(f"    per kernel (launches, traced mean ms), {TRACE_STEPS} eager "
+        f"steps from the final state: {json.dumps(e_traced)}; bytes "
+        f"{json.dumps({k: nbytes[k] for k in MAIN_PATH})}")
+    return {"config": config, "scenario": scenario, "final": final,
+            "launches": launches, "wall": wall, "chunk": chunk,
+            "peak": peak, "traced": e_traced, "idle": idle, "busy": busy,
+            "n_steps": n_steps, "rows": rows}
+
+
+def _cohort_labels(scenario, n_cohorts, seed=0):
+    """``scenario`` with seeded labels in ``[0, n_cohorts)``."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, n_cohorts, tuple(scenario.cohort_id.shape),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    return scenario._replace(cohort_id=ids)
+
+
+def compare_cohort_rows(sim, sk, config, scenario, prev, state, label):
+    """TK5's cohort instantiation against its plain version on the
+    stacked ``state``, the interval starting at ``prev``: counts (and
+    every column computed from the same inputs) equal, the rebuffer and
+    the cohort offloads within REDUCE_RTOL, the carried sums equal, each
+    cohort's peers summing to the level counts, and the first and last
+    lanes alone equal to their batched rows to the bit.  Returns the
+    largest absolute difference."""
+    import torch
+    B = state.t_s.shape[0]
+    cols = sim.timeline_columns(config)
+    M = len(cols)
+    sums, prev_sums = sk.lane_sums(state), sk.lane_sums(prev)
+    soft = [cols.index("rebuffer")] + [
+        cols.index(f"cohort_{k}_offload") for k in range(config.n_cohorts)]
+    same = [i for i in range(M) if i not in soft]
+
+    def row(fn):
+        out = torch.full((B, 2, M), float("nan"), device="cuda")
+        ps, pr = prev_sums.clone(), prev.rebuffer_s.clone()
+        fn(config, scenario, state, sums, ps, pr, out, 1, GRID_RECORD_EVERY)
+        return out, ps, pr
+    (row_k, ps_k, pr_k), (row_p, ps_p, pr_p) = (
+        row(fn) for fn in (sk.timeline_row, sk.timeline_row_plain))
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(row_k[:, 0]).all()),
+          f"{label}: the cohort row wrote outside its sample")
+    row_k, row_p = row_k[:, 1], row_p[:, 1]
+    check(torch.equal(row_k[:, same], row_p[:, same]),
+          f"{label}: the cohort row's counts or clock differ from plain")
+    rel = _rel_err(row_k[:, soft], row_p[:, soft])
+    check(rel <= REDUCE_RTOL, f"{label}: the cohort row's ratios off by "
+                              f"{rel!r} relative")
+    check(torch.equal(ps_k, ps_p) and torch.equal(pr_k, pr_p),
+          f"{label}: the carried sums or rebuffer differ")
+    levels = [cols.index(f"level_{i}_peers") for i in range(config.n_levels)]
+    peers_k = [cols.index(f"cohort_{k}_peers")
+               for k in range(config.n_cohorts)]
+    check(torch.equal(row_k[:, peers_k].sum(-1), row_k[:, levels].sum(-1)),
+          f"{label}: cohort peers do not sum to the level counts")
+    for b in sorted({0, B - 1}):
+        one = [sim.as_lanes(sim.lane(x, b)) for x in (scenario, state, prev)]
+        out = torch.full((1, 2, M), float("nan"), device="cuda")
+        sk.timeline_row(config, one[0], one[1], sums[b:b + 1].clone(),
+                        prev_sums[b:b + 1].clone(),
+                        one[2].rebuffer_s.clone(), out, 1, GRID_RECORD_EVERY)
+        check(torch.equal(out[0, 1], row_k[b]),
+              f"{label}: lane {b} alone differs from its batched row")
+    return float((row_k - row_p).abs().max()), rel
+
+
+def phase_cohort_rows(sim, sk, g):
+    """TK5's cohort instantiation against its plain version: on the
+    mixture chunk's final state (POPULATION_TRACE_LANES × 1,048,576)
+    after one more interval, with the spec's 2 cohorts and 8 seeded
+    labels, the stall digest off and on; then on the example population
+    at COHORT_PEERS peers (partial blocks); and timed at the chunk's size
+    (CUDA events, launches back to back) beside the instantiation without
+    cohorts, its plain version, its bytes and bound."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.testing import population_lanes
+    config, scenario = g["config"], g["scenario"]
+    prev = g["final"]
+    state = sim.clone_state(prev)
+    sim._scan_swarm(config, scenario, state, GRID_RECORD_EVERY)
+    B, P = state.rebuffer_s.shape
+    log(f"[33] TK5's cohort instantiation against its plain version")
+    err, rel = 0.0, 0.0
+    for n_cohorts in COHORT_COUNTS:
+        scen = (scenario if n_cohorts == config.n_cohorts
+                else _cohort_labels(scenario, n_cohorts))
+        for digest in (False, True):
+            cfg = config._replace(n_cohorts=n_cohorts, stall_digest=digest)
+            e, r = compare_cohort_rows(
+                sim, sk, cfg, scen, prev, state,
+                f"{B} x {P:,}, {n_cohorts} cohorts, digest {digest}")
+            err, rel = max(err, e), max(rel, r)
+    spec = _population_spec()
+    for peers in COHORT_PEERS:
+        cfg = sim.SwarmConfig(n_peers=peers, n_segments=GRID_SEGMENTS,
+                              n_levels=len(BITRATES),
+                              neighbor_offsets=sim.ring_offsets(DEGREE),
+                              n_cohorts=len(spec.cohorts))
+        scen, _joins = population_lanes(cfg, spec, (0.25, 0.5), BITRATES,
+                                        cdn_bps=8e6, uplink_bps=2.4e6,
+                                        device="cuda")
+        small_prev = sim.init_swarm(cfg, device="cuda", batch=2)
+        sim._scan_swarm(cfg, scen, small_prev, POPULATION_CHECK_STEPS)
+        small = sim.clone_state(small_prev)
+        sim._scan_swarm(cfg, scen, small, GRID_RECORD_EVERY)
+        for n_cohorts in COHORT_COUNTS:
+            sc = scen if n_cohorts == 2 else _cohort_labels(scen, n_cohorts)
+            for digest in (False, True):
+                e, r = compare_cohort_rows(
+                    sim, sk, cfg._replace(n_cohorts=n_cohorts,
+                                          stall_digest=digest),
+                    sc, small_prev, small,
+                    f"2 x {peers:,}, {n_cohorts} cohorts, digest {digest}")
+                err, rel = max(err, e), max(rel, r)
+    # timing at the chunk's size, the spec's cohorts
+    M = len(sim.timeline_columns(config))
+    sums = sk.lane_sums(state)
+    prev_sums, prev_reb = sk.lane_sums(prev), prev.rebuffer_s.clone()
+    out = torch.empty((B, 1, M), dtype=torch.float32, device="cuda")
+    bare = config._replace(n_cohorts=0)
+    out0 = torch.empty((B, 1, M - 3 * config.n_cohorts),
+                       dtype=torch.float32, device="cuda")
+    ms = back_to_back(lambda st: sk.timeline_row_cohorts(
+        config, scenario, st, sums, prev_sums, prev_reb, out, 0,
+        GRID_RECORD_EVERY), state)
+    ms_bare = back_to_back(lambda st: sk.timeline_row(
+        bare, scenario, st, sums, prev_sums, prev_reb, out0, 0,
+        GRID_RECORD_EVERY), state)
+    plain = cuda_ms(lambda: sk.timeline_row_plain(
+        config, scenario, state, sums, prev_sums, prev_reb, out, 0,
+        GRID_RECORD_EVERY), 5)
+    traced = trace_calls(lambda: sk.timeline_row_cohorts(
+        config, scenario, state, sums, prev_sums, prev_reb, out, 0,
+        GRID_RECORD_EVERY), 20).get("timeline_row")
+    nbytes = timeline_bytes(B, P, M, cohorts=True)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"    counts equal, ratios within {rel!r} relative (max abs err "
+        f"{err!r}), lanes alone equal to their batched rows; at {B} x "
+        f"{P:,} with {config.n_cohorts} cohorts ({BACK_TO_BACK} launches "
+        f"back to back, CUDA events): {ms!r} ms (without cohorts "
+        f"{ms_bare!r} ms), traced {traced!r} ms; plain {plain!r} ms; "
+        f"{nbytes:,.0f} B, bound {bound!r} ms at 3.35 TB/s, "
+        f"{ms / bound!r} x")
+    return {"max_abs_err": err, "rel": rel, "ms": ms, "ms_bare": ms_bare,
+            "plain_ms": plain, "traced_ms": traced, "bytes": nbytes,
+            "bound_ms": bound, "shape": f"{B} x {P:,}, "
+            f"{config.n_cohorts} cohorts"}
+
+
+def phase_degenerate(sim, sg, dp):
+    """The population gate's promise 1 on the card: a population of one
+    cohort that inherits everything gives, at DEGENERATE_POINTS sampled
+    points of the VOD and of the live grid at 1,048,576 peers, the
+    homogeneous rows' offload and rebuffer to the bit and the same
+    timeline columns, its one cohort's counts the audience's."""
+    import numpy as np
+    from hlsjs_p2p_wrapper_tpu_torch.engine.population import (Cohort,
+                                                               PopulationSpec)
+    spec = PopulationSpec(name="degenerate", seed=0,
+                          cohorts=(Cohort(name="all", fraction=1.0),))
+    out = {}
+    for live in (False, True):
+        base = sg.sample_grid(sg.live_grid() if live else sg.vod_grid(),
+                              DEGENERATE_POINTS)
+        hom = sg.build_config(GRID_PEERS, GRID_SEGMENTS, live, 8)
+        deg = hom._replace(n_cohorts=1)
+        n_steps = int(GRID_WATCH_S * 1000.0 / hom.dt_ms)
+        runs = []
+        for config, population in ((hom, None), (deg, spec)):
+            def build(knobs, config=config, population=population):
+                return sg.build_scenario(config, knobs, watch_s=GRID_WATCH_S,
+                                         stagger_s=GRID_STAGGER_S, seed=0,
+                                         population=population,
+                                         device="cuda")
+            runs.append(dp.run_batch_chunked(
+                config, sg.population_grid(base, spec), build, n_steps,
+                watch_s=GRID_WATCH_S, record_every=GRID_RECORD_EVERY))
+        cols = sim.timeline_columns(deg)
+        n = len(sim.timeline_columns(hom))
+        levels = [cols.index(f"level_{i}_peers") for i in range(deg.n_levels)]
+        for i, ((o_h, r_h, t_h), (o_d, r_d, t_d)) in enumerate(zip(*runs)):
+            check(o_h == o_d and r_h == r_d
+                  and np.array_equal(t_h, t_d[:, :n]),
+                  f"degenerate {'live' if live else 'VOD'} point {i}: "
+                  f"({o_d!r}, {r_d!r}) is not the homogeneous "
+                  f"({o_h!r}, {r_h!r})")
+            check(np.array_equal(t_d[:, n], t_d[:, levels].sum(axis=1))
+                  and np.array_equal(t_d[:, n + 1],
+                                     t_d[:, cols.index("stalled_peers")]),
+                  f"degenerate point {i}: the cohort's counts are not the "
+                  f"audience's")
+        out["live" if live else "vod"] = [(o, r) for o, r, _t in runs[0]]
+    log(f"[34] degenerate population (one cohort, everything inherited) at "
+        f"{DEGENERATE_POINTS} sampled points of each grid x {GRID_PEERS:,} "
+        f"peers: offload and rebuffer equal the homogeneous rows to the "
+        f"bit {json.dumps(out)}; timelines equal, the cohort's counts the "
+        f"audience's")
+
+
 def gather_entry(name, source, replaces, randoms, errs_gather, regs):
     """The ``kernels`` line's entry of a gather kernel: launches over the
     random half at RANDOM_PEERS_LARGE (each policy's grid), its
@@ -3360,6 +3931,12 @@ def main() -> int:
                 r["trace"] = phase_ring_trace(sim, sk, r, tag)
                 del r["scenario"], r["final"]
                 randoms[(peers, policy)] = r
+        errs_population = phase_population_kernels(sim, sk, sg, pg)
+        phase_population_fixture()
+        mixture = phase_population_grid(sim, sk, sg, dp)
+        cohorts = phase_cohort_rows(sim, sk, mixture)
+        del mixture["scenario"], mixture["final"]
+        phase_degenerate(sim, sg, dp)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3373,7 +3950,7 @@ def main() -> int:
         err = max(d.get(name, 0.0) for d in (errs, errs_1m, errs_routes,
                                               errs_batch, errs_live,
                                               errs_prefetch, errs_policy,
-                                              errs_gather))
+                                              errs_gather, errs_population))
         wide = {"shape": f"48 x {GRID_PEERS:,}",
                 "launches": b48["launches"].get(name, 0),
                 "launches_in": b48["launches_in"],
@@ -3449,6 +4026,23 @@ def main() -> int:
                 "max_abs_err": errs_gather.get(name, 0.0),
                 "checked_in": "[26], against the plain version"}
         kernels.append(entry)
+    kernels.append({
+        "name": "timeline_row_cohorts", "route": "cuda",
+        "source": REDUCE_SOURCE, "replaces": f"{REF}:1594",
+        "launches": mixture["launches"]["timeline_row_cohorts"],
+        "launches_in": "the 144-point mixture grid",
+        "max_abs_err": cohorts["max_abs_err"],
+        "max_rel_err_ratios": cohorts["rel"], "shape": cohorts["shape"],
+        "ms": cohorts["ms"], "ms_without_cohorts": cohorts["ms_bare"],
+        # the profiler may miss the 20 calls; then the launches it caught
+        # in the mixture chunk's eager steps
+        "traced_ms": (cohorts["traced_ms"] if cohorts["traced_ms"]
+                      else mixture["traced"].get("timeline_row",
+                                                 (None, None))[1]),
+        "plain_ms": cohorts["plain_ms"],
+        "bytes": cohorts["bytes"], "bound_ms": cohorts["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "registers": regs_of_entry(regs, "timeline_row_kernelILb1EE")})
     log(f"wall s by phase (up to each line, by its tag): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_WALLS.items()})}; "
         f"total {time.perf_counter() - _CLOCK['start']:.2f} s")

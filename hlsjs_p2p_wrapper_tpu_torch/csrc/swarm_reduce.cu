@@ -5,8 +5,9 @@
 // The reference is hlsjs_p2p_wrapper_tpu/ops/swarm_sim.py: _scan_swarm's
 // step sums p2p_bytes and cdn_bytes with jnp.sum and takes their ratio
 // (:1643-1647, offload_ratio :2607-2611), and _timeline_row (:1559-1627)
-// reduces the state into one row every record_every steps.  XLA fuses
-// those reductions into the scanned program; there was no Pallas kernel.
+// reduces the state into one row every record_every steps, with per-cohort
+// columns (:1594-1611) when the config has cohorts.  XLA fuses those
+// reductions into the scanned program; there was no Pallas kernel.
 //
 // Layout: lanes as in swarm_step.cu.  Per-peer arrays are [B, P], float32
 // (int32 for `level`); lane b's rows start at b * P (64-bit).  The grid is
@@ -27,9 +28,10 @@
 // below 2^24.
 //
 // What bounds these kernels on an H100: bytes.  Each reads its [B, P]
-// arrays once (8 B a peer for lane_sums, 20-24 B for timeline_row) and does
-// a few operations per element; the partials are 8 B a super-partial of
-// 8,192 peers for lane_sums and a few KB for timeline_row.
+// arrays once (8 B a peer for lane_sums, 20-24 B for timeline_row, 12 B
+// more with cohorts) and does a few operations per element; the partials
+// are 8 B a super-partial of 8,192 peers for lane_sums and a few KB for
+// timeline_row.
 //
 // Numerics: built with --fmad=false like swarm_step.cu.  The ratios are
 // IEEE divisions; the interval rates multiply by one float32 constant
@@ -43,7 +45,8 @@
 #define RBLOCK 256      // threads per block; a power of two
 #define MAX_LEVELS 16   // the row's level columns
 #define MAX_EDGES 32    // the stall digest's edges
-#define MAX_QUANT (3 + MAX_LEVELS + MAX_EDGES + 1)
+#define MAX_COHORTS 8   // the row's cohorts, 3 columns and 4 quantities each
+#define MAX_QUANT (3 + MAX_LEVELS + MAX_EDGES + 1 + 4 * MAX_COHORTS)
 
 // [begin, end) of block blk's peers among P peers cut into n_blocks ranges
 __device__ __forceinline__ void block_range(long long P, int n_blocks,
@@ -172,22 +175,42 @@ __global__ void __launch_bounds__(LS_THREADS) lane_sums_kernel(
 // ---------------------------------------------------------------------------
 // TK5 timeline_row
 //
-// Replaces: _timeline_row (swarm_sim.py:1559-1627) for n_cohorts == 0, and
-// the sums of rebuffer_ratio (:2613-2631).  Per lane, at the clock t_s[b]:
-// the rebuffer sum and the watched sum  sum(clip(min(leave, t) - join, 0)),
-// and in row mode (prev_rebuffer given) also the stalled count
-// (rebuffer_s > prev_rebuffer, every peer), the present-peer count per
-// level and, with n_edges > 0, the stall digest: each present peer's
+// Replaces: _timeline_row (swarm_sim.py:1559-1627), and the sums of
+// rebuffer_ratio (:2613-2631).  Per lane, at the clock t_s[b]: the rebuffer
+// sum and the watched sum  sum(clip(min(leave, t) - join, 0)), and in row
+// mode (prev_rebuffer given) also the stalled count (rebuffer_s >
+// prev_rebuffer, every peer), the present-peer count per level, with
+// n_cohorts > 0 per cohort k (:1594-1611) the present peers and the
+// stalled peers whose cohort_id is k and the sums of their p2p_bytes and
+// cdn_bytes, and, with n_edges > 0, the stall digest: each present peer's
 // interval stall in ms binned by searchsorted(edges, ms, side="left"),
 // i.e. the number of edges below it.  The row is
 //   t, offload, rebuffer, cdn_rate, p2p_rate, stalled, level_0..L-1,
+//   (cohort_k_peers, cohort_k_stalled, cohort_k_offload) for each k,
 //   bin_0..n_edges
 // with the offload and the rates from this step's `sums` (peer_update's
-// epilogue, or lane_sums) and the previous sample's `prev_sums`; then
-// prev_sums and prev_rebuffer take this sample's values (one writer per
-// element).  Without prev_rebuffer
-// (ratio mode) it writes the rebuffer ratio alone, to row[b * row_stride],
-// summed exactly as the row's rebuffer column is.
+// epilogue, or lane_sums) and the previous sample's `prev_sums`, and
+// cohort_k_offload = p2p_k / max(p2p_k + cdn_k, 1), an IEEE division;
+// then prev_sums and prev_rebuffer take this sample's values (one writer
+// per element).  Without prev_rebuffer (ratio mode) it writes the
+// rebuffer ratio alone, to row[b * row_stride], summed exactly as the
+// row's rebuffer column is.
+//
+// Cohorts are a template parameter (COH): the instantiation without them
+// reads no cohort_id, p2p_bytes or cdn_bytes and compiles the kernel's
+// code before cohorts (the cohort fields sit at the end of the argument
+// struct, so the others keep their offsets).  With them, each thread keeps
+// MAX_COHORTS pairs of byte sums in registers (the cohort loop unrolled, a
+// peer adding its bytes to its own cohort's pair and 0 to the others',
+// which leaves them as they were), the block sums each by the fixed tree,
+// and the lane's last block sums the blocks' partials in block order, as
+// the rebuffer sum: a lane's cohort columns are the same bits batched or
+// alone.  The two counts a cohort are integer atomics in shared memory, as
+// the level counts.
+//
+// Quantities, in the partials' order: 0 rebuffer, 1 watched, 2 stalled,
+// the levels, the digest bins, then per cohort (p2p_k, cdn_k, peers_k,
+// stalled_k).
 struct TimelineArgs {
   const float* t_s;
   const float* join_s;
@@ -208,8 +231,13 @@ struct TimelineArgs {
   int n_levels;
   int n_edges;           // 0: no stall digest
   float rate;            // 8 / interval_s, one float32 constant
+  const int* cohort_id;  // [B, P]; read only with n_cohorts > 0
+  const float* p2p_bytes;
+  const float* cdn_bytes;
+  int n_cohorts;         // 0: no cohort columns (the COH = false kernel)
 };
 
+template <bool COH>
 __global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
     const TimelineArgs a) {
   __shared__ float red[RBLOCK];
@@ -220,8 +248,11 @@ __global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
   const long long lb = (long long)lane * a.n_peers;
   const bool row_mode = a.prev_rebuffer != nullptr;
   const int n_bins = a.n_edges > 0 ? a.n_edges + 1 : 0;
+  // the cohorts' quantities start at q_co, 4 a cohort
+  const int nc = COH && row_mode ? a.n_cohorts : 0;
+  const int q_co = 3 + a.n_levels + n_bins;
   // quantities: 0 rebuffer sum, 1 watched sum, 2 stalled, then levels, bins
-  const int nq = row_mode ? 3 + a.n_levels + n_bins : 2;
+  const int nq = row_mode ? 3 + a.n_levels + n_bins + 4 * nc : 2;
   for (int q = tid; q < MAX_QUANT; q += RBLOCK) counts[q] = 0;
   for (int e = tid; e < a.n_edges; e += RBLOCK) edges_s[e] = a.edges[e];
   __syncthreads();
@@ -230,6 +261,12 @@ __global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
   long long begin, end;
   block_range(a.n_peers, a.n_blocks, blk, &begin, &end);
   float reb = 0.0f, watched = 0.0f;
+  float p2p_c[COH ? MAX_COHORTS : 1], cdn_c[COH ? MAX_COHORTS : 1];
+#pragma unroll
+  for (int k = 0; k < (COH ? MAX_COHORTS : 1); ++k) {
+    p2p_c[k] = 0.0f;
+    cdn_c[k] = 0.0f;
+  }
   for (long long x = begin + tid; x < end; x += RBLOCK) {
     const long long r = lb + x;
     const float rb = a.rebuffer_s[r];
@@ -248,6 +285,19 @@ __global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
       for (int e = 0; e < a.n_edges; ++e) idx += edges_s[e] < ms ? 1 : 0;
       atomicAdd(&counts[3 + a.n_levels + idx], 1);
     }
+    if (COH && nc > 0) {
+      const int c = a.cohort_id[r];
+      if (c >= 0 && c < nc) {
+        if (present) atomicAdd(&counts[q_co + 4 * c + 2], 1);
+        if (rb > prev) atomicAdd(&counts[q_co + 4 * c + 3], 1);
+        const float p = a.p2p_bytes[r], d = a.cdn_bytes[r];
+#pragma unroll
+        for (int k = 0; k < (COH ? MAX_COHORTS : 1); ++k) {
+          p2p_c[k] += c == k ? p : 0.0f;
+          cdn_c[k] += c == k ? d : 0.0f;
+        }
+      }
+    }
     a.prev_rebuffer[r] = rb;
   }
   float* part = a.partials + ((long long)lane * a.n_blocks + blk) * nq;
@@ -257,7 +307,23 @@ __global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
     part[0] = br;
     part[1] = bw;
   }
-  for (int q = 2 + tid; q < nq; q += RBLOCK) part[q] = (float)counts[q];
+  for (int q = 2 + tid; q < nq; q += RBLOCK) {
+    // the cohorts' byte sums are written below, by the block's tree
+    if (COH && q >= q_co && ((q - q_co) & 3) < 2) continue;
+    part[q] = (float)counts[q];
+  }
+  if (COH) {
+#pragma unroll
+    for (int k = 0; k < (COH ? MAX_COHORTS : 1); ++k) {
+      if (k >= nc) break;  // nc is the same for every thread of the block
+      const float bp = block_sum(red, p2p_c[k]);
+      const float bc = block_sum(red, cdn_c[k]);
+      if (tid == 0) {
+        part[q_co + 4 * k] = bp;
+        part[q_co + 4 * k + 1] = bc;
+      }
+    }
+  }
   if (!last_block(a.counters, lane, a.n_blocks)) return;
 
   const float* lp = a.partials + (long long)lane * a.n_blocks * nq;
@@ -279,7 +345,19 @@ __global__ void __launch_bounds__(RBLOCK) timeline_row_kernel(
   row[2] = rebuffer;
   row[3] = (cdn - a.prev_sums[2 * lane]) * a.rate;
   row[4] = (p2p - a.prev_sums[2 * lane + 1]) * a.rate;
-  for (int q = 2; q < nq; ++q) row[q + 3] = tot[q];
+  // stalled, the levels and (past the cohorts' 3 columns each) the bins;
+  // then per cohort its two counts and its offload
+  for (int q = 2; q < nq - 4 * nc; ++q)
+    row[q + 3 + (COH && q >= 3 + a.n_levels ? 3 * nc : 0)] = tot[q];
+  if (COH) {
+    for (int k = 0; k < nc; ++k) {
+      const float* v = tot + q_co + 4 * k;
+      float* col = row + 6 + a.n_levels + 3 * k;
+      col[0] = v[2];
+      col[1] = v[3];
+      col[2] = v[0] / fmaxf(v[0] + v[1], 1.0f);
+    }
+  }
   a.prev_sums[2 * lane] = cdn;
   a.prev_sums[2 * lane + 1] = p2p;
 }
@@ -301,12 +379,20 @@ extern "C" int reduce_lane_sums(const LaneSumsArgs* a, void* stream) {
 
 extern "C" int reduce_timeline_row(const TimelineArgs* a, void* stream) {
   if (a->n_peers <= 0 || a->n_blocks <= 0 || a->n_levels < 0 ||
-      a->n_levels > MAX_LEVELS || a->n_edges < 0 || a->n_edges > MAX_EDGES)
+      a->n_levels > MAX_LEVELS || a->n_edges < 0 ||
+      a->n_edges > MAX_EDGES || a->n_cohorts < 0 ||
+      a->n_cohorts > MAX_COHORTS ||
+      (a->n_cohorts > 0 && (a->prev_rebuffer == nullptr ||
+                            a->cohort_id == nullptr ||
+                            a->p2p_bytes == nullptr ||
+                            a->cdn_bytes == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (a->n_lanes > 0)
-    timeline_row_kernel<<<dim3((unsigned int)a->n_blocks,
-                               (unsigned int)a->n_lanes),
-                          RBLOCK, 0, (cudaStream_t)stream>>>(*a);
+  const dim3 grid((unsigned int)a->n_blocks, (unsigned int)a->n_lanes);
+  if (a->n_lanes > 0 && a->n_cohorts > 0)
+    timeline_row_kernel<true><<<grid, RBLOCK, 0, (cudaStream_t)stream>>>(*a);
+  else if (a->n_lanes > 0)
+    timeline_row_kernel<false><<<grid, RBLOCK, 0, (cudaStream_t)stream>>>(
+        *a);
   return (int)cudaGetLastError();
 }
 
@@ -315,7 +401,8 @@ extern "C" int reduce_timeline_row(const TimelineArgs* a, void* stream) {
 extern "C" int reduce_preload(void) {
   cudaFuncAttributes attr;
   const void* kernels[] = {(const void*)lane_sums_kernel,
-                           (const void*)timeline_row_kernel};
+                           (const void*)timeline_row_kernel<false>,
+                           (const void*)timeline_row_kernel<true>};
   for (const void* k : kernels) {
     const cudaError_t e = cudaFuncGetAttributes(&attr, k);
     if (e != cudaSuccess) return (int)e;

@@ -28,8 +28,10 @@ TK3 gather form        TK3 with the general path's readback
 ``peer_update_gather`` :1347-1349
 TK4 ``lane_sums``      the same sums outside the step: a timeline's
                        first interval, ``offload_ratio`` :2607-2611
-TK5 ``timeline_row``   ``_timeline_row`` :1559-1627 (no cohort
-                       columns), and the sums of ``rebuffer_ratio``
+TK5 ``timeline_row``   ``_timeline_row`` :1559-1627, and the sums
+                       of ``rebuffer_ratio``; its instantiation
+                       ``timeline_row_cohorts`` also the per-cohort
+                       columns :1594-1611
 =====================  ==========================================
 
 A step is :func:`select_admit` then :func:`peer_update`, which also
@@ -154,7 +156,7 @@ MAX_OFFS = 32
 LAUNCHES = {"select_admit": 0, "elig_select": 0, "admit_service": 0,
             "peer_update": 0, "lane_sums": 0, "timeline_row": 0,
             "elig_select_gather": 0, "admit_gather": 0,
-            "peer_update_gather": 0}
+            "peer_update_gather": 0, "timeline_row_cohorts": 0}
 #: the kernel each launching wrapper launches, once a call, on the card;
 #: :func:`select_admit` launches through ``select_admit_fused`` or
 #: through ``elig_select`` then ``admit_service`` (:func:`fused_route`),
@@ -166,7 +168,8 @@ KERNEL_OF = {"select_admit_fused": "select_admit",
              "rebuffer_ratio_lanes": "timeline_row",
              "elig_select_gather": "elig_select_gather",
              "admit_gather": "admit_gather",
-             "peer_update_gather": "peer_update_gather"}
+             "peer_update_gather": "peer_update_gather",
+             "timeline_row_cohorts": "timeline_row_cohorts"}
 #: the step kernels of the general [P, K] path, a launch each a step
 GATHER_PATH = ("elig_select_gather", "admit_gather", "peer_update_gather")
 
@@ -253,9 +256,11 @@ REDUCE_MAX_BLOCKS = 1024
 SUMS_BLOCK = 256
 SUMS_FAN = 32
 #: the reduction kernels' limits on the timeline row (``MAX_LEVELS``
-#: levels, ``MAX_EDGES`` digest edges), checked before launch
+#: levels, ``MAX_EDGES`` digest edges, ``MAX_COHORTS`` cohorts), checked
+#: before launch
 MAX_LEVELS = 16
 MAX_EDGES = 32
+MAX_COHORTS = 8
 
 
 def fused_route(config: SwarmConfig) -> bool:
@@ -971,11 +976,14 @@ def timeline_row_plain(config: SwarmConfig, scenario: SwarmScenario,
                        prev_sums: torch.Tensor, prev_rebuffer: torch.Tensor,
                        out: torch.Tensor, sample: int,
                        record_every: int) -> None:
-    """Plain TK5 on lanes (reference ``_timeline_row`` :1559-1627, no
-    cohort columns): writes ``out[:, sample, :]``, the row of
+    """Plain TK5 on lanes (reference ``_timeline_row`` :1559-1627):
+    writes ``out[:, sample, :]``, the row of
     :func:`~swarm_sim.timeline_columns`, from the state, this step's
     ``sums`` (``peer_update``'s), and the previous sample's ``prev_sums``
-    and ``prev_rebuffer``, which it then updates in place."""
+    and ``prev_rebuffer``, which it then updates in place.  With
+    ``config.n_cohorts > 0``, per cohort k (reference :1594-1611): its
+    present peers, its peers whose rebuffer clock moved in the interval,
+    and ``p2p_k / max(p2p_k + cdn_k, 1)`` from its masked byte sums."""
     t = state.t_s
     cdn, p2p = sums[:, 0], sums[:, 1]
     offload = p2p / torch.clamp_min(p2p + cdn, 1.0)
@@ -993,6 +1001,19 @@ def timeline_row_plain(config: SwarmConfig, scenario: SwarmScenario,
                          dim=-1),
              torch.sum((present & (state.level.unsqueeze(-1) == lvl))
                        .to(torch.float32), dim=-2)]
+    if config.n_cohorts:
+        moved = state.rebuffer_s > prev_rebuffer
+        cols = []
+        for k in range(config.n_cohorts):
+            mask = scenario.cohort_id == k
+            p2p_k = torch.sum(torch.where(mask, state.p2p_bytes, 0.0), dim=-1)
+            tot_k = p2p_k + torch.sum(torch.where(mask, state.cdn_bytes, 0.0),
+                                      dim=-1)
+            cols += [torch.sum((present[..., 0] & mask).to(torch.float32),
+                               dim=-1),
+                     torch.sum((moved & mask).to(torch.float32), dim=-1),
+                     p2p_k / torch.clamp_min(tot_k, 1.0)]
+        parts.append(torch.stack(cols, dim=-1))
     if config.stall_digest:
         edges = _edges(t.device)
         interval_ms = (state.rebuffer_s - prev_rebuffer) * 1000.0
@@ -1094,7 +1115,8 @@ class _TimelineArgs(ctypes.Structure):
         ("n_peers", ctypes.c_longlong), ("row_stride", ctypes.c_longlong),
         ("n_lanes", ctypes.c_int), ("n_blocks", ctypes.c_int),
         ("n_levels", ctypes.c_int), ("n_edges", ctypes.c_int),
-        ("rate", ctypes.c_float)]
+        ("rate", ctypes.c_float), ("cohort_id", _P), ("p2p_bytes", _P),
+        ("cdn_bytes", _P), ("n_cohorts", ctypes.c_int)]
 
 
 #: kernel -> (source, C entry point, argument struct)
@@ -1109,7 +1131,9 @@ _ENTRY = {"elig_select": (SOURCE, "swarm_elig_select", _SelectArgs),
                                  _UpdateArgs),
           "lane_sums": (REDUCE_SOURCE, "reduce_lane_sums", _LaneSumsArgs),
           "timeline_row": (REDUCE_SOURCE, "reduce_timeline_row",
-                           _TimelineArgs)}
+                           _TimelineArgs),
+          "timeline_row_cohorts": (REDUCE_SOURCE, "reduce_timeline_row",
+                                   _TimelineArgs)}
 #: each source's macros, its entry point that reports its structs' sizes
 #: (of the structs listed, in that order), and the one that loads its
 #: kernels onto the card (so that none loads lazily inside a graph
@@ -1638,7 +1662,8 @@ def lane_sums(state: SwarmState, series=None, column: int = 0):
 
 def _timeline_args(dev, t_s, join, leave, reb, *, n_levels=0, n_edges=0,
                    row, row_stride, rate=0.0, prev_rebuffer=None,
-                   level=None, sums=None, prev_sums=None):
+                   level=None, sums=None, prev_sums=None, n_cohorts=0,
+                   cohort_id=None, p2p_bytes=None, cdn_bytes=None):
     """TK5's arguments, checked, and its partials buffer, which the
     caller holds until the launch; without ``prev_rebuffer`` the kernel
     computes the rebuffer ratio alone."""
@@ -1648,8 +1673,12 @@ def _timeline_args(dev, t_s, join, leave, reb, *, n_levels=0, n_edges=0,
     if n_levels > MAX_LEVELS or n_edges > MAX_EDGES:
         raise ValueError(f"the timeline kernel takes at most {MAX_LEVELS} "
                          f"levels and {MAX_EDGES} digest edges")
+    if n_cohorts > MAX_COHORTS:
+        raise ValueError(f"the timeline kernel takes at most {MAX_COHORTS} "
+                         f"cohorts, not {n_cohorts}")
     nb = reduce_blocks(P)
-    n_quant = 3 + n_levels + (n_edges + 1 if n_edges else 0)
+    n_quant = (3 + n_levels + 4 * n_cohorts
+               + (n_edges + 1 if n_edges else 0))
     partials = torch.empty((B, nb, n_quant if prev_rebuffer is not None
                             else 2), dtype=_F, device=dev)
 
@@ -1667,9 +1696,42 @@ def _timeline_args(dev, t_s, join, leave, reb, *, n_levels=0, n_edges=0,
         edges=_edges(dev).data_ptr() if n_edges else None,
         partials=partials.data_ptr(),
         counters=_counters(dev, "timeline_row", B), row=row,
+        cohort_id=opt("cohort_id", cohort_id, _I, (B, P)),
+        p2p_bytes=opt("p2p_bytes", p2p_bytes, _F, (B, P)),
+        cdn_bytes=opt("cdn_bytes", cdn_bytes, _F, (B, P)),
         n_peers=P, row_stride=row_stride, n_lanes=B, n_blocks=nb,
-        n_levels=n_levels, n_edges=n_edges, rate=rate)
+        n_levels=n_levels, n_edges=n_edges, n_cohorts=n_cohorts, rate=rate)
     return args, partials
+
+
+def _row_args(config: SwarmConfig, scenario: SwarmScenario,
+              state: SwarmState, sums, prev_sums, prev_rebuffer, out,
+              sample: int, record_every: int):
+    """TK5's row-mode arguments for ``out[:, sample, :]``, checked (the
+    cohort columns' inputs only with ``config.n_cohorts``), and its
+    partials."""
+    dev = state.rebuffer_s.device
+    B, P = state.rebuffer_s.shape
+    n_edges = len(DEFAULT_EDGES) if config.stall_digest else 0
+    n_cohorts = config.n_cohorts
+    M = (6 + config.n_levels + 3 * n_cohorts
+         + (n_edges + 1 if n_edges else 0))
+    if (out.device != dev or out.dtype != _F or out.dim() != 3
+            or out.shape[0] != B or out.shape[2] != M
+            or not out.is_contiguous() or not 0 <= sample < out.shape[1]):
+        raise ValueError(f"out must be a contiguous float32 [{B}, n, {M}] "
+                         f"tensor on {dev} holding sample {sample}")
+    row = out.data_ptr() + sample * M * out.element_size()
+    extra = {}
+    if n_cohorts:
+        extra = dict(n_cohorts=n_cohorts, cohort_id=scenario.cohort_id,
+                     p2p_bytes=state.p2p_bytes, cdn_bytes=state.cdn_bytes)
+    return _timeline_args(
+        dev, state.t_s, scenario.join_s, scenario.leave_s, state.rebuffer_s,
+        n_levels=config.n_levels, n_edges=n_edges, row=row,
+        row_stride=out.stride(0), rate=rate_factor(config, record_every),
+        prev_rebuffer=prev_rebuffer, level=state.level, sums=sums,
+        prev_sums=prev_sums, **extra)
 
 
 def timeline_row(config: SwarmConfig, scenario: SwarmScenario,
@@ -1678,27 +1740,39 @@ def timeline_row(config: SwarmConfig, scenario: SwarmScenario,
                  out: torch.Tensor, sample: int, record_every: int) -> None:
     """TK5 on lanes.  Same signature and effect as
     :func:`timeline_row_plain`: writes ``out[:, sample, :]`` and updates
-    ``prev_sums`` and ``prev_rebuffer`` in place."""
+    ``prev_sums`` and ``prev_rebuffer`` in place.  With
+    ``config.n_cohorts > 0`` it is :func:`timeline_row_cohorts`."""
+    if config.n_cohorts:
+        return timeline_row_cohorts(config, scenario, state, sums, prev_sums,
+                                    prev_rebuffer, out, sample, record_every)
     dev = state.rebuffer_s.device
     if dev.type != "cuda":
         return timeline_row_plain(config, scenario, state, sums, prev_sums,
                                   prev_rebuffer, out, sample, record_every)
-    B, P = state.rebuffer_s.shape
-    n_edges = len(DEFAULT_EDGES) if config.stall_digest else 0
-    M = 6 + config.n_levels + (n_edges + 1 if n_edges else 0)
-    if (out.device != dev or out.dtype != _F or out.dim() != 3
-            or out.shape[0] != B or out.shape[2] != M
-            or not out.is_contiguous() or not 0 <= sample < out.shape[1]):
-        raise ValueError(f"out must be a contiguous float32 [{B}, n, {M}] "
-                         f"tensor on {dev} holding sample {sample}")
-    row = out.data_ptr() + sample * M * out.element_size()
-    args, _partials = _timeline_args(
-        dev, state.t_s, scenario.join_s, scenario.leave_s, state.rebuffer_s,
-        n_levels=config.n_levels, n_edges=n_edges, row=row,
-        row_stride=out.stride(0), rate=rate_factor(config, record_every),
-        prev_rebuffer=prev_rebuffer, level=state.level, sums=sums,
-        prev_sums=prev_sums)
+    args, _partials = _row_args(config, scenario, state, sums, prev_sums,
+                                prev_rebuffer, out, sample, record_every)
     _launch("timeline_row", args, dev)
+
+
+def timeline_row_cohorts(config: SwarmConfig, scenario: SwarmScenario,
+                         state: SwarmState, sums: torch.Tensor,
+                         prev_sums: torch.Tensor,
+                         prev_rebuffer: torch.Tensor, out: torch.Tensor,
+                         sample: int, record_every: int) -> None:
+    """TK5's cohort instantiation on lanes, for ``config.n_cohorts`` in
+    ``1..MAX_COHORTS``: :func:`timeline_row` with the per-cohort columns,
+    from ``scenario.cohort_id`` and the state's byte counters, which only
+    this instantiation reads.  More cohorts raise on the card (the CPU
+    path takes any number)."""
+    dev = state.rebuffer_s.device
+    if dev.type != "cuda":
+        return timeline_row_plain(config, scenario, state, sums, prev_sums,
+                                  prev_rebuffer, out, sample, record_every)
+    if not config.n_cohorts:
+        raise ValueError("timeline_row_cohorts needs config.n_cohorts > 0")
+    args, _partials = _row_args(config, scenario, state, sums, prev_sums,
+                                prev_rebuffer, out, sample, record_every)
+    _launch("timeline_row_cohorts", args, dev)
 
 
 def rebuffer_ratio_lanes(reb: torch.Tensor, join: torch.Tensor,

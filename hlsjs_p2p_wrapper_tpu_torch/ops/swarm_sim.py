@@ -48,8 +48,11 @@ What this port covers, and what raises instead:
 - an admission cap (``max_total_serves > 0``) and the uncapped fair
   share (``max_total_serves <= 0``: every demand is admitted, so no BUSY
   deny and no admission abort);
-- timelines without the per-cohort columns (``n_cohorts == 0``); the
-  cohort columns come with the population fields, item 9d.
+- the population fields of a scenario (``p2p_ok``, ``abr_cap_level``,
+  ``urgent_margin_off_s``, ``cohort_id``; ``engine/population.py``
+  materializes them) and, with ``config.n_cohorts > 0``, the timeline's
+  three per-cohort columns (present peers, interval stalls, cumulative
+  offload).
 
 Bit-packed words (``avail``, ``dl_flags``) are stored as ``int32``
 tensors holding the u32 bit pattern: PyTorch's ``uint32`` has no
@@ -906,18 +909,19 @@ def ensure_penalty_width_batch(config: SwarmConfig,
 
 def timeline_columns(config: SwarmConfig) -> Tuple[str, ...]:
     """Column names of one metrics-timeline row (the ``[M]`` axis of
-    the ``record_every`` output), as the reference names them: sample
-    clock, the cumulative offload and rebuffer, interval byte rates,
-    the interval stall count, per-level present-peer counts and, with
-    ``config.stall_digest``, the stall-digest bins."""
-    if config.n_cohorts:
-        raise NotImplementedError(
-            "per-cohort timeline columns (n_cohorts > 0) need the "
-            "population fields, which are not ported yet (ROADMAP queue "
-            "1 item 9d)")
+    the ``record_every`` output), as the reference names them and in its
+    order: sample clock, the cumulative offload and rebuffer, interval
+    byte rates, the interval stall count, per-level present-peer counts,
+    with ``config.n_cohorts > 0`` three columns per cohort k (its present
+    peers, its interval stalls and its cumulative offload, sliced by the
+    scenario's ``cohort_id``) and, with ``config.stall_digest``, the
+    stall-digest bins."""
     base = (("t_s", "offload", "rebuffer", "cdn_rate_bps",
              "p2p_rate_bps", "stalled_peers")
             + tuple(f"level_{i}_peers" for i in range(config.n_levels)))
+    for k in range(config.n_cohorts):
+        base += (f"cohort_{k}_peers", f"cohort_{k}_stalled",
+                 f"cohort_{k}_offload")
     if config.stall_digest:
         base += tuple(f"stall_ms_bin{i}"
                       for i in range(len(DEFAULT_EDGES) + 1))

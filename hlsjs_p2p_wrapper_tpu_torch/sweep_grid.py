@@ -1,8 +1,9 @@
 """The VOD and live policy grids that users sweep, and how one grid
 point becomes a scenario: copied from the reference's ``tools/sweep.py``
 (``LADDERS`` … ``padded_ladder`` :142-170, ``vod_grid`` :184-199,
-``live_grid`` :203-224, ``build_config`` and ``build_scenario``
-:258-333, ``sample_grid`` :339-350), without population overlays.
+``live_grid`` :203-224, ``population_grid`` and its memo :230-255,
+``build_config`` and ``build_scenario`` :258-335, ``sample_grid``
+:339-350).
 
 A grid point is a dict of knobs.  Every point of a grid shares one
 static ``SwarmConfig`` (the ring degree is the only static knob, and
@@ -11,16 +12,27 @@ chunked dispatch (``ops/dispatch.py``); everything else is scenario
 data, one lane per point, the live cushion ``live_sync_s`` included.
 Ladders of different lengths share the config's level count, padded
 with ``UNREACHABLE_BITRATE``, a rung the ABR rule never picks.
+
+A population sweep (``tools/sweep.py --population SPEC.json``) overlays
+every point with a cohort mixture (``engine/population.py``):
+:func:`population_grid` crosses the grid with the spec's mixture axis,
+:func:`build_scenario` takes the per-peer rates, joins, leaves and the
+four population fields from the materialized spec, and the config
+carries ``n_cohorts=len(spec.cohorts)``, which sizes the timeline's
+per-cohort columns.  All of it is scenario data, so the mixture grid is
+still one dispatch group.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 
 import numpy as np
 import torch
 
 from .core.device import resolve_device
+from .engine.population import materialize, to_scenario_kwargs
 from .ops.swarm_sim import (UNREACHABLE_BITRATE, SwarmConfig,
                             make_scenario, ring_offsets, stable_ranks,
                             staggered_joins)
@@ -91,6 +103,40 @@ def live_grid():
                               announces, waves)]
 
 
+def population_grid(grid, spec):
+    """Cross a grid with the population spec's mixture axis: one copy of
+    every point per ``spec.mix_fractions`` entry, carrying the fraction
+    as the ``population_mix`` knob (scenario data, so the whole mixture
+    grid is one dispatch group).  A spec without a mixture axis applies
+    uniformly and adds no knob."""
+    if spec.mix_cohort is None or not spec.mix_fractions:
+        return [dict(knobs) for knobs in grid]
+    return [dict(knobs, population_mix=mix)
+            for knobs in grid for mix in spec.mix_fractions]
+
+
+def _cached_population(spec, mix, peers, n_levels, uplink_bps, cdn_bps,
+                       device=None):
+    """The keyword arguments of ``make_scenario`` that the population
+    owns (:func:`~engine.population.to_scenario_kwargs`), as tensors on
+    ``device``: materialized on the host and moved to the device once per
+    (spec, mix, peers, levels, default rates, device), as the joins and
+    ranks are."""
+    key = ("population", str(device),
+           json.dumps(spec.to_json(), sort_keys=True), mix, peers,
+           n_levels, uplink_bps, cdn_bps)
+    if key not in _ARRAY_CACHE:
+        mixed = spec if mix is None else spec.with_mix(mix)
+        pop = materialize(mixed, peers, n_levels=n_levels,
+                          default_uplink_bps=uplink_bps,
+                          default_cdn_bps=cdn_bps)
+        dev = resolve_device(device)
+        _ARRAY_CACHE[key] = {
+            name: torch.from_numpy(np.ascontiguousarray(value)).to(dev)
+            for name, value in to_scenario_kwargs(pop).items()}
+    return dict(_ARRAY_CACHE[key])
+
+
 def sample_grid(grid, n):
     """An ``n``-point slice spanning a grid's knob regimes (evenly
     strided through the itertools.product order), the whole grid when
@@ -122,28 +168,46 @@ def build_scenario(config, knobs, *, watch_s, stagger_s, seed,
     ``staggered_joins(P, stagger_s, seed)`` and a live point's its join
     wave's (:func:`_live_joins`); ranks are ``stable_ranks(P, seed)``.
     The draws are the reference's threefry draws, so the scenario is
-    ``tools/sweep.py``'s at the same seed."""
-    if population is not None:
-        raise NotImplementedError(
-            "population overlays need the population fields, which are "
-            "not ported yet (ROADMAP queue 1 item 9d)")
+    ``tools/sweep.py``'s at the same seed.
+
+    ``population`` (a ``PopulationSpec``) overlays the point with its
+    materialization at ``knobs["population_mix"]`` (when the grid has a
+    mixture axis), with the point's supply knobs as the defaults of the
+    cohorts that inherit them: the CDN and uplink rates, joins and
+    leaves come from the population where it owns them (its joins win
+    over ``join_s`` and the live join wave), and ``p2p_ok``,
+    ``abr_cap_level``, ``urgent_margin_off_s`` and ``cohort_id`` always.
+    A degenerate spec that inherits everything gives the homogeneous
+    point's arrays to the bit."""
     peers = config.n_peers
-    if join_s is None and config.live:
+    pop = {}
+    if population is not None:
+        pop = _cached_population(
+            population, knobs.get("population_mix"), peers,
+            config.n_levels, knobs["uplink_mbps"] * 1e6,
+            knobs["cdn_mbps"] * 1e6, device)
+    if "join_s" in pop:
+        join_s = pop.pop("join_s")
+    elif join_s is None and config.live:
         join_s = _live_joins(peers, knobs.get("join_wave", "steady"),
                             watch_s, device)
     elif join_s is None:
         join_s = _cached("join", staggered_joins, peers, stagger_s, seed,
                          device=device)
+    cdn = pop.pop("cdn_bps", None)
+    uplink = pop.pop("uplink_bps", None)
     scenario = make_scenario(
         config, padded_ladder(knobs["ladder"]), None,
-        _full(peers, knobs["cdn_mbps"] * 1e6, device), join_s,
-        uplink_bps=_full(peers, knobs["uplink_mbps"] * 1e6, device),
+        _full(peers, knobs["cdn_mbps"] * 1e6, device) if cdn is None
+        else cdn, join_s,
+        uplink_bps=(_full(peers, knobs["uplink_mbps"] * 1e6, device)
+                    if uplink is None else uplink),
         edge_rank=_cached("rank", stable_ranks, peers, seed, device=device),
         urgent_margin_s=knobs["urgent_margin_s"],
         p2p_budget_cap_ms=knobs["budget_cap_ms"],
         live_spread_s=knobs["spread_s"],
         announce_delay_s=knobs.get("announce_delay_s", 0.0),
-        live_sync_s=knobs.get("live_sync_s"), device=device)
+        live_sync_s=knobs.get("live_sync_s"), device=device, **pop)
     return scenario, scenario.join_s
 
 

@@ -46,7 +46,8 @@ SIZES = dict(CHECK_PEERS=2_048, PEERS=2_048, GRID_PEERS=2_048, STEPS=400,
 #: the kernels' bits (the plain versions sum by ``torch.sum``, not in
 #: their order)
 SIZE_BOUND_CHECKS = ("stall", "lane_sums_in_order", "grid's size",
-                     "differ from the reference by", "anchored cells")
+                     "differ from the reference by", "anchored cells",
+                     "HEAD's reference by")
 
 
 class EagerGraph:
@@ -137,6 +138,7 @@ def main() -> int:
     ns.update(SIZES, check=check,
               phase_build=lambda: print("[2] build: none on the CPU"),
               registers_of=lambda *args, **kw: "not built",
+              regs_of_entry=lambda *args, **kw: "not built",
               phase_real_oom=lambda *a: print(
                   "[20] a real CUDA OOM: needs the card"),
               run_cmd=lambda cmd, timeout=120: "cpu rehearsal, 0 W")

@@ -214,14 +214,26 @@ def test_level_counts_account_every_present_peer():
 
 @pytest.mark.parametrize("record_every,change,err,match", [
     (-1, {}, ValueError, "record_every"),
-    (5, {"n_cohorts": 2}, NotImplementedError, "item 9d")])
+    (5, {"n_cohorts": sk.MAX_COHORTS + 1}, ValueError,
+     f"at most {sk.MAX_COHORTS} cohorts")])
 def test_timeline_limits_raise(record_every, change, err, match):
+    """A negative interval raises.  The cohort columns are ported: the
+    CPU path takes any number of cohorts, and the card's argument check
+    (which runs before any device work) refuses more than the kernel's
+    ``MAX_COHORTS``."""
     config, scens, _join = _small(n_lanes=2, **change)
+    args = (config, port.stack_pytrees(scens),
+            port.init_swarm(config, device="cpu", batch=2), 10)
+    if change:
+        _f, _s, tl = port.run_swarm_batch(*args, record_every=record_every)
+        assert tl.shape[-1] == len(port.timeline_columns(config))
+        scenario, state = args[1], args[2]
+        with pytest.raises(err, match=match):
+            sk._row_args(config, scenario, state, None, None, None, tl, 0,
+                         record_every)
+        return
     with pytest.raises(err, match=match):
-        port.run_swarm_batch(
-            config, port.stack_pytrees(scens),
-            port.init_swarm(config, device="cpu", batch=2), 10,
-            record_every=record_every)
+        port.run_swarm_batch(*args, record_every=record_every)
 
 
 def test_lane_helpers():

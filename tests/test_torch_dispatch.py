@@ -275,13 +275,22 @@ def test_build_scenario_draws_its_joins_once():
 
 
 @pytest.mark.parametrize("live,population,item", [
-    (True, object(), "item 9d"), (False, object(), "item 9d")])
+    (True, "sessions_inherit_joins", "session departures"),
+    (False, "sessions_inherit_joins", "session departures")])
 def test_build_scenario_outside_vod_raises(live, population, item):
-    config = sg.build_config(P, S, live, 8)
-    with pytest.raises(NotImplementedError, match=item):
-        sg.build_scenario(config, sg.vod_grid()[0], watch_s=WATCH_S,
-                          stagger_s=5.0, seed=0, population=population,
-                          device="cpu")
+    """Population overlays are ported on both grids (once refused); what
+    still raises is the reference's own refusal: a spec whose cohorts
+    have sessions but inherit the grid's joins."""
+    from hlsjs_p2p_wrapper_tpu_torch.engine.population import (
+        Cohort, PopulationSpec)
+    assert population == "sessions_inherit_joins"
+    spec = PopulationSpec(cohorts=(Cohort("all", 1.0,
+                                          session_mean_s=60.0),))
+    config = sg.build_config(P, S, live, 8, n_cohorts=1)
+    knobs = (sg.live_grid() if live else sg.vod_grid())[0]
+    with pytest.raises(ValueError, match=item):
+        sg.build_scenario(config, knobs, watch_s=WATCH_S, stagger_s=5.0,
+                          seed=0, population=spec, device="cpu")
 
 
 def test_ratio_batch_defaults_match_reference():

@@ -325,7 +325,8 @@ def test_kernels_match_plain_on_the_card(cuda_device, P, offsets):
                            "admit_service": 0 if fused else 20,
                            "peer_update": 20, "lane_sums": 0,
                            "timeline_row": 0, "elig_select_gather": 0,
-                           "admit_gather": 0, "peer_update_gather": 0}
+                           "admit_gather": 0, "peer_update_gather": 0,
+                           "timeline_row_cohorts": 0}
     for x, y in zip(a, b):
         for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
             if u.is_floating_point():
@@ -368,7 +369,8 @@ def test_batched_kernels_match_plain_on_the_card(cuda_device):
                            "admit_service": 0, "peer_update": 20,
                            "lane_sums": 0, "timeline_row": 0,
                            "elig_select_gather": 0, "admit_gather": 0,
-                           "peer_update_gather": 0}
+                           "peer_update_gather": 0,
+                           "timeline_row_cohorts": 0}
     for u, v in zip(port.tree_leaves(a), port.tree_leaves(b)):
         if u.is_floating_point():
             torch.testing.assert_close(u, v, rtol=1e-6, atol=1e-6)

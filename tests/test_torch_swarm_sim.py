@@ -352,15 +352,17 @@ def test_outside_the_slice_raises(change, err):
 def test_record_every_and_neighbors_raise():
     _, cp = _configs(16, 8)
     state = port.init_swarm(cp, device="cpu")
-    # timelines are ported (slice 3): a negative interval and the
-    # per-cohort columns, which need the population fields, still raise
+    # timelines are ported (slice 3): a negative interval raises; the
+    # per-cohort columns are ported with the population fields, three a
+    # cohort after the level counts
     with pytest.raises(ValueError, match="record_every"):
         port.run_swarm(cp, BITRATES, None, np.full(16, 8e6), state, 2,
                        record_every=-1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        port.run_swarm(cp._replace(n_cohorts=2), BITRATES, None,
-                       np.full(16, 8e6), state, 2, record_every=1,
-                       device="cpu")
+    _f, _s, tl = port.run_swarm(cp._replace(n_cohorts=2), BITRATES, None,
+                                np.full(16, 8e6), state, 2, record_every=1,
+                                cohort_id=np.arange(16) % 2, device="cpu")
+    assert tuple(tl.shape) == (2, len(port.timeline_columns(cp)) + 6)
+    assert tl[:, -6::3].sum(dim=-1).tolist() == [16.0, 16.0]
     # the general path is ported: a neighbour list beside
     # offsets is the reference's ambiguity refusal
     with pytest.raises(ValueError, match="both"):

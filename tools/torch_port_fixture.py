@@ -23,7 +23,13 @@ reference at a fixed shape with the join times it used:
   random mesh (``random_neighbors(P, 8, seed)``, the general ``[P, K]``
   path), one run per entry of :data:`GENERAL_RUNS` (a policy and its
   admission cap, 0 the uncapped fair share), each run's arrays keyed
-  ``<run>_<name>``.
+  ``<run>_<name>``;
+- ``reference_population.npz``: the sweep path with the example
+  population (``examples/population_cellular_broadband.json``) over three
+  points of its VOD mixture grid, one per mix fraction
+  (:data:`POPULATION_VOD_POINTS`), and one point of its live mixture grid
+  (:data:`POPULATION_LIVE_POINT`), with the per-cohort timeline columns,
+  arrays keyed ``vod_<name>`` and ``live_<name>``.
 
 ``chip_smoke.py`` runs the port on the card with the same joins and
 compares; ``tests/test_torch_fixture.py`` re-runs the reference here
@@ -32,9 +38,9 @@ and fails if a fixture went stale.
 This is the only code of the port's tree that imports JAX.
 
 Run: ``JAX_PLATFORMS=cpu python tools/torch_port_fixture.py``
-(writes the six files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``;
-``--only-prefetch``, ``--only-policies`` and ``--only-general`` write one
-of them).
+(writes the seven files under ``hlsjs_p2p_wrapper_tpu_torch/testing/``;
+``--only-prefetch``, ``--only-policies``, ``--only-general`` and
+``--only-population`` write one of them).
 """
 
 from __future__ import annotations
@@ -99,6 +105,23 @@ POLICIES_OUT = os.path.join(TESTING, "reference_policies.npz")
 GENERAL_RUNS = (("spread", "spread", 2), ("adaptive", "adaptive", 2),
                 ("ranked_uncapped", "ranked", 0))
 GENERAL_OUT = os.path.join(TESTING, "reference_general.npz")
+#: the population fixture: peers, segments, steps, record_every.  The
+#: batch fixture's shape but for its steps: the example spec's cellular
+#: cohort arrives in one wave at 60 s, so the run lasts 70 s (280 steps)
+#: for that cohort to be present, served only by the CDN and capped.
+POPULATION_SHAPE = (2048, 64, 280, 20)
+POPULATION_SPEC = os.path.join(ROOT, "examples",
+                               "population_cellular_broadband.json")
+#: points of ``population_grid(vod_grid(), spec)`` (point 3 i + m is VOD
+#: point i at the m-th mix fraction): VOD point 0 (SD, scarce supply) with
+#: 50% cellular, point 29 (HD, uplink 2.4 / CDN 1.2 Mb/s) with none, point
+#: 47 (HD, ample supply, where the cellular level cap binds) with 25%;
+#: the points tools/torch_port_population_anchor.py re-runs at full size
+POPULATION_VOD_POINTS = (2, 87, 142)
+#: a point of ``population_grid(live_grid(), spec)``: live point 15 (a 2 s
+#: stagger, a 4 s announce lag, scarce supply) with 50% cellular
+POPULATION_LIVE_POINT = 47
+POPULATION_OUT = os.path.join(TESTING, "reference_population.npz")
 
 
 def reference_run(shape=SHAPE) -> dict:
@@ -313,6 +336,64 @@ def reference_general(shape=BATCH_SHAPE) -> dict:
     return out
 
 
+def reference_population(shape=POPULATION_SHAPE) -> dict:
+    """Run the JAX reference's batched sweep path with the example
+    population at ``shape``: the VOD points of
+    :data:`POPULATION_VOD_POINTS` as one batch, the live point of
+    :data:`POPULATION_LIVE_POINT` as another, both through
+    ``tools/sweep.py``'s ``build_config(n_cohorts=...)`` and
+    ``build_scenario(population=...)``; returns the fixture's arrays (the
+    spec and the grid points as JSON strings; rebuffer as the sweep's rows
+    take it, over joins)."""
+    import json
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sweep
+
+    from hlsjs_p2p_wrapper_tpu.engine.population import load_spec
+    from hlsjs_p2p_wrapper_tpu.ops.swarm_sim import (
+        init_swarm, offload_ratio_batch, rebuffer_ratio_batch,
+        run_swarm_batch, stack_pytrees, timeline_columns)
+
+    P, S, T, every = shape
+    spec = load_spec(POPULATION_SPEC)
+    out = {"spec": np.asarray(json.dumps(spec.to_json())),
+           "shape": np.asarray(shape, np.int64),
+           "stagger_s": np.float64(BATCH_STAGGER_S),
+           "seed": np.int64(BATCH_SEED)}
+    for key, live, base, points in (
+            ("vod", False, sweep.vod_grid(), POPULATION_VOD_POINTS),
+            ("live", True, sweep.live_grid(), (POPULATION_LIVE_POINT,))):
+        grid = [sweep.population_grid(base, spec)[i] for i in points]
+        config = sweep.build_config(P, S, live, 8,
+                                    n_cohorts=len(spec.cohorts))
+        watch_s = T * config.dt_ms / 1000.0
+        built = [sweep.build_scenario(config, k, watch_s=watch_s,
+                                      stagger_s=BATCH_STAGGER_S,
+                                      seed=BATCH_SEED, population=spec)
+                 for k in grid]
+        final, series, timeline = run_swarm_batch(
+            config, stack_pytrees([sc for sc, _ in built]),
+            stack_pytrees([init_swarm(config)] * len(grid)), T,
+            record_every=every)
+        joins = jnp.stack([j for _, j in built])
+        out.update({
+            f"{key}_points": np.asarray(points, np.int64),
+            f"{key}_grid": np.asarray(json.dumps(grid)),
+            f"{key}_columns": np.asarray(timeline_columns(config)),
+            f"{key}_offload": np.asarray(offload_ratio_batch(final),
+                                         np.float64),
+            f"{key}_rebuffer": np.asarray(
+                rebuffer_ratio_batch(final, watch_s, joins), np.float64),
+            f"{key}_series": np.asarray(series, np.float32),
+            f"{key}_timeline": np.asarray(timeline, np.float32),
+            f"{key}_p2p_bytes": np.asarray(final.p2p_bytes, np.float32),
+        })
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=OUT)
@@ -327,7 +408,12 @@ def main(argv=None) -> int:
                     help="write the policies fixture alone")
     ap.add_argument("--only-general", action="store_true",
                     help="write the general fixture alone")
+    ap.add_argument("--population-out", default=POPULATION_OUT)
+    ap.add_argument("--only-population", action="store_true",
+                    help="write the population fixture alone")
     args = ap.parse_args(argv)
+    if args.only_population:
+        return _write_population(args.population_out)
     if args.only_general:
         return _write_general(args.general_out)
     if args.only_prefetch:
@@ -351,7 +437,18 @@ def main(argv=None) -> int:
           f"shape {live['shape'].tolist()}")
     _write_prefetch(args.prefetch_out)
     _write_policies(args.policies_out)
-    return _write_general(args.general_out)
+    _write_general(args.general_out)
+    return _write_population(args.population_out)
+
+
+def _write_population(path) -> int:
+    population = reference_population()
+    np.savez(path, **population)
+    for key in ("vod", "live"):
+        print(f"wrote {path} ({key}): offload "
+              f"{population[f'{key}_offload'].tolist()}, rebuffer "
+              f"{population[f'{key}_rebuffer'].tolist()}")
+    return 0
 
 
 def _write_general(path) -> int:

@@ -1,9 +1,10 @@
-"""Compare the SASS of kernels of the port's ``csrc/swarm_step.cu`` as
-two checkouts build them.
+"""Compare the SASS of kernels of the port's ``csrc/swarm_step.cu`` (or,
+with ``--source reduce``, ``csrc/swarm_reduce.cu``) as two checkouts
+build them.
 
-Builds each checkout's ``hlsjs_p2p_wrapper_tpu_torch/csrc/swarm_step.cu``
-into a cubin with this checkout's ``nvcc`` flags and macros
-(``ops/_build.py``, ``swarm_kernels.DEFINES``), once each, disassembles
+Builds each checkout's source into a cubin with this checkout's ``nvcc``
+flags and macros (``ops/_build.py``, ``swarm_kernels.DEFINES`` for the
+step source), once each, disassembles
 both with ``cuobjdump -sass``, takes from each the function whose
 mangled name matches each pattern, and prints one JSON line a pattern:
 each listing's instruction count (``NOP`` padding included), the lines
@@ -17,7 +18,9 @@ Run on a machine with the CUDA toolkit, from the root of a checkout:
 ``python3 tools/torch_port_sass.py --other PARENT_CHECKOUT [--kernel
 PATTERN ...]`` (default: ``select_admit_kernel<8, false, 1, POL_SPREAD>``;
 ``--other-kernel`` gives the other checkout's patterns where its
-names differ).
+names differ; ``--source reduce --kernel 'timeline_row_kernelILb0EE'
+--other-kernel 'timeline_row_kernel12'`` compares TK5 without cohorts
+with a build from before its cohort instantiation).
 """
 
 from __future__ import annotations
@@ -33,19 +36,23 @@ from collections import Counter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-SOURCE = os.path.join("hlsjs_p2p_wrapper_tpu_torch", "csrc", "swarm_step.cu")
+#: the sources by ``--source``: file, and whether it takes the step's macros
+SOURCES = {"step": ("swarm_step.cu", True), "reduce": ("swarm_reduce.cu", False)}
 
 
-def disassemble(checkout: str, out_dir: str, tag: str) -> list:
+def disassemble(checkout: str, out_dir: str, tag: str,
+                source: str = "step") -> list:
     """``checkout``'s build of the source as SASS, one entry per
     function."""
     from hlsjs_p2p_wrapper_tpu_torch.ops import _build
     from hlsjs_p2p_wrapper_tpu_torch.ops import swarm_kernels as sk
-    flags = [f for f in _build.flags(sk.DEFINES)
+    name, macros = SOURCES[source]
+    flags = [f for f in _build.flags(sk.DEFINES if macros else ())
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     cubin = os.path.join(out_dir, f"{tag}.cubin")
     subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", cubin,
-                    os.path.join(checkout, SOURCE)], check=True,
+                    os.path.join(checkout, "hlsjs_p2p_wrapper_tpu_torch",
+                                 "csrc", name)], check=True,
                    capture_output=True, text=True)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
                              "cuobjdump")
@@ -96,6 +103,7 @@ def main(argv=None) -> int:
     ap.add_argument("--other-kernel", nargs="+",
                     help="the patterns there, one per --kernel (default: "
                          "the same)")
+    ap.add_argument("--source", choices=sorted(SOURCES), default="step")
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "torch_kernels", "sass"))
     args = ap.parse_args(argv)
@@ -103,8 +111,9 @@ def main(argv=None) -> int:
     if len(others) != len(args.kernel):
         ap.error("--other-kernel needs one pattern per --kernel")
     os.makedirs(args.out, exist_ok=True)
-    here_fns = disassemble(ROOT, args.out, "here")
-    there_fns = disassemble(os.path.abspath(args.other), args.out, "other")
+    here_fns = disassemble(ROOT, args.out, "here", args.source)
+    there_fns = disassemble(os.path.abspath(args.other), args.out, "other",
+                            args.source)
     for n, (pattern, other) in enumerate(zip(args.kernel, others)):
         out = os.path.join(args.out, str(n))
         os.makedirs(out, exist_ok=True)
