@@ -36,7 +36,8 @@ exits nonzero:
    ``peer_update``: a step is two graph nodes); then,
    from the final state, each kernel against its plain version, each
    pass timed with CUDA events on the main path's route and on the TK1
-   + TK2 route, and the same run on the plain path;
+   + TK2 route; last (phase 35's children start beside it) the same
+   run on the plain path, its ratios held to the kernels' run's;
 6. the port at the committed reference fixture's shape and joins,
    against the JAX reference's final offload and rebuffer ratio;
 7. the batched kernels: four lanes of ``sample_grid(vod_grid(), 4)`` at
@@ -51,7 +52,9 @@ exits nonzero:
    and ranks drawn by the port (the reference's threefry draws), through
    ``run_batch_chunked`` with the autotuned chunk, launches checked, 36
    points stalling as in the reference's ``SWEEP_1M_r05.json``; then
-   chunk 16, one direct 48-lane ``run_swarm_batch`` and the same batch
+   chunk 16 with a warm start on a fresh root and a journal (48 rows
+   stored, 48 keys journaled, the journal finalized), one direct 48-lane
+   ``run_swarm_batch`` and the same batch
    through the eager loop give the same rows, series and timelines to
    the bit, two lanes run alone give their lanes' to the bit, each last
    timeline row and last series entry equal the final ratios; then the
@@ -189,7 +192,20 @@ exits nonzero:
    instantiation without cohorts;
 34. the degenerate population (one cohort, everything inherited) at 4
    sampled points of the VOD and the live grid at 1,048,576 peers:
-   offload and rebuffer equal the homogeneous rows to the bit.
+   offload and rebuffer equal the homogeneous rows to the bit;
+35. (its children started beside phase 5's plain run, each importing
+   torch and waiting, without touching the card, until phase 9 and its
+   trace are done; run after them) the crash-safe
+   journal and the row cache across processes: phase 9's grid swept by
+   three children (``testing/resumable_sweep.py``, chunks of 16), the
+   killed one under ``kill@0:2`` on a fresh root (it dies by SIGKILL with
+   chunk 0's 16 rows journaled and no ``done`` line), then the resumed
+   one on its root, collected after phases 10-12 run beside it (the 16
+   rows served as hits, the other 32 dispatched, all 48 equal to phase
+   9's to the bit, the journal finalized), and, while the killed one
+   sweeps, the warm one on phase 9's root (48 hits, nothing built or
+   captured, no kernel launched), each with its wall and its
+   prefilter's seconds.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -227,7 +243,7 @@ SEGMENTS = 256
 STEPS = 2_400
 #: the main path's host-clock runs of the graphs and the eager loop, in
 #: turns, after the first of each
-TURNS = ("graph", "eager", "eager", "graph") * 2
+TURNS = ("graph", "eager", "eager", "graph")
 #: steps in each timed window: a kernels' window of CUDA events must fit
 #: in the launch queue while the card sleeps (~15 entries per step)
 WINDOW = 40
@@ -251,6 +267,15 @@ REFERENCE_STALLING_ROWS = 36
 #: the lanes run alone against their batched lanes: the first point
 #: (scarce supply, stalls) and the last (ample supply)
 ALONE_LANES = (0, 47)
+#: the warm-start roots of phases 9 and 35 (A: phase 9's chunk-16 pass,
+#: then the warm child; B: the killed and the resumed child), made anew
+#: each run, and the children's standard error
+WARM_DIR = os.path.join(ROOT, "build", "torch_warm_start")
+#: the killed child dies as chunk 2 of its 16-point chunks dispatches;
+#: the drain runs one chunk behind the dispatch, so chunk 0's 16 rows
+#: are journaled by then and chunk 1's are not
+KILL_PLAN = "kill@0:2"
+KILLED_ROWS = 16
 #: eager steps at B = 48 traced per kernel from the grid's final state
 #: (a row every GRID_RECORD_EVERY steps), and steps of the TK1 + TK2
 #: route; the grid's direct run is traced whole besides
@@ -1805,21 +1830,6 @@ def phase_main(sim, sk, P, S, T, window):
     pair_busy_ms, _wall, pair_traced, _other = trace_steps(
         sim, sk, config, scenario, final, window, "pair")
 
-    # the same run on the plain path, stepped as _scan_eager steps
-    scen_l, st = _as_lanes(sim, scenario, state0)
-    series_p = torch.empty((1, T), dtype=torch.float32, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = _steps(sim, sk, config, scen_l, st, T, "plain", series_p)
-    torch.cuda.synchronize()
-    wall_p = time.perf_counter() - t0
-    offload_p, rebuffer_p = _ratios(sim, sim.lane(st, 0), T, dt_s, join)
-    log(f"    plain path on the card: {wall_p:.3f} s "
-        f"({P * T / wall_p:,.0f} peer-steps/s) vs kernels {wall:.3f} s; "
-        f"offload {offload_p!r}, rebuffer ratio {rebuffer_p!r}")
-    check(abs(offload_p - offload) <= RUN_TOL
-          and abs(rebuffer_p - rebuffer) <= RUN_TOL,
-          "kernels and plain path disagree on the main path's ratios")
     log(f"    device time per whole eager step ({window}-step windows "
         f"from the final state queued ahead, CUDA events; the kernels, "
         f"which advance the clock): main path {fused_step_ms!r} ms "
@@ -1858,7 +1868,34 @@ def phase_main(sim, sk, P, S, T, window):
         f"{traced_ms.get('lane_sums')!r} ms traced; torch.sum of "
         f"p2p_bytes and cdn_bytes (two calls, its library yardstick) "
         f"{library_ms!r} ms")
-    return launches, errs, ms, traced_ms, plain_ms, nbytes, library_ms
+    run = {"config": config, "scenario": scenario, "state0": state0,
+           "join": join, "wall": wall, "offload": offload,
+           "rebuffer": rebuffer}
+    return launches, errs, ms, traced_ms, plain_ms, nbytes, library_ms, run
+
+
+def phase_main_plain(sim, sk, run):
+    """The main path's whole run again on the plain path, stepped as
+    ``_scan_eager`` steps, its ratios held to the kernels' run's."""
+    import torch
+    config, join, wall = run["config"], run["join"], run["wall"]
+    P, T = config.n_peers, STEPS
+    dt_s = config.dt_ms / 1000.0
+    scen_l, st = _as_lanes(sim, run["scenario"], run["state0"])
+    series_p = torch.empty((1, T), dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = _steps(sim, sk, config, scen_l, st, T, "plain", series_p)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    offload_p, rebuffer_p = _ratios(sim, sim.lane(st, 0), T, dt_s, join)
+    log(f"    plain path on the card (phase 35's children starting beside "
+        f"it): {wall_p:.3f} s ({P * T / wall_p:,.0f} peer-steps/s) vs "
+        f"kernels {wall:.3f} s; offload {offload_p!r}, rebuffer ratio "
+        f"{rebuffer_p!r}")
+    check(abs(offload_p - run["offload"]) <= RUN_TOL
+          and abs(rebuffer_p - run["rebuffer"]) <= RUN_TOL,
+          "kernels and plain path disagree on the main path's ratios")
 
 
 def phase_fixture(sim):
@@ -2052,12 +2089,12 @@ def phase_grid(sim, sk, sg, dp):
                                  stagger_s=GRID_STAGGER_S, seed=0,
                                  device="cuda")
 
-    def run(chunk):
+    def run(chunk, **warm):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rows = dp.run_batch_chunked(config, grid, build, n_steps,
                                     watch_s=GRID_WATCH_S, chunk=chunk,
-                                    record_every=GRID_RECORD_EVERY)
+                                    record_every=GRID_RECORD_EVERY, **warm)
         torch.cuda.synchronize()
         return rows, time.perf_counter() - t0
 
@@ -2122,9 +2159,30 @@ def phase_grid(sim, sk, sg, dp):
         f"(rounded to 4-5 digits, a TPU's run) {diff!r}; each last "
         f"timeline row equals its final ratios")
 
-    rows16, wall16 = run(GRID_CHUNK)
-    check(_rows_equal(rows16, rows),
-          f"chunk {GRID_CHUNK} rows differ from the autotuned run's")
+    # chunk 16 with a warm start on a fresh root A and a journal: every
+    # row a miss, stored and journaled
+    from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import (
+        SweepJournal, WarmStart, journal_path)
+    warm = WarmStart(os.path.join(WARM_DIR, "A"))
+    meta = grid_meta(sg, grid)
+    with SweepJournal(journal_path(warm.cache_dir, meta), meta) as journal:
+        rows16, wall16 = run(GRID_CHUNK, warm_start=warm, journal=journal)
+        check(_rows_equal(rows16, rows),
+              f"chunk {GRID_CHUNK} rows differ from the autotuned run's")
+        row_events = warm.event_counts("row")
+        check(row_events == {"miss": len(grid), "store": len(grid)},
+              f"chunk {GRID_CHUNK} with a warm start: row events "
+              f"{row_events}, not {len(grid)} misses and stores")
+        check(len(journal.completed) == len(grid),
+              f"{len(journal.completed)} rows journaled, not {len(grid)}")
+        journal.finalize()
+    check(journal.finished, "phase 9's journal is not finalized")
+    log(f"    chunk {GRID_CHUNK} with a warm start on a fresh root and a "
+        f"journal: {wall16!r} s, {warm.prefilter_seconds()!r} s of it the "
+        f"row cache's prefilter ({len(grid)} builds and keys); row events "
+        f"{json.dumps(row_events)}, library events "
+        f"{json.dumps(warm.event_counts('executable'))}, "
+        f"{len(journal.completed)} keys journaled, journal finalized")
     scen48, joins48 = build_lanes(sim, sg, config, grid, GRID_WATCH_S)
     directs = {}
     for path in ("graph", "eager"):
@@ -2166,7 +2224,7 @@ def phase_grid(sim, sk, sg, dp):
               and torch.equal(sim.rebuffer_ratio(f1, GRID_WATCH_S, join),
                               rebs48[b]),
               f"grid point {b} run alone differs from its batched lane")
-    log(f"    chunk {GRID_CHUNK}: {wall16!r} s, rows equal to the bit; one "
+    log(f"    chunk {GRID_CHUNK}: rows equal to the bit; one "
         f"direct {len(grid)}-lane run_swarm_batch (graphs): {wall48!r} s "
         f"({wall48 * 1e3 / n_steps!r} ms per step; {cap48!r} s of it in "
         f"its captures), rows equal; the same "
@@ -2180,6 +2238,196 @@ def phase_grid(sim, sk, sg, dp):
             "launches": launches, "wall48": wall48, "wall_eager": wall_e,
             "n_steps": n_steps, "rows": rows, "build": build, "grid": grid,
             "base": base, "peak": peak}
+
+
+def grid_meta(sg, grid):
+    """Phase 9's grid's sweep identity (``sweep_grid.journal_meta``)."""
+    return sg.journal_meta(grid, peers=GRID_PEERS, segments=GRID_SEGMENTS,
+                           watch_s=GRID_WATCH_S, live=False, seed=0,
+                           record_every=GRID_RECORD_EVERY)
+
+
+def start_children():
+    """Phase 35's three children, started ahead of time (each imports
+    torch and the package, then waits for a line on its standard input
+    before it touches the card): the killed, the resumed and the warm
+    sweep."""
+    import shutil
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    os.makedirs(WARM_DIR)
+    children = {}
+    for name, root, extra in (("killed", "B", ("--inject-faults",
+                                               KILL_PLAN)),
+                              ("resumed", "B", ("--resume",)),
+                              ("warm", "A", ())):
+        cmd = [sys.executable, "-m", f"{PACKAGE}.testing.resumable_sweep",
+               "--root", os.path.join(WARM_DIR, root),
+               "--out", os.path.join(WARM_DIR, f"{name}.npz"),
+               "--peers", str(GRID_PEERS), "--segments", str(GRID_SEGMENTS),
+               "--watch-s", str(GRID_WATCH_S),
+               "--stagger-s", str(GRID_STAGGER_S),
+               "--record-every", str(GRID_RECORD_EVERY),
+               "--chunk", str(GRID_CHUNK), "--device", "cuda", "--wait",
+               *extra]
+        err = open(os.path.join(WARM_DIR, f"{name}.err"), "w")
+        children[name] = subprocess.Popen(
+            cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        err.close()
+    return children
+
+
+def stop_children(children):
+    for proc in children.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        for fh in (proc.stdin, proc.stdout):
+            if fh is not None:
+                fh.close()
+
+
+def _child_failure(name, proc, what):
+    with open(os.path.join(WARM_DIR, f"{name}.err")) as fh:
+        tail = fh.read()[-3000:]
+    return f"the {name} child {what} (exit {proc.poll()}):\n{tail}"
+
+
+def _child_go(name, proc):
+    """Read the child's ready line, then let it sweep."""
+    line = proc.stdout.readline()
+    check(line.startswith("{"), _child_failure(name, proc,
+                                               "did not get ready"))
+    try:
+        proc.stdin.write("go\n")
+        proc.stdin.flush()
+    except BrokenPipeError:
+        check(False, _child_failure(name, proc, "died before its sweep"))
+    return json.loads(line), time.perf_counter()
+
+
+def _child_end(name, proc, t_go):
+    """The child's exit code, its JSON lines after the ready line, and
+    the host wall from its go to its exit (read at once only for the
+    killed child: the others report their sweep's wall)."""
+    out, _ = proc.communicate(timeout=600)
+    wall = time.perf_counter() - t_go
+    records = [json.loads(ln) for ln in out.splitlines()
+               if ln.startswith("{")]
+    return proc.returncode, records, wall
+
+
+def _child_rows(name):
+    import numpy as np
+    with np.load(os.path.join(WARM_DIR, f"{name}.npz")) as data:
+        return [(float(o), float(r), tl) for o, r, tl in
+                zip(data["offload"], data["rebuffer"], data["timeline"])]
+
+
+def _rows_hex_equal(a, b):
+    """Rows equal to the bit: ratios by ``float.hex``, timelines by
+    their bytes."""
+    return len(a) == len(b) and all(
+        x[0].hex() == y[0].hex() and x[1].hex() == y[1].hex()
+        and x[2].dtype == y[2].dtype and x[2].tobytes() == y[2].tobytes()
+        for x, y in zip(a, b))
+
+
+def phase_resume_killed(sg, children, g9):
+    """Phase 9's grid in three processes of their own, with a warm start
+    and a journal each: the warm one on phase 9's root A and the killed
+    one (by the fault plane, on root B) sweep together; once the killed
+    one is dead and its journal checked, the resumed one starts on root
+    B.  Returns what :func:`phase_resume_rest` needs: it collects the
+    resumed and the warm child after phases 10-12, which run in this
+    process meanwhile (they check and time nothing of the grid)."""
+    import signal
+    from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import (
+        journal_path, read_jsonl_tolerant)
+    grid = g9["grid"]
+    ready, t_go = {}, {}
+    for name in ("warm", "killed"):
+        ready[name], t_go[name] = _child_go(name, children[name])
+    rc, killed, wall_killed = _child_end("killed", children["killed"],
+                                         t_go["killed"])
+    check(rc == -signal.SIGKILL, _child_failure(
+        "killed", children["killed"], f"did not die by SIGKILL ({rc})"))
+    path = journal_path(os.path.join(WARM_DIR, "B"), grid_meta(sg, grid))
+    lines = list(read_jsonl_tolerant(path))
+    journaled = sum(r.get("kind") == "row" for r in lines)
+    check(journaled == KILLED_ROWS and not any(
+        r.get("kind") == "done" for r in lines),
+        f"the killed child's journal holds {journaled} rows "
+        f"(want {KILLED_ROWS}) and kinds {[r.get('kind') for r in lines]}")
+    ready["resumed"], t_go["resumed"] = _child_go("resumed",
+                                                  children["resumed"])
+    startup = {k: v["startup_s"] for k, v in ready.items()}
+    pre = [r["prefilter_s"] for r in killed if "prefilter_s" in r]
+    card = [r["card_s"] for r in killed if "card_s" in r]
+    log(f"[35] phase 9's grid ({len(grid)} points x {GRID_PEERS:,} peers x "
+        f"{GRID_SEGMENTS} segments x {g9['n_steps']} steps, chunks of "
+        f"{GRID_CHUNK}) in three processes started beside phase 5's plain "
+        f"run, each with a warm start and a journal; a child's wall is its "
+        f"start-up (imports, beside phase 5: {json.dumps(startup)} s) and "
+        f"its sweep (the card made ready first)")
+    log(f"    killed ({KILL_PLAN}, root B, beside the warm one): exit "
+        f"{-signal.SIGKILL}, wall {startup['killed'] + wall_killed!r} s "
+        f"(its sweep {wall_killed!r} s to its death, the host's clock from "
+        f"its go; the card made ready in {card[0] if card else None!r} s), "
+        f"its prefilter {pre[0] if pre else None!r} s; its journal "
+        f"holds {journaled} rows (chunk 0 drained before the kill), no done "
+        f"line; the resumed child starts, beside phases 10-12")
+    return {"startup": startup, "t_go": t_go}
+
+
+def phase_resume_rest(children, g9, started):
+    """The resumed child (the journaled rows served as hits, the rest
+    dispatched, all rows phase 9's to the bit, the journal finalized)
+    and the warm one (every row a hit, nothing built, captured or
+    launched)."""
+    want = g9["rows"]
+    n = len(want)
+    startup, t_go = started["startup"], started["t_go"]
+    out = {}
+    for name in ("resumed", "warm"):
+        rc, records, _wall = _child_end(name, children[name], t_go[name])
+        check(rc == 0, _child_failure(name, children[name], "failed"))
+        out[name] = records[-1]
+    res, hot = out["resumed"], out["warm"]
+    check(res["journal_rows_at_open"] == KILLED_ROWS
+          and res["row_hits"] == KILLED_ROWS
+          and res["row"] == {"hit": KILLED_ROWS, "miss": n - KILLED_ROWS,
+                             "store": n - KILLED_ROWS}
+          and res["chunks"] == -(-(n - KILLED_ROWS) // GRID_CHUNK)
+          and res["journal_finished"],
+          f"the resumed child: {json.dumps(res)}")
+    check(_rows_hex_equal(_child_rows("resumed"), want),
+          "the resumed child's rows differ from phase 9's")
+    check(hot["row_hits"] == n and hot["row"] == {"hit": n}
+          and hot["chunks"] == 0 and hot["builds"] == 0
+          and hot["captures"] == 0
+          and not any(hot["launches"].values()),
+          f"the warm child: {json.dumps(hot)}")
+    check(_rows_hex_equal(_child_rows("warm"), want),
+          "the warm child's rows differ from phase 9's")
+    log(f"[35] resumed (root B, beside phases 10-12): wall "
+        f"{startup['resumed'] + res['wall_s']!r} s (sweep "
+        f"{res['wall_s']!r} s: the card made ready {res['card_s']!r} s, "
+        f"prefilter {res['prefilter_s']!r} s); "
+        f"{res['journal_rows_at_open']} journaled rows served as hits, "
+        f"{res['chunks']} chunks dispatched; row events "
+        f"{json.dumps(res['row'])}, library events "
+        f"{json.dumps(res['executable'])}, builds {res['builds']}, "
+        f"captures {res['captures']}; its {n} rows equal phase 9's to the "
+        f"bit (float.hex, timeline bytes); journal finalized")
+    log(f"    warm (root A, beside the killed one): wall "
+        f"{startup['warm'] + hot['wall_s']!r} s (sweep {hot['wall_s']!r} "
+        f"s: the card made ready {hot['card_s']!r} s, prefilter "
+        f"{hot['prefilter_s']!r} s); row events "
+        f"{json.dumps(hot['row'])}, builds {hot['builds']}, captures "
+        f"{hot['captures']}, launches {sum(hot['launches'].values())}, "
+        f"chunks {hot['chunks']}; rows equal phase 9's to the bit; device "
+        f"{hot['device']}")
 
 
 def phase_lane_sums(sim, sk):
@@ -3878,6 +4126,7 @@ def main() -> int:
     from hlsjs_p2p_wrapper_tpu_torch.ops import (dispatch as dp,
                                                  swarm_kernels as sk,
                                                  swarm_sim as sim)
+    children = {}
     try:
         smi = phase_card()
         regs = phase_build()
@@ -3888,19 +4137,25 @@ def main() -> int:
             errs_routes["select_admit"],
             phase_spans(sim, sk, PEERS, SEGMENTS, STEPS))
         (main_launches, errs, ms, traced_ms, plain_ms, nbytes,
-         library_b1) = phase_main(sim, sk, PEERS, SEGMENTS, STEPS, WINDOW)
+         library_b1, main_run) = phase_main(sim, sk, PEERS, SEGMENTS, STEPS,
+                                            WINDOW)
+        children = start_children()
+        phase_main_plain(sim, sk, main_run)
+        del main_run
         phase_fixture(sim)
         errs_batch, sums_rel = phase_batch_kernels(sim, sk, sg)
         phase_batch_fixture()
         grid = phase_grid(sim, sk, sg, dp)
         b48 = phase_trace48(sim, sk, grid)
         del grid["scenario"], grid["final"]
+        started = phase_resume_killed(sg, children, grid)
         ls_err, ls_rel = phase_lane_sums(sim, sk)
         errs_batch["lane_sums"] = max(errs_batch.get("lane_sums", 0.0),
                                       ls_err)
         sums_rel = max(sums_rel, ls_rel)
         errs_live = phase_live_kernels(sim, sk, sg)
         phase_live_fixture()
+        phase_resume_rest(children, grid, started)
         live_grid = phase_live_grid(sim, sk, sg, dp)
         live = phase_live_trace(sim, sk, live_grid)
         errs_prefetch = phase_prefetch_kernels(sim, sk)
@@ -3940,6 +4195,8 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        stop_children(children)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,7 +1,7 @@
 """The chunked, pipelined dispatch of scenario grids: the reference's
 ``RowEvent``, ``stream_groups_chunked``, ``run_groups_chunked`` and
 ``run_batch_chunked`` (``ops/swarm_sim.py`` :1935-2478), with its fault
-plane.
+plane, its row cache and its crash-safe journal.
 
 A grid is one or more groups of ``(config, items, build)``: one static
 config per group, and ``build(item)`` makes one item's ``(scenario,
@@ -31,6 +31,29 @@ classified fault that surfaces at readback re-dispatches its segment
 through the same recovery, blocking.  An unclassified error re-raises;
 without a policy the first error propagates.
 
+The row cache (``warm_start``, an ``engine.artifact_cache.WarmStart``
+with its row cache on): before any dispatch, each item is built once,
+keyed (``row_key``) and looked up (``row_load``); a hit streams at once
+as a ``RowEvent`` with its ``key`` and ``cached=True`` (a row with a
+timeline exactly when ``record_every`` asks for one, else it is
+recomputed), and only the misses are chunked, built again at chunk time
+and dispatched.  The chunk size still comes from the item count before
+the prefilter, and a group whose every row hits dispatches nothing (no
+probe build, no autotune, no capture).  ``stats[g]["row_hits"]`` counts
+the hits, and ``warm_start.note_prefilter`` gets the prefilter's
+seconds.  Each drained row is stored (``row_store``) and streamed with
+its key; rows that gave up under the fault plane are neither stored
+nor journaled.  While the stream runs, the kernel libraries' checks and
+builds are counted by the warm start (``ops/_build.py``'s listeners)
+unless its ``aot_enabled`` is off.
+
+The journal (``journal``, an ``engine.artifact_cache.SweepJournal``):
+once a drained chunk's rows are stored, their keys go to
+``journal.record_rows`` under one fsync, so a killed sweep resumes by
+opening its journal with ``resume=True`` and the row cache serves what
+it finished.  The journal records keys and the row cache holds the
+values: a ``journal`` without the row cache records nothing.
+
 What differs from the reference, and why:
 
 - no padding of a short chunk.  The reference repeats the last scenario
@@ -48,9 +71,11 @@ What differs from the reference, and why:
   still equal the unfaulted run's to the bit, since lanes are
   independent and each lane's reductions sum in a fixed order
   (``ops/swarm_kernels.py``);
-- the warm-start caches, the journal and tracing are not ported: a
-  ``warm_start``, ``journal``, ``trace`` or ``tracer`` other than None
-  raises ``NotImplementedError`` (ROADMAP queue 1 items 7-8).
+- a warm start has no executables to serve (PyTorch has no serialized
+  executable): its ``layer="executable"`` counts the kernel libraries'
+  checks and builds instead (``engine/artifact_cache.py``);
+- tracing is not ported: a ``trace`` or ``tracer`` other than None
+  raises ``NotImplementedError`` (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -60,15 +85,14 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import _build
 from .swarm_sim import (autotune_chunk, init_swarm, note_oom_bisection,
                         offload_ratio_batch, rebuffer_ratio_batch,
                         run_swarm_batch, stack_pytrees)
 
 #: the dispatch options the port does not take yet, and the ROADMAP
 #: queue 1 item that brings each
-_NOT_PORTED = {"warm_start": "item 7 (warm-start caches)",
-               "journal": "item 7 (the crash-safe journal)",
-               "trace": "item 8 (the flight recorder)",
+_NOT_PORTED = {"trace": "item 8 (the flight recorder)",
                "tracer": "item 8 (dispatch spans)"}
 
 
@@ -77,8 +101,8 @@ class RowEvent(NamedTuple):
     :func:`stream_groups_chunked` the moment its chunk drains.
     ``metric`` is the ``(offload, rebuffer[, timeline])`` tuple, or
     None for a row whose recovery budget ran out (``reason`` and
-    ``error`` then carry the failure).  ``key`` and ``cached``, which
-    the reference's row cache fills, keep their defaults here."""
+    ``error`` then carry the failure).  With a row cache, ``key`` is the
+    row's cache key and ``cached`` whether the cache served it."""
 
     group: int
     index: int               # position in the group's item list
@@ -116,46 +140,105 @@ def stream_groups_chunked(groups, n_steps: int, *, watch_s: float,
     """The dispatch engine as a row stream: a generator of one
     :class:`RowEvent` per grid row as its chunk drains (one chunk
     behind the card with ``pipeline``; a chunk's failed rows after its
-    rows).  ``stats_out``, a list, gets one stats dict per group as the
-    groups are prepared (``items``, ``chunk``, ``chunks``, ``row_hits``
-    (0: no row cache), ``first_dispatch_s``, ``failures``); the dicts
-    keep updating as the stream advances.  See the module docstring
-    for ``faults``, ``exact_chunk`` and the unported options, which are
-    checked here, before the first row is asked for."""
-    _refuse_unported(tracer=tracer, warm_start=warm_start, journal=journal,
-                     trace=trace)
+    rows; row-cache hits before any dispatch).  ``stats_out``, a list,
+    gets one stats dict per group as the groups are prepared (``items``,
+    ``chunk`` (None where every row hit and ``chunk`` was None: nothing
+    was sized), ``chunks``, ``row_hits`` (0: no row cache),
+    ``first_dispatch_s``, ``failures``); the dicts keep updating as the
+    stream advances.  See the module docstring for ``faults``,
+    ``warm_start``, ``journal``, ``exact_chunk`` and the unported
+    options, which are checked here, before the first row is asked
+    for."""
+    _refuse_unported(tracer=tracer, trace=trace)
     return _stream(groups, n_steps, watch_s=watch_s, chunk=chunk,
                    record_every=record_every, pipeline=pipeline,
                    interleave=interleave, faults=faults,
+                   warm_start=warm_start, journal=journal,
                    stats_out=stats_out, exact_chunk=exact_chunk)
 
 
 def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
-            interleave, faults, stats_out, exact_chunk):
+            interleave, faults, warm_start, journal, stats_out,
+            exact_chunk):
+    """The engine, with the warm start listening to the kernel
+    libraries' events while it runs."""
+    observe = warm_start is not None and warm_start.aot_enabled
+    if observe:
+        _build.listen(warm_start)
+    try:
+        return (yield from _engine(
+            groups, n_steps, watch_s=watch_s, chunk=chunk,
+            record_every=record_every, pipeline=pipeline,
+            interleave=interleave, faults=faults, warm_start=warm_start,
+            journal=journal, stats_out=stats_out, exact_chunk=exact_chunk))
+    finally:
+        if observe:
+            _build.unlisten(warm_start)
+
+
+def _prefilter(gi, config, items, build, warm_start, n_steps, watch_s,
+               record_every):
+    """Each item built once, keyed and looked up: ``(hit events, kept
+    indices, their keys)``."""
+    hits, keep, keys = [], [], []
+    for idx, item in enumerate(items):
+        scenario, join = build(item)
+        key = warm_start.row_key(config, scenario, join, n_steps,
+                                 watch_s=watch_s, record_every=record_every)
+        del scenario, join
+        cached = warm_start.row_load(key)
+        if cached is not None and (len(cached) > 2) == bool(record_every):
+            hits.append(RowEvent(gi, idx, cached, key=key, cached=True))
+        else:
+            keep.append(idx)
+            keys.append(key)
+    return hits, keep, keys
+
+
+def _engine(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
+            interleave, faults, warm_start, journal, stats_out,
+            exact_chunk):
+    rows_on = warm_start is not None and warm_start.rows_enabled
+    hit_events = []
     prepared = []
-    for config, items, build in groups:
+    for gi, (config, items, build) in enumerate(groups):
         items = list(items)
-        if chunk is None:
+        keep, keys = list(range(len(items))), None
+        if rows_on:
+            t0 = time.perf_counter()
+            hits, keep, keys = _prefilter(gi, config, items, build,
+                                          warm_start, n_steps, watch_s,
+                                          record_every)
+            warm_start.note_prefilter(time.perf_counter() - t0)
+            hit_events.extend(hits)
+        # the chunk comes from the item count before the prefilter: how
+        # many rows the cache served does not change a dispatch's shape
+        if chunk is None and not keep:
+            batch = None   # every row hit: nothing to size
+        elif chunk is None:
             # one lane built ahead, so the autotuner sizes the real
             # scenario on the device it lives on
-            probe = build(items[0])[0] if items else None
+            probe = build(items[keep[0]])[0]
             batch = autotune_chunk(
                 config, len(items), n_steps, record_every=record_every,
-                scenario=probe,
-                device=None if probe is None else probe.join_s.device)
+                scenario=probe, device=probe.join_s.device)
+            del probe
         elif exact_chunk:
             batch = max(chunk, 1)
         else:
             batch = max(min(chunk, len(items)), 1)
-        prepared.append((config, items, build, batch))
+        prepared.append((config, items, build, batch, keep, keys))
     stats = [{"items": len(items), "chunk": batch, "chunks": 0,
-              "row_hits": 0, "first_dispatch_s": None, "failures": []}
-             for _, items, _, batch in prepared]
+              "row_hits": len(items) - len(keep),
+              "first_dispatch_s": None, "failures": []}
+             for _, items, _, batch, keep, _ in prepared]
     if stats_out is not None:
         stats_out.extend(stats)
+    # hits are already durable in the row cache: they stream first
+    yield from hit_events
 
-    starts = [list(range(0, len(items), batch))
-              for _, items, _, batch in prepared]
+    starts = [list(range(0, len(keep), batch)) if keep else []
+              for _, _, _, batch, keep, _ in prepared]
     schedule = []  # (group, group-local chunk index, first item)
     if interleave:
         ci = 0
@@ -244,9 +327,12 @@ def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
                  else (float(o), float(r), arr[lane]))
                 for lane, (o, r) in enumerate(zip(offs, rebs))]
 
-    def drain(gi, ci, idxs, config, built, segments, failures):
-        """The chunk's rows, then its failed items, as events."""
+    def drain(gi, ci, idxs, keys, config, built, segments, failures):
+        """The chunk's rows, then its failed items, as events.  With a
+        row cache each row is stored; with a journal too, the chunk's
+        stored keys are journaled under one fsync."""
         events = []
+        journaled = []
         work = list(segments)
         while work:
             start, n, *out = work.pop(0)
@@ -268,8 +354,16 @@ def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
                 work = resegs + work
                 failures = failures + refails
                 continue
-            events.extend(RowEvent(gi, idxs[start + pos], metric)
-                          for pos, metric in enumerate(out))
+            for pos, metric in enumerate(out):
+                key = None if keys is None else keys[start + pos]
+                if key is not None:
+                    warm_start.row_store(key, metric)
+                    if journal is not None:
+                        journaled.append(key)
+                events.append(RowEvent(gi, idxs[start + pos], metric,
+                                       key=key))
+        if journaled:
+            journal.record_rows(journaled)
         for failure in failures:
             items = [idxs[failure["offset"] + j]
                      for j in range(failure["count"])]
@@ -282,8 +376,9 @@ def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
 
     pending = None
     for gi, ci, off in schedule:
-        config, items, build, batch = prepared[gi]
-        idxs = list(range(off, min(off + batch, len(items))))
+        config, items, build, batch, keep, keys = prepared[gi]
+        idxs = keep[off:off + batch]
+        chunk_keys = None if keys is None else keys[off:off + batch]
         built = [build(items[i]) for i in idxs]
         t0 = time.perf_counter()
         segments, failures = resilient(gi, ci, config, built, 0,
@@ -291,7 +386,8 @@ def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
         if stats[gi]["first_dispatch_s"] is None:
             stats[gi]["first_dispatch_s"] = time.perf_counter() - t0
         stats[gi]["chunks"] += 1
-        entry = (gi, ci, idxs, config, built, segments, failures)
+        entry = (gi, ci, idxs, chunk_keys, config, built, segments,
+                 failures)
         if not pipeline:
             yield from drain(*entry)
             continue
@@ -316,7 +412,7 @@ def run_groups_chunked(groups, n_steps: int, *, watch_s: float,
     timeline appended when ``record_every > 0``, and None for an item
     whose recovery budget ran out; ``stats[g]`` is the group's stats
     dict.  Chunks are independent, so the schedule (``interleave``,
-    ``pipeline``) and the recovery never change a row."""
+    ``pipeline``), the recovery and the row cache never change a row."""
     groups = [(config, list(items), build)
               for config, items, build in groups]
     results = [[None] * len(items) for _, items, _ in groups]
@@ -342,8 +438,7 @@ def run_batch_chunked(config, items, build, n_steps: int, *,
     per dispatch from the card's free memory (``autotune_chunk``)."""
     items = list(items)
     if not items:
-        _refuse_unported(tracer=tracer, warm_start=warm_start,
-                         journal=journal, trace=trace)
+        _refuse_unported(tracer=tracer, trace=trace)
         return []
     results, _stats = run_groups_chunked(
         [(config, items, build)], n_steps, watch_s=watch_s, chunk=chunk,

@@ -1841,8 +1841,11 @@ def capture(fn, dev: torch.device, n_lanes: int, n_peers: int,
     ``n_peers`` peers on the card, as a CUDA graph (in ``pool`` when
     given, else a pool of its own).  The launches ``fn`` makes while
     captured run nothing, so they are taken off :data:`LAUNCHES` and
-    counted at each replay instead.  A failed capture raises."""
+    counted at each replay instead.  A failed capture raises.  The
+    build's listeners are told of each capture (``_build.emit``)."""
+    from . import _build
     _prepare_capture(dev, n_lanes, n_peers)
+    _build.emit("capture")
     before = dict(LAUNCHES)
     try:
         graph = _record(fn, dev, pool)

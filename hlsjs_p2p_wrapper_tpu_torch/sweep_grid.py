@@ -3,7 +3,7 @@ point becomes a scenario: copied from the reference's ``tools/sweep.py``
 (``LADDERS`` … ``padded_ladder`` :142-170, ``vod_grid`` :184-199,
 ``live_grid`` :203-224, ``population_grid`` and its memo :230-255,
 ``build_config`` and ``build_scenario`` :258-335, ``sample_grid``
-:339-350).
+:339-350, ``journal_meta`` :404-417).
 
 A grid point is a dict of knobs.  Every point of a grid shares one
 static ``SwarmConfig`` (the ring degree is the only static knob, and
@@ -144,6 +144,20 @@ def sample_grid(grid, n):
     if len(grid) <= n:
         return list(grid)
     return grid[::len(grid) // n][:n]
+
+
+def journal_meta(grid, *, peers, segments, watch_s, live, seed,
+                 record_every, population=None):
+    """The sweep identity the crash-safe journal is content-addressed by
+    (``engine.artifact_cache.journal_path``): everything that changes
+    what a row is, the population spec's JSON included, so a resumed
+    sweep never replays another sweep's progress."""
+    meta = {"tool": "sweep", "peers": peers, "segments": segments,
+            "watch_s": watch_s, "live": bool(live), "seed": seed,
+            "record_every": record_every, "grid": grid}
+    if population is not None:
+        meta["population"] = population.to_json()
+    return meta
 
 
 def build_config(peers, segments, live, degree, live_sync_s=None,

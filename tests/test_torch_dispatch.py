@@ -116,12 +116,13 @@ def test_stream_stats_and_rows_without_timeline():
 
 
 @pytest.mark.parametrize("option,item", [
-    ("faults", None), ("warm_start", "item 7"), ("journal", "item 7"),
-    ("trace", "item 8"), ("tracer", "item 8")])
+    ("faults", None), ("trace", "item 8"), ("tracer", "item 8")])
 def test_unported_dispatch_options_raise(option, item):
     """The options the port does not take yet raise, naming their
     ROADMAP item.  ``faults`` is ported (item 6): a ``FaultPolicy``
-    without a plan returns the unarmed rows and counts nothing."""
+    without a plan returns the unarmed rows and counts nothing.
+    ``warm_start`` and ``journal`` are ported (item 7;
+    tests/test_torch_artifact_cache.py)."""
     config, items, build = _group(2)
     if item is None:
         policy = FaultPolicy()
