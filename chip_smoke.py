@@ -333,6 +333,12 @@ MAIN_PATH = ("select_admit", "peer_update")
 #: shapes where select_admit's tiles wrap the ring, (peers, ring
 #: degree); at 1,000 peers the last tile is partial
 WRAP_CASES = ((16, 8), (96, 12), (1000, 8))
+#: the same check at other cache-map widths (peers, ring degree,
+#: segments; 3 levels; the cases above have 2 words a row): 1 word (8
+#: segments) at 1,000 peers, and 256 words (2,730 segments) at 16 peers,
+#: where the ring wraps more than once in one tile; each map's last word
+#: is partial
+MAP_CASES = ((1000, 8, 8), (16, 8, 2730))
 #: an offset tuple too wide for select_admit's tile, and its shape
 WIDE_OFFSETS = (1, -1, 2, -2, 97, -97, 300, -300)
 WIDE_PEERS, WIDE_SEGMENTS = 65_536, 64
@@ -791,14 +797,16 @@ def phase_build():
 
 def kernel_registers(lines):
     """``{entry function (mangled): {"registers": n, "spill_bytes":
-    stores + loads}}`` from ptxas's ``-v`` lines."""
+    stores + loads, "smem_bytes": static shared memory a block}}`` from
+    ptxas's ``-v`` lines."""
     import re
     out, name = {}, None
     for line in lines:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            out[name] = {"registers": None, "spill_bytes": 0}
+            out[name] = {"registers": None, "spill_bytes": 0,
+                         "smem_bytes": 0}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -807,6 +815,9 @@ def kernel_registers(lines):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            out[name]["smem_bytes"] = int(m.group(1))
     return out
 
 
@@ -878,12 +889,14 @@ def phase_routes(sim, sk):
     errs = {"select_admit": 0.0, "elig_select": 0.0, "admit_service": 0.0,
             "peer_update": 0.0}
     cases = [(P, sim.ring_offsets(d), 16, 20.0, 80) for P, d in WRAP_CASES]
+    cases += [(P, sim.ring_offsets(d), S, 20.0, 80) for P, d, S in MAP_CASES]
     cases.append((WIDE_PEERS, WIDE_OFFSETS, WIDE_SEGMENTS, 10.0, 60))
     for P, offsets, S, window_s, warm in cases:
         config, scenario, state = make_case(sim, sk, P, S, warm, "cuda",
                                             offsets, window_s)
         fused = sk.fused_route(config)
-        label = f"{P:,} peers, offsets {offsets}"
+        label = (f"{P:,} peers, offsets {offsets}, "
+                 f"{sk.geometry(config).W}-word map")
         check(fused is (offsets != WIDE_OFFSETS),
               f"{label}: fused route {fused}")
         check(int((state.dl_flags & 1).sum()) > 0,

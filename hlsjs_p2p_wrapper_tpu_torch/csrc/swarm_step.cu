@@ -940,7 +940,13 @@ __global__ void admit_gather_kernel(const AdmitArgs a) {
 //      from shared memory (admission up to the cap, then its service), as
 //      TK2.
 // Each thread loads its requester's inputs from global memory itself, and
-// the map words directly; map rows are never staged whole.  What bounds it
+// the map words directly (the K loads of a slot go out together), so the
+// map's width is not limited.  Shared memory a block, all static: the
+// serve bits, SA_TILE + 2 SA_MAX_SPAN bytes, and req, SA_TILE +
+// SA_MAX_SPAN bytes a slot (352 bytes at one slot, 672 at three, 2,752
+// for the generic instantiation).  A design that staged the neighbour
+// range's map rows whole in dynamic shared memory was timed against this
+// one and read slower at one slot; PERF.md §6 records it.  What bounds it
 // on an H100: bytes, as TK1.  PERF.md has the designs that were timed
 // against this one and what holds it back.
 //

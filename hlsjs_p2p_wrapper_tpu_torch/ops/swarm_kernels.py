@@ -1147,12 +1147,16 @@ _SOURCES = {SOURCE: (DEFINES, "swarm_args_sizes", "swarm_preload",
 
 @functools.lru_cache(maxsize=None)
 def _lib(source: str) -> ctypes.CDLL:
-    """Build (once, on first use) and bind one source's library, check
-    the ctypes mirrors against the C structs' sizes, and load its
-    kernels onto the card."""
+    """Build (once, on first use) and bind one source's library."""
     from . import _build
-    defines, sizes_fn, preload_fn, structs = _SOURCES[source]
-    lib = _build.load(source, defines)
+    return bind(_build.load(source, _SOURCES[source][0]), source)
+
+
+def bind(lib: ctypes.CDLL, source: str = SOURCE) -> ctypes.CDLL:
+    """Bind a loaded library of ``source``: its entry points' ctypes
+    signatures, its C structs' sizes checked against the ctypes
+    mirrors, and its kernels loaded onto the card."""
+    _defines, sizes_fn, preload_fn, structs = _SOURCES[source]
     for src, fn, _args in _ENTRY.values():
         if src == source:
             f = getattr(lib, fn)

@@ -258,16 +258,8 @@ def _tiled_select_admit(config, scenario, state, req, tile):
     return owners, elig, service, adm
 
 
-@pytest.mark.parametrize("P,offsets,tile", [
-    (64, port.ring_offsets(8), 16), (200, port.ring_offsets(8), 64)]
-    + [(P, o, sk.SELECT_ADMIT_TILE) for P, o in WRAPS])
-def test_fused_tiles_cover_the_ring_and_match_tk1_tk2(P, offsets, tile):
-    """Every peer is owned by exactly one requester position; every
-    position of a peer, halo copies included, gathers the circulant
-    eligibility of that peer; and the holders' walk over a block's copy
-    of req gives TK2's result, also where the ring wraps inside one
-    tile."""
-    config, scenario, state = _case(P=P, offsets=offsets, steps=80)
+def _check_fused_tiles(P, offsets, tile, S):
+    config, scenario, state = _case(P=P, S=S, offsets=offsets, steps=80)
     g = sk.geometry(config)
     tg = sk.slot_targets(config, scenario, state)
     serve = tg["present"] & (scenario.p2p_ok > 0.0)
@@ -286,6 +278,48 @@ def test_fused_tiles_cover_the_ring_and_match_tk1_tk2(P, offsets, tile):
     sv, ad = sk.admit_service_plain(config, scenario, req)
     np.testing.assert_array_equal(adm, ad[..., 0].numpy())
     np.testing.assert_array_equal(service, sv.numpy())
+    return g
+
+
+@pytest.mark.parametrize("P,offsets,tile", [
+    (64, port.ring_offsets(8), 16), (200, port.ring_offsets(8), 64)]
+    + [(P, o, sk.SELECT_ADMIT_TILE) for P, o in WRAPS])
+def test_fused_tiles_cover_the_ring_and_match_tk1_tk2(P, offsets, tile):
+    """Every peer is owned by exactly one requester position; every
+    position of a peer, halo copies included, gathers the circulant
+    eligibility of that peer; and the holders' walk over a block's copy
+    of req gives TK2's result, also where the ring wraps inside one
+    tile."""
+    _check_fused_tiles(P, offsets, tile, 16)
+
+
+#: segment counts (3 levels) whose maps are 1, 4 and 8 words a row, each
+#: with a partial last word (the default above is 2 words)
+MAP_SEGMENTS = {1: 8, 4: 40, 8: 80}
+
+
+@pytest.mark.parametrize("P,offsets,W", [(P, o, W) for P, o in WRAPS
+                                         for W in MAP_SEGMENTS])
+def test_fused_tiles_read_maps_of_every_width(P, offsets, W):
+    """The same at maps of 1, 4 and 8 words a row whose last word is
+    partial, on every wrapping tuple: each requester position's word of
+    each neighbour row gives that peer's circulant eligibility."""
+    g = _check_fused_tiles(P, offsets, sk.SELECT_ADMIT_TILE,
+                           MAP_SEGMENTS[W])
+    assert g.W == W and (g.L * g.S) % 32 != 0
+
+
+def test_select_admit_ab_tool_needs_a_card(capsys):
+    """``tools/torch_port_select_admit_ab.py`` times builds on the card
+    only: without one it exits 1 before it builds anything."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(chip_smoke.__file__), "tools",
+                        "torch_port_select_admit_ab.py")
+    spec = importlib.util.spec_from_file_location("select_admit_ab", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.main(["--other", "elsewhere", "--only", "VOD"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 # ---- on the card -------------------------------------------------------------
