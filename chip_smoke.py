@@ -7,7 +7,8 @@ exits nonzero:
 
 1. the card and the toolchain (``nvidia-smi``, torch, CUDA, ``nvcc``);
 2. build the kernels from ``hlsjs_p2p_wrapper_tpu_torch/csrc/`` and
-   print each one's registers and spills;
+   print each one's registers and spills, and of every instantiation of
+   the gather kernels its resident blocks an SM;
 3. each kernel against its plain PyTorch version on the card, at
    1,048,576 peers × 256 segments, from a state the plain path reached
    after 300 steps (``peer_update`` with the offload sums and the clock
@@ -139,12 +140,14 @@ exits nonzero:
    policy_ab.py``'s random mesh: the prefetch fixture's four cells at 4
    × 262,144 peers × 128 segments, each policy at three slots, VOD and
    live, and spread uncapped, at t = 25 s and 6 steps later; then each
-   policy on meshes of 16 peers (degree 20: every row padded) and 1,000
-   (degree 8 padded to 10), one call and 20 steps against the plain
-   step; the line ``gather branches over every state`` must show
-   padding, inbound edges walked beyond K, denied and over-cap demands
-   nonzero; then the ring uncapped at the main path's shape (the fused
-   kernel, TK1 + TK2, TK3), with the demands a cap would have denied;
+   policy on meshes of 16 peers (degree 20: every row padded), 1,000
+   (degree 8 padded to 10) and 48 (degree 32: inbound rows up to 40
+   edges, two mask words of ``admit_gather``), 80 steps of the kernels
+   in, one call and 20 steps against the plain step; the line ``gather
+   branches over every state`` must show padding, inbound edges walked
+   beyond K and beyond 32, denied and over-cap demands nonzero; then the
+   ring uncapped at the main path's shape (the fused kernel, TK1 + TK2,
+   TK3), with the demands a cap would have denied;
 27. the port's runs against the committed general fixture (the JAX
    reference's ``run_swarm_batch`` over the prefetch fixture's cells on
    the random mesh: spread and adaptive capped, ranked uncapped);
@@ -456,10 +459,15 @@ POLICY_WRAP_STEPS = 80
 #: VOD and live, and spread uncapped, at the two states of
 #: PREFETCH_CHECK_STEPS; then small meshes (peers, degree, k_pad) where
 #: rows hold self-padding (degree >= P collapses to everyone else plus
-#: padding; k_pad pads) and holders' in-degree passes K, one call and
-#: ROUTE_STEPS steps against the plain step, each policy
+#: padding; k_pad pads), holders' in-degree passes K, and (48 peers at
+#: degree 32) passes 32, so that admit_gather's rows take a second mask
+#: word, one call and ROUTE_STEPS steps against the plain step, each
+#: policy
 GATHER_PEERS = 262_144
-GATHER_SMALL = ((16, 20, None), (1000, 8, 10))
+GATHER_SMALL = ((16, 20, None), (1000, 8, 10), (48, 32, None))
+#: the gather kernels' codes in swarm_gather_occupancy
+GATHER_KERNEL_IDS = {"elig_select_gather": 0, "admit_gather": 1,
+                     "peer_update_gather": 2}
 #: the random half of the policy grid: the tool's size (the record's,
 #: tools/policy_ab.py --peers) and the size a user runs on this card
 RANDOM_PEERS = 8_192
@@ -718,7 +726,8 @@ def gather_branch_counts(sim, sk, config, scenario, state):
     step sees it: ``padding``, self entries of the neighbour lists (no
     edge); ``beyond_k``, inbound edges walked past column K (a holder of
     in-degree above K) whose requester's slot contributes to it;
-    ``denied``, contributions the cap did not admit; ``over_cap``, holders
+    ``beyond_32``, the same past edge 32 (admit_gather's second mask
+    word); ``denied``, contributions the cap did not admit; ``over_cap``, holders
     with more contributions than a cap of 2 admits (uncapped, the
     demands the cap would have denied)."""
     import torch
@@ -734,13 +743,14 @@ def gather_branch_counts(sim, sk, config, scenario, state):
     flat = torch.clamp_min(in_e, 0)
     lanes = torch.arange(in_e.shape[0], device=nbr.device)[:, None, None]
     src, col = flat // max(K, 1), flat % max(K, 1)
-    beyond, n_contrib = 0, 0
+    beyond, beyond_32, n_contrib = 0, 0, 0
     for c in range(config.max_concurrency):
         contrib = ok & (req[..., c][lanes, src] == col)
         beyond += int(contrib[..., K:].sum())
+        beyond_32 += int(contrib[..., 32:].sum())
         n_contrib = n_contrib + contrib.sum(-1)
     return {"padding": int((nbr == peer[:, None]).sum()),
-            "beyond_k": beyond,
+            "beyond_k": beyond, "beyond_32": beyond_32,
             "denied": int(((req >= 0) & (adm == 0)).sum()),
             "over_cap": int((n_contrib > 2).sum())}
 
@@ -838,6 +848,42 @@ def registers_of(regs, kernel, live, slots=1, policy="spread"):
            "peer_update_gather":
                f"peer_update_gather_kernelILb{b}ELi{ct}ELb{pen}EE"}[kernel]
     return regs_of_entry(regs, tag)
+
+
+def gather_resources(sk, regs):
+    """Registers, spills, and resident blocks an SM at the threads a
+    block each launches with (``swarm_gather_occupancy``: the card's
+    occupancy calculator) of every instantiation of the gather kernels,
+    ``{(kernel, live, slots, policy): {...}}`` with slots 1, 3 and 0 (the
+    generic instantiation); logged whole."""
+    import ctypes
+    from hlsjs_p2p_wrapper_tpu_torch.ops.swarm_kernels import POLICY_CODES
+    fn = sk._lib(sk.SOURCE).swarm_gather_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    got = (ctypes.c_int * 2)()
+    out = {}
+    for name, kid in GATHER_KERNEL_IDS.items():
+        for live in (False, True):
+            for slots in (1, 3, 0):
+                for policy, pol in POLICY_CODES.items():
+                    if name == "admit_gather" and (live or pol):
+                        continue   # one instantiation a slot count
+                    if name == "peer_update_gather" and policy == "ranked":
+                        continue   # PEN only: spread's instantiation
+                    rc = fn(kid, int(live), slots or 2, pol, got)
+                    check(rc == 0 and got[0] > 0,
+                          f"the occupancy of {name} (live {live}, CT "
+                          f"{slots}, {policy}): CUDA error {rc}, "
+                          f"{got[0]} blocks")
+                    out[(name, live, slots, policy)] = dict(
+                        registers_of(regs, name, live, slots, policy),
+                        blocks_per_sm=got[0], threads_per_block=got[1])
+    log("    gather kernels' registers, spills, static shared memory and "
+        "resident blocks an SM by (kernel, live, CT, policy): "
+        + json.dumps({"/".join(str(x) for x in k): v
+                      for k, v in out.items()}))
+    return out
 
 
 def regs_of_entry(regs, tag):
@@ -3141,8 +3187,9 @@ def phase_gather_kernels(sim, sk):
     fixture's four cells, at the two states of PREFETCH_CHECK_STEPS
     (reached by the kernels' own steps), TK1-gather, TK2-gather and
     TK3-gather (:func:`compare_gather`); then each policy on the meshes of
-    GATHER_SMALL, one call and ROUTE_STEPS steps against the plain step;
-    every gather branch shown to bind (:func:`gather_branch_counts`).
+    GATHER_SMALL, POLICY_WRAP_STEPS steps of the kernels in, one call and
+    ROUTE_STEPS steps against the plain step; every gather branch shown
+    to bind (:func:`gather_branch_counts`).
     Then the ring uncapped at the main path's shape: the fused kernel,
     TK1 + TK2 and TK3 against their plain versions, with the demands a
     cap would have denied.  Returns ``{kernel: max abs float error}``."""
@@ -3190,7 +3237,7 @@ def phase_gather_kernels(sim, sk):
                 in_edges=inv.expand(B, *inv.shape).contiguous())
             st = _init(sim, config, scen, B)
             for _ in range(POLICY_WRAP_STEPS):
-                st = sk.plain_step(config, scen, st)
+                st = sim.swarm_step(config, scen, st)
             label = (f"random mesh {peers:,} peers, degree {degree}, k_pad "
                      f"{k_pad}, {policy}, C = 3")
             counts = gather_branch_counts(sim, sk, config, scen, st)
@@ -4089,11 +4136,22 @@ def phase_degenerate(sim, sg, dp):
         f"audience's")
 
 
-def gather_entry(name, source, replaces, randoms, errs_gather, regs):
+def _resources(res, name, live, slots, policy):
+    """:func:`gather_resources`' entry of the instantiation that ``name``
+    launches for ``policy`` (admit_gather has one a slot count,
+    peer_update_gather one with the penalty window and one without)."""
+    if name == "admit_gather" or (name == "peer_update_gather"
+                                  and policy != "adaptive"):
+        policy = "spread"
+    return res.get((name, live, slots, policy), "not built")
+
+
+def gather_entry(name, source, replaces, randoms, errs_gather, res):
     """The ``kernels`` line's entry of a gather kernel: launches over the
     random half at RANDOM_PEERS_LARGE (each policy's grid), its
     CUDA-event, traced and plain times, bytes and bound on the spread
-    grid's chunk there, and per (size, policy) the same besides."""
+    grid's chunk there, and per (size, policy) the same besides, with
+    the instantiation's registers, spills and resident blocks an SM."""
     big = randoms[(RANDOM_PEERS_LARGE, "spread")]
     tr = big["trace"]
     traced = tr["traced"].get(name)
@@ -4110,7 +4168,7 @@ def gather_entry(name, source, replaces, randoms, errs_gather, regs):
              "traced_ms": None if traced is None else traced[1],
              "bytes": tr["bytes"][name], "bound_ms": tr["bound_ms"][name],
              "bound_by": "bytes", "library_ms": None,
-             "registers": registers_of(regs, name, False, 3)}
+             "registers": _resources(res, name, False, 3, "spread")}
     for (peers, policy), r in sorted(randoms.items()):
         t = r["trace"]
         traced = t["traced"].get(name)
@@ -4119,7 +4177,7 @@ def gather_entry(name, source, replaces, randoms, errs_gather, regs):
             "plain_ms": t["plain_ms"][name],
             "traced_ms": None if traced is None else traced[1],
             "bytes": t["bytes"][name], "bound_ms": t["bound_ms"][name],
-            "registers": registers_of(regs, name, False, 3, policy)}
+            "registers": _resources(res, name, False, 3, policy)}
     return entry
 
 
@@ -4143,6 +4201,7 @@ def main() -> int:
     try:
         smi = phase_card()
         regs = phase_build()
+        res = gather_resources(sk, regs)
         errs_1m = phase_kernels_vs_plain(sim, sk, CHECK_PEERS, SEGMENTS,
                                          CHECK_WARM_STEPS)
         errs_routes = phase_routes(sim, sk)
@@ -4215,7 +4274,7 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         if name in sk.GATHER_PATH:
             kernels.append(gather_entry(name, source, replaces, randoms,
-                                        errs_gather, regs))
+                                        errs_gather, res))
             continue
         err = max(d.get(name, 0.0) for d in (errs, errs_1m, errs_routes,
                                               errs_batch, errs_live,

@@ -706,27 +706,78 @@ __global__ void elig_select_kernel(const SelectArgs a) {
 // holder policies and pinning (:948-957, :981-991, :1021-1040,
 // :1199-1228), with every other line TK1 replaces.
 //
-// One thread a requester, as TK1.  It loads its [K] neighbour row once
-// and, once for every slot, the serve bits of its real edges (not a self
-// entry, the holder present and p2p_ok); per wishing slot it then gathers
-// one map word of each serving neighbour.  Bit k of elig_bits is the
-// row's k-th entry, so the selection, the pinning to the stored holder
-// index k and adaptive's per-edge window read k as on the ring; ranked
-// picks by the ids the row holds (ranked_pick_ids).
+// One thread a requester, as TK1.  It loads its [K] neighbour row and,
+// once for every slot, the serve bits of its real edges (not a self
+// entry, the holder present and p2p_ok).  Then it gathers the map data of
+// each serving neighbour once for all slots: every slot's target is known
+// before any slot is finished (a slot's target reads only its own flight
+// record, which no earlier slot rewrites), so one walk of the row builds
+// every slot's elig_bits.  A map row of at most 4 words (16 bytes, one
+// sector: the policy mesh's one level of 128 segments) is loaded whole,
+// a 16-byte load at W = 4, and each slot picks its word from that copy; a
+// wider row has one word loaded for each distinct word index across the
+// slots (the slots of a requester mostly ask for segments of one 32-bit
+// word), and a slot whose index an earlier slot shares takes that slot's
+// word.  K map gathers a requester replace C x K.  Bit k of elig_bits is
+// the row's k-th entry, so the selection, the pinning to the stored
+// holder index k and adaptive's per-edge window read k as on the ring;
+// ranked picks by the ids the row holds (ranked_pick_ids).
 //
 // What bounds it on an H100: the random gathers, each one 32-byte sector
-// for 4 useful bytes (a map word, or the three serve fields of a
-// neighbour), and their latency: a thread's gathers are issued
-// GATHER_RUN at a time, so that they are in flight together.  A lane's map
-// at 262,144 peers x 128 segments is 4 MB: the lanes in flight (grid y)
-// fit in the 50 MB L2.
+// for its few useful bytes (a map word or row, or the three serve fields
+// of a neighbour, three sectors), and their latency: a thread's gathers
+// are issued a run of neighbours at a time (ROW_RUN, GATHER_RUN for the
+// words of wider rows), so that they are in flight together.  A lane's
+// map at 262,144 peers x 128 segments is 4 MB: the lanes in flight (grid
+// y) fit in the 50 MB L2.  Blocks of ESG_THREADS:
+// __launch_bounds__ holds the slot instantiations to 72 registers, seven
+// 128-thread blocks (896 threads) an SM, where 72 registers allowed three
+// blocks of 256 (768 threads); the generic instantiation to 128.
+#define ESG_THREADS 128
+#define ESG_MIN_BLOCKS(CT) ((CT) > 0 ? 7 : 4)
+// neighbours whose serve fields, or whose whole map rows (W <= 4), are
+// loaded together: four keep every slot instantiation within 72 registers
+// without a spill
+#define ROW_RUN 4
+
+// The flat (level * S + seg) target that slot c asks its neighbours for,
+// slot_target's gi_flat: its stored target while active, else the wish's
+// level at the slot's segment (:882-894).  It reads only slot c's own
+// flight record, so every slot's is known before any slot is finished.
+// slot_target keeps its own copy of this arithmetic: routed through here,
+// select_admit compiled to other code and ran slower on the ring.
+template <int CT>
+__device__ __forceinline__ int target_flat(const Flight<CT>& f,
+                                           const Wish& w, int c, int S) {
+  const int seg = c == 0 ? w.next_seg : min(w.next_seg + c, S - 1);
+  return ((f.active >> c) & 1u) ? f.flat[c] : w.want_level * S + seg;
+}
+
+// Map row p of W <= 4 words, zero past W: one 16-byte load where vec (W
+// = 4 and the map 16-byte aligned), else W 4-byte loads.
+__device__ __forceinline__ uint4 map_row4(const uint32_t* p, int W,
+                                          bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint4 v = make_uint4(__ldg(p), 0u, 0u, 0u);
+  if (W > 1) v.y = __ldg(p + 1);
+  if (W > 2) v.z = __ldg(p + 2);
+  if (W > 3) v.w = __ldg(p + 3);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int wi) {
+  return wi == 0 ? v.x : wi == 1 ? v.y : wi == 2 ? v.z : v.w;
+}
+
 template <bool LIVE, int CT, int POL>
-__global__ void elig_select_gather_kernel(const SelectArgs a) {
+__global__ void __launch_bounds__(ESG_THREADS, ESG_MIN_BLOCKS(CT))
+    elig_select_gather_kernel(const SelectArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
   if (i >= P) return;
   const int C = CT > 0 ? CT : a.n_slots;
   const int K = a.n_offs;
+  const int W = a.n_words;
   const int lane = blockIdx.y;
   const long long lb = (long long)lane * P;  // the lane's first row
   const long long r = lb + i;
@@ -749,51 +800,96 @@ __global__ void elig_select_gather_kernel(const SelectArgs a) {
   load_live<LIVE>(a, lane, r, t, in);
   const Wish w = select_wish<LIVE>(a, lane, in, t);
   // the row's real edges whose holder serves (nbr_valid * present_nbr),
-  // GATHER_RUN neighbours at a time: their loads go out together
+  // ROW_RUN neighbours at a time: their loads go out together (lane-local
+  // ids are 32-bit: in_edges holds i * K + k in an int)
   const int* row = a.neighbors + r * K;
+  const int self = (int)i;
   uint32_t serve_bits = 0u;
-  for (int k0 = 0; k0 < K; k0 += GATHER_RUN) {
-    long long j[GATHER_RUN];
-    float join[GATHER_RUN], leave[GATHER_RUN], ok[GATHER_RUN];
+  for (int k0 = 0; k0 < K; k0 += ROW_RUN) {
+    int j[ROW_RUN];
+    float join[ROW_RUN], leave[ROW_RUN], ok[ROW_RUN];
 #pragma unroll
-    for (int u = 0; u < GATHER_RUN; ++u)
-      j[u] = k0 + u < K ? (long long)__ldg(&row[k0 + u]) : i;
+    for (int u = 0; u < ROW_RUN; ++u)
+      j[u] = k0 + u < K ? __ldg(&row[k0 + u]) : self;
 #pragma unroll
-    for (int u = 0; u < GATHER_RUN; ++u) {
+    for (int u = 0; u < ROW_RUN; ++u) {
       join[u] = leave[u] = ok[u] = 0.0f;
-      if (j[u] != i) {  // a self entry pads the row
+      if (j[u] != self) {  // a self entry pads the row
         join[u] = __ldg(&a.join_s[lb + j[u]]);
         leave[u] = __ldg(&a.leave_s[lb + j[u]]);
         ok[u] = __ldg(&a.p2p_ok[lb + j[u]]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < GATHER_RUN; ++u)
-      if (j[u] != i && t >= join[u] && t < leave[u] && ok[u] > 0.0f)
+    for (int u = 0; u < ROW_RUN; ++u)
+      if (j[u] != self && t >= join[u] && t < leave[u] && ok[u] > 0.0f)
         serve_bits |= 1u << (k0 + u);
+  }
+  // every slot's target word and bit, and its eligible neighbours
+  int flat[SLOT_CAP(CT)];
+  uint32_t elig[SLOT_CAP(CT)];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    flat[c] = target_flat<CT>(f, w, c, a.n_segments);
+    elig[c] = 0u;
+  }
+  if (W <= 4) {
+    const bool vec =
+        W == 4 && (reinterpret_cast<uintptr_t>(a.avail) & 15u) == 0u;
+    for (int k0 = 0; k0 < K; k0 += ROW_RUN) {
+      uint4 rw[ROW_RUN];
+#pragma unroll
+      for (int u = 0; u < ROW_RUN; ++u) {
+        const int k = k0 + u;
+        rw[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (k < K && ((serve_bits >> k) & 1u))
+          rw[u] = map_row4(a.avail + (lb + __ldg(&row[k])) * W, W, vec);
+      }
+#pragma unroll
+      for (int u = 0; u < ROW_RUN; ++u)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if ((word_of(rw[u], flat[c] >> 5) >> (flat[c] & 31)) & 1u)
+            elig[c] |= 1u << (k0 + u);
+    }
+  } else {
+    // src[c]: the first slot whose target shares slot c's word index
+    int src[SLOT_CAP(CT)];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      src[c] = c;
+#pragma unroll
+      for (int o = c - 1; o >= 0; --o)
+        if ((flat[o] >> 5) == (flat[c] >> 5)) src[c] = o;
+    }
+    for (int k0 = 0; k0 < K; k0 += GATHER_RUN) {
+#pragma unroll
+      for (int u = 0; u < GATHER_RUN; ++u) {
+        const int k = k0 + u;
+        if (k >= K || !((serve_bits >> k) & 1u)) continue;
+        const uint32_t* p = a.avail + (lb + __ldg(&row[k])) * W;
+        uint32_t wd[SLOT_CAP(CT)];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (src[c] == c) {
+            wd[c] = __ldg(&p[flat[c] >> 5]);
+          } else {
+            wd[c] = 0u;
+#pragma unroll
+            for (int o = 0; o < c; ++o)
+              if (src[c] == o) wd[c] = wd[o];
+          }
+          if ((wd[c] >> (flat[c] & 31)) & 1u) elig[c] |= 1u << k;
+        }
+      }
+    }
   }
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const Target tg = slot_target<LIVE, CT>(a, r, c, C, in, w, f, t);
-    const uint32_t bm = 1u << tg.bit;
-    uint32_t elig_bits = 0u;
-    for (int k0 = 0; k0 < K; k0 += GATHER_RUN) {
-      uint32_t word[GATHER_RUN];
-#pragma unroll
-      for (int u = 0; u < GATHER_RUN; ++u) {
-        const int k = k0 + u;
-        word[u] = 0u;
-        if (k < K && ((serve_bits >> k) & 1u))
-          word[u] = __ldg(
-              &a.avail[(lb + __ldg(&row[k])) * a.n_words + tg.wi]);
-      }
-#pragma unroll
-      for (int u = 0; u < GATHER_RUN; ++u)
-        if (word[u] & bm) elig_bits |= 1u << (k0 + u);
-    }
     const bool own = own_bit(a, r, C, tg);
     slot_finish<LIVE, CT, POL, true>(a, lane, i, r, c, C, in, w, tg,
-                                     elig_bits, own, true, t, f);
+                                     elig[c], own, true, t, f);
   }
 }
 
@@ -856,55 +952,130 @@ __global__ void admit_service_kernel(const AdmitArgs a) {
 // ---------------------------------------------------------------------------
 // TK2 admit_gather: the general path's admission and service
 //
-// Replaces: swarm_sim.py:1304-1349.  Holder j walks, slot by slot, its
-// inbound edge list in_edges[j] in order (requester-id-major, as the
+// Replaces: swarm_sim.py:1304-1349.  Holder j admits, slot by slot, its
+// inbound edges in_edges[j] in order (requester-id-major, as the
 // reference's cumsum over the row): edge f = i * K + k contributes where
 // requester i's slot c selected its k-th neighbour (req[i, c] == k) and is
 // admitted while the holder's count, across the slots, is below the cap
 // (+inf uncapped).  Then service[j] = uplink * efficiency / max(load, 1).
+//
+// One walk of the row for all slots.  The holder loads its edges up to the
+// run holding the first -1 (the padding trails the row) and, for each real
+// edge, the requester's C entries of req together (12 contiguous bytes at
+// C = 3), and sets bit e of slot c's mask where req[i, c] == k.  Then the
+// admission runs slot by slot from the masks, in edge order within a slot:
+// with cum the count at the slot's start, the set bit of rank n (from 0) is
+// admitted iff cum + n < cap, which is the sequential walk's "admit while
+// cum < cap" (cum counts whole numbers exactly in float32).  A row wider
+// than 32 edges takes one mask word a slot for each 32 edges: its later
+// words are counted in a first walk and built again, chunk by chunk, to
+// write the flags.
 //
 // The admitted flag goes to the requester's side, adm_mask[i, c], which TK3
 // reads: a requester does not know its position in j's row, so it cannot
 // read a holder-indexed mask as on the ring.  The flag has exactly one
 // writer, the one holder that slot selected, so it needs no atomics; it is
 // written wherever req[i, c] >= 0, and TK3 reads it only there, so no pass
-// clears it.  What bounds it: the gathers of req, one 32-byte sector per
-// edge walked, and their latency: GATHER_RUN edges' loads are issued
-// together (req is read-only here, so they may pass the flag stores).
+// clears it.  What bounds it: the gathers of req, one 32-byte sector (two
+// where a requester's C entries straddle one) per edge walked, and their
+// latency: GATHER_RUN edges' loads are issued together (req is read-only
+// here, so they may pass the flag stores).
+
+// Slot c's matches among the 32 edges of the row from e0: bit e - e0 of
+// m[c] where req[i, c] == k for edge e = i * K + k.  Walks GATHER_RUN
+// edges at a time up to the run holding the first -1; returns whether the
+// row goes on past these 32 edges.
 template <int CT>
-__global__ void admit_gather_kernel(const AdmitArgs a) {
+__device__ __forceinline__ bool edge_masks(const AdmitArgs& a,
+                                           const int* edges, long long lb,
+                                           int e0,
+                                           uint32_t (&m)[SLOT_CAP(CT)]) {
+  const int C = CT > 0 ? CT : a.n_slots;
+  const int K = a.n_offs;
+  const int end = min(a.n_in, e0 + 32);
+#pragma unroll
+  for (int c = 0; c < C; ++c) m[c] = 0u;
+  for (int s = e0; s < end; s += GATHER_RUN) {
+    int fl[GATHER_RUN];
+#pragma unroll
+    for (int u = 0; u < GATHER_RUN; ++u)
+      fl[u] = s + u < end ? __ldg(&edges[s + u]) : -1;
+#pragma unroll
+    for (int u = 0; u < GATHER_RUN; ++u) {
+      if (fl[u] < 0) continue;
+      const int i = fl[u] / K;
+      const int k = fl[u] - i * K;
+      const int* rq = a.req + (lb + i) * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (__ldg(&rq[c]) == k) m[c] |= 1u << (s + u - e0);
+    }
+    if (fl[GATHER_RUN - 1] < 0) return false;  // the padding trails the row
+  }
+  return end < a.n_in;
+}
+
+// Writes the flags of the matches m of the 32 edges from e0, each slot's
+// in edge order: admitted iff cur[c] < cap, cur[c] being the slot's count
+// at its start plus the rank of the match, which it advances.
+template <int CT>
+__device__ __forceinline__ void admit_masks(const AdmitArgs& a,
+                                            const int* edges, long long lb,
+                                            int e0,
+                                            const uint32_t (&m)[SLOT_CAP(CT)],
+                                            float (&cur)[SLOT_CAP(CT)]) {
+  const int C = CT > 0 ? CT : a.n_slots;
+  const int K = a.n_offs;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    for (uint32_t rest = m[c]; rest; rest &= rest - 1u) {
+      const int i = __ldg(&edges[e0 + __ffs(rest) - 1]) / K;
+      a.adm_mask[(lb + i) * C + c] = cur[c] < a.cap ? 1 : 0;
+      cur[c] += 1.0f;
+    }
+  }
+}
+
+template <int CT>
+__global__ void __launch_bounds__(BLOCK)
+    admit_gather_kernel(const AdmitArgs a) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long P = a.n_peers;
   if (j >= P) return;
   const int C = CT > 0 ? CT : a.n_slots;
-  const int K = a.n_offs;
   const int lane = blockIdx.y;
   const long long lb = (long long)lane * P;
   const int* edges = a.in_edges + (lb + j) * a.n_in;
+  uint32_t m[SLOT_CAP(CT)];
+  const bool wide = edge_masks<CT>(a, edges, lb, 0, m);
+  // each slot's matches beyond the first 32 edges
+  int more[SLOT_CAP(CT)];
+#pragma unroll
+  for (int c = 0; c < C; ++c) more[c] = 0;
+  if (wide) {
+    bool on = true;
+    for (int e0 = 32; on; e0 += 32) {
+      uint32_t mw[SLOT_CAP(CT)];
+      on = edge_masks<CT>(a, edges, lb, e0, mw);
+#pragma unroll
+      for (int c = 0; c < C; ++c) more[c] += __popc(mw[c]);
+    }
+  }
+  // the load count, slot by slot: cur[c] is the count at slot c's start
   float cum = 0.0f;
+  float cur[SLOT_CAP(CT)];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    // GATHER_RUN edges at a time: their req loads go out together, then
-    // the admission walks them in order
-    for (int e0 = 0; e0 < a.n_in; e0 += GATHER_RUN) {
-      int fl[GATHER_RUN], rq[GATHER_RUN];
-#pragma unroll
-      for (int u = 0; u < GATHER_RUN; ++u)
-        fl[u] = e0 + u < a.n_in ? __ldg(&edges[e0 + u]) : -1;
-#pragma unroll
-      for (int u = 0; u < GATHER_RUN; ++u)
-        rq[u] = fl[u] >= 0 ? __ldg(&a.req[(lb + fl[u] / K) * C + c]) : -1;
-#pragma unroll
-      for (int u = 0; u < GATHER_RUN; ++u) {
-        if (fl[u] < 0) continue;  // the padding trails the row
-        const int i = fl[u] / K;
-        if (rq[u] == fl[u] - i * K) {
-          const bool admit = cum < a.cap;
-          if (admit) cum += 1.0f;
-          a.adm_mask[(lb + i) * C + c] = admit ? 1 : 0;
-        }
-      }
-      if (fl[GATHER_RUN - 1] < 0) break;
+    cur[c] = cum;
+    for (int n = __popc(m[c]) + more[c]; n > 0 && cum < a.cap; --n)
+      cum += 1.0f;
+  }
+  admit_masks<CT>(a, edges, lb, 0, m, cur);
+  if (wide) {
+    bool on = true;
+    for (int e0 = 32; on; e0 += 32) {
+      on = edge_masks<CT>(a, edges, lb, e0, m);
+      admit_masks<CT>(a, edges, lb, e0, m, cur);
     }
   }
   a.service[lb + j] =
@@ -1545,11 +1716,15 @@ extern "C" int swarm_elig_select(const SelectArgs* args, void* stream) {
 template <int CT, int POL>
 static void launch_elig_select_gather_pol(const SelectArgs* a,
                                           cudaStream_t st) {
-  const dim3 grid = grid_for(a->n_peers, a->n_lanes);
+  const dim3 grid((unsigned int)((a->n_peers + ESG_THREADS - 1) /
+                                 ESG_THREADS),
+                  (unsigned int)a->n_lanes);
   if (a->live)
-    elig_select_gather_kernel<true, CT, POL><<<grid, BLOCK, 0, st>>>(*a);
+    elig_select_gather_kernel<true, CT, POL>
+        <<<grid, ESG_THREADS, 0, st>>>(*a);
   else
-    elig_select_gather_kernel<false, CT, POL><<<grid, BLOCK, 0, st>>>(*a);
+    elig_select_gather_kernel<false, CT, POL>
+        <<<grid, ESG_THREADS, 0, st>>>(*a);
 }
 
 template <int CT>
@@ -1773,6 +1948,44 @@ extern "C" int swarm_preload(void) {
   if (e == cudaSuccess) e = preload_slots<3>();
   if (e == cudaSuccess) e = preload_slots<0>();
   return (int)e;
+}
+
+// Resident blocks an SM of a gather kernel's instantiation at the threads
+// a block it launches with (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// for the kernels line of chip_smoke.py: kernel 0 elig_select_gather (pol
+// its POL), 1 admit_gather, 2 peer_update_gather (pol POL_ADAPTIVE: its
+// PEN instantiation).  out[0] the blocks, out[1] the threads a block.
+// Nonzero where the card refuses the query.
+template <int CT>
+static const void* gather_kernel(int kernel, bool live, int pol) {
+  if (kernel == 1) return (const void*)admit_gather_kernel<CT>;
+  if (kernel == 2) {
+    const bool pen = pol == POL_ADAPTIVE;
+    if (live)
+      return pen ? (const void*)peer_update_gather_kernel<true, CT, true>
+                 : (const void*)peer_update_gather_kernel<true, CT, false>;
+    return pen ? (const void*)peer_update_gather_kernel<false, CT, true>
+               : (const void*)peer_update_gather_kernel<false, CT, false>;
+  }
+#define ESG(POL)                                                        \
+  (live ? (const void*)elig_select_gather_kernel<true, CT, POL>         \
+        : (const void*)elig_select_gather_kernel<false, CT, POL>)
+  if (pol == POL_ADAPTIVE) return ESG(POL_ADAPTIVE);
+  if (pol == POL_RANKED) return ESG(POL_RANKED);
+  return ESG(POL_SPREAD);
+#undef ESG
+}
+
+extern "C" int swarm_gather_occupancy(int kernel, int live, int n_slots,
+                                      int pol, int* out) {
+  if (kernel < 0 || kernel > 2 || !slots_ok(n_slots))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = n_slots == 1   ? gather_kernel<1>(kernel, live, pol)
+                   : n_slots == 3 ? gather_kernel<3>(kernel, live, pol)
+                                  : gather_kernel<0>(kernel, live, pol);
+  out[1] = kernel == 0 ? ESG_THREADS : BLOCK;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn,
+                                                            out[1], 0);
 }
 
 // Struct sizes, so the Python side can check its ctypes mirrors.

@@ -138,6 +138,7 @@ def main() -> int:
     ns.update(SIZES, check=check,
               phase_build=lambda: print("[2] build: none on the CPU"),
               registers_of=lambda *args, **kw: "not built",
+              gather_resources=lambda *args, **kw: {},
               regs_of_entry=lambda *args, **kw: "not built",
               phase_real_oom=lambda *a: print(
                   "[20] a real CUDA OOM: needs the card"),

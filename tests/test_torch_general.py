@@ -492,23 +492,37 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("policy,slots,live,cap", [
-    ("spread", 3, False, 2), ("adaptive", 3, False, 2),
-    ("ranked", 3, False, 2), ("adaptive", 1, True, 2),
-    ("ranked", 3, True, 0), ("spread", 16, False, 0)])
+@pytest.mark.parametrize("policy,slots,live,cap,mesh", [
+    ("spread", 3, False, 2, None), ("adaptive", 3, False, 2, None),
+    ("ranked", 3, False, 2, None), ("adaptive", 1, True, 2, None),
+    ("ranked", 3, True, 0, None), ("spread", 16, False, 0, None),
+    ("spread", 3, False, 2, (48, 32)), ("adaptive", 3, False, 1, (48, 32)),
+    ("ranked", 5, True, 2, (48, 32))])
 def test_gather_kernels_match_plain_on_the_card(cuda_device, policy, slots,
-                                                live, cap):
-    """The fixture's cells as lanes of the random mesh at 4,096 peers, 50
-    plain steps in, stepped 40 times by the gather kernels beside the
-    plain step: integer fields and the penalty window equal, floats
-    within 1e-6."""
+                                                live, cap, mesh):
+    """The fixture's cells as lanes of the random mesh at 4,096 peers (or,
+    with ``mesh``, of ``random_neighbors(peers, degree)`` at 48 peers and
+    degree 32, whose inbound rows pass 32 edges: ``admit_gather``'s
+    second mask word), 50 plain steps in, stepped 40 times by the gather
+    kernels beside the plain step: integer fields and the penalty window
+    equal, floats within 1e-6."""
     fixture = np.load(REFERENCE_PREFETCH)
+    peers, degree = mesh or (4096, 8)
     config, scen, _j, _l = prefetch_lanes(
-        fixture, cuda_device, peers=4096, segments=S, watch_s=WATCH_S,
+        fixture, cuda_device, peers=peers, segments=S, watch_s=WATCH_S,
         slots=slots, policy=policy, topology="random",
         max_total_serves=cap)
     config = config._replace(live=live)
-    state = port.init_swarm(config, 8, device=cuda_device, batch=len(CELLS))
+    if mesh:
+        nbr = port.random_neighbors(peers, degree, 0, device=cuda_device)
+        inv = port.invert_neighbors(nbr, device=cuda_device)
+        assert inv.shape[-1] > 32
+        B = len(CELLS)
+        scen = scen._replace(
+            neighbors=nbr.expand(B, *nbr.shape).contiguous(),
+            in_edges=inv.expand(B, *inv.shape).contiguous())
+    state = port.init_swarm(config, degree, device=cuda_device,
+                            batch=len(CELLS))
     for _ in range(50):
         state = sk.plain_step(config, scen, state)
     a, b = port.clone_state(state), port.clone_state(state)

@@ -1,5 +1,6 @@
-"""Time ``select_admit`` as several checkouts build it, on the same states,
-on the card.
+"""Time ``select_admit``, and the general path's ``elig_select_gather``
+and ``admit_gather``, as several checkouts build them, on the same
+states, on the card.
 
 Builds the step source (``csrc/swarm_step.cu``) of this checkout and of
 each ``--other`` checkout into a library of its own, with this checkout's
@@ -9,18 +10,25 @@ plus any ``--define``, all ``nvcc`` runs started together, and binds each
 state, every build's ``select_admit`` is held to ``select_admit_plain``
 (``chip_smoke.compare_select_admit``: integers and the state to the bit)
 and timed with ``chip_smoke.back_to_back`` (200 launches between CUDA
-events), the builds in turns, forward then backward.
+events), the builds in turns, forward then backward.  On a state of the
+general path every build's gather kernels are held to their plain
+versions instead (``chip_smoke.compare_gather``), and
+``elig_select_gather`` and ``admit_gather`` (on the plain selection's
+``req``) are timed the same way.
 The states: the final states of the lane batches that
 ``tools/torch_port_kernel_times.py`` times (the 48-point VOD grid, the live
 grid's first 64 points, the ring's 20 cells under each holder policy),
-reached as replayed CUDA graphs with this checkout's kernels, and the main
-path's ring at 262,144 peers x 256 segments after MAIN_STEPS steps of
+the random half of ``tools/policy_ab.py`` (its 20 cells on the random mesh
+at 262,144 and at 8,192 peers under each holder policy), each reached as
+replayed CUDA graphs with this checkout's kernels, and the main path's
+ring at 262,144 peers x 256 segments after MAIN_STEPS steps of
 ``run_swarm``.  One JSON line a state, after the card's name and power
 limit; each build's registers and spills from ``ptxas`` first.
 
 Run on the card from the root of a checkout:
 ``python3 tools/torch_port_select_admit_ab.py --other DIR [--other DIR ...]
-[--define NAME=VALUE ...] [--only VOD,main]``.
+[--define NAME=VALUE ...] [--only VOD,main]`` (``--only random`` for the
+general path's states alone).
 """
 
 from __future__ import annotations
@@ -61,17 +69,40 @@ def build_all(checkouts, defines, out_dir):
     return built
 
 
+def random_batches(cs, sim, pg):
+    """``(label, config, stacked scenarios)`` of the random half's
+    columns, as ``chip_smoke.py`` phases 28 and 29 build them."""
+    def column(peers, policy):
+        config = pg.random_config(peers, policy=policy)
+        mesh = pg.random_topology(peers, pg.SEED, device="cuda")
+        audience = pg.build_audience(peers, pg.SEED, device="cuda")
+        built = [pg.build_cell_scenario(config, audience,
+                                        uplink_bps=up * 1e6, pattern=pattern,
+                                        wave=wave, watch_s=pg.WATCH_S,
+                                        neighbors=mesh)
+                 for pattern, wave, up in pg.cells()]
+        return config, sim.stack_pytrees([sc for sc, _ in built])
+
+    for peers in (cs.RANDOM_PEERS_LARGE, cs.RANDOM_PEERS):
+        for policy in pg.POLICIES:
+            yield (f"random {policy} grid, 20 lanes x {peers:,}",
+                   lambda n=peers, p=policy: column(n, p))
+
+
 def states(cs, sim, sk, sg, pg, kt, only):
     """``(label, config, scenario, state)`` of each state, built when its
     turn comes."""
+    import itertools
+
     import numpy as np
-    for label, make in kt.batches(cs, sim, sg, pg):
+    for label, make in itertools.chain(kt.batches(cs, sim, sg, pg),
+                                       random_batches(cs, sim, pg)):
         if only and not any(o in label for o in only):
             continue
         config, scenario = make()
         B = scenario.join_s.shape[0]
         n_steps = int(cs.GRID_WATCH_S * 1000.0 / config.dt_ms)
-        init = sim.init_swarm(config, device="cuda", batch=B)
+        init = cs._init(sim, config, scenario, B)
         _wall, _cap, (final, _series) = cs.timed_run(
             sim, sk, config, scenario, init, n_steps, "graph")
         del init, _series
@@ -126,8 +157,10 @@ def main(argv=None) -> int:
         regs = cs.kernel_registers(ln for ln in log
                                    if "ptxas" in ln or "spill" in ln)
         print(json.dumps({"build": label, "select_admit": {
-            k: v for k, v in regs.items() if "select_admit_kernel" in k}}),
-            flush=True)
+            k: v for k, v in regs.items() if "select_admit_kernel" in k},
+            "gather": {k: v for k, v in regs.items()
+                       if "elig_select_gather_kernel" in k
+                       or "admit_gather_kernel" in k}}), flush=True)
     sk.build_kernels()
     own = sk._lib
     current = {"label": "this"}
@@ -140,25 +173,59 @@ def main(argv=None) -> int:
                                                  only):
         sk._lib = chosen
         try:
-            for name in libs:
-                current["label"] = name
-                cs.compare_select_admit(sim, sk, config, scenario, final,
-                                        f"{label}, {name}")
-            ms = {name: [] for name in libs}
-            order = list(libs) + list(libs)[::-1]
-            st = sim.clone_state(final)
-            for name in order:
-                current["label"] = name
-                ms[name].append(cs.back_to_back(
-                    lambda x: sk.select_admit(config, scenario, x), st))
+            ms = (timed_gathers(cs, sim, sk, config, scenario, final, label,
+                                libs, current)
+                  if config.neighbor_offsets is None else
+                  timed_select_admit(cs, sim, sk, config, scenario, final,
+                                     label, libs, current))
         finally:
             sk._lib = own
         lanes = final.t_s.shape[0] if final.t_s.dim() else 1
         print(json.dumps({"state": label, "lanes": lanes, "ms": ms}),
               flush=True)
-        del final, st, scenario
+        del final, scenario
         torch.cuda.empty_cache()
     return 0
+
+
+def timed_select_admit(cs, sim, sk, config, scenario, final, label, libs,
+                       current):
+    """Each build's ``select_admit`` held to its plain version, then
+    timed in turns: ``{build: [ms, ms]}``."""
+    for name in libs:
+        current["label"] = name
+        cs.compare_select_admit(sim, sk, config, scenario, final,
+                                f"{label}, {name}")
+    ms = {name: [] for name in libs}
+    st = sim.clone_state(final)
+    for name in list(libs) + list(libs)[::-1]:
+        current["label"] = name
+        ms[name].append(cs.back_to_back(
+            lambda x: sk.select_admit(config, scenario, x), st))
+    return ms
+
+
+def timed_gathers(cs, sim, sk, config, scenario, final, label, libs,
+                  current):
+    """Each build's gather kernels held to their plain versions, then its
+    ``elig_select_gather`` and ``admit_gather`` (on the plain selection's
+    ``req``) timed in turns: ``{kernel: {build: [ms, ms]}}``."""
+    for name in libs:
+        current["label"] = name
+        cs.compare_gather(sim, sk, config, scenario, final,
+                          f"{label}, {name}")
+    _flags, req = sk.elig_select_plain(config, scenario,
+                                       sim.clone_state(final))
+    calls = {"elig_select_gather":
+             lambda x: sk.elig_select_gather(config, scenario, x),
+             "admit_gather": lambda x: sk.admit_gather(config, scenario, req)}
+    ms = {kernel: {name: [] for name in libs} for kernel in calls}
+    st = sim.clone_state(final)
+    for name in list(libs) + list(libs)[::-1]:
+        current["label"] = name
+        for kernel, fn in calls.items():
+            ms[kernel][name].append(cs.back_to_back(fn, st))
+    return ms
 
 
 if __name__ == "__main__":
