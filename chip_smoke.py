@@ -37,8 +37,9 @@ exits nonzero:
    ``peer_update``: a step is two graph nodes); then,
    from the final state, each kernel against its plain version, each
    pass timed with CUDA events on the main path's route and on the TK1
-   + TK2 route; last (phase 35's children start beside it) the same
-   run on the plain path, its ratios held to the kernels' run's;
+   + TK2 route; last (the children of phases 35 and 38 start beside
+   it) the same run on the plain path, its ratios and offload series
+   held to the kernels' run's;
 6. the port at the committed reference fixture's shape and joins,
    against the JAX reference's final offload and rebuffer ratio;
 7. the batched kernels: four lanes of ``sample_grid(vod_grid(), 4)`` at
@@ -208,7 +209,36 @@ exits nonzero:
    9's to the bit, the journal finalized), and, while the killed one
    sweeps, the warm one on phase 9's root (48 hits, nothing built or
    captured, no kernel launched), each with its wall and its
-   prefilter's seconds.
+   prefilter's seconds;
+36. the flight recorder: phase 9's grid once more through
+   ``run_batch_chunked`` in chunks of 16 with ``trace=`` (a
+   ``FlightRecorder`` on the warm start's registry), ``tracer=`` (a
+   ``SpanRecorder``), one injected transient fault and a fresh row cache
+   and journal: rows equal to phase 9's to the bit, one finalize event a
+   journaled row, the ``dispatch_faults`` and ``aot_cache_events``
+   counters replayed from the shard exactly, the retry's event in its
+   ``(group, chunk, attempt)`` context; then warm: 48 cached row events
+   and no dispatch span, nothing built, captured or launched;
+37. the policy search (``search_eval``, ``engine/search.py``):
+   ``tools/optimize.py``'s halving search with its defaults over the
+   144-point live lattice at 1,048,576 peers × 128 segments × 960
+   steps, in chunks of phase 13's autotuned width,
+   stopped as its second round asks and resumed
+   from its checkpoint in this process; then the same seed on the warm
+   start: the same frontier and trials (``float.hex``), no fresh
+   dispatch, build, capture or launch;
+38. the fabric (``engine/fabric.py``): phase 9's grid shared by three
+   ``testing/fleet_worker.py`` processes (started beside phase 5's plain
+   run, each touching the card only now) through one ``WorkLedger`` in
+   units of 8, each traced and journaled on its own shard: host01
+   SIGKILLed as it claims its second unit, host02 stalled past its lease
+   as it claims its second, so that host00 steals that unit (and
+   host01's) and host02 finishes it second; each unit's dispatch shorter
+   than the lease; the merged rows (the killed host's
+   finalized rows read back from the row cache) equal to phase 9's to the
+   bit, the survivors' ``fabric_claims`` equal to ``fleet_report``'s
+   reading of the claim files, one finalize event a journaled row on
+   every shard, the survivors' counters replayed from their shards.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -279,6 +309,24 @@ WARM_DIR = os.path.join(ROOT, "build", "torch_warm_start")
 #: are journaled by then and chunk 1's are not
 KILL_PLAN = "kill@0:2"
 KILLED_ROWS = 16
+#: phase 36: phase 9's grid again, traced, with one transient fault
+#: injected as chunk 1 dispatches (a retry inside its attempt context)
+TRACE_FAULTS = "transient@0:1x1"
+#: phase 38: three fabric workers (testing/fleet_worker.py) share phase
+#: 9's grid in units of FLEET_CHUNK points, as the reference's fleet gate
+#: runs them: host01 is SIGKILLed as it claims its second unit; host02
+#: sleeps FLEET_STALL_S holding its second claim, whose FLEET_LEASE_S
+#: lease (longer than a unit's dispatch, captures included, with three
+#: hosts on the card) expires so that host00 steals it.  host00 steals
+#: host01's unit too, and the two steals end about a lease and two units
+#: after host02's claim; host02 wakes after that, so that it finishes
+#: its unit second.  (A stall at the first claim would end sooner, but
+#: host02 would then compute and journal nothing.)
+FLEET_HOSTS = ("host00", "host01", "host02")
+FLEET_CHUNK = 8
+FLEET_LEASE_S = 6.0
+FLEET_STALL_S = 10.0
+FLEET_CHAOS = {"host01": "kill@1", "host02": f"stall@1:{FLEET_STALL_S}"}
 #: eager steps at B = 48 traced per kernel from the grid's final state
 #: (a row every GRID_RECORD_EVERY steps), and steps of the TK1 + TK2
 #: route; the grid's direct run is traced whole besides
@@ -1929,13 +1977,14 @@ def phase_main(sim, sk, P, S, T, window):
         f"{library_ms!r} ms")
     run = {"config": config, "scenario": scenario, "state0": state0,
            "join": join, "wall": wall, "offload": offload,
-           "rebuffer": rebuffer}
+           "rebuffer": rebuffer, "series": series}
     return launches, errs, ms, traced_ms, plain_ms, nbytes, library_ms, run
 
 
 def phase_main_plain(sim, sk, run):
     """The main path's whole run again on the plain path, stepped as
-    ``_scan_eager`` steps, its ratios held to the kernels' run's."""
+    ``_scan_eager`` steps, its ratios and offload series held to the
+    kernels' run's."""
     import torch
     config, join, wall = run["config"], run["join"], run["wall"]
     P, T = config.n_peers, STEPS
@@ -1948,12 +1997,15 @@ def phase_main_plain(sim, sk, run):
     torch.cuda.synchronize()
     wall_p = time.perf_counter() - t0
     offload_p, rebuffer_p = _ratios(sim, sim.lane(st, 0), T, dt_s, join)
-    log(f"    plain path on the card (phase 35's children starting beside "
-        f"it): {wall_p:.3f} s ({P * T / wall_p:,.0f} peer-steps/s) vs "
-        f"kernels {wall:.3f} s; offload {offload_p!r}, rebuffer ratio "
-        f"{rebuffer_p!r}")
+    series_err = float((series_p[0] - run["series"]).abs().max())
+    log(f"    plain path on the card (the children of phases 35 and 38 "
+        f"starting beside it): {wall_p:.3f} s ({P * T / wall_p:,.0f} "
+        f"peer-steps/s) vs kernels {wall:.3f} s; offload {offload_p!r}, "
+        f"rebuffer ratio {rebuffer_p!r}, largest offload series "
+        f"difference {series_err!r}")
     check(abs(offload_p - run["offload"]) <= RUN_TOL
-          and abs(rebuffer_p - run["rebuffer"]) <= RUN_TOL,
+          and abs(rebuffer_p - run["rebuffer"]) <= RUN_TOL
+          and series_err <= RUN_TOL,
           "kernels and plain path disagree on the main path's ratios")
 
 
@@ -2296,7 +2348,7 @@ def phase_grid(sim, sk, sg, dp):
     return {"config": config, "scenario": scen48, "final": final48,
             "launches": launches, "wall48": wall48, "wall_eager": wall_e,
             "n_steps": n_steps, "rows": rows, "build": build, "grid": grid,
-            "base": base, "peak": peak}
+            "base": base, "peak": peak, "wall": wall, "wall16": wall16}
 
 
 def grid_meta(sg, grid):
@@ -2307,14 +2359,36 @@ def grid_meta(sg, grid):
 
 
 def start_children():
-    """Phase 35's three children, started ahead of time (each imports
-    torch and the package, then waits for a line on its standard input
-    before it touches the card): the killed, the resumed and the warm
-    sweep."""
+    """Phase 35's three children and phase 38's three fabric workers,
+    started ahead of time (each imports torch and the package, then
+    waits for a line on its standard input before it touches the card):
+    the killed, the resumed and the warm sweep; the hosts of the
+    fabric."""
     import shutil
     shutil.rmtree(WARM_DIR, ignore_errors=True)
-    os.makedirs(WARM_DIR)
+    os.makedirs(os.path.join(WARM_DIR, "fleet"))
     children = {}
+    fleet = os.path.join(WARM_DIR, "fleet")
+    for host in FLEET_HOSTS:
+        cmd = [sys.executable, "-m", f"{PACKAGE}.testing.fleet_worker",
+               "--fabric", os.path.join(fleet, "fabric"),
+               "--root", os.path.join(fleet, "root"),
+               "--trace-dir", os.path.join(fleet, "trace"),
+               "--host-id", host, "--lease-s", str(FLEET_LEASE_S),
+               "--barrier", str(len(FLEET_HOSTS)),
+               "--out", os.path.join(fleet, f"{host}.npz"),
+               "--peers", str(GRID_PEERS), "--segments", str(GRID_SEGMENTS),
+               "--watch-s", str(GRID_WATCH_S),
+               "--stagger-s", str(GRID_STAGGER_S),
+               "--record-every", str(GRID_RECORD_EVERY),
+               "--chunk", str(FLEET_CHUNK), "--device", "cuda", "--wait"]
+        if host in FLEET_CHAOS:
+            cmd += ["--chaos", FLEET_CHAOS[host]]
+        err = open(os.path.join(WARM_DIR, f"{host}.err"), "w")
+        children[host] = subprocess.Popen(
+            cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        err.close()
     for name, root, extra in (("killed", "B", ("--inject-faults",
                                                KILL_PLAN)),
                               ("resumed", "B", ("--resume",)),
@@ -4136,6 +4210,395 @@ def phase_degenerate(sim, sg, dp):
         f"audience's")
 
 
+def _hexed(obj):
+    """A tree with every float as ``float.hex``: equality to the bit."""
+    if isinstance(obj, float):
+        return obj.hex()
+    if isinstance(obj, dict):
+        return {k: _hexed(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_hexed(v) for v in obj]
+    return obj
+
+
+def phase_traced_grid(sg, dp, sk, g9):
+    """Phase 9's grid through ``run_batch_chunked`` once more, in chunks
+    of 16, with the flight recorder (``trace=``, on the warm start's
+    registry), a ``SpanRecorder`` (``tracer=``), a fault plan that
+    retries chunk 1 once, and a row cache and journal of its own: rows
+    equal to phase 9's to the bit, one finalize event a journaled row,
+    the fault and cache counters replayed from the shard exactly; then
+    the same grid warm: 48 cached row events, no dispatch span."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import (
+        CompileCounter, SweepJournal, WarmStart, journal_path)
+    from hlsjs_p2p_wrapper_tpu_torch.engine.faults import (FaultPlan,
+                                                           FaultPolicy)
+    from hlsjs_p2p_wrapper_tpu_torch.engine.telemetry import SpanRecorder
+    from hlsjs_p2p_wrapper_tpu_torch.engine.tracer import (
+        FlightRecorder, counter_families, finalize_keys, read_shard,
+        replay_counter_families, run_id_for)
+    config, grid, build = g9["config"], g9["grid"], g9["build"]
+    n_steps, want = g9["n_steps"], g9["rows"]
+    meta = grid_meta(sg, grid)
+    warm = WarmStart(os.path.join(WARM_DIR, "C"))
+    walls, shards, spans = [], [], []
+    for run in ("traced", "warm"):
+        rec = FlightRecorder(os.path.join(WARM_DIR, "trace36", run),
+                             "host00", run_id=run_id_for(meta),
+                             registry=warm.registry)
+        spans.append(SpanRecorder())
+        faults = FaultPolicy(FaultPlan.parse(TRACE_FAULTS)
+                             if run == "traced" else None,
+                             registry=warm.registry)
+        probe = CompileCounter().attach()
+        launches = dict(sk.LAUNCHES)
+        with SweepJournal(journal_path(warm.cache_dir, meta), meta,
+                          resume=run == "warm") as journal:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = dp.run_batch_chunked(
+                config, grid, build, n_steps, watch_s=GRID_WATCH_S,
+                chunk=GRID_CHUNK, record_every=GRID_RECORD_EVERY,
+                warm_start=warm, faults=faults, journal=journal, trace=rec,
+                tracer=spans[-1])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            journal.finalize()
+            journaled = set(journal.completed)
+        probe.detach()
+        rec.close()
+        check(_rows_hex_equal(rows, want),
+              f"[36] the {run} grid's rows differ from phase 9's")
+        shards.append(read_shard(rec.path)[1])
+    events, warm_events = shards
+    finals = finalize_keys(events)
+    check(len(journaled) == len(grid) and sorted(finals) == sorted(journaled)
+          and set(finals.values()) == {1},
+          f"[36] {len(journaled)} journaled rows, finalize events "
+          f"{sorted(set(finals.values()))} for {len(finals)} keys")
+    replay = replay_counter_families(events + warm_events)
+    families = counter_families(warm.registry)
+    check(all(replay[f] == families[f]
+              for f in ("dispatch_faults", "aot_cache_events"))
+          and families["dispatch_faults"] == {
+              "action=retry,reason=transient": 1},
+          f"[36] replayed {json.dumps(replay)} against the registry's "
+          f"{json.dumps(families)}")
+    retry = [e.get("ctx") for e in events if e["kind"] == "counter"
+             and e["name"] == "dispatch_faults"]
+    check(retry == [{"group": 0, "chunk": 1, "attempt": 0}],
+          f"[36] the retry's context {retry}")
+    n_chunks = -(-len(grid) // GRID_CHUNK)
+    names = [s["name"] for s in spans[0].spans]
+    check(sorted(names) == sorted(["build", "dispatch", "readback"]
+                                  * n_chunks)
+          and sorted(e["name"] for e in events if e["kind"] == "span")
+          == sorted(names), f"[36] spans {names}")
+    warm_rows = [e for e in warm_events if e["kind"] == "row"]
+    check(len(warm_rows) == len(grid) and all(e["cached"]
+                                              for e in warm_rows)
+          and not any(e["kind"] == "span" for e in warm_events)
+          and not spans[1].by_name().get("dispatch")
+          and probe.compiles == 0
+          and all(sk.LAUNCHES[k] == launches[k] for k in launches),
+          f"[36] the warm rerun: {len(warm_rows)} row events, spans "
+          f"{[s['name'] for s in spans[1].spans]}, {probe.builds} builds, "
+          f"{probe.captures} captures")
+    span_s = {name: round(sum(s["duration_s"] for s in group), 4)
+              for name, group in spans[0].by_name().items()}
+    log(f"[36] phase 9's grid ({len(grid)} points x {GRID_PEERS:,} peers x "
+        f"{GRID_SEGMENTS} segments x {n_steps} steps, chunks of "
+        f"{GRID_CHUNK}) traced (trace= a FlightRecorder on the warm start's "
+        f"registry, tracer= a SpanRecorder), {TRACE_FAULTS} injected, a "
+        f"fresh root and journal: wall {walls[0]!r} s (phase 9: autotuned "
+        f"{g9['wall']!r} s, chunk {GRID_CHUNK} with a warm start "
+        f"{g9['wall16']!r} s); rows equal phase 9's to the bit; "
+        f"{len(events)} events, {len(finals)} finalize events for "
+        f"{len(journaled)} journaled rows (one each); counters replayed "
+        f"exactly {json.dumps(families)}; span seconds "
+        f"{json.dumps(span_s)}")
+    log(f"    warm rerun (trace= and tracer= on): {walls[1]!r} s, "
+        f"{len(warm_rows)} cached row events, no dispatch span, "
+        f"{probe.builds} builds, {probe.captures} captures, no launch; "
+        f"rows equal phase 9's to the bit")
+    return {"walls": walls, "events": len(events)}
+
+
+def phase_search(sk, chunk):
+    """``tools/optimize.py``'s halving search on the port
+    (``search_eval``) with the tool's defaults (budget 64, 2 rungs, eta
+    6, screens at a quarter of the watch window, rebuffer <= 0.02, seed
+    0) over the live lattice at the sweep's shapes, in chunks of
+    ``chunk`` (phase 13's autotuned width for the live grid): run
+    and stopped as its second round asks (a checkpoint after round 1),
+    resumed in this process to the end; then the same seed again on the
+    warm start, which gives the same frontier (``float.hex``) with no
+    fresh dispatch, no build, no capture and no launch."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch import search_eval as se
+    from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import (
+        CompileCounter, SweepJournal, WarmStart, journal_path)
+    from hlsjs_p2p_wrapper_tpu_torch.engine.faults import FaultPolicy
+    from hlsjs_p2p_wrapper_tpu_torch.engine.search import (
+        Constraint, PolicySearch, scrub_provenance, search_checkpoint_path)
+    args = se.search_args(peers=GRID_PEERS, segments=GRID_SEGMENTS,
+                          watch_s=GRID_WATCH_S, chunk=chunk)
+    space, constraint = se.live_space(), Constraint.parse(args.constraint)
+    meta = se.search_meta(args, space, constraint)
+    root = os.path.join(WARM_DIR, "D")
+    warm = WarmStart(root)
+    ckpt = search_checkpoint_path(root, meta)
+
+    class Stop(Exception):
+        pass
+
+    def search(journal, stop_at=None):
+        evaluator = se.Evaluator(
+            space, peers=args.peers, segments=args.segments,
+            watch_s=args.watch_s, seed=args.seed, chunk=args.chunk,
+            warm_start=warm, faults=FaultPolicy(registry=warm.registry),
+            journal=journal, device="cuda")
+
+        def evaluate(proposals, round_index):
+            if round_index == stop_at:
+                raise Stop
+            return evaluator(proposals, round_index)
+        return PolicySearch(se.build_driver(args, space, constraint),
+                            evaluate, constraint, budget=args.budget,
+                            batch=args.batch, registry=warm.registry,
+                            checkpoint_path=ckpt, checkpoint_meta=meta)
+
+    walls = []
+    jpath = journal_path(root, meta)
+    with SweepJournal(jpath, meta) as journal:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stopped = search(journal, stop_at=1)
+        try:
+            stopped.run()
+            check(False, "[37] the search did not reach its second round")
+        except Stop:
+            pass
+        walls.append(time.perf_counter() - t0)
+        resumed = search(journal)
+        check(resumed.resume() and resumed.round == 1,
+              f"[37] the checkpoint holds round {resumed.round}")
+        first = resumed.run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        journal.finalize()
+        n_journaled = len(journal.completed)
+    probe = CompileCounter().attach()
+    launches = dict(sk.LAUNCHES)
+    with SweepJournal(jpath, meta) as journal:
+        t0 = time.perf_counter()
+        again = search(journal).run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    probe.detach()
+    rounds, rounds2 = first["rounds"], again["rounds"]
+    fresh = sum(r["fresh_dispatches"] for r in rounds)
+    cached = sum(r["row_cache_hits"] for r in rounds)
+    fresh2 = sum(r["fresh_dispatches"] for r in rounds2)
+    cached2 = sum(r["row_cache_hits"] for r in rounds2)
+    n_trials = len(first["trials"])
+    frontier = _hexed(scrub_provenance(first["frontier"]))
+    check(first["frontier"]["best"] is not None and n_trials > 144
+          and fresh == n_trials == n_journaled and not first["truncated"]
+          and first["frontier"]["failed"] == 0,
+          f"[37] the search: {n_trials} trials, {fresh} fresh, "
+          f"{n_journaled} journaled, best {first['frontier']['best']}")
+    check(_hexed(scrub_provenance(again["frontier"])) == frontier
+          and _hexed(scrub_provenance(again["trials"]))
+          == _hexed(scrub_provenance(first["trials"])),
+          "[37] the same-seed rerun's frontier differs")
+    check(fresh2 == 0 and cached2 == n_trials and probe.builds == 0
+          and probe.captures == 0
+          and all(sk.LAUNCHES[k] == launches[k] for k in launches),
+          f"[37] the warm rerun: {fresh2} fresh, {cached2} cached, "
+          f"{probe.builds} builds, {probe.captures} captures")
+    best = first["frontier"]["best"]
+    table = [[r["proposals"], r["cost"], r["fresh_dispatches"],
+              r["row_cache_hits"], r["infeasible"]] for r in rounds]
+    log(f"[37] tools/optimize.py's halving search (search_eval, budget "
+        f"{args.budget:g}, {args.rungs} rungs, eta {args.eta:g}, screens at "
+        f"{args.screen_fidelity:g}, {args.constraint}, seed {args.seed}) "
+        f"over the {len(se.live_lattice())}-point live lattice at "
+        f"{GRID_PEERS:,} peers x {GRID_SEGMENTS} segments x "
+        f"{GRID_WATCH_S:g} s, chunks of {args.chunk} (phase 13's "
+        f"autotuned width): stopped as round 2 "
+        f"asked ({walls[0]!r} s, checkpointed), resumed in this process "
+        f"(whole {walls[1]!r} s); rounds {json.dumps(table)} "
+        f"(proposals, cost, fresh, cached, infeasible); {n_trials} trials, "
+        f"spent {first['spent']}, {first['frontier']['feasible']} "
+        f"feasible; best offload {best['offload']!r} rebuffer "
+        f"{best['rebuffer']!r} at {json.dumps(best['knobs'])}")
+    log(f"    same seed on the warm start: {walls[2]!r} s, {fresh2} fresh "
+        f"dispatches, {cached2} row-cache hits, {probe.builds} builds, "
+        f"{probe.captures} captures, no launch; frontier and trials equal "
+        f"to the bit (float.hex, provenance aside), and the resumed "
+        f"search's frontier is the uninterrupted one's")
+    return {"walls": walls, "trials": n_trials}
+
+
+def phase_fleet(sg, g9, children):
+    """Phase 9's grid shared by three fabric workers on this card: one
+    SIGKILLed as it claims its second unit, one stalled past its lease
+    so that another steals its unit, each with its own trace shard and
+    journal shard.  Their rows, with the killed host's finalized rows
+    read back from the row cache, equal phase 9's to the bit; the claim
+    files agree with the registries; every journaled row has one
+    finalize event in its host's shard; each survivor's counters replay
+    from its shard."""
+    import signal
+
+    import numpy as np
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import (
+        WarmStart, journal_path, read_jsonl_tolerant)
+    from hlsjs_p2p_wrapper_tpu_torch.engine.fabric import fleet_report
+    from hlsjs_p2p_wrapper_tpu_torch.engine.tracer import (
+        finalize_keys, read_shard, replay_counter_families)
+    fleet = os.path.join(WARM_DIR, "fleet")
+    grid, want = g9["grid"], g9["rows"]
+    meta = grid_meta(sg, grid)
+    # the card's cached free memory back, for three more processes
+    torch.cuda.empty_cache()
+    t_go = {}
+    for host in FLEET_HOSTS:
+        _ready, t_go[host] = _child_go(host, children[host])
+    t0 = min(t_go.values())
+    ends = {}
+    for host in FLEET_HOSTS:
+        rc, records, _w = _child_end(host, children[host], t_go[host])
+        ends[host] = (rc, records)
+    wall = time.perf_counter() - t0
+    killed, survivors = "host01", ("host00", "host02")
+    check(ends[killed][0] == -signal.SIGKILL, _child_failure(
+        killed, children[killed], f"did not die by SIGKILL "
+                                  f"({ends[killed][0]})"))
+    out = {}
+    for host in survivors:
+        rc, records = ends[host]
+        check(rc == 0 and records and "claims" in records[-1],
+              _child_failure(host, children[host], "failed"))
+        out[host] = records[-1]
+    with open(os.path.join(fleet, "fabric", "units.json")) as fh:
+        units = json.load(fh)["units"]
+    # rows: the survivors' by grid index (a unit both computed must
+    # agree to the bit), the killed host's from the row cache by the keys
+    # its journal holds, placed by its finalize events
+    merged = {}
+    for host in survivors:
+        with np.load(os.path.join(fleet, f"{host}.npz")) as data:
+            for i, o, r, tl in zip(data["index"], data["offload"],
+                                   data["rebuffer"], data["timeline"]):
+                row = (float(o), float(r), tl)
+                if int(i) in merged:
+                    check(_rows_hex_equal([row], [merged[int(i)]]),
+                          f"[38] point {int(i)} differs between hosts")
+                merged[int(i)] = row
+    shards = {h: read_shard(os.path.join(fleet, "trace", f"{h}.jsonl"))
+              for h in FLEET_HOSTS}
+    warm = WarmStart(os.path.join(fleet, "root"))
+    journaled = {}
+    for host in FLEET_HOSTS:
+        journaled[host] = [r["key"] for r in read_jsonl_tolerant(
+            journal_path(warm.cache_dir, meta, host))
+            if r.get("kind") == "row"]
+        finals = finalize_keys(shards[host][1])
+        check(journaled[host] and sorted(finals) == sorted(journaled[host])
+              and set(finals.values()) == {1},
+              f"[38] {host}: {len(journaled[host])} journaled rows, "
+              f"finalize events {finals}")
+    recovered = 0
+    for e in shards[killed][1]:
+        if e["kind"] == "row" and e.get("journaled"):
+            index = units[e["ctx"]["unit"]][2] + e["index"]
+            row = warm.row_load(e["key"])
+            check(row is not None, f"[38] the killed host's row {index} "
+                                   f"is not in the row cache")
+            if index not in merged:
+                recovered += 1
+            else:
+                check(_rows_hex_equal([row], [merged[index]]),
+                      f"[38] point {index} differs between hosts")
+            merged[index] = row
+    check(sorted(merged) == list(range(len(grid)))
+          and _rows_hex_equal([merged[i] for i in range(len(grid))], want),
+          f"[38] the fleet's {len(merged)} rows differ from phase 9's")
+    check(recovered > 0, "[38] no row came back from the row cache alone")
+    report = fleet_report(os.path.join(fleet, "fabric"))
+    totals = {k: v for k, v in report.items() if k != "units_detail"}
+    counted = {a: sum(out[h]["claims"].get(a, 0) for h in survivors)
+               for a in ("steal", "expire", "duplicate")}
+    check(report["finished"] == report["units"] == len(units)
+          and report["steals"] >= 1 and report["claim_races"] == 0
+          and (counted["steal"], counted["expire"], counted["duplicate"])
+          == (report["steals"], report["expires"], report["duplicates"])
+          and all(len(u["done"]) <= len(u["gens"])
+                  for u in report["units_detail"]),
+          f"[38] claim files {json.dumps(totals)}, registries {counted}")
+    # each unit's dispatch, heartbeat to heartbeat (run_units beats just
+    # before and just after it), against the lease; and the steals, in
+    # seconds from the first lease event of the fleet
+    leases = [(h, e) for h, (_m, events) in shards.items() for e in events
+              if e["kind"] == "lease"]
+    t_first = min(e["t"] for _h, e in leases)
+    beats, steals = {}, []
+    for host, e in leases:
+        if e["action"] == "beat":
+            beats.setdefault((host, e["unit"], e["gen"]), []).append(e["t"])
+        elif e["action"] == "steal":
+            steals.append({"host": host, "unit": e["unit"],
+                           "from": e.get("prev_host"),
+                           "at_s": round(e["t"] - t_first, 3)})
+    dispatch_s = {f"{h} unit {u}": round(ts[-1] - ts[0], 3)
+                  for (h, u, _g), ts in sorted(beats.items())
+                  if len(ts) == 2}
+    check(dispatch_s and max(dispatch_s.values()) < FLEET_LEASE_S,
+          f"[38] a unit's dispatch outlasted the {FLEET_LEASE_S:g}-s "
+          f"lease: {json.dumps(dispatch_s)}")
+    stalled = [st for st in steals if st["from"] == "host02"]
+    check(len(stalled) == 1 and stalled[0]["host"] != "host02",
+          f"[38] the stalled host's unit was not stolen: steals "
+          f"{json.dumps(steals)}")
+    run_ids = {m.get("run_id") for m, _e in shards.values()}
+    check(len(run_ids) == 1, f"[38] run ids {run_ids}")
+    for host in survivors:
+        replay = replay_counter_families(shards[host][1])
+        check(replay == out[host]["counters"] and out[host]["builds"] == 0,
+              f"[38] {host}: replayed {json.dumps(replay)}, registry "
+              f"{json.dumps(out[host]['counters'])}, builds "
+              f"{out[host]['builds']}")
+    n_events = sum(len(events) for _meta, events in shards.values())
+    log(f"[38] phase 9's grid ({len(grid)} points x {GRID_PEERS:,} peers x "
+        f"{GRID_SEGMENTS} segments x {g9['n_steps']} steps) on one card by "
+        f"{len(FLEET_HOSTS)} fabric workers (testing/fleet_worker.py, "
+        f"started beside phase 5), {len(units)} units of {FLEET_CHUNK}, "
+        f"lease {FLEET_LEASE_S:g} s, {json.dumps(FLEET_CHAOS)}: wall "
+        f"{wall!r} s from the go to the last exit (the survivors' go to "
+        f"exit {json.dumps({h: round(out[h]['go_s'], 3) for h in survivors})}"
+        f" s, of it in run_units "
+        f"{json.dumps({h: round(out[h]['wall_s'], 3) for h in survivors})}"
+        f" s); each unit's dispatch, beat to beat (s) "
+        f"{json.dumps(dispatch_s)}; steals {json.dumps(steals)}")
+    log(f"    host01 died by SIGKILL ({len(journaled[killed])} rows "
+        f"journaled, {recovered} served only from the row cache); claim "
+        f"files: {report['claims']} claims, {report['steals']} steals, "
+        f"{report['expires']} expiries, {report['duplicates']} "
+        f"duplicates, equal to the survivors' fabric_claims "
+        f"{json.dumps({h: out[h]['claims'] for h in survivors})}; "
+        f"merged rows equal phase 9's to the bit; {n_events} events, "
+        f"one finalize event a journaled row on every shard, the "
+        f"survivors' counters replayed exactly; builds "
+        f"{[out[h]['builds'] for h in survivors]}, captures "
+        f"{[out[h]['captures'] for h in survivors]}, row events "
+        f"{json.dumps({h: out[h]['row'] for h in survivors})}")
+    return {"wall": wall, "report": report}
+
+
 def _resources(res, name, live, slots, policy):
     """:func:`gather_resources`' entry of the instantiation that ``name``
     launches for ``policy`` (admit_gather has one a slot count,
@@ -4264,6 +4727,9 @@ def main() -> int:
         cohorts = phase_cohort_rows(sim, sk, mixture)
         del mixture["scenario"], mixture["final"]
         phase_degenerate(sim, sg, dp)
+        phase_traced_grid(sg, dp, sk, grid)
+        phase_search(sk, live_grid["chunk"])
+        phase_fleet(sg, grid, children)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

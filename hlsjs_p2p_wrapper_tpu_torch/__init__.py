@@ -11,9 +11,12 @@ It covers the circulant path (``ops/swarm_sim.py``), VOD and live: up
 to 16 transfer slots (prefetches), ``"spread"`` holder selection, an
 admission cap, for one scenario or a stacked batch of scenario lanes,
 with the metrics timeline and the chunked grid dispatch with its fault
-plane, its row cache and its crash-safe journal (``ops/dispatch.py``,
-``engine/faults.py``, ``engine/artifact_cache.py``; the grids of
-``sweep_grid.py`` and ``policy_grid.py``).  The step and its per-lane
+plane, its row cache, its crash-safe journal and its flight recorder
+(``ops/dispatch.py``, ``engine/faults.py``, ``engine/artifact_cache.py``,
+``engine/tracer.py``; the grids of ``sweep_grid.py`` and
+``policy_grid.py``), the closed-loop policy search (``engine/search.py``,
+``search_eval.py``) and the multi-host sweep fabric
+(``engine/fabric.py``).  The step and its per-lane
 reductions run on the card as hand-written ``sm_90a`` kernels
 (``ops/swarm_kernels.py``, ``csrc/``).  Entry points run on the card
 unless the caller passes ``device="cpu"``.

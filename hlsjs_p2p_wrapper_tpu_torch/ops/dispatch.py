@@ -1,7 +1,8 @@
 """The chunked, pipelined dispatch of scenario grids: the reference's
 ``RowEvent``, ``stream_groups_chunked``, ``run_groups_chunked`` and
 ``run_batch_chunked`` (``ops/swarm_sim.py`` :1935-2478), with its fault
-plane, its row cache and its crash-safe journal.
+plane, its row cache, its crash-safe journal and its tracing hooks
+(``_span`` and ``_trace_ctx``, :1782-1798).
 
 A grid is one or more groups of ``(config, items, build)``: one static
 config per group, and ``build(item)`` makes one item's ``(scenario,
@@ -54,6 +55,24 @@ opening its journal with ``resume=True`` and the row cache serves what
 it finished.  The journal records keys and the row cache holds the
 values: a ``journal`` without the row cache records nothing.
 
+Tracing (``tracer``, ``trace``; both duck-typed and off by default):
+``tracer`` (``engine.telemetry.SpanRecorder`` or anything with
+``.span(name, **attrs)``) gets a ``build``, a ``dispatch`` and a
+``readback`` span of each chunk, tagged ``group`` and ``chunk``.
+``trace`` (``engine.tracer.FlightRecorder``) gets the same spans, one
+``row`` event a row (a cache hit's before any dispatch, ``cached=True``;
+a drained row's with ``journaled=True`` exactly when the journal is
+about to record its key for the first time: that row's one finalize
+event), and a ``(group, chunk, attempt)`` context around each dispatch
+attempt, so the counter bumps the recorder hears from the fault policy
+and the warm start inside an attempt carry its coordinates.  The
+recorder is flushed before ``journal.record_rows`` (a journaled row's
+finalize event is durable before the journal's fsync) and once more at
+the end of the stream.  Spans wrap whole dispatches (graph captures and
+replays included) and readbacks on the host's clock, never the inside
+of a capture.  With both None nothing of this runs: no event objects
+and no synchronization.
+
 What differs from the reference, and why:
 
 - no padding of a short chunk.  The reference repeats the last scenario
@@ -73,13 +92,12 @@ What differs from the reference, and why:
   (``ops/swarm_kernels.py``);
 - a warm start has no executables to serve (PyTorch has no serialized
   executable): its ``layer="executable"`` counts the kernel libraries'
-  checks and builds instead (``engine/artifact_cache.py``);
-- tracing is not ported: a ``trace`` or ``tracer`` other than None
-  raises ``NotImplementedError`` (ROADMAP queue 1 item 8).
+  checks and builds instead (``engine/artifact_cache.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple, Optional
 
@@ -89,12 +107,6 @@ from . import _build
 from .swarm_sim import (autotune_chunk, init_swarm, note_oom_bisection,
                         offload_ratio_batch, rebuffer_ratio_batch,
                         run_swarm_batch, stack_pytrees)
-
-#: the dispatch options the port does not take yet, and the ROADMAP
-#: queue 1 item that brings each
-_NOT_PORTED = {"trace": "item 8 (the flight recorder)",
-               "tracer": "item 8 (dispatch spans)"}
-
 
 class RowEvent(NamedTuple):
     """One completed (or failed) sweep row, streamed out of
@@ -113,12 +125,21 @@ class RowEvent(NamedTuple):
     error: Optional[str] = None
 
 
-def _refuse_unported(**options) -> None:
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"dispatch option {name!r} is not ported yet (ROADMAP "
-                f"queue 1 {_NOT_PORTED[name]})")
+def _span(tracer, name: str, **attrs):
+    """A span of dispatch tracing (duck-typed: anything with
+    ``.span(name, **attrs)``, a ``SpanRecorder`` or a
+    ``FlightRecorder``), or nothing when tracing is off."""
+    if tracer is None:
+        return contextlib.nullcontext()
+    return tracer.span(name, **attrs)
+
+
+def _trace_ctx(trace, **fields):
+    """A context frame of the flight recorder (duck-typed: anything
+    with ``.context(**fields)``), or nothing when tracing is off."""
+    if trace is None:
+        return contextlib.nullcontext()
+    return trace.context(**fields)
 
 
 def _release_cache(built) -> None:
@@ -146,20 +167,19 @@ def stream_groups_chunked(groups, n_steps: int, *, watch_s: float,
     was sized), ``chunks``, ``row_hits`` (0: no row cache),
     ``first_dispatch_s``, ``failures``); the dicts keep updating as the
     stream advances.  See the module docstring for ``faults``,
-    ``warm_start``, ``journal``, ``exact_chunk`` and the unported
-    options, which are checked here, before the first row is asked
-    for."""
-    _refuse_unported(tracer=tracer, trace=trace)
+    ``warm_start``, ``journal``, ``exact_chunk``, ``tracer`` and
+    ``trace``."""
     return _stream(groups, n_steps, watch_s=watch_s, chunk=chunk,
                    record_every=record_every, pipeline=pipeline,
                    interleave=interleave, faults=faults,
                    warm_start=warm_start, journal=journal,
-                   stats_out=stats_out, exact_chunk=exact_chunk)
+                   stats_out=stats_out, exact_chunk=exact_chunk,
+                   tracer=tracer, trace=trace)
 
 
 def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
             interleave, faults, warm_start, journal, stats_out,
-            exact_chunk):
+            exact_chunk, tracer, trace):
     """The engine, with the warm start listening to the kernel
     libraries' events while it runs."""
     observe = warm_start is not None and warm_start.aot_enabled
@@ -170,7 +190,8 @@ def _stream(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
             groups, n_steps, watch_s=watch_s, chunk=chunk,
             record_every=record_every, pipeline=pipeline,
             interleave=interleave, faults=faults, warm_start=warm_start,
-            journal=journal, stats_out=stats_out, exact_chunk=exact_chunk))
+            journal=journal, stats_out=stats_out, exact_chunk=exact_chunk,
+            tracer=tracer, trace=trace))
     finally:
         if observe:
             _build.unlisten(warm_start)
@@ -197,7 +218,7 @@ def _prefilter(gi, config, items, build, warm_start, n_steps, watch_s,
 
 def _engine(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
             interleave, faults, warm_start, journal, stats_out,
-            exact_chunk):
+            exact_chunk, tracer, trace):
     rows_on = warm_start is not None and warm_start.rows_enabled
     hit_events = []
     prepared = []
@@ -235,7 +256,11 @@ def _engine(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
     if stats_out is not None:
         stats_out.extend(stats)
     # hits are already durable in the row cache: they stream first
-    yield from hit_events
+    for event in hit_events:
+        if trace is not None:
+            trace.row(event.key, group=event.group, index=event.index,
+                      cached=True)
+        yield event
 
     starts = [list(range(0, len(keep), batch)) if keep else []
               for _, _, _, batch, keep, _ in prepared]
@@ -279,8 +304,11 @@ def _engine(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
         "error"}`` for lanes whose budget ran out."""
         attempt = 0
         while True:
-            result = attempt_once(gi, ci, config, built, start, block,
-                                  attempt)
+            # the attempt, its recovery and the counters they bump carry
+            # the attempt's coordinates
+            with _trace_ctx(trace, group=gi, chunk=ci, attempt=attempt):
+                result = attempt_once(gi, ci, config, built, start, block,
+                                      attempt)
             if result is not None:
                 return result
             attempt += 1
@@ -328,61 +356,77 @@ def _engine(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
                 for lane, (o, r) in enumerate(zip(offs, rebs))]
 
     def drain(gi, ci, idxs, keys, config, built, segments, failures):
-        """The chunk's rows, then its failed items, as events.  With a
-        row cache each row is stored; with a journal too, the chunk's
-        stored keys are journaled under one fsync."""
-        events = []
-        journaled = []
-        work = list(segments)
-        while work:
-            start, n, *out = work.pop(0)
-            try:
-                out = readback(*out)
-            except Exception as exc:  # fault-ok: classified — an
-                # unrecognized readback failure re-raises
-                reason = faults.classify(exc) if faults is not None \
-                    else None
-                if reason is None:
-                    raise
-                # an asynchronous fault surfacing at readback: count it,
-                # then re-dispatch the segment through the same
-                # recovery, blocking
-                faults.record(reason, "retry")
-                resegs, refails = resilient(gi, ci, config,
-                                            built[start:start + n], start,
-                                            True)
-                work = resegs + work
-                failures = failures + refails
-                continue
-            for pos, metric in enumerate(out):
-                key = None if keys is None else keys[start + pos]
-                if key is not None:
-                    warm_start.row_store(key, metric)
-                    if journal is not None:
-                        journaled.append(key)
-                events.append(RowEvent(gi, idxs[start + pos], metric,
-                                       key=key))
-        if journaled:
-            journal.record_rows(journaled)
-        for failure in failures:
-            items = [idxs[failure["offset"] + j]
-                     for j in range(failure["count"])]
-            stats[gi]["failures"].append({"items": items,
-                                          "reason": failure["reason"],
-                                          "error": failure["error"]})
-            events.extend(RowEvent(gi, i, None, reason=failure["reason"],
-                                   error=failure["error"]) for i in items)
-        return events
+        """The chunk's rows, then its failed items, as events, under the
+        chunk's readback span.  With a row cache each row is stored; with
+        a journal too, the chunk's stored keys are journaled under one
+        fsync, after the recorder's flush."""
+        with _span(tracer, "readback", group=gi, chunk=ci), \
+                _span(trace, "readback", group=gi, chunk=ci):
+            events = []
+            journaled = []
+            work = list(segments)
+            while work:
+                start, n, *out = work.pop(0)
+                try:
+                    out = readback(*out)
+                except Exception as exc:  # fault-ok: classified — an
+                    # unrecognized readback failure re-raises
+                    reason = faults.classify(exc) if faults is not None \
+                        else None
+                    if reason is None:
+                        raise
+                    # an asynchronous fault surfacing at readback: count it,
+                    # then re-dispatch the segment through the same
+                    # recovery, blocking
+                    faults.record(reason, "retry")
+                    resegs, refails = resilient(gi, ci, config,
+                                                built[start:start + n], start,
+                                                True)
+                    work = resegs + work
+                    failures = failures + refails
+                    continue
+                for pos, metric in enumerate(out):
+                    key = None if keys is None else keys[start + pos]
+                    fresh = False
+                    if key is not None:
+                        warm_start.row_store(key, metric)
+                        if journal is not None:
+                            fresh = key not in journal.completed
+                            journaled.append(key)
+                    if trace is not None:
+                        # fresh: record_rows below journals the key, so this
+                        # is the row's one finalize event
+                        trace.row(key, group=gi, index=idxs[start + pos],
+                                  journaled=fresh)
+                    events.append(RowEvent(gi, idxs[start + pos], metric,
+                                           key=key))
+            if journaled:
+                if trace is not None:
+                    trace.flush()
+                journal.record_rows(journaled)
+            for failure in failures:
+                items = [idxs[failure["offset"] + j]
+                         for j in range(failure["count"])]
+                stats[gi]["failures"].append({"items": items,
+                                              "reason": failure["reason"],
+                                              "error": failure["error"]})
+                events.extend(RowEvent(gi, i, None, reason=failure["reason"],
+                                       error=failure["error"]) for i in items)
+            return events
 
     pending = None
     for gi, ci, off in schedule:
         config, items, build, batch, keep, keys = prepared[gi]
         idxs = keep[off:off + batch]
         chunk_keys = None if keys is None else keys[off:off + batch]
-        built = [build(items[i]) for i in idxs]
+        with _span(tracer, "build", group=gi, chunk=ci), \
+                _span(trace, "build", group=gi, chunk=ci):
+            built = [build(items[i]) for i in idxs]
         t0 = time.perf_counter()
-        segments, failures = resilient(gi, ci, config, built, 0,
-                                       not pipeline)
+        with _span(tracer, "dispatch", group=gi, chunk=ci), \
+                _span(trace, "dispatch", group=gi, chunk=ci):
+            segments, failures = resilient(gi, ci, config, built, 0,
+                                           not pipeline)
         if stats[gi]["first_dispatch_s"] is None:
             stats[gi]["first_dispatch_s"] = time.perf_counter() - t0
         stats[gi]["chunks"] += 1
@@ -396,6 +440,8 @@ def _engine(groups, n_steps, *, watch_s, chunk, record_every, pipeline,
         pending = entry
     if pending is not None:
         yield from drain(*pending)
+    if trace is not None:
+        trace.flush()
     return stats
 
 
@@ -438,7 +484,6 @@ def run_batch_chunked(config, items, build, n_steps: int, *,
     per dispatch from the card's free memory (``autotune_chunk``)."""
     items = list(items)
     if not items:
-        _refuse_unported(tracer=tracer, trace=trace)
         return []
     results, _stats = run_groups_chunked(
         [(config, items, build)], n_steps, watch_s=watch_s, chunk=chunk,

@@ -23,7 +23,7 @@ What it cannot show: that a kernel builds, runs or is right, and any
 time; ``chip_smoke.py`` on the card shows those.  A check that needs
 the real size (the stalling points of the 48-point grid), or the
 kernels' own summation order (the bits of ``lane_sums_in_order``), is
-reported and does not stop the rehearsal.  Takes ~25 minutes on a
+reported and does not stop the rehearsal.  Takes ~30 minutes on a
 CPU.
 """
 
@@ -40,7 +40,10 @@ SIZES = dict(CHECK_PEERS=2_048, PEERS=2_048, GRID_PEERS=2_048, STEPS=400,
              SUMS_PEERS=(1_000, 1_001, 2_048), RING_PEERS=2_048,
              GENERIC_SLOTS=((2, 1_024, 20), (16, 512, 20)),
              GATHER_PEERS=2_048, RANDOM_PEERS=512,
-             RANDOM_PEERS_LARGE=1_024)
+             RANDOM_PEERS_LARGE=1_024,
+             # a fabric unit takes ~10x longer on the CPU than on the card
+             FLEET_LEASE_S=60.0,
+             FLEET_CHAOS={"host01": "kill@1", "host02": "stall@1:120.0"})
 #: checks that hold only at the real size (the stalling points of the
 #: grids, the live rows against the reference's record), and checks of
 #: the kernels' bits (the plain versions sum by ``torch.sum``, not in
@@ -113,6 +116,11 @@ def main() -> int:
         os.path.abspath(__file__))))
     sys.path.insert(0, root)
     import torch
+    # the child processes (phases 35 and 38) share this host's cores: two
+    # threads each, or six thread pools thrash them (this process keeps
+    # its own count)
+    torch.set_num_threads(torch.get_num_threads())
+    os.environ["OMP_NUM_THREADS"] = "2"
 
     from ..ops import _build
     from ..ops import swarm_kernels as sk

@@ -115,31 +115,54 @@ def test_stream_stats_and_rows_without_timeline():
     assert dp.run_batch_chunked(config, [], build, T, watch_s=WATCH_S) == []
 
 
+# The name and the ids are those of the test from when these options
+# raised; ``item`` is the ROADMAP item that each refusal named (None for
+# ``faults``, which is checked as a plan-less ``FaultPolicy``).
 @pytest.mark.parametrize("option,item", [
     ("faults", None), ("trace", "item 8"), ("tracer", "item 8")])
-def test_unported_dispatch_options_raise(option, item):
-    """The options the port does not take yet raise, naming their
-    ROADMAP item.  ``faults`` is ported (item 6): a ``FaultPolicy``
-    without a plan returns the unarmed rows and counts nothing.
-    ``warm_start`` and ``journal`` are ported (item 7;
-    tests/test_torch_artifact_cache.py)."""
+def test_unported_dispatch_options_raise(option, item, tmp_path):
+    """The dispatch options the port once refused are taken, each with
+    the ROADMAP item that brought it: ``faults`` (item 6) is a
+    ``FaultPolicy`` that, without a plan, returns the unarmed rows and
+    counts nothing; ``trace`` and ``tracer`` (item 8) record a build, a
+    dispatch and a readback span a chunk (and the recorder a row event
+    a row) and leave every row equal to the untraced run's to the bit.
+    ``warm_start`` and ``journal`` are item 7's
+    (tests/test_torch_artifact_cache.py); the traced events against the
+    reference's are in tests/test_torch_tracer.py."""
+    from hlsjs_p2p_wrapper_tpu_torch.engine.telemetry import SpanRecorder
+    from hlsjs_p2p_wrapper_tpu_torch.engine.tracer import (FlightRecorder,
+                                                          read_shard)
     config, items, build = _group(2)
+    plain = dp.run_batch_chunked(config, items, build, T, watch_s=WATCH_S,
+                                 chunk=1, record_every=EVERY)
     if item is None:
         policy = FaultPolicy()
         rows = dp.run_batch_chunked(config, items, build, T,
                                     watch_s=WATCH_S, chunk=1,
                                     record_every=EVERY, **{option: policy})
-        _rows_equal(rows, dp.run_batch_chunked(
-            config, items, build, T, watch_s=WATCH_S, chunk=1,
-            record_every=EVERY))
+        _rows_equal(rows, plain)
         assert policy.fault_counts() == {}
         return
-    with pytest.raises(NotImplementedError, match=item):
-        dp.stream_groups_chunked([(config, items, build)], T,
-                                 watch_s=WATCH_S, **{option: object()})
-    with pytest.raises(NotImplementedError, match=item):
-        dp.run_batch_chunked(config, items, build, T, watch_s=WATCH_S,
-                             **{option: object()})
+    recorder = (SpanRecorder() if option == "tracer"
+                else FlightRecorder(str(tmp_path), "host00"))
+    rows = dp.run_batch_chunked(config, items, build, T, watch_s=WATCH_S,
+                                chunk=1, record_every=EVERY,
+                                **{option: recorder})
+    _rows_equal(rows, plain)
+    phases = ["build", "dispatch", "readback"]
+    if option == "tracer":
+        spans = [(s["name"], s["chunk"]) for s in recorder.spans]
+        assert sorted(spans) == sorted((n, c) for n in phases
+                                       for c in (0, 1))
+        return
+    recorder.close()
+    _meta, events = read_shard(recorder.path)
+    assert sorted((e["name"], e["chunk"]) for e in events
+                  if e["kind"] == "span") == sorted(
+        (n, c) for n in phases for c in (0, 1))
+    assert [(e["index"], e["key"], e["journaled"]) for e in events
+            if e["kind"] == "row"] == [(0, None, False), (1, None, False)]
 
 
 # ---- lane bytes and the autotuner ------------------------------------------
