@@ -238,7 +238,35 @@ exits nonzero:
    finalized rows read back from the row cache) equal to phase 9's to the
    bit, the survivors' ``fabric_claims`` equal to ``fleet_report``'s
    reading of the claim files, one finalize event a journaled row on
-   every shard, the survivors' counters replayed from their shards.
+   every shard, the survivors' counters replayed from their shards;
+39. the twin's sim half (``testing/twin.py``) on the card, against the
+   committed control fixture (``testing/reference_control/``, from
+   ``tools/torch_port_twin_fixture.py``): ``run_sim_plane`` of the clean
+   and chaos scenarios of ``tools/twin_gate.py`` (8 + 4 peers, 160 s:
+   the general path at K = 11, three slots, spread, the stall digest, a
+   timeline row a frame window) inside the ``TWIN_r10.json`` bands
+   against the reference's real-plane frames (``compare_frames`` finds
+   nothing), peer counts equal to the reference's sim frames and the
+   rest within 1e-5 relative + 1e-6; the clean wave shifted by two
+   windows found first at the wave window on the membership columns;
+   33 peers (K = 32, the widest list the kernels take) on the card and
+   on the CPU path, frames agreeing; 34 peers refused on the card
+   (``ValueError``);
+40. the controller (``engine/controller.py``) on the card:
+   ``ControlLoop(device="cuda")`` replays the control gate's recorded
+   chaos shard under config (a) with a ``LogActuator``, a
+   ``FlightRecorder`` and a ``WarmStart`` on a fresh root: decisions
+   equal to the reference's (``decision_sig``), every forecast row within
+   1e-4 of its, one ``control_tick`` mark a window and one
+   ``actuation`` mark an epoch, each epoch once in the actuation log;
+   a second loop on the same root equal with no row dispatched and no
+   kernel launched; a loop stopped by ``tick_gate`` after its first
+   actuation and a fresh one ``resume()``d from its checkpoint equal,
+   each epoch once in their log; the median tick phases;
+41. the fleet form, config (b) (SLO-armed, ``tools/fleet_control_gate.
+   py``): the shard split four ways (``split_shard``) and replayed,
+   decisions and SLO burn windows equal to the reference's; the one
+   shard on the same row cache equal.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -250,7 +278,9 @@ and ``ranked`` entries: phase 25's and those instantiations'; its
 ``uncapped`` entry: phase 26's check on the ring; each gather kernel:
 phase 29's launches over the three policies and times on the spread
 chunk, with an entry per size and policy; ``timeline_row_cohorts``:
-phase 32's launches and phase 33's times).  Without a card, or outside
+phase 32's launches and phase 33's times; each gather kernel,
+``lane_sums`` and ``timeline_row``: a ``control_plane`` entry with the
+launches of phases 39, 40 and 41).  Without a card, or outside
 a checkout, it exits nonzero and prints no result.
 """
 
@@ -585,6 +615,24 @@ COHORT_COUNTS = (2, 8)
 COHORT_PEERS = (16, 1000)
 #: the degenerate population's sampled points of each grid
 DEGENERATE_POINTS = 4
+
+
+#: phases 39-41: the control plane and the twin's sim half against the
+#: committed control fixture (testing/reference_control/); the bands the
+#: twin gate holds the sim plane to
+TWIN_BANDS = "TWIN_r10.json"
+#: the widest twin audience the card takes (24 peers and a wave of 9: K =
+#: 32), run on the card and on the CPU path over 8 frame windows (the
+#: wave lands in the sixth) so that the CPU run stays short
+WIDE_TWIN = dict(n_peers=24, wave_peers=9, watch_s=64.0)
+#: the kernels each path must launch: the sim plane's step and timeline,
+#: the forecasts' step and offload sums
+TWIN_KERNELS = ("elig_select_gather", "admit_gather", "peer_update_gather",
+                "timeline_row")
+CONTROL_KERNELS = ("elig_select_gather", "admit_gather",
+                   "peer_update_gather", "lane_sums")
+#: the tick phases whose medians phase 40 prints
+CONTROL_TICK_PHASES = ("reconstruct", "forecast", "decide")
 
 
 class SmokeFailure(Exception):
@@ -4599,6 +4647,325 @@ def phase_fleet(sg, g9, children):
     return {"wall": wall, "report": report}
 
 
+# ---- phases 39-41: the control plane and the twin's sim half -------------
+
+def _fixture_frame(d):
+    from hlsjs_p2p_wrapper_tpu_torch.engine.twinframe import ObservationFrame
+    return ObservationFrame.from_dict(d)
+
+
+def phase_twin(sk, smi):
+    """The twin's sim plane (``testing/twin.run_sim_plane``) on the card
+    against the committed twin frames: the clean and chaos scenarios of
+    ``tools/twin_gate.py`` inside the committed bands against the
+    reference's real-plane frames and equal to its sim frames; the wave
+    shifted by two windows caught first on the membership columns at the
+    wave window; the widest audience the card takes on the card and on
+    the CPU path; one peer more refused on the card."""
+    import dataclasses
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.twinframe import compare_frames
+    from hlsjs_p2p_wrapper_tpu_torch.testing import control_fixture as cf
+    from hlsjs_p2p_wrapper_tpu_torch.testing.twin import (
+        MAX_CARD_AUDIENCE, parity_sim_config, run_sim_plane)
+    doc = cf.load_json(cf.TWIN_FRAMES)
+    bands = cf.load_json(os.path.join(ROOT, TWIN_BANDS))["scenarios"]
+    specs = {name: cf.scenario_from_dict(doc["scenarios"][name]["scenario"])
+             for name in ("clean", "chaos")}
+    clean = specs["clean"]
+    sk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sims = {name: run_sim_plane(spec, device="cuda")
+            for name, spec in specs.items()}
+    perturbed = run_sim_plane(
+        clean, wave_shift_s=doc["shift_windows"] * clean.window_s,
+        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in sk.LAUNCHES.items() if v}
+    check(all(k in launches for k in TWIN_KERNELS),
+          f"[39] the sim planes launched {json.dumps(launches)}")
+    for name, sim in sims.items():
+        entry = doc["scenarios"][name]
+        findings = compare_frames(sim, _fixture_frame(entry["real"]),
+                                  bands[name]["bands"])
+        check(not findings, f"[39] {name}: the sim plane leaves the "
+                            f"committed bands: {findings}")
+        bad = cf.frames_agree(sim, _fixture_frame(entry["sim"]))
+        check(not bad, f"[39] {name}: the card's sim frames differ from "
+                       f"the reference's: {bad}")
+    bad = cf.frames_agree(perturbed, _fixture_frame(doc["perturbed_sim"]))
+    check(not bad, f"[39] the shifted wave's sim frames differ from the "
+                   f"reference's: {bad}")
+    # tools/twin_gate.py's fourth check: the injected mapping bug is
+    # found first, at the wave window, on the membership columns
+    findings = compare_frames(
+        perturbed, _fixture_frame(doc["scenarios"]["clean"]["real"]),
+        bands["clean"]["bands"])
+    wave_window = int(clean.wave_at_s // clean.window_s)
+    by_metric = {f["metric"]: f for f in findings
+                 if f["reason"] == "band_divergence"}
+    earliest = min((f.get("first_window", 10**9) for f in findings),
+                   default=10**9)
+    leading = {f["metric"] for f in findings
+               if f.get("first_window") == earliest}
+    check(earliest == wave_window
+          and by_metric.get("joins", {}).get("first_window") == wave_window
+          and by_metric["joins"]["moved_first"] == "real"
+          and by_metric.get("present_peers", {}).get("first_window")
+          == wave_window
+          and leading <= {"joins", "present_peers", "leaves",
+                          "stalled_peers"},
+          f"[39] the shifted wave is not found first at window "
+          f"{wave_window} on the membership columns: {findings}")
+    wide = dataclasses.replace(clean, **WIDE_TWIN)
+    check(wide.total_peers == MAX_CARD_AUDIENCE,
+          f"[39] {wide.total_peers} peers")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run_sim_plane(wide, device="cuda")
+    torch.cuda.synchronize()
+    wide_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = run_sim_plane(wide, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    bad = cf.frames_agree(card, plain)
+    check(not bad, f"[39] {wide.total_peers} peers: the card's frames "
+                   f"differ from the CPU path's: {bad}")
+    over = dataclasses.replace(wide, wave_peers=wide.wave_peers + 1)
+    try:
+        run_sim_plane(over, device="cuda")
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused is not None,
+          f"[39] the card's audience limit: {over.total_peers} peers ran")
+    torch.cuda.synchronize()
+    log(f"[39] the twin's sim plane on the card (testing/twin.py, the "
+        f"parity mapping: full neighbours, C = 3, spread, a row every "
+        f"{clean.window_s * 1000 / parity_sim_config(clean).dt_ms:g} "
+        f"steps): the clean and chaos "
+        f"scenarios of tools/twin_gate.py ({clean.total_peers} peers x "
+        f"{clean.watch_s:g} s) and the wave shifted by "
+        f"{doc['shift_windows']} windows in {wall!r} s on {smi}; inside "
+        f"the TWIN_r10.json bands against the reference's real planes, "
+        f"peer counts equal to its sim frames and the rest within "
+        f"{cf.FRAME_RTOL:g} relative + {cf.FRAME_ATOL:g}; the shifted wave "
+        f"found first at window {wave_window} on {sorted(leading)}; "
+        f"launches {json.dumps(launches)}")
+    log(f"    {wide.total_peers} peers (K = {wide.total_peers - 1}, "
+        f"{wide.watch_s:g} s): card {wide_wall!r} s, CPU path "
+        f"{cpu_wall!r} s, frames agree; {over.total_peers} peers refused "
+        f"on the card: {refused}")
+    return {"launches": launches, "wall": wall}
+
+
+def _control_loop(config, shard, root, tag, warm, **kw):
+    from hlsjs_p2p_wrapper_tpu_torch.engine.controller import (ControlLoop,
+                                                                LogActuator)
+    from hlsjs_p2p_wrapper_tpu_torch.testing import control_fixture as cf
+    return cf.recording(ControlLoop)(
+        config, shard, LogActuator(os.path.join(root, f"{tag}.jsonl")),
+        warm_start=warm, device="cuda", **kw)
+
+
+def _rows_by_source(loop):
+    return {labels["source"]: value for labels, value
+            in loop.registry.series("control.forecast_rows")}
+
+
+def _tick_medians(loop, warmup):
+    import statistics
+    stats = [s for s in loop.tick_stats if s["tick"] >= warmup]
+    return {k: statistics.median(s[k] for s in stats)
+            for k in CONTROL_TICK_PHASES}
+
+
+def _check_run(loop, ref, tag, first_tick=0):
+    """A loop's decisions equal to the fixture run's, its forecasts from
+    ``first_tick`` on within FORECAST_TOL of the reference's."""
+    from hlsjs_p2p_wrapper_tpu_torch.testing import control_fixture as cf
+    check(cf.decision_sig(loop.decisions) == ref["decisions"],
+          f"{tag} decisions {cf.decision_sig(loop.decisions)} against the "
+          f"reference's {ref['decisions']}")
+    err = cf.forecast_error(
+        cf.forecast_rows(loop.forecasts),
+        [r for r in ref["forecasts"] if r[0] >= first_tick])
+    check(err <= cf.FORECAST_TOL,
+          f"{tag} forecasts off the reference's by {err!r}")
+    return err
+
+
+def phase_control(sk, smi):
+    """``ControlLoop`` on the card over the control gate's recorded chaos
+    shard, config (a): decisions and forecasts against the reference's,
+    a flight recorder and a fresh row cache; warm on the same root; then
+    stopped after its first actuation and resumed from its checkpoint."""
+    import shutil
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import WarmStart
+    from hlsjs_p2p_wrapper_tpu_torch.engine.controller import (
+        LogActuator, control_checkpoint_path)
+    from hlsjs_p2p_wrapper_tpu_torch.engine.tracer import (FlightRecorder,
+                                                           read_shard)
+    from hlsjs_p2p_wrapper_tpu_torch.testing import control_fixture as cf
+    root = os.path.join(WARM_DIR, "control")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    doc = cf.load_json(cf.CONTROL_DECISIONS)
+    config = cf.config_from_dict(doc["configs"]["a"])
+    ref = doc["runs"]["a"]
+    shard = cf.unpack_shard(os.path.join(root, "shard.jsonl"))
+    warm_root = os.path.join(root, "rows")
+    recorder = FlightRecorder(os.path.join(root, "trace"), "control")
+    sk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = _control_loop(config, shard, root, "actuate",
+                         WarmStart(warm_root), recorder=recorder)
+    cold.run_available()
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    launches = {k: v for k, v in sk.LAUNCHES.items() if v}
+    check(all(k in launches for k in CONTROL_KERNELS),
+          f"[40] the forecasts launched {json.dumps(launches)}")
+    err = _check_run(cold, ref, "[40] the loop's")
+    recorder.close()
+    _meta, events = read_shard(recorder.path)
+    marks = [e["name"] for e in events if e.get("kind") == "mark"]
+    check(marks.count("control_tick") == len(ref["decisions"])
+          and marks.count("actuation") == len(ref["epochs"]),
+          f"[40] the recorder's marks: {marks.count('control_tick')} "
+          f"ticks, {marks.count('actuation')} actuations")
+    log_path = os.path.join(root, "actuate.jsonl")
+    check(LogActuator(log_path).epochs() == ref["epochs"],
+          f"[40] the actuation log {LogActuator(log_path).epochs()}")
+    cold_rows = _rows_by_source(cold)
+
+    before = dict(sk.LAUNCHES)
+    t0 = time.perf_counter()
+    again = _control_loop(config, shard, root, "actuate",
+                          WarmStart(warm_root))
+    again.run_available()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    _check_run(again, ref, "[40] the warm loop's")
+    warm_rows = _rows_by_source(again)
+    check(warm_rows.get("dispatch", 0) == 0 and dict(sk.LAUNCHES) == before
+          and LogActuator(log_path).epochs() == ref["epochs"],
+          f"[40] the warm loop: rows {warm_rows}, actuation log "
+          f"{LogActuator(log_path).epochs()}")
+
+    ckpt = control_checkpoint_path(os.path.join(root, "cache"), config)
+    resume_root = os.path.join(root, "rows-resume")
+    t0 = time.perf_counter()
+    stopped = _control_loop(config, shard, root, "resume",
+                            WarmStart(resume_root), checkpoint_path=ckpt,
+                            tick_gate=lambda _w: stopped.epoch == 0)
+    stopped.run_available()
+    acted = next(i for i, d in enumerate(ref["decisions"])
+                 if d[1] == "actuate")
+    check(stopped.epoch == 1 and len(stopped.decisions) == acted + 1
+          and stopped.pending_windows > 0,
+          f"[40] the stopped loop: epoch {stopped.epoch}, "
+          f"{len(stopped.decisions)} decisions")
+    resumed = _control_loop(config, shard, root, "resume",
+                            WarmStart(resume_root), checkpoint_path=ckpt)
+    check(resumed.resume(), "[40] no checkpoint to resume")
+    resumed.run_available()
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    _check_run(resumed, ref, "[40] the resumed loop's", acted + 1)
+    resume_log = LogActuator(os.path.join(root, "resume.jsonl")).epochs()
+    check(resume_log == ref["epochs"],
+          f"[40] the resumed actuation log {resume_log}")
+    medians = {"cold": _tick_medians(cold, config.warmup_windows),
+               "warm": _tick_medians(again, config.warmup_windows)}
+    key_ms = _row_key_ms(config, cold._lattice[0])
+    acts = [(d[0], d[2]) for d in ref["decisions"] if d[1] == "actuate"]
+    log(f"[40] ControlLoop on the card over the control gate's chaos shard "
+        f"({len(ref['decisions'])} windows, a {len(cold._lattice)}-point "
+        f"lattice, config (a)): {walls[0]!r} s cold, {walls[1]!r} s warm, "
+        f"{walls[2]!r} s stopped after its first actuation and resumed, "
+        f"on {smi}; decisions equal to the reference's (actuations "
+        f"{acts}), forecasts within {err!r} of its; rows {cold_rows} "
+        f"cold, {warm_rows} warm; each epoch once in the actuation logs; "
+        f"launches {json.dumps(launches)}")
+    log(f"    median tick phases, s (after the {config.warmup_windows} "
+        f"warmup windows): {json.dumps(medians)}; one row-cache key of a "
+        f"forecast point {key_ms!r} ms")
+    return {"launches": launches, "walls": walls, "medians": medians}
+
+
+def _row_key_ms(config, knobs, n=5):
+    """Milliseconds of one row-cache key of a forecast point on the card
+    (the mean of ``n`` keys): most of a warm forecast tick."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import row_key
+    from hlsjs_p2p_wrapper_tpu_torch.testing.twin import forecast_group
+    spec = config.spec
+    sim_config, _items, build = forecast_group(spec, spec.join_times_s(),
+                                               [knobs], device="cuda")
+    scenario, join = build(knobs)
+    n_steps = int(round(spec.watch_s * 1000.0 / sim_config.dt_ms))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        row_key(sim_config, scenario, join, n_steps, watch_s=spec.watch_s,
+                record_every=0)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_fleet_control(sk, smi):
+    """Config (b), the SLO-armed fleet form, on the card: the shard split
+    four ways (``testing/twin.split_shard``), its decisions and SLO burn
+    against the reference's; the one shard on the same rows, equal."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import WarmStart
+    from hlsjs_p2p_wrapper_tpu_torch.testing import control_fixture as cf
+    from hlsjs_p2p_wrapper_tpu_torch.testing.twin import split_shard
+    root = os.path.join(WARM_DIR, "control")
+    doc = cf.load_json(cf.CONTROL_DECISIONS)
+    config = cf.config_from_dict(doc["configs"]["b"])
+    ref = doc["runs"]["b"]
+    shard = os.path.join(root, "shard.jsonl")
+    quarters = split_shard(shard, os.path.join(root, "mux"), 4)
+    warm_root = os.path.join(root, "rows-fleet")
+    walls, loops = [], {}
+    sk.reset_launch_counts()
+    for tag, paths in (("four", quarters), ("one", shard)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loops[tag] = _control_loop(config, paths, root, f"fleet-{tag}",
+                                   WarmStart(warm_root))
+        loops[tag].run_available()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if tag == "four":
+            launches = {k: v for k, v in sk.LAUNCHES.items() if v}
+    check(all(k in launches for k in CONTROL_KERNELS),
+          f"[41] the forecasts launched {json.dumps(launches)}")
+    for tag, loop in loops.items():
+        err = _check_run(loop, ref, f"[41] the {tag}-shard loop's")
+        burns = [a["window"] for a in loop.slo.alerts]
+        check(burns == ref["burn_windows"],
+              f"[41] the {tag}-shard loop's burns at {burns}, the "
+              f"reference's at {ref['burn_windows']}")
+    alert = loops["four"].slo.alerts[0] if loops["four"].slo.alerts else {}
+    log(f"[41] the fleet form on the card (config (b): SLO-armed, "
+        f"{len(quarters)} shards by split_shard): {walls[0]!r} s, then the "
+        f"one shard on the same rows {walls[1]!r} s, on {smi}; both "
+        f"equal to the reference's decisions, burn at windows "
+        f"{ref['burn_windows']} (worst cohort "
+        f"{(alert.get('worst_cohort') or {}).get('cohort')}, worst shard "
+        f"{(alert.get('worst_shard') or {}).get('shard')}); rows "
+        f"{_rows_by_source(loops['four'])} and "
+        f"{_rows_by_source(loops['one'])}; launches "
+        f"{json.dumps(launches)}")
+    return {"launches": launches, "walls": walls}
+
+
 def _resources(res, name, live, slots, policy):
     """:func:`gather_resources`' entry of the instantiation that ``name``
     launches for ``policy`` (admit_gather has one a slot count,
@@ -4730,6 +5097,9 @@ def main() -> int:
         phase_traced_grid(sg, dp, sk, grid)
         phase_search(sk, live_grid["chunk"])
         phase_fleet(sg, grid, children)
+        twin = phase_twin(sk, smi)
+        control = phase_control(sk, smi)
+        fleet_control = phase_fleet_control(sk, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4838,6 +5208,17 @@ def main() -> int:
         "bytes": cohorts["bytes"], "bound_ms": cohorts["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "registers": regs_of_entry(regs, "timeline_row_kernelILb1EE")})
+    for entry in kernels:
+        name = entry["name"]
+        if name in TWIN_KERNELS + CONTROL_KERNELS:
+            entry["control_plane"] = {
+                "sim_plane_launches": twin["launches"].get(name, 0),
+                "forecast_launches": control["launches"].get(name, 0),
+                "fleet_forecast_launches":
+                    fleet_control["launches"].get(name, 0),
+                "launches_in": "[39] the twin's sim planes at 12 peers; "
+                               "[40] config (a)'s cold loop; [41] config "
+                               "(b)'s four-shard loop"}
     log(f"wall s by phase (up to each line, by its tag): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_WALLS.items()})}; "
         f"total {time.perf_counter() - _CLOCK['start']:.2f} s")

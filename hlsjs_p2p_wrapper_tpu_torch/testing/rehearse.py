@@ -45,12 +45,13 @@ SIZES = dict(CHECK_PEERS=2_048, PEERS=2_048, GRID_PEERS=2_048, STEPS=400,
              FLEET_LEASE_S=60.0,
              FLEET_CHAOS={"host01": "kill@1", "host02": "stall@1:120.0"})
 #: checks that hold only at the real size (the stalling points of the
-#: grids, the live rows against the reference's record), and checks of
-#: the kernels' bits (the plain versions sum by ``torch.sum``, not in
-#: their order)
+#: grids, the live rows against the reference's record), checks of the
+#: kernels' bits (the plain versions sum by ``torch.sum``, not in their
+#: order), and the card's limit on a neighbour list's width (the CPU
+#: path takes any)
 SIZE_BOUND_CHECKS = ("stall", "lane_sums_in_order", "grid's size",
                      "differ from the reference by", "anchored cells",
-                     "HEAD's reference by")
+                     "HEAD's reference by", "the card's audience limit")
 
 
 class EagerGraph:

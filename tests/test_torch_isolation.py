@@ -38,5 +38,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert bad == [], f"the port loaded {bad}"
     for name in ("sweep_grid", "policy_grid", "engine.digest",
                  "engine.faults", "engine.telemetry", "ops.dispatch",
-                 "ops.swarm_kernels"):
+                 "ops.swarm_kernels", "engine.controller",
+                 "engine.twinframe", "engine.slo", "engine.protocol",
+                 "core.segment_view", "core.track_view", "testing.twin",
+                 "testing.control_fixture"):
         assert f"hlsjs_p2p_wrapper_tpu_torch.{name}" in names.split()
