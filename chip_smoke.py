@@ -224,9 +224,8 @@ exits nonzero:
    144-point live lattice at 1,048,576 peers × 128 segments × 960
    steps, in chunks of phase 13's autotuned width,
    stopped as its second round asks and resumed
-   from its checkpoint in this process; then the same seed on the warm
-   start: the same frontier and trials (``float.hex``), no fresh
-   dispatch, build, capture or launch;
+   from its checkpoint in this process (the same seed on its warm start
+   is phase 42's ``tools.optimize``);
 38. the fabric (``engine/fabric.py``): phase 9's grid shared by three
    ``testing/fleet_worker.py`` processes (started beside phase 5's plain
    run, each touching the card only now) through one ``WorkLedger`` in
@@ -267,6 +266,20 @@ exits nonzero:
    py``): the shard split four ways (``split_shard``) and replayed,
    decisions and SLO burn windows equal to the reference's; the one
    shard on the same row cache equal.
+42. the port's tools (``hlsjs_p2p_wrapper_tpu_torch/tools/``) as child
+   processes on the card, side by side (``testing/tool_child.py``: each
+   started beside phase 3, importing torch and its tool, then waiting
+   without a context on the card for its argv): ``tools.sweep`` on phase
+   9's grid (1,048,576 × 128 × 240 s, a row every 40 steps) on a fresh
+   warm-start root, every point dispatched, its rows and timelines equal
+   to phase 9's to the bit and its ``--out`` artifact with the keys of
+   ``SWEEP_1M_r05.json`` and of the reference tool at HEAD (the committed
+   tools fixture), ``platform`` gpu; ``tools.optimize`` at phase 37's
+   settings on phase 37's root: the same frontier and trials
+   (``float.hex``) with no fresh dispatch, build, capture or launch;
+   ``tools.policy_ab`` at its defaults (a row every 40 steps): its ring
+   rows equal to phases 17 and 24's and its random rows to phase 28's,
+   to the bit; each child's wall and kernel launches printed.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -357,6 +370,19 @@ FLEET_CHUNK = 8
 FLEET_LEASE_S = 6.0
 FLEET_STALL_S = 10.0
 FLEET_CHAOS = {"host01": "kill@1", "host02": f"stall@1:{FLEET_STALL_S}"}
+#: phase 42: the port's tools (hlsjs_p2p_wrapper_tpu_torch/tools/) as
+#: child processes (testing/tool_child.py), started after the build,
+#: beside phase 3, and waiting, without a context on the card, for their
+#: argv; the three run side by side
+TOOL_CHILDREN = ("sweep", "policy_ab", "optimize")
+TOOLS_DIR = os.path.join(WARM_DIR, "tools")
+#: the committed reference-tools fixture (the reference's tools at HEAD on
+#: a CPU): the meta keys the port's artifacts must carry
+TOOLS_FIXTURE = os.path.join(ROOT, PACKAGE, "testing", "reference_tools")
+REFERENCE_SEARCH = "POLICY_OPT_r09.json"
+#: the platform the tools' artifacts name (the card's, ``device_kind`` its
+#: name)
+TOOL_PLATFORM = "gpu"
 #: eager steps at B = 48 traced per kernel from the grid's final state
 #: (a row every GRID_RECORD_EVERY steps), and steps of the TK1 + TK2
 #: route; the grid's direct run is traced whole besides
@@ -2412,8 +2438,6 @@ def start_children():
     waits for a line on its standard input before it touches the card):
     the killed, the resumed and the warm sweep; the hosts of the
     fabric."""
-    import shutil
-    shutil.rmtree(WARM_DIR, ignore_errors=True)
     os.makedirs(os.path.join(WARM_DIR, "fleet"))
     children = {}
     fleet = os.path.join(WARM_DIR, "fleet")
@@ -2453,6 +2477,26 @@ def start_children():
         err = open(os.path.join(WARM_DIR, f"{name}.err"), "w")
         children[name] = subprocess.Popen(
             cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=err, text=True)
+        err.close()
+    return children
+
+
+def start_tool_children():
+    """Phase 42's three tools (``testing/tool_child.py``), started after
+    the build, beside phase 3: each imports torch and its tool, then
+    waits for its argv before it touches the card.  Clears the children's
+    directory first."""
+    import shutil
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    os.makedirs(WARM_DIR)
+    children = {}
+    for tool in TOOL_CHILDREN:
+        name = f"tool_{tool}"
+        err = open(os.path.join(WARM_DIR, f"{name}.err"), "w")
+        children[name] = subprocess.Popen(
+            [sys.executable, "-m", f"{PACKAGE}.testing.tool_child", tool],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=err, text=True)
         err.close()
     return children
@@ -4373,20 +4417,21 @@ def phase_traced_grid(sg, dp, sk, g9):
     return {"walls": walls, "events": len(events)}
 
 
-def phase_search(sk, chunk):
+def phase_search(chunk):
     """``tools/optimize.py``'s halving search on the port
     (``search_eval``) with the tool's defaults (budget 64, 2 rungs, eta
     6, screens at a quarter of the watch window, rebuffer <= 0.02, seed
     0) over the live lattice at the sweep's shapes, in chunks of
     ``chunk`` (phase 13's autotuned width for the live grid): run
     and stopped as its second round asks (a checkpoint after round 1),
-    resumed in this process to the end; then the same seed again on the
-    warm start, which gives the same frontier (``float.hex``) with no
-    fresh dispatch, no build, no capture and no launch."""
+    resumed in this process to the end.  The same seed again on its warm
+    start (the same frontier, no fresh dispatch, build, capture or
+    launch) is phase 42's ``tools.optimize`` child.  Returns what phase
+    42 holds that child to."""
     import torch
     from hlsjs_p2p_wrapper_tpu_torch import search_eval as se
     from hlsjs_p2p_wrapper_tpu_torch.engine.artifact_cache import (
-        CompileCounter, SweepJournal, WarmStart, journal_path)
+        SweepJournal, WarmStart, journal_path)
     from hlsjs_p2p_wrapper_tpu_torch.engine.faults import FaultPolicy
     from hlsjs_p2p_wrapper_tpu_torch.engine.search import (
         Constraint, PolicySearch, scrub_provenance, search_checkpoint_path)
@@ -4437,35 +4482,14 @@ def phase_search(sk, chunk):
         walls.append(time.perf_counter() - t0)
         journal.finalize()
         n_journaled = len(journal.completed)
-    probe = CompileCounter().attach()
-    launches = dict(sk.LAUNCHES)
-    with SweepJournal(jpath, meta) as journal:
-        t0 = time.perf_counter()
-        again = search(journal).run()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    probe.detach()
-    rounds, rounds2 = first["rounds"], again["rounds"]
+    rounds = first["rounds"]
     fresh = sum(r["fresh_dispatches"] for r in rounds)
-    cached = sum(r["row_cache_hits"] for r in rounds)
-    fresh2 = sum(r["fresh_dispatches"] for r in rounds2)
-    cached2 = sum(r["row_cache_hits"] for r in rounds2)
     n_trials = len(first["trials"])
-    frontier = _hexed(scrub_provenance(first["frontier"]))
     check(first["frontier"]["best"] is not None and n_trials > 144
           and fresh == n_trials == n_journaled and not first["truncated"]
           and first["frontier"]["failed"] == 0,
           f"[37] the search: {n_trials} trials, {fresh} fresh, "
           f"{n_journaled} journaled, best {first['frontier']['best']}")
-    check(_hexed(scrub_provenance(again["frontier"])) == frontier
-          and _hexed(scrub_provenance(again["trials"]))
-          == _hexed(scrub_provenance(first["trials"])),
-          "[37] the same-seed rerun's frontier differs")
-    check(fresh2 == 0 and cached2 == n_trials and probe.builds == 0
-          and probe.captures == 0
-          and all(sk.LAUNCHES[k] == launches[k] for k in launches),
-          f"[37] the warm rerun: {fresh2} fresh, {cached2} cached, "
-          f"{probe.builds} builds, {probe.captures} captures")
     best = first["frontier"]["best"]
     table = [[r["proposals"], r["cost"], r["fresh_dispatches"],
               r["row_cache_hits"], r["infeasible"]] for r in rounds]
@@ -4481,13 +4505,12 @@ def phase_search(sk, chunk):
         f"(proposals, cost, fresh, cached, infeasible); {n_trials} trials, "
         f"spent {first['spent']}, {first['frontier']['feasible']} "
         f"feasible; best offload {best['offload']!r} rebuffer "
-        f"{best['rebuffer']!r} at {json.dumps(best['knobs'])}")
-    log(f"    same seed on the warm start: {walls[2]!r} s, {fresh2} fresh "
-        f"dispatches, {cached2} row-cache hits, {probe.builds} builds, "
-        f"{probe.captures} captures, no launch; frontier and trials equal "
-        f"to the bit (float.hex, provenance aside), and the resumed "
-        f"search's frontier is the uninterrupted one's")
-    return {"walls": walls, "trials": n_trials}
+        f"{best['rebuffer']!r} at {json.dumps(best['knobs'])}; the same "
+        f"seed on this warm start runs in [42], as tools.optimize")
+    return {"walls": walls, "trials": n_trials, "root": root,
+            "chunk": args.chunk,
+            "frontier": _hexed(scrub_provenance(first["frontier"])),
+            "trial_list": _hexed(scrub_provenance(first["trials"]))}
 
 
 def phase_fleet(sg, g9, children):
@@ -4966,6 +4989,214 @@ def phase_fleet_control(sk, smi):
     return {"launches": launches, "walls": walls}
 
 
+def _tool_go(name, proc, argv, env=None):
+    """Read a tool child's ready line, then send it its argv (and the
+    environment entries it sets before the tool runs)."""
+    line = proc.stdout.readline()
+    check(line.startswith("{"), _child_failure(name, proc,
+                                               "did not get ready"))
+    try:
+        proc.stdin.write(json.dumps({"argv": [str(a) for a in argv],
+                                     "env": env or {}}) + "\n")
+        proc.stdin.flush()
+    except BrokenPipeError:
+        check(False, _child_failure(name, proc, "died before its run"))
+    return json.loads(line), time.perf_counter()
+
+
+def _tool_end(name, proc, t_go):
+    """A tool child's report (its last stdout line) and its wall from the
+    go to its exit; fails unless the child and its tool exited 0."""
+    rc, records, wall = _child_end(name, proc, t_go)
+    check(rc == 0 and records and records[-1].get("rc") == 0,
+          _child_failure(name, proc, f"failed ({records[-1:]})"))
+    return records[-1], wall
+
+
+def _fixture_meta_keys(name):
+    with open(os.path.join(TOOLS_FIXTURE, f"{name}.json")) as fh:
+        return set(json.load(fh)["meta"])
+
+
+def _timeline_records(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def _last_ratios(record):
+    cols, last = record["columns"], record["samples"][-1]
+    return (last[cols.index("offload")], last[cols.index("rebuffer")])
+
+
+def phase_tools(g9, ring, rings, randoms, search, children):
+    """The port's tools as child processes on the card
+    (``testing/tool_child.py``, started beside phase 3 and waiting
+    without a context on the card), at full width and side by side:
+    ``tools.sweep`` on phase 9's grid (1,048,576 x 128 x 240 s, a row
+    every 40 steps) on a fresh warm-start root, ``tools.optimize`` at
+    phase 37's settings on phase 37's root, and ``tools.policy_ab`` at
+    its defaults (a row every 40 steps) on a fresh root.  The sweep's rows and
+    timelines equal phase 9's to the bit (the timelines' full-precision
+    last samples), every point dispatched, its ``--out`` artifact with
+    the keys of ``SWEEP_1M_r05.json`` and of the reference tool's at HEAD
+    (the committed tools fixture), ``platform`` gpu; the policy A/B's
+    ring rows equal phases 17 and 24's and its random rows phase 28's to
+    the bit; the search equals phase 37's frontier and trials
+    (``float.hex``) with no fresh dispatch, build, capture or launch.
+    Each child's wall and its kernels' launches are printed."""
+    import torch
+    from hlsjs_p2p_wrapper_tpu_torch import policy_grid as pg
+    torch.cuda.synchronize()
+    # the children size their chunks from the card's free memory
+    torch.cuda.empty_cache()
+    os.makedirs(TOOLS_DIR)
+    t0 = time.perf_counter()
+    sweep_out = os.path.join(TOOLS_DIR, "sweep.json")
+    sweep_tl = os.path.join(TOOLS_DIR, "sweep.timelines.jsonl")
+    go = {}
+    go["sweep"] = _tool_go(
+        "tool_sweep", children["tool_sweep"],
+        ["--peers", GRID_PEERS, "--segments", GRID_SEGMENTS, "--watch-s",
+         GRID_WATCH_S, "--record-every", GRID_RECORD_EVERY,
+         "--timelines-out", sweep_tl, "--out", sweep_out,
+         "--device", "cuda"],
+        {"HLSJS_P2P_TORCH_CACHE_DIR": os.path.join(TOOLS_DIR, "sweep")})
+    opt_out = os.path.join(TOOLS_DIR, "optimize.json")
+    go["optimize"] = _tool_go(
+        "tool_optimize", children["tool_optimize"],
+        ["--peers", GRID_PEERS, "--segments", GRID_SEGMENTS, "--watch-s",
+         GRID_WATCH_S, "--chunk", search["chunk"], "--cache-dir",
+         search["root"], "--out", opt_out, "--device", "cuda"])
+    pab_out = os.path.join(TOOLS_DIR, "policy_ab.json")
+    pab_tl = os.path.join(TOOLS_DIR, "policy_ab.timelines.jsonl")
+    go["policy_ab"] = _tool_go(
+        "tool_policy_ab", children["tool_policy_ab"],
+        ["--peers", randoms[(RANDOM_PEERS, "spread")]["config"].n_peers,
+         "--ring-peers", ring["config"].n_peers, "--segments", pg.SEGMENTS,
+         "--watch-s", pg.WATCH_S, "--record-every",
+         GRID_RECORD_EVERY, "--timelines-out", pab_tl, "--out", pab_out,
+         "--device", "cuda"],
+        {"HLSJS_P2P_TORCH_CACHE_DIR": os.path.join(TOOLS_DIR, "policy_ab")})
+    reports, walls = {}, {}
+    for tool in TOOL_CHILDREN:
+        reports[tool], walls[tool] = _tool_end(
+            f"tool_{tool}", children[f"tool_{tool}"], go[tool][1])
+    phase_wall = time.perf_counter() - t0
+    kind = torch.cuda.get_device_name(0)
+
+    def identity_ok(meta):
+        return (meta["platform"], meta["device_kind"]) == (
+            TOOL_PLATFORM, kind if TOOL_PLATFORM == "gpu" else "cpu")
+
+    # tools.sweep: phase 9's rows and timelines to the bit
+    with open(sweep_out) as fh:
+        art = json.load(fh)
+    with open(os.path.join(ROOT, REFERENCE_SWEEP)) as fh:
+        record_keys = set(json.load(fh)["meta"])
+    meta = art["meta"]
+    check(set(meta) >= record_keys
+          and set(meta) == _fixture_meta_keys("sweep_vod")
+          and identity_ok(meta)
+          and meta["grid_points"] == len(g9["grid"])
+          and meta["failed_points"] == 0
+          and meta["warm_start"]["row"] == {"miss": len(g9["grid"]),
+                                            "store": len(g9["grid"])},
+          f"[42] tools.sweep's artifact meta {json.dumps(meta)}")
+    timelines = _timeline_records(sweep_tl)
+    check(len(timelines) == len(g9["rows"]) and all(
+        _hexed(_last_ratios(rec)) == _hexed((off, reb))
+        and rec["samples"] == tl.tolist()
+        for rec, (off, reb, tl) in zip(timelines, g9["rows"])),
+        "[42] tools.sweep's rows or timelines differ from phase 9's")
+    want = sorted(({**knobs, "offload": round(off, 4),
+                    "rebuffer": round(reb, 5)}
+                   for knobs, (off, reb, _tl) in zip(g9["grid"], g9["rows"])),
+                  key=lambda r: (-r["offload"], r["rebuffer"]))
+    check(art["rows"] == want, "[42] tools.sweep's table differs from "
+                               "phase 9's rows, rounded and sorted")
+
+    # tools.policy_ab: the ring columns of phases 17 and 24, the random
+    # columns of phase 28
+    with open(pab_out) as fh:
+        pab = json.load(fh)
+    check(set(pab["meta"]) == _fixture_meta_keys("policy_ab")
+          and identity_ok(pab["meta"])
+          and pab["meta"]["failed_cells"] == 0,
+          f"[42] tools.policy_ab's meta {json.dumps(pab['meta'])}")
+    by_column = {}
+    for rec in _timeline_records(pab_tl):
+        by_column.setdefault((rec["topology"], rec["policy"]), []).append(rec)
+    columns = {("ring", "spread"): ring,
+               **{("ring", p): rings[p] for p in POLICIES},
+               **{("random", p): randoms[(RANDOM_PEERS, p)]
+                  for p in pg.POLICIES}}
+    for (topology, policy), g in sorted(columns.items()):
+        recs = by_column.get((topology, policy), [])
+        check(len(recs) == len(g["rows"]) and all(
+            _hexed(_last_ratios(rec)) == _hexed(tuple(row))
+            for rec, row in zip(recs, g["rows"])),
+            f"[42] tools.policy_ab's {topology} {policy} rows differ from "
+            f"the phase's")
+        table = pab["topologies"][topology]["rows"]
+        check([(r[f"{policy}_offload"], r[f"{policy}_rebuffer"])
+               for r in table] == [_rounded(*row) for row in g["rows"]],
+              f"[42] tools.policy_ab's {topology} {policy} table differs")
+
+    with open(os.path.join(ROOT, REFERENCE_POLICY_AB)) as fh:
+        record = json.load(fh)["meta"]
+
+    # tools.optimize: phase 37's frontier from its warm start alone
+    with open(opt_out) as fh:
+        opt = json.load(fh)
+    from hlsjs_p2p_wrapper_tpu_torch.engine.search import scrub_provenance
+    with open(os.path.join(ROOT, REFERENCE_SEARCH)) as fh:
+        search_keys = set(json.load(fh)["meta"])
+    rep = reports["optimize"]
+    fresh = sum(r["fresh_dispatches"] for r in opt["rounds"])
+    cached = sum(r["row_cache_hits"] for r in opt["rounds"])
+    check(_hexed(scrub_provenance(opt["frontier"])) == search["frontier"]
+          and _hexed(scrub_provenance(opt["trials"])) == search["trial_list"],
+          "[42] tools.optimize's frontier or trials differ from phase 37's")
+    check(fresh == 0 and cached == search["trials"]
+          and opt["meta"]["xla_compiles"] == 0 and rep["builds"] == 0
+          and rep["captures"] == 0 and not any(rep["launches"].values())
+          and set(opt["meta"]) == _fixture_meta_keys("optimize")
+          and set(opt["meta"]) >= search_keys
+          and identity_ok(opt["meta"]),
+          f"[42] tools.optimize on phase 37's root: {fresh} fresh, "
+          f"{cached} cached, report {json.dumps(rep)}")
+    log(f"[42] the tools as child processes on {kind}, side by side "
+        f"(started beside phase 3; startup {json.dumps({k: round(v[0]['startup_s'], 3) for k, v in go.items()})} s): "
+        f"{phase_wall!r} s from the first go to the last exit")
+    log(f"    tools.sweep (VOD grid, {len(g9['grid'])} points x "
+        f"{GRID_PEERS:,} x {GRID_SEGMENTS} x {GRID_WATCH_S:g} s, a row every "
+        f"{GRID_RECORD_EVERY} steps, fresh root): wall {walls['sweep']!r} s "
+        f"(the tool's own {meta['elapsed_s']} s, chunk {meta['chunk']} "
+        f"autotuned, {meta['compile_groups']} builds + captures); rows and "
+        f"timelines equal phase 9's to the bit, the table its rows rounded; "
+        f"row events {json.dumps(meta['warm_start']['row'])}; launches "
+        f"{json.dumps(reports['sweep']['launches'])}")
+    log(f"    tools.optimize (phase 37's settings and root): wall {walls['optimize']!r} s (the tool's own "
+        f"{opt['meta']['elapsed_s']} s); {fresh} fresh dispatches, {cached} "
+        f"row-cache hits, {rep['builds']} builds, {rep['captures']} "
+        f"captures, launches {json.dumps(rep['launches'])}; frontier and "
+        f"trials equal phase 37's to the bit (float.hex, provenance aside)")
+    log(f"    tools.policy_ab (its defaults: random "
+        f"{pab['topologies']['random']['peers']:,}, ring "
+        f"{pab['topologies']['ring']['peers']:,}, a row every {GRID_RECORD_EVERY} steps, fresh "
+        f"root): wall {walls['policy_ab']!r} s (the tool's "
+        f"own {pab['meta']['elapsed_s']} s, chunks "
+        f"{json.dumps(pab['meta']['resolved_chunks'])}); ring rows equal "
+        f"phases 17 and 24's, random rows phase 28's, to the bit; verdict "
+        f"{'PASS' if pab['meta']['sim_acceptance_pass'] else 'FAIL'} (worst "
+        f"default margin {pab['meta']['worst_default_margin']} at "
+        f"{pab['meta']['worst_cell']}; {REFERENCE_POLICY_AB}: "
+        f"{record['worst_default_margin']} at {record['worst_cell']}); "
+        f"launches "
+        f"{json.dumps(reports['policy_ab']['launches'])}")
+    return {"walls": walls, "phase_wall": phase_wall, "reports": reports}
+
+
 def _resources(res, name, live, slots, policy):
     """:func:`gather_resources`' entry of the instantiation that ``name``
     launches for ``policy`` (admit_gather has one a slot count,
@@ -5032,6 +5263,7 @@ def main() -> int:
         smi = phase_card()
         regs = phase_build()
         res = gather_resources(sk, regs)
+        children.update(start_tool_children())
         errs_1m = phase_kernels_vs_plain(sim, sk, CHECK_PEERS, SEGMENTS,
                                          CHECK_WARM_STEPS)
         errs_routes = phase_routes(sim, sk)
@@ -5041,7 +5273,7 @@ def main() -> int:
         (main_launches, errs, ms, traced_ms, plain_ms, nbytes,
          library_b1, main_run) = phase_main(sim, sk, PEERS, SEGMENTS, STEPS,
                                             WINDOW)
-        children = start_children()
+        children.update(start_children())
         phase_main_plain(sim, sk, main_run)
         del main_run
         phase_fixture(sim)
@@ -5095,11 +5327,12 @@ def main() -> int:
         del mixture["scenario"], mixture["final"]
         phase_degenerate(sim, sg, dp)
         phase_traced_grid(sg, dp, sk, grid)
-        phase_search(sk, live_grid["chunk"])
+        search = phase_search(live_grid["chunk"])
         phase_fleet(sg, grid, children)
         twin = phase_twin(sk, smi)
         control = phase_control(sk, smi)
         fleet_control = phase_fleet_control(sk, smi)
+        phase_tools(grid, ring, rings, randoms, search, children)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

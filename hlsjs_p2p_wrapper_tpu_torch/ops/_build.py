@@ -47,6 +47,12 @@ Defines = Tuple[Tuple[str, int], ...]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: sources whose device code ``nvcc`` splits into parallel jobs, one a
+#: core (``--split-compile 0``): the step source's ~100 kernel
+#: instantiations build in about half the time on an 8-core host, to the
+#: same SASS for every kernel (``tools/torch_port_split_compile.py``);
+#: the reduction source's few kernels build without
+SPLIT_SOURCES = ("swarm_step.cu",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -107,9 +113,11 @@ def toolchain() -> str:
     return lines[-1] if lines else out.strip()
 
 
-def flags(defines: Defines = ()) -> Tuple[str, ...]:
-    """nvcc's flags for a source built with ``defines``."""
-    return NVCC_FLAGS + tuple(f"-D{name}={value}" for name, value in defines)
+def flags(defines: Defines = (), source: str = "") -> Tuple[str, ...]:
+    """nvcc's flags for ``source`` built with ``defines``."""
+    split = ("--split-compile", "0") if source in SPLIT_SOURCES else ()
+    return (NVCC_FLAGS + split
+            + tuple(f"-D{name}={value}" for name, value in defines))
 
 
 def _digest(source: str, defines: Defines) -> str:
@@ -120,7 +128,7 @@ def _digest(source: str, defines: Defines) -> str:
     for name in [source] + headers:
         with open(os.path.join(CSRC_DIR, name), "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(flags(defines)).encode())
+    h.update(" ".join(flags(defines, source)).encode())
     h.update(toolchain().encode())
     return h.hexdigest()[:16]
 
@@ -169,7 +177,7 @@ def _store(path: str) -> None:
 def _start(source: str, defines: Defines):
     out = library_path(source, defines)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *flags(defines), "-o", tmp,
+    cmd = [nvcc_path(), *flags(defines, source), "-o", tmp,
            os.path.join(CSRC_DIR, source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

@@ -1053,6 +1053,90 @@ def autotune_chunk(config: SwarmConfig, n_items: int, n_steps: int, *,
     return max(1, min(fit, n_items, MAX_AUTOTUNE_CHUNK))
 
 
+# ---- step cost models ----------------------------------------------------
+
+def step_flops(config: SwarmConfig, n_neighbors: int = 8, *,
+               device) -> float:
+    """Analytic arithmetic per step, the reference's model
+    (``swarm_sim.py:2634-2668``): the eligibility term, the cache map's
+    insert (2·P·W), ~60 elementwise ops a peer and the ABR fit (2·P·L).
+    On the circulant path the eligibility term follows the formulation
+    (:func:`resolve_eligibility` on ``device``, which the caller names:
+    ``"auto"`` is ``"stencil"`` on the card and ``"kpass"`` on the CPU,
+    and their costs differ several times over): ``"kpass"`` ANDs and
+    tests the packed map K·C times (2·P·W·K·C), ``"stencil"`` extracts
+    M = C·(K+1)
+    word columns once (2·P·W·M + 4·P·M); on the general path ~7 ops an
+    edge and slot (7·P·K·C, K = ``n_neighbors``)."""
+    P, L = config.n_peers, config.n_levels
+    W = packed_words(config)
+    C = config.max_concurrency
+    K = n_neighbors
+    if config.neighbor_offsets is not None:
+        K = len(_normalized_offsets(config.neighbor_offsets, P))
+        if resolve_eligibility(config, device) == "kpass":
+            elig = 2.0 * P * W * K * C
+        else:
+            M = C * (K + 1.0)
+            elig = 2.0 * P * W * M + 4.0 * P * M
+    else:
+        elig = 7.0 * P * K * C
+    return elig + 2.0 * P * W + 60.0 * P + 2.0 * P * L
+
+
+def step_hbm_breakdown(config: SwarmConfig, n_neighbors: int = 8, *,
+                       device) -> dict:
+    """Per-term analytic main-memory bytes of one step, the reference's
+    model (``swarm_sim.py:2671-2731``):
+
+    - ``carry_rw``: the state read and written once a step, from the
+      port's own layout (:func:`init_swarm` on the ``meta`` device, each
+      field at its dtype's width; the u32 words held in int32 are as
+      wide as the reference's u32), so a new or re-packed field counts
+      itself;
+    - ``scenario_reads``: eight 4-byte per-peer scenario arrays;
+    - ``eligibility``: ``"kpass"`` re-streams the map and its bit mask
+      K·C times (8·P·W·K·C), ``"stencil"`` streams it once plus three
+      4-byte vectors a word column (4·P·W + 12·P·M); the general path
+      gathers a word an edge and slot (4·P·K·C);
+    - ``edge_gathers``: the general path's contention gathers (20·P·K·C;
+      0 on the circulant path).
+
+    ``device`` resolves ``"auto"`` as in :func:`step_flops`."""
+    P = config.n_peers
+    W = packed_words(config)
+    C = config.max_concurrency
+    circulant = config.neighbor_offsets is not None
+    if circulant:
+        K = len(_normalized_offsets(config.neighbor_offsets, P))
+    else:
+        K = n_neighbors
+    state = init_swarm(config, None if circulant else K, device="meta")
+    carry_rw = 2.0 * sum(float(t.numel() * t.element_size())
+                         for t in tree_leaves(state))
+    scenario_reads = 8.0 * 4.0 * P
+    if circulant:
+        if resolve_eligibility(config, device) == "kpass":
+            elig = 2.0 * 4.0 * P * W * K * C
+        else:
+            M = C * (K + 1.0)
+            elig = 4.0 * P * W + 3.0 * 4.0 * P * M
+        edges = 0.0
+    else:
+        elig = 4.0 * P * K * C
+        edges = (2.0 * 4.0 * P * K + 3.0 * 4.0 * P * K) * C
+    return {"carry_rw": carry_rw, "scenario_reads": scenario_reads,
+            "eligibility": elig, "edge_gathers": edges}
+
+
+def step_hbm_bytes(config: SwarmConfig, n_neighbors: int = 8, *,
+                   device) -> float:
+    """Analytic main-memory bytes a step: the sum of
+    :func:`step_hbm_breakdown`'s terms."""
+    return float(sum(step_hbm_breakdown(config, n_neighbors,
+                                        device=device).values()))
+
+
 # ---- topology and inputs --------------------------------------------------
 
 def staggered_joins(n_peers: int, window_s: float = 60.0, seed: int = 0,

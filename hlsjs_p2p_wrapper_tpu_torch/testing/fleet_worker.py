@@ -1,9 +1,10 @@
 """One host of the multi-host sweep fabric (``engine/fabric.py``) in a
 process of its own: the port's counterpart of the reference's fabric
 worker as its gates start it (``tools/fleet_gate.py:86-133``, ``child``
-and ``run_role``; ``tools/trace_gate.py:81-104``, ``spawn_worker``;
-the worker itself is ``tools/sweep.py``'s ``run_grid_fabric_worker``,
-:575-658).  ``chip_smoke.py`` phase 38 starts three of them on one card.
+and ``run_role``; ``tools/trace_gate.py:81-104``, ``spawn_worker``).
+A host's work is the port's sweep tool's, ``tools/sweep.py``
+``fabric_host``, which the tool's ``--fabric --host-id`` worker runs
+too.  ``chip_smoke.py`` phase 38 starts three of them on one card.
 
     python -m hlsjs_p2p_wrapper_tpu_torch.testing.fleet_worker \\
         --fabric DIR --root DIR --trace-dir DIR --host-id ID \\
@@ -20,7 +21,8 @@ for ``sweep_grid.vod_grid()`` (``WorkLedger`` with the lease
 ``--lease-s`` and the ``FleetChaos`` of ``--chaos``, ``kill@N`` or
 ``stall@N:SECONDS``), publishes or adopts the manifest of units of
 ``--chunk`` points, waits at the start-line ``barrier`` for ``--barrier``
-hosts, and runs ``run_units``: each claimed unit through the port's
+hosts (the kernel libraries loaded first on the card), and runs
+``run_units``: each claimed unit through the port's
 ``stream_groups_chunked`` at the manifest's chunk, with a ``WarmStart``
 on ``--root`` (the row cache the hosts share), a ``FaultPolicy``, this
 host's journal shard ``journal_path(root, meta, host)`` and this host's
@@ -41,7 +43,6 @@ from __future__ import annotations
 import argparse
 import io
 import json
-import os
 import sys
 import time
 
@@ -78,12 +79,11 @@ def main(argv=None) -> int:
     import torch
 
     from .. import sweep_grid as sg
-    from ..engine.artifact_cache import (SweepJournal, WarmStart,
-                                         atomic_write_bytes, journal_path)
-    from ..engine.fabric import FleetChaos, WorkLedger, barrier, run_units
+    from ..engine.artifact_cache import WarmStart, atomic_write_bytes
     from ..engine.faults import FaultPolicy
     from ..engine.tracer import FlightRecorder, counter_families, run_id_for
     from ..ops import swarm_kernels as sk
+    from ..tools.sweep import fabric_host
 
     dev = torch.device(args.device)
     _emit({"ready": True, "host": args.host_id,
@@ -96,15 +96,7 @@ def main(argv=None) -> int:
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     _emit({"card_s": time.perf_counter() - t0})
-    config = sg.build_config(args.peers, args.segments, False, 8)
     grid = sg.vod_grid()
-    n_steps = int(args.watch_s * 1000.0 / config.dt_ms)
-
-    def build(knobs):
-        return sg.build_scenario(config, knobs, watch_s=args.watch_s,
-                                 stagger_s=args.stagger_s, seed=0,
-                                 device=dev)
-
     meta = sg.journal_meta(grid, peers=args.peers, segments=args.segments,
                            watch_s=args.watch_s, live=False, seed=0,
                            record_every=args.record_every)
@@ -112,27 +104,24 @@ def main(argv=None) -> int:
     faults = FaultPolicy(registry=warm.registry)
     trace = FlightRecorder(args.trace_dir, args.host_id,
                            run_id=run_id_for(meta), registry=warm.registry)
-    ledger = WorkLedger(
-        args.fabric, meta, args.host_id, lease_s=args.lease_s,
-        registry=warm.registry,
-        chaos=FleetChaos.parse(args.chaos) if args.chaos else None,
-        trace=trace)
-    # the chunk is the manifest's, pinned by whoever published it first
-    units, chunks = ledger.ensure_manifest([len(grid)], [args.chunk])
-    if args.barrier:
-        barrier(args.fabric, args.host_id, args.barrier)
     launches = dict(sk.LAUNCHES)
-    t_grid = time.perf_counter()
-    jpath = journal_path(warm.cache_dir, meta, args.host_id)
-    with SweepJournal(jpath, meta,
-                      resume=os.path.exists(jpath)) as journal:
-        results, unit_log = run_units(
-            ledger, [(config, grid, build)], n_steps, watch_s=args.watch_s,
-            record_every=args.record_every, warm_start=warm, faults=faults,
-            journal=journal)
+    # the tool's host work (tools/sweep.py ``fabric_host``): the ledger
+    # with its chaos, the manifest of --chunk units (pinned by whoever
+    # published it first), the barrier, this host's journal shard and
+    # ``run_units``
+    host = fabric_host(
+        grid, peers=args.peers, segments=args.segments,
+        watch_s=args.watch_s, live=False, seed=0, chunk=args.chunk,
+        fabric_dir=args.fabric, host_id=args.host_id, lease_s=args.lease_s,
+        warm_start=warm, faults=faults, chaos_spec=args.chaos,
+        barrier_hosts=args.barrier, stagger_s=args.stagger_s,
+        record_every=args.record_every, trace=trace, device=dev)
+    ledger, unit_log, jpath = host["ledger"], host["unit_log"], host["journal"]
+    units, chunks = host["units"], host["chunks"]
+    results = host["results"]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t_grid
+    wall = host["run_s"]
     # every buffered event durable before the counters are read out
     trace.flush()
     rows = dict(sorted(results[0].items()))

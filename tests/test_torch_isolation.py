@@ -41,5 +41,7 @@ def test_port_imports_no_jax_and_no_reference():
                  "ops.swarm_kernels", "engine.controller",
                  "engine.twinframe", "engine.slo", "engine.protocol",
                  "core.segment_view", "core.track_view", "testing.twin",
-                 "testing.control_fixture"):
+                 "testing.control_fixture", "testing.tools_fixture",
+                 "tools.sweep", "tools.policy_ab", "tools.optimize",
+                 "tools.warmstart_gate", "tools.chaos_gate"):
         assert f"hlsjs_p2p_wrapper_tpu_torch.{name}" in names.split()
