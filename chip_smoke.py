@@ -280,6 +280,18 @@ exits nonzero:
    ``tools.policy_ab`` at its defaults (a row every 40 steps): its ring
    rows equal to phases 17 and 24's and its random rows to phase 28's,
    to the bit; each child's wall and kernel launches printed.
+43. the port's sweep-side gates (``tools.fleet_gate``,
+   ``tools.trace_gate``, ``tools.optimize_gate``,
+   ``tools.population_gate``) as child processes on the card, side by
+   side (``testing/tool_child.py --prepare``: each started after phase
+   38 with its own children, all waiting without a context on the
+   card):
+   the fleet and trace gates at phase 9's width (1,048,576 × 128 × 240
+   s, the 48-point VOD grid in units of 3, a 6-s lease; a SIGKILLed
+   host, a host stalled 3 leases, a transient burst), the optimize and
+   population gates at their defaults (48 and 64 peers); each must
+   print PASS; each gate's wall from its go and its own and its
+   children's builds, captures and kernel launches printed.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -376,6 +388,22 @@ FLEET_CHAOS = {"host01": "kill@1", "host02": f"stall@1:{FLEET_STALL_S}"}
 #: argv; the three run side by side
 TOOL_CHILDREN = ("sweep", "policy_ab", "optimize")
 TOOLS_DIR = os.path.join(WARM_DIR, "tools")
+#: phase 43: the port's sweep-side gates as child processes, started
+#: after phase 38 and waiting (each gate's own children too); the four
+#: run side by side, after phase 42.  The fleet and trace gates at phase
+#: 9's full width (their *_GATE_* knobs) with a lease of GATE_LEASE_S
+#: (FLEET_LEASE_S, the shortest shown honest at 1M peers) and units of
+#: GATE_CHUNK, the optimize and population gates at their defaults (48
+#: and 64 peers)
+GATE_CHILDREN = ("fleet_gate", "trace_gate", "optimize_gate",
+                 "population_gate")
+GATE_LEASE_S = FLEET_LEASE_S
+#: units of 3 points (16 a grid): a host's first unit, its capture and
+#: the card shared by seven processes at 1M peers, took 4.4-4.6 s beat to
+#: beat, against the 6-s lease; at the gates' default 6 a host ran out of
+#: units while another's first one outlasted its lease (a third steal)
+GATE_CHUNK = 3
+GATE_BUDGET_S = 45.0
 #: the committed reference-tools fixture (the reference's tools at HEAD on
 #: a CPU): the meta keys the port's artifacts must carry
 TOOLS_FIXTURE = os.path.join(ROOT, PACKAGE, "testing", "reference_tools")
@@ -2482,6 +2510,20 @@ def start_children():
     return children
 
 
+def _start_tool_child(tool, prepare=False):
+    """One ``testing/tool_child.py`` process for ``tool``, its standard
+    error in WARM_DIR; with ``prepare`` (a gate) it starts the gate's own
+    children too, all in a process group of their own that
+    :func:`stop_children` ends whole."""
+    name = f"tool_{tool}"
+    with open(os.path.join(WARM_DIR, f"{name}.err"), "w") as err:
+        return name, subprocess.Popen(
+            [sys.executable, "-m", f"{PACKAGE}.testing.tool_child", tool,
+             *(["--prepare"] if prepare else [])],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=err, text=True, start_new_session=prepare)
+
+
 def start_tool_children():
     """Phase 42's three tools (``testing/tool_child.py``), started after
     the build, beside phase 3: each imports torch and its tool, then
@@ -2490,23 +2532,30 @@ def start_tool_children():
     import shutil
     shutil.rmtree(WARM_DIR, ignore_errors=True)
     os.makedirs(WARM_DIR)
-    children = {}
-    for tool in TOOL_CHILDREN:
-        name = f"tool_{tool}"
-        err = open(os.path.join(WARM_DIR, f"{name}.err"), "w")
-        children[name] = subprocess.Popen(
-            [sys.executable, "-m", f"{PACKAGE}.testing.tool_child", tool],
-            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=err, text=True)
-        err.close()
-    return children
+    return dict(_start_tool_child(tool) for tool in TOOL_CHILDREN)
+
+
+def start_gate_children():
+    """Phase 43's four gates, started after phase 38, each with its own
+    children, all waiting (twenty processes importing torch: beside
+    phase 3 they slowed phase 4's launch queue past its check, beside
+    phase 5's plain run they slowed that run by 15.6 s)."""
+    return dict(_start_tool_child(gate, prepare=True)
+                for gate in GATE_CHILDREN)
 
 
 def stop_children(children):
+    """End every child, and a gate's children with it (its process
+    group, whose id is the gate's pid)."""
+    import signal
     for proc in children.values():
         if proc.poll() is None:
             proc.kill()
         proc.wait()
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass  # no group of its own, or the group is gone
         for fh in (proc.stdin, proc.stdout):
             if fh is not None:
                 fh.close()
@@ -2531,12 +2580,17 @@ def _child_go(name, proc):
     return json.loads(line), time.perf_counter()
 
 
+#: each ended child's standard output, by name
+CHILD_STDOUT = {}
+
+
 def _child_end(name, proc, t_go):
     """The child's exit code, its JSON lines after the ready line, and
     the host wall from its go to its exit (read at once only for the
     killed child: the others report their sweep's wall)."""
     out, _ = proc.communicate(timeout=600)
     wall = time.perf_counter() - t_go
+    CHILD_STDOUT[name] = out
     records = [json.loads(ln) for ln in out.splitlines()
                if ln.startswith("{")]
     return proc.returncode, records, wall
@@ -5197,6 +5251,102 @@ def phase_tools(g9, ring, rings, randoms, search, children):
     return {"walls": walls, "phase_wall": phase_wall, "reports": reports}
 
 
+def _gate_line(name):
+    """The gate's PASS/FAIL line in its child's standard error."""
+    with open(os.path.join(WARM_DIR, f"tool_{name}.err")) as fh:
+        lines = [ln for ln in fh.read().splitlines()
+                 if ln.startswith(f"# {name.replace('_', '-')}: ")]
+    return lines[-1] if lines else None
+
+
+def _gate_children(name):
+    """The builds, captures and launches of the gate's children, summed
+    (its ``# children's kernels:`` line)."""
+    from hlsjs_p2p_wrapper_tpu_torch.tools import CHILDREN_LINE
+    with open(os.path.join(WARM_DIR, f"tool_{name}.err")) as fh:
+        lines = [ln for ln in fh.read().splitlines()
+                 if ln.startswith(CHILDREN_LINE)]
+    return json.loads(lines[-1][len(CHILDREN_LINE):]) if lines else {}
+
+
+def _gate_summary(name):
+    """The gate's own lines (``<gate>: ...`` and ``<gate> ...``: its
+    summary, its checks' lines, its problems) in its child's standard
+    output and error."""
+    prefix = name.replace("_", "-")
+    with open(os.path.join(WARM_DIR, f"tool_{name}.err")) as fh:
+        err = fh.read()
+    return [ln for ln in CHILD_STDOUT.get(f"tool_{name}", "").splitlines()
+            + err.splitlines() if ln.startswith(prefix)]
+
+
+def phase_gates(children):
+    """The port's four sweep-side gates (``tools.fleet_gate``,
+    ``tools.trace_gate``, ``tools.optimize_gate``,
+    ``tools.population_gate``) as child processes on the card
+    (``testing/tool_child.py --prepare``, started after phase 38 with
+    their own children, all waiting), side by side, each on its own
+    throwaway roots.  Widths: the fleet and trace gates at phase
+    9's, 1,048,576 peers x 128 segments x 240 s on the 48-point VOD grid
+    (units of GATE_CHUNK, 3; a lease of GATE_LEASE_S, no shorter than
+    phase 38's; the fleet gate's stall 3 leases); the optimize and
+    population gates at their defaults (48 and 64 peers: at 1,048,576
+    peers they would repeat grids that phases 13, 32, 34, 37 and 42 run
+    through the same dispatch).  Each must print PASS; a failing gate
+    fails the script.  Each gate's wall from its go, its own and its
+    children's builds, captures and kernel launches are printed (the
+    gates' "0 compiles" is 0 nvcc builds in a warm, rerun or resumed
+    child and 0 captures where nothing dispatches).  The phase runs
+    after phase 42, not beside phases 39-41: there the gates slowed
+    those phases' small forecasts by more than the overlap saved
+    (PERF.md §6)."""
+    import torch
+    torch.cuda.synchronize()
+    # the gates' children size nothing from free memory, but seven
+    # processes at 1M peers share the card
+    torch.cuda.empty_cache()
+    wide = {"PEERS": GRID_PEERS, "SEGMENTS": GRID_SEGMENTS,
+            "WATCH_S": GRID_WATCH_S, "LEASE_S": GATE_LEASE_S,
+            "CHUNK": GATE_CHUNK}
+    envs = {"fleet_gate": {f"FLEET_GATE_{k}": str(v)
+                           for k, v in wide.items()},
+            "trace_gate": {f"TRACE_GATE_{k}": str(v)
+                           for k, v in wide.items()}}
+    t0 = time.perf_counter()
+    go = {gate: _tool_go(f"tool_{gate}", children[f"tool_{gate}"],
+                         ["--device", "cuda"], envs.get(gate))
+          for gate in GATE_CHILDREN}
+    reports, walls = {}, {}
+    for gate in GATE_CHILDREN:
+        reports[gate], walls[gate] = _tool_end(
+            f"tool_{gate}", children[f"tool_{gate}"], go[gate][1])
+    phase_wall = time.perf_counter() - t0
+    for gate in GATE_CHILDREN:
+        line = _gate_line(gate)
+        check(line is not None and ": PASS " in line,
+              f"[43] {gate}: {line}")
+    log(f"[43] the sweep-side gates as child processes on "
+        f"{torch.cuda.get_device_name(0)}, side by side (started after "
+        f"phase 38; startup "
+        f"{json.dumps({k: round(v[0]['startup_s'], 3) for k, v in go.items()})}"
+        f" s): {phase_wall!r} s from the first go to the last exit (budget "
+        f"{GATE_BUDGET_S:g} s)")
+    for gate in GATE_CHILDREN:
+        rep = reports[gate]
+        kids = _gate_children(gate)
+        own = {k: v for k, v in rep["launches"].items() if v}
+        theirs = {k: v for k, v in (kids.get("launches") or {}).items() if v}
+        log(f"    {gate}: wall {walls[gate]!r} s (its main "
+            f"{rep['wall_s']!r} s); builds {rep['builds']}, captures "
+            f"{rep['captures']}, launches {json.dumps(own)} in the gate's "
+            f"process; its children: builds {kids.get('builds', 0)}, "
+            f"captures {kids.get('captures', 0)}, launches "
+            f"{json.dumps(theirs)}; {_gate_line(gate)}")
+        for summary in _gate_summary(gate):
+            log(f"      {summary}")
+    return {"walls": walls, "phase_wall": phase_wall, "reports": reports}
+
+
 def _resources(res, name, live, slots, policy):
     """:func:`gather_resources`' entry of the instantiation that ``name``
     launches for ``policy`` (admit_gather has one a slot count,
@@ -5329,10 +5479,12 @@ def main() -> int:
         phase_traced_grid(sg, dp, sk, grid)
         search = phase_search(live_grid["chunk"])
         phase_fleet(sg, grid, children)
+        children.update(start_gate_children())
         twin = phase_twin(sk, smi)
         control = phase_control(sk, smi)
         fleet_control = phase_fleet_control(sk, smi)
         phase_tools(grid, ring, rings, randoms, search, children)
+        phase_gates(children)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -44,6 +44,8 @@ SIZES = dict(CHECK_PEERS=2_048, PEERS=2_048, GRID_PEERS=2_048, STEPS=400,
              # a fabric unit takes ~10x longer on the CPU than on the card
              FLEET_LEASE_S=60.0,
              FLEET_CHAOS={"host01": "kill@1", "host02": "stall@1:120.0"},
+             # phase 43's fleet and trace gates: their stall is 3 leases
+             GATE_LEASE_S=40.0,
              # phase 42's tool children run on this host's CPU
              TOOL_PLATFORM="cpu")
 #: checks that hold only at the real size (the stalling points of the

@@ -1,11 +1,17 @@
 """One of the port's tools (``hlsjs_p2p_wrapper_tpu_torch/tools/``) in a
 process of its own, started ahead of its run: the child process of
-``chip_smoke.py`` phase 42.
+``chip_smoke.py`` phases 42 (the sweep, the A/B and the search) and 43
+(the fleet, trace, optimize and population gates), and every child of
+those gates (``tools.WaitingTool``: their workers, roles, searches and
+digest interpreters), which start with their gate and wait for their
+turn.
 
-    python -m hlsjs_p2p_wrapper_tpu_torch.testing.tool_child TOOL
+    python -m hlsjs_p2p_wrapper_tpu_torch.testing.tool_child TOOL [--prepare]
 
 It attaches a ``CompileCounter`` before anything touches the kernels,
-imports torch and the tool, and prints ``{"ready": ...}``; then it waits,
+imports torch and the tool (with ``--prepare``, a gate, it calls the
+gate's ``prepare()``, which starts the gate's own children, waiting),
+and prints ``{"ready": ...}``; then it waits,
 without a context on the card, for one line on its standard input: a
 JSON object with the tool's ``argv`` and the ``env`` entries to set
 (the warm-start root, ``HLSJS_P2P_TORCH_CACHE_DIR``).  It runs the
@@ -13,7 +19,8 @@ tool's ``main(argv)``, exactly what ``python -m
 hlsjs_p2p_wrapper_tpu_torch.tools.TOOL ARGV`` runs, and prints as the
 last line of its standard output one JSON object: the tool, its exit
 code, the wall from the go to the tool's return, the builds and
-captures it made, and the kernel launches it counted.
+captures it made, and the kernel launches it counted (a gate prints its
+children's, summed, on its standard error: ``# children's kernels:``).
 """
 
 from __future__ import annotations
@@ -26,13 +33,21 @@ import sys
 import time
 
 
+#: the tools a child can run
+TOOLS = ("sweep", "policy_ab", "optimize", "fleet_gate", "trace_gate",
+         "optimize_gate", "population_gate")
+
+
 def _emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("tool", choices=("sweep", "policy_ab", "optimize"))
+    ap.add_argument("tool", choices=TOOLS)
+    ap.add_argument("--prepare", action="store_true",
+                    help="call the tool's prepare() before the ready line "
+                         "(a gate starts its own children, waiting)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -43,6 +58,8 @@ def main(argv=None) -> int:
 
     from ..ops import swarm_kernels as sk
     tool = importlib.import_module(f"..tools.{args.tool}", __package__)
+    if args.prepare:
+        tool.prepare()
     _emit({"ready": True, "tool": args.tool,
            "startup_s": time.perf_counter() - t_start})
     go = json.loads(sys.stdin.readline())

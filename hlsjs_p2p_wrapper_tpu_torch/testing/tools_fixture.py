@@ -42,6 +42,32 @@ RUNS = {
                  False),
 }
 
+#: the port's gates' runs that are held to the reference's: the optimize
+#: gate's grid and search children at the gate's defaults (48 peers ×
+#: 16 segments × 60 s, chunk 16, ``rebuffer<=0.02``, seed 0; the
+#: reference's ``tools/optimize_gate.py`` :128-140), name → (tool,
+#: arguments); each writes ``<name>.json``
+GATE_RUNS = {
+    "optimize_gate_grid": (
+        "optimize", ["--peers", "48", "--segments", "16", "--watch-s",
+                     "60.0", "--chunk", "16", "--constraint",
+                     "rebuffer<=0.02", "--seed", "0", "--driver", "grid",
+                     "--budget", "200"]),
+    "optimize_gate_search": (
+        "optimize", ["--peers", "48", "--segments", "16", "--watch-s",
+                     "60.0", "--chunk", "16", "--constraint",
+                     "rebuffer<=0.02", "--seed", "0", "--budget",
+                     "66.0"]),
+}
+
+#: the population gate's reference numbers
+#: (``tools/torch_port_tools_fixture.py`` ``population_gate_doc``):
+#: check 4's rows at the gate shape (``frontier``: ``mixture`` and
+#: ``mean``, each two points' full-precision offload and rebuffer) and
+#: check 4b's scenario through the reference's ``run_sim_plane``
+#: (``sim_frames``, ``ObservationFrame.as_dict``)
+POPULATION_GATE = "population_gate.json"
+
 #: the tools that take ``--no-warm-start`` (the reference's executable
 #: layer is off for them; its optimize tool has no such flag and gets a
 #: throwaway ``--cache-dir``)
@@ -71,3 +97,11 @@ def load(name: str, directory: str = FIXTURE_DIR):
         with open(path, encoding="utf-8") as fh:
             timelines = [json.loads(line) for line in fh if line.strip()]
     return artifact, timelines
+
+
+def load_gate(name: str, directory: str = FIXTURE_DIR):
+    """The reference's artifact of :data:`GATE_RUNS` run ``name``, or
+    the :data:`POPULATION_GATE` document for ``"population_gate"``."""
+    file = POPULATION_GATE if name == "population_gate" else f"{name}.json"
+    with open(os.path.join(directory, file), encoding="utf-8") as fh:
+        return json.load(fh)

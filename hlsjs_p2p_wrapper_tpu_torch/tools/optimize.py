@@ -47,7 +47,7 @@ import time
 import torch
 
 from . import (COMPILES_MEANING, add_device_flag, device_identity,
-               open_device)
+               launch_counts, open_device, report_kernels)
 from ..engine.artifact_cache import (CompileCounter, SweepJournal,
                                      WarmStart, atomic_write_json,
                                      journal_path)
@@ -254,7 +254,9 @@ def main(argv=None):
     if constraint.metric not in TRIAL_METRICS:
         ap.error(f"unknown constraint metric {constraint.metric!r} "
                  f"(trials carry: {', '.join(TRIAL_METRICS)})")
-    artifact = run_search(args)
+    launches = launch_counts()
+    with CompileCounter() as probe:
+        artifact = run_search(args)
     frontier = artifact["frontier"]
     if args.json:
         for trial in frontier["pareto"]:
@@ -295,6 +297,7 @@ def main(argv=None):
     if args.out:
         atomic_write_json(args.out, artifact)
         print(f"# wrote {args.out}", file=sys.stderr)
+    report_kernels(probe, launches)
     return 0
 
 

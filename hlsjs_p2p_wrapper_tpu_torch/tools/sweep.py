@@ -59,7 +59,7 @@ import time
 import torch
 
 from . import (COMPILES_MEANING, add_device_flag, device_identity,
-               open_device)
+               launch_counts, open_device, report_kernels)
 from ..core.device import resolve_device
 from ..engine.artifact_cache import (CompileCounter, SweepJournal,
                                      WarmStart, atomic_write_json,
@@ -250,8 +250,8 @@ def fabric_host(grid, *, peers, segments, watch_s, live, seed, chunk,
     (``chaos_spec``, ``kill@N`` or ``stall@N:S``, arms the fleet gate's
     claim-ordinal chaos), publish or adopt the unit manifest, wait at
     the start-line ``barrier`` for ``barrier_hosts`` hosts (the kernel
-    libraries loaded first, so a host is not still loading while its
-    peers drain the grid), then claim → dispatch → journal → finalize
+    libraries loaded and the card's context made first, so a host is not
+    still loading while its peers drain the grid), then claim → dispatch → journal → finalize
     units (``run_units``, this host's journal shard) until the grid is
     done.  Returns a dict: ``group_keys``, ``results`` (per group, item
     → metric or None), ``unit_log``, the ``ledger``, the manifest's
@@ -272,9 +272,13 @@ def fabric_host(grid, *, peers, segments, watch_s, live, seed, chunk,
         [len(items) for _, items, _ in group_list],
         resolve_group_chunks(group_list, n_steps, chunk))
     if barrier_hosts:
-        if resolve_device(device).type == "cuda":
+        dev = resolve_device(device)
+        if dev.type == "cuda":
             from ..ops import swarm_kernels
             swarm_kernels.build_kernels()
+            # the card's context too: a host's first lease then pays for
+            # its dispatch alone
+            torch.zeros(1, device=dev)
         barrier(fabric_dir, host_id, barrier_hosts)
     jpath = journal_path(warm_start.cache_dir, meta, host_id)
     t0 = time.perf_counter()
@@ -596,10 +600,13 @@ def main(argv=None):
     _check_args(ap, args)
     # before anything touches the kernels: every build and capture counts
     probe = CompileCounter().attach()
+    launches = launch_counts()
     try:
-        return _run(ap, args, dev, probe)
+        rc = _run(ap, args, dev, probe)
     finally:
         probe.detach()
+    report_kernels(probe, launches)
+    return rc
 
 
 def _run(ap, args, dev, probe):

@@ -43,5 +43,8 @@ def test_port_imports_no_jax_and_no_reference():
                  "core.segment_view", "core.track_view", "testing.twin",
                  "testing.control_fixture", "testing.tools_fixture",
                  "tools.sweep", "tools.policy_ab", "tools.optimize",
-                 "tools.warmstart_gate", "tools.chaos_gate"):
+                 "tools.warmstart_gate", "tools.chaos_gate",
+                 "tools.fleet_gate", "tools.trace_gate",
+                 "tools.optimize_gate", "tools.population_gate",
+                 "tools.trace_export", "tools.fleet_console"):
         assert f"hlsjs_p2p_wrapper_tpu_torch.{name}" in names.split()

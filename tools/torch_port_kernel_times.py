@@ -7,10 +7,10 @@ points, the 20-lane ring chunk of ``tools/policy_ab.py`` under each of
 the three holder policies), the lanes run from the start as replayed
 CUDA graphs for the watch window's 960 steps, as ``chip_smoke.py``'s
 direct runs do.  From that final state, ``chip_smoke.time_window`` times
-eager steps between CUDA events on three routes: the main path
+eager steps between CUDA events on four routes: the main path
 (``select_admit``, ``peer_update``), TK1 + TK2 then ``peer_update``, and
-the plain versions of the main path.  One JSON line per batch, after the
-card's name and power limit.
+the plain versions of each (``plain``, ``plain_pair``).  One JSON line
+per batch, after the card's name and power limit.
 
 Run on the card from the root of a checkout:
 ``python3 tools/torch_port_kernel_times.py``.
@@ -85,8 +85,8 @@ def main() -> int:
                "slots": config.max_concurrency,
                "policy": config.holder_selection, "live": config.live,
                "run_s": wall}
-        for route in ("fused", "pair", "plain"):
-            steps = PLAIN_STEPS if route == "plain" else WINDOW
+        for route in ("fused", "pair", "plain", "plain_pair"):
+            steps = PLAIN_STEPS if route.startswith("plain") else WINDOW
             while True:
                 try:
                     per_pass, _step = cs.time_window(
