@@ -292,6 +292,20 @@ exits nonzero:
    population gates at their defaults (48 and 64 peers); each must
    print PASS; each gate's wall from its go and its own and its
    children's builds, captures and kernel launches printed.
+44. the port's twin and control gates (``tools.twin_gate``,
+   ``tools.control_gate``) at their defaults (8 peers plus a wave of 4,
+   160 s in 8-s windows) as child processes on the card, side by side,
+   each on its own warm-start root (``testing/tool_child.py --prepare``:
+   started with phase 43's gates, their own children too, all waiting):
+   the real-protocol plane (the agent swarm, the tracker, the loopback
+   wire) against the twin's sim plane on the card within
+   ``TWIN_r10.json``'s bands, and the controller closing the loop under
+   chaos with its forecasts on the card, over the real TCP wire on the
+   loopback interface, and across a SIGKILL.  The twin gate must print
+   PASS and the control gate every check passed, with 0 ``nvcc`` builds
+   in their children; each gate's wall from its go, its stages' walls,
+   and its own and its children's builds, captures and kernel launches
+   printed.
 
 The last line of standard output is one JSON object
 ``{"ok": true, "device": {...}}``; the line before it gives the card's
@@ -305,7 +319,7 @@ phase 29's launches over the three policies and times on the spread
 chunk, with an entry per size and policy; ``timeline_row_cohorts``:
 phase 32's launches and phase 33's times; each gather kernel,
 ``lane_sums`` and ``timeline_row``: a ``control_plane`` entry with the
-launches of phases 39, 40 and 41).  Without a card, or outside
+launches of phases 39, 40, 41 and 44).  Without a card, or outside
 a checkout, it exits nonzero and prints no result.
 """
 
@@ -404,6 +418,13 @@ GATE_LEASE_S = FLEET_LEASE_S
 #: units while another's first one outlasted its lease (a third steal)
 GATE_CHUNK = 3
 GATE_BUDGET_S = 45.0
+#: phase 44: the port's twin and control gates as child processes,
+#: started with phase 43's (each gate's own children too: the twin
+#: gate's three real-plane runs, the control gate's static run, its part
+#: B and its three tools.control runs) and run side by side after phase
+#: 43, at their defaults
+CONTROL_GATE_CHILDREN = ("twin_gate", "control_gate")
+CONTROL_GATE_BUDGET_S = 45.0
 #: the committed reference-tools fixture (the reference's tools at HEAD on
 #: a CPU): the meta keys the port's artifacts must carry
 TOOLS_FIXTURE = os.path.join(ROOT, PACKAGE, "testing", "reference_tools")
@@ -2536,12 +2557,13 @@ def start_tool_children():
 
 
 def start_gate_children():
-    """Phase 43's four gates, started after phase 38, each with its own
-    children, all waiting (twenty processes importing torch: beside
-    phase 3 they slowed phase 4's launch queue past its check, beside
-    phase 5's plain run they slowed that run by 15.6 s)."""
+    """Phase 43's four gates and phase 44's two, started after phase 38,
+    each with its own children, all waiting (thirty processes importing
+    torch, which slow what runs beside them: twenty beside phase 3
+    slowed phase 4's launch queue past its check, beside phase 5's plain
+    run they slowed that run by 15.6 s; here, phase 41 by ~8 s)."""
     return dict(_start_tool_child(gate, prepare=True)
-                for gate in GATE_CHILDREN)
+                for gate in GATE_CHILDREN + CONTROL_GATE_CHILDREN)
 
 
 def stop_children(children):
@@ -5347,6 +5369,97 @@ def phase_gates(children):
     return {"walls": walls, "phase_wall": phase_wall, "reports": reports}
 
 
+def _walls_line(name):
+    """The gate's ``<gate> walls (s): {...}`` line, parsed."""
+    prefix = f"{name.replace('_', '-')} walls (s): "
+    lines = [ln for ln in CHILD_STDOUT.get(f"tool_{name}", "").splitlines()
+             if ln.startswith(prefix)]
+    return json.loads(lines[-1][len(prefix):]) if lines else {}
+
+
+def _checks_line(name):
+    """The control gate's ``control-gate: N/M checks passed`` line."""
+    prefix = f"{name.replace('_', '-')}: "
+    lines = [ln for ln in CHILD_STDOUT.get(f"tool_{name}", "").splitlines()
+             if ln.startswith(prefix) and ln.endswith(" checks passed")]
+    return lines[-1] if lines else None
+
+
+def phase_control_gates(children):
+    """The port's twin and control gates (``tools.twin_gate``,
+    ``tools.control_gate``) as child processes on the card
+    (``testing/tool_child.py --prepare``, started with phase 43's gates,
+    their own children too, all waiting), side by side, each on its own
+    warm-start root, at their defaults: 8 peers plus a wave of 4, 160 s
+    in 8-s windows (the shape ``TWIN_r10.json``'s bands are calibrated
+    at).  The twin gate holds the port's real-protocol plane to its sim
+    plane on the card within those bands (event plane equal to the
+    registry plane, a same-seed rerun in another process equal, the
+    injected wave shift localized, the consumers rendering); the control
+    gate closes the controller's loop under chaos with its forecasts on
+    the card (part A), over the real TCP wire on the loopback interface
+    (part B) and across a SIGKILL of ``tools.control --device cuda``
+    (part C).  The twin gate must print PASS, the control gate every
+    check passed; their children build nothing.  Each gate's wall from
+    its go, its stages' walls, and its own and its children's builds,
+    captures and kernel launches are printed."""
+    import torch
+    torch.cuda.synchronize()
+    roots = {gate: os.path.join(WARM_DIR, f"root_{gate}")
+             for gate in CONTROL_GATE_CHILDREN}
+    t0 = time.perf_counter()
+    go = {gate: _tool_go(f"tool_{gate}", children[f"tool_{gate}"],
+                         ["--device", "cuda"],
+                         {"HLSJS_P2P_TORCH_CACHE_DIR": roots[gate]})
+          for gate in CONTROL_GATE_CHILDREN}
+    reports, walls = {}, {}
+    for gate in CONTROL_GATE_CHILDREN:
+        reports[gate], walls[gate] = _tool_end(
+            f"tool_{gate}", children[f"tool_{gate}"], go[gate][1])
+    phase_wall = time.perf_counter() - t0
+    twin_line = _gate_line("twin_gate")
+    check(twin_line is not None and ": PASS " in twin_line,
+          f"[44] twin_gate: {twin_line}")
+    checks = _checks_line("control_gate")
+    passed = checks and checks.split()[1].split("/")
+    check(passed and passed[0] == passed[1],
+          f"[44] control_gate: {checks}")
+    launches = {}
+    for gate in CONTROL_GATE_CHILDREN:
+        kids = _gate_children(gate)
+        check(kids.get("builds") == 0,
+              f"[44] {gate}: its children made {kids.get('builds')} nvcc "
+              f"builds (0 expected: the libraries are built)")
+        for part in (reports[gate]["launches"], kids.get("launches") or {}):
+            for name, n in part.items():
+                launches[name] = launches.get(name, 0) + n
+    log(f"[44] the twin and control gates as child processes on "
+        f"{torch.cuda.get_device_name(0)}, side by side (started with "
+        f"phase 43's; startup "
+        f"{json.dumps({k: round(v[0]['startup_s'], 3) for k, v in go.items()})}"
+        f" s): {phase_wall!r} s from the first go to the last exit (budget "
+        f"{CONTROL_GATE_BUDGET_S:g} s)")
+    for gate in CONTROL_GATE_CHILDREN:
+        rep = reports[gate]
+        kids = _gate_children(gate)
+        own = {k: v for k, v in rep["launches"].items() if v}
+        theirs = {k: v for k, v in (kids.get("launches") or {}).items() if v}
+        log(f"    {gate}: wall {walls[gate]!r} s (its main "
+            f"{rep['wall_s']!r} s); stages (s) "
+            f"{json.dumps(_walls_line(gate))}; builds {rep['builds']}, "
+            f"captures {rep['captures']}, launches {json.dumps(own)} in the "
+            f"gate's process; its children: builds {kids.get('builds', 0)}, "
+            f"captures {kids.get('captures', 0)}, launches "
+            f"{json.dumps(theirs)}; "
+            f"{twin_line if gate == 'twin_gate' else checks}")
+        for summary in _gate_summary(gate):
+            if not summary.startswith(("control-gate walls",
+                                       "twin-gate walls")):
+                log(f"      {summary}")
+    return {"walls": walls, "phase_wall": phase_wall, "reports": reports,
+            "launches": launches}
+
+
 def _resources(res, name, live, slots, policy):
     """:func:`gather_resources`' entry of the instantiation that ``name``
     launches for ``policy`` (admit_gather has one a slot count,
@@ -5485,6 +5598,7 @@ def main() -> int:
         fleet_control = phase_fleet_control(sk, smi)
         phase_tools(grid, ring, rings, randoms, search, children)
         phase_gates(children)
+        control_gates = phase_control_gates(children)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5601,9 +5715,11 @@ def main() -> int:
                 "forecast_launches": control["launches"].get(name, 0),
                 "fleet_forecast_launches":
                     fleet_control["launches"].get(name, 0),
+                "gate_launches": control_gates["launches"].get(name, 0),
                 "launches_in": "[39] the twin's sim planes at 12 peers; "
                                "[40] config (a)'s cold loop; [41] config "
-                               "(b)'s four-shard loop"}
+                               "(b)'s four-shard loop; [44] the twin and "
+                               "control gates with their children"}
     log(f"wall s by phase (up to each line, by its tag): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_WALLS.items()})}; "
         f"total {time.perf_counter() - _CLOCK['start']:.2f} s")

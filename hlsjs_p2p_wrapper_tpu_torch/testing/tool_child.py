@@ -1,10 +1,11 @@
 """One of the port's tools (``hlsjs_p2p_wrapper_tpu_torch/tools/``) in a
 process of its own, started ahead of its run: the child process of
-``chip_smoke.py`` phases 42 (the sweep, the A/B and the search) and 43
-(the fleet, trace, optimize and population gates), and every child of
-those gates (``tools.WaitingTool``: their workers, roles, searches and
-digest interpreters), which start with their gate and wait for their
-turn.
+``chip_smoke.py`` phases 42 (the sweep, the A/B and the search), 43
+(the fleet, trace, optimize and population gates) and 44 (the twin and
+control gates), and every child of those gates (``tools.WaitingTool``:
+their workers, roles, searches, digest interpreters, real planes, wire
+parts and controller runs), which start with their gate and wait for
+their turn.
 
     python -m hlsjs_p2p_wrapper_tpu_torch.testing.tool_child TOOL [--prepare]
 
@@ -35,7 +36,8 @@ import time
 
 #: the tools a child can run
 TOOLS = ("sweep", "policy_ab", "optimize", "fleet_gate", "trace_gate",
-         "optimize_gate", "population_gate")
+         "optimize_gate", "population_gate", "control", "twin_gate",
+         "control_gate")
 
 
 def _emit(record: dict) -> None:

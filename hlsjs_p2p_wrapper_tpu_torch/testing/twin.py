@@ -1,13 +1,19 @@
-"""The scenario twin's sim half: the reference's ``testing/twin.py``
-(``hlsjs_p2p_wrapper_tpu/testing/twin.py``) without its real plane.
+"""The scenario twin: the reference's ``testing/twin.py``
+(``hlsjs_p2p_wrapper_tpu/testing/twin.py``), ONE seeded scenario through
+BOTH planes.
 
 A :class:`TwinScenario` is the one seeded scenario both planes consume.
-The reference runs it through the full-protocol harness (the real
-plane: ``run_real_plane``, ``TwinSampler``, ``TwinRunResult``) and
-through the simulator (the sim plane).  The real plane is pure Python
-and is not copied; its recorded shards are what this module's consumers
-read.  What is here, with the reference's names:
+What is here, with the reference's names:
 
+- the REAL plane (:func:`run_real_plane`, :class:`TwinSampler`,
+  :class:`TwinRunResult`): the port's copy of the full-protocol harness
+  (``testing/swarm.py`` ``SwarmHarness``: agents, tracker, shaped CDN,
+  one VirtualClock), a sampler closing one frame window per
+  ``window_s`` of simulated time from the live registry and, with a
+  flight recorder, a ``twin_window`` mark per boundary so the SAME
+  frames reconstruct from the event shard alone.  It is host Python and
+  launches nothing; it is imported only when it runs, so the sim half
+  below never loads the harness;
 - the parity mapping (:func:`parity_sim_config`): full neighbours,
   foreground + 2 prefetch slots (:data:`SIM_CONCURRENCY`), the
   ``"spread"`` holder policy, the stall digest on, and the CDN rate
@@ -44,7 +50,9 @@ import torch
 from ..core.device import resolve_device
 from ..engine.population import (PopulationSpec, fault_specs_from,
                                  materialize)
-from ..engine.twinframe import ObservationFrame, frames_from_timelines
+from ..engine.twinframe import (FrameBuilder, ObservationFrame,
+                                TWIN_WINDOW_MARK, frames_from_events,
+                                frames_from_timelines)
 
 #: the parity mapping's transfer-slot count: foreground + the agent's
 #: DEFAULT_MAX_CONCURRENT_PREFETCH (tests/test_sim_vs_harness_parity)
@@ -229,6 +237,166 @@ class TwinScenario:
     @property
     def n_windows(self) -> int:
         return int(round(self.watch_s / self.window_s))
+
+
+class TwinSampler:
+    """The real plane's frame recorder: one VirtualClock timer per
+    ``window_ms`` reads the live registry's ``twin.*`` provenance
+    totals and the harness membership into the shared
+    :class:`FrameBuilder`, closes the window, and — with a recorder —
+    emits the ``twin_window`` mark (flushed, so a console tailing the
+    shard sees calibration windows live and a SIGKILL costs at most
+    the open window)."""
+
+    def __init__(self, harness: "SwarmHarness", window_ms: float,
+                 recorder=None, source: str = "real",
+                 flush_every: int = 1, on_window=None):
+        self.harness = harness
+        self.window_ms = float(window_ms)
+        self.recorder = recorder
+        self.builder = FrameBuilder(source, window_ms / 1000.0)
+        self.windows = 0
+        #: ``on_window(index)`` fires after each window closed (and
+        #: its mark flushed) — the fleet gate's sampler-death hook
+        #: (a host SIGKILLing itself after window K dies with K+1
+        #: durable windows, deterministically)
+        self.on_window = on_window
+        #: flush the recorder every Nth window instead of every one —
+        #: the batch-extraction setting (run_real_plane), where nobody
+        #: tails the shard live and per-window flush syscalls were a
+        #: measured share of the armed cost (the reference's bench,
+        #: ``detail.fleet_ingest.armed``).  Live consumers (the
+        #: control/SLO gates' in-process tails) keep the default 1:
+        #: a window marked is a window visible.  SIGKILL now costs at
+        #: most the UNFLUSHED windows (≤ flush_every), not one.
+        self.flush_every = max(int(flush_every), 1)
+        self._arm()
+
+    def _arm(self) -> None:
+        self.harness.clock.call_later(self.window_ms, self._tick)
+
+    def _tick(self) -> None:
+        harness = self.harness
+        t_ms = harness.clock.now()
+        builder = self.builder
+        for peer in harness.peers:
+            builder.set_join(peer.peer_id, peer.joined_at_ms)
+            if peer.left_at_ms is not None:
+                builder.set_leave(peer.peer_id, peer.left_at_ms)
+        for labels, value in harness.metrics.series("twin.fetch_bytes"):
+            builder.set_bytes_total(labels["peer"], labels["src"],
+                                    value)
+        for labels, value in harness.metrics.series("twin.stall_ms"):
+            builder.set_stall_total(labels["peer"], value)
+        builder.close_window(t_ms)
+        if self.recorder is not None:
+            self.recorder.mark(TWIN_WINDOW_MARK, window=self.windows,
+                               window_ms=self.window_ms)
+            # OS-write durability is the per-batch contract: a
+            # SIGKILL'd writer keeps every flushed window; per-window
+            # fsyncs only guard host crashes and were a measured
+            # double-digit share of the armed cost (tracer.flush)
+            if (self.windows + 1) % self.flush_every == 0:
+                self.recorder.flush(fsync=False)
+        self.windows += 1
+        if self.on_window is not None:
+            self.on_window(self.windows - 1)
+        self._arm()
+
+    def frame(self) -> ObservationFrame:
+        return self.builder.frame()
+
+
+@dataclass
+class TwinRunResult:
+    """One real-plane run's outputs: the registry-derived frame, the
+    event-reconstructed frame (None without a recorder), the shard
+    path, the harness's final north-star pair, and the injected
+    transport-fault counts by kind (``mesh.transport_faults`` — the
+    population gate's proof that a spec's partition windows actually
+    FIRED on the wire)."""
+
+    registry_frames: ObservationFrame
+    event_frames: Optional[ObservationFrame]
+    shard_path: Optional[str]
+    offload: float
+    rebuffer: float
+    transport_faults: dict = field(default_factory=dict)
+
+
+def run_real_plane(scenario: TwinScenario,
+                   trace_dir: Optional[str] = None,
+                   host_id: str = "twin00",
+                   extract_events: bool = True) -> TwinRunResult:
+    """Run the scenario through the real-protocol swarm and extract
+    frames both ways: sampled live from the registries, and — when
+    ``trace_dir`` is given — reconstructed from the flight-recorder
+    shard alone (the twin gate, ``tools/twin_gate.py``, asserts the
+    two are exactly equal).  ``extract_events=False`` skips the post-run shard read +
+    reconstruction (``event_frames`` stays None, the shard stays on
+    disk): the overhead bench times the run with ONLY the recorder
+    armed, so extraction cost cannot masquerade as arming cost."""
+    from .swarm import SwarmHarness
+
+    fault_specs = scenario.effective_fault_specs()
+    harness = SwarmHarness(
+        seg_duration=scenario.seg_duration_s,
+        frag_count=scenario.frag_count,
+        level_bitrates=tuple(int(b) for b in scenario.level_bitrates),
+        cdn_bandwidth_bps=scenario.cdn_bps,
+        cdn_latency_ms=scenario.cdn_latency_ms, seed=scenario.seed,
+        fault_plan_specs=fault_specs,
+        fault_plan_kwargs=({"seed": scenario.seed,
+                            **scenario.fault_kwargs}
+                           if fault_specs else None))
+    recorder = None
+    shard_path = None
+    if trace_dir is not None:
+        from ..engine.tracer import FlightRecorder
+        # the twin recorder is scoped to the twin data plane: only
+        # ``twin.*`` bumps become events (the families the frame
+        # reconstruction and the Perfetto twin tracks consume) —
+        # recording every unrelated family's bumps too was a
+        # measured third of the armed event plane's cost for zero
+        # calibration signal (the reference's bench,
+        # ``detail.twin_overhead``)
+        recorder = FlightRecorder(trace_dir, host_id,
+                                  clock=harness.clock.now,
+                                  registry=harness.metrics,
+                                  counter_filter=_is_twin_family)
+        shard_path = recorder.path
+    # batch extraction: nobody tails this shard live, so flush every
+    # 4th window (the recorder's close() lands the final partial
+    # batch) — a SIGKILL'd run keeps every flushed window exactly
+    sampler = TwinSampler(harness, scenario.window_s * 1000.0,
+                          recorder=recorder, flush_every=4)
+    # replay joins in TIME order, not list order: the wave cohort sits
+    # after the base audience in join_times_s() but may land before
+    # its tail (n_peers >= 10 at the default spacing), and the clamp
+    # below would silently displace it — peer ids keep the list index
+    # so p{i} still maps to the sim plane's joins[i]
+    joins = scenario.join_times_s()
+    uplinks = scenario.uplinks_bps()
+    for i in sorted(range(len(joins)), key=lambda i: (joins[i], i)):
+        harness.run(max(joins[i] * 1000.0 - harness.clock.now(), 0.0))
+        harness.add_peer(f"p{i}", uplink_bps=uplinks[i])
+    harness.run(scenario.watch_s * 1000.0 - harness.clock.now())
+    event_frames = None
+    if recorder is not None:
+        recorder.close()
+        if extract_events:
+            from ..engine.tracer import read_shard
+            _meta, events = read_shard(shard_path)
+            event_frames = frames_from_events(events)
+    return TwinRunResult(registry_frames=sampler.frame(),
+                         event_frames=event_frames,
+                         shard_path=shard_path,
+                         offload=harness.offload_ratio,
+                         rebuffer=harness.rebuffer_ratio,
+                         transport_faults={
+                             labels.get("kind", "?"): value
+                             for labels, value in harness.metrics
+                             .series("mesh.transport_faults")})
 
 
 def parity_sim_config(scenario: TwinScenario,

@@ -1,10 +1,12 @@
 """The port's command-line tools, the counterparts of the reference's
-``tools/sweep.py``, ``tools/policy_ab.py``, ``tools/optimize.py``, its
-gates (``tools/warmstart_gate.py``, ``tools/chaos_gate.py``,
+``tools/sweep.py``, ``tools/policy_ab.py``, ``tools/optimize.py``, the
+controller service ``tools/control.py``, its gates
+(``tools/warmstart_gate.py``, ``tools/chaos_gate.py``,
 ``tools/fleet_gate.py``, ``tools/trace_gate.py``,
-``tools/optimize_gate.py``, ``tools/population_gate.py``) and the trace
+``tools/optimize_gate.py``, ``tools/population_gate.py``,
+``tools/twin_gate.py``, ``tools/control_gate.py``) and the trace
 consumers (``tools/trace_export.py``, ``tools/fleet_console.py``) on the
-port's dispatch (``ops/dispatch.py``).  Each runs as ``python -m
+port's dispatch (``ops/dispatch.py``) and real-protocol plane.  Each runs as ``python -m
 hlsjs_p2p_wrapper_tpu_torch.tools.<name>`` with the reference tool's
 flags and defaults, and writes artifacts with the reference's keys and
 row order.
@@ -19,8 +21,8 @@ card (``"cpu"`` on the CPU) and ``device_kind`` the card's name; the
 reference's count of XLA compiles is the port's ``CompileCounter``
 (``engine/artifact_cache.py``): ``nvcc`` builds started plus CUDA-graph
 captures.  The warm-start root is ``$HLSJS_P2P_TORCH_CACHE_DIR`` (else
-``~/.cache/hlsjs_p2p_wrapper_tpu_torch``).  The sweep and the search
-end with one standard-error line, ``# kernels: {...}``
+``~/.cache/hlsjs_p2p_wrapper_tpu_torch``).  The sweep, the search and
+the controller service end with one standard-error line, ``# kernels: {...}``
 (:func:`report_kernels`): the builds, captures and kernel launches the
 run made, which a gate sums over its children (:func:`kernels_reported`)
 and prints as ``# children's kernels: {...}`` (:func:`report_children`).
@@ -163,3 +165,11 @@ def json_records(text: str) -> list:
     """The JSON-object lines of a child's standard output."""
     return [json.loads(line) for line in text.splitlines()
             if line.startswith("{")]
+
+
+def child_report(text: str) -> dict:
+    """The report a ``testing/tool_child.py`` child ends its standard
+    output with (its tool, exit code, ``wall_s``, builds, captures and
+    launches), or ``{}`` when it died before it (a SIGKILL)."""
+    records = json_records(text)
+    return records[-1] if records and "rc" in records[-1] else {}

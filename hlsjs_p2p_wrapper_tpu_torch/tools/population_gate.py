@@ -31,16 +31,15 @@ at process level:
    :data:`FRONTIER_BAR`).
 
    4b. The flash-crowd + regional-partition population survives the
-   twin's plane: the reference drives it through its real-protocol
-   socket plane (``testing/twin.py`` ``run_real_plane`` with
-   ``engine/netfaults.py``), which stays outside the port; the port
-   runs the same ``TwinScenario`` through its sim plane
-   (``testing/twin.py`` ``run_sim_plane``, on the gate's device) and
-   keeps the assertions that have a meaning there: every window closed,
-   offload in [0, 1] with rebuffer ≥ 0, and the crowd fully present.
-   The reference gate's fourth assertion, **the partition fired on the
-   wire** (``mesh.transport_faults{kind=partition}`` ≥ 1), needs the
-   socket plane and is not checked here; the PASS line names it.
+   twin's real-protocol plane: the same ``TwinScenario`` runs through
+   the port's copy of the real plane (``testing/twin.py``
+   ``run_real_plane``, host Python: the agent swarm, the tracker and
+   the loopback wire), its partition windows driven on the wire through
+   the shared ``NetFaultPlan`` grammar (``engine/netfaults.py``).
+   Asserted, as the reference does: every window closed, **the
+   partition fired on the wire** (``mesh.transport_faults{kind=
+   partition}`` ≥ 1), offload in [0, 1] with rebuffer ≥ 0, and the
+   crowd fully present.
 
 The gate makes no compile claim.  The simulator runs in the gate's own
 process; its builds, captures and launches are the process's.
@@ -82,11 +81,6 @@ FRONTIER_BAR = 0.05
 #: check 3's children (:func:`prepare`)
 _PREPARED: list = []
 
-#: what check 4b does not hold on the port (the PASS line names it)
-WIRE_ASSERTION = ("partition fired on the wire: the reference gate's own "
-                  "check, not run (no socket plane)")
-
-
 def degenerate_spec() -> PopulationSpec:
     """ONE cohort, everything inherited: the population that must be
     indistinguishable — bit-for-bit — from no population at all."""
@@ -117,8 +111,8 @@ def homogeneous_mean_spec() -> PopulationSpec:
 def crowd_partition_spec() -> PopulationSpec:
     """Check 4b's scenario: a staggered base audience, a flash-crowd
     cohort landing in one wave, and a regional-partition window (which
-    the reference's real plane drives on the wire through the shared
-    NetFaultPlan grammar).  Every cohort stays "open"."""
+    the real plane drives on the wire through the shared NetFaultPlan
+    grammar).  Every cohort stays "open"."""
     return PopulationSpec(
         name="gate_crowd_partition", seed=11,
         cohorts=(
@@ -283,30 +277,40 @@ def check_frontier(sizes, device):
     return []
 
 
-def check_sim_plane(device):
-    """Check 4b: flash crowd + regional partition through the twin's
-    sim plane (the reference runs its real-protocol plane here)."""
-    from ..testing.twin import run_sim_plane
+def check_real_plane():
+    """Check 4b: flash crowd + regional partition through the
+    real-protocol plane, partitions firing via NetFaultPlan."""
+    from ..engine.netfaults import NetFaultPlan
+    from ..testing.twin import run_real_plane
     scenario = crowd_scenario()
+    spec = scenario.population
     problems = []
-    frames = run_sim_plane(scenario, device=device)
-    offload = frames.column("offload")[-1]
-    rebuffer = frames.column("rebuffer")[-1]
-    print(f"population-gate sim plane: {frames.n_windows} windows, "
-          f"offload {offload:.4f}, rebuffer {rebuffer:.4f}; the wire "
-          f"half's spec {fault_specs_from(scenario.population)!r} "
-          f"(not run: no socket plane)")
+    fault_specs = fault_specs_from(spec)
+    # the grammar itself must parse (the shared-plan contract)
+    NetFaultPlan.parse(fault_specs, seed=spec.seed)
+    result = run_real_plane(scenario)
+    frames = result.registry_frames
+    fired = result.transport_faults.get("partition", 0)
+    print(f"population-gate real plane: {frames.n_windows} windows, "
+          f"offload {result.offload:.4f}, rebuffer "
+          f"{result.rebuffer:.4f}, partition faults {fired}")
     if frames.n_windows != scenario.n_windows:
         problems.append(
-            f"sim plane closed {frames.n_windows} windows, "
+            f"real plane closed {frames.n_windows} windows, "
             f"expected {scenario.n_windows} — the run did not "
             f"survive the crowd+partition scenario")
-    if not (0.0 <= offload <= 1.0) or rebuffer < 0.0:
+    if fired < 1:
         problems.append(
-            f"sim-plane metrics are not sane under the crowd "
-            f"(offload {offload}, rebuffer {rebuffer})")
-    # the crowd cohort must actually be present: the peak membership
-    # covers the whole audience
+            "the spec's partition window never fired on the wire "
+            "(mesh.transport_faults{kind=partition} == 0) — the "
+            "shared NetFaultPlan grammar is not being honored")
+    if not (0.0 <= result.offload <= 1.0) or result.rebuffer < 0.0:
+        problems.append(
+            f"real-plane metrics are not sane under the partition "
+            f"(offload {result.offload}, rebuffer "
+            f"{result.rebuffer})")
+    # the crowd cohort must actually be present: the last window's
+    # membership covers the whole audience
     presents = frames.column("present_peers") \
         if "present_peers" in frames.columns else None
     if presents is not None and max(presents) < scenario.total_peers:
@@ -361,7 +365,7 @@ def main(argv=None):
                 ("mixture", lambda: check_mixture_group(sizes, dev)),
                 ("determinism", lambda: check_determinism(digests)),
                 ("frontier", lambda: check_frontier(sizes, dev)),
-                ("sim_plane", lambda: check_sim_plane(dev))):
+                ("real_plane", check_real_plane)):
             t0 = time.perf_counter()
             problems.extend(check())
             walls[name] = round(time.perf_counter() - t0, 3)
@@ -376,8 +380,7 @@ def main(argv=None):
           f"{'PASS' if not problems else 'FAIL'} "
           f"(degenerate bit-identity on both shipped grids, "
           f"one-group mixture, cross-process determinism, "
-          f"mixture-vs-mean frontier, sim-plane crowd+partition; "
-          f"not checked: {WIRE_ASSERTION}; "
+          f"mixture-vs-mean frontier, real-plane crowd+partition; "
           f"{args.peers} peers, {args.device})", file=sys.stderr)
     return 1 if problems else 0
 

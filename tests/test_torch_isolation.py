@@ -46,5 +46,16 @@ def test_port_imports_no_jax_and_no_reference():
                  "tools.warmstart_gate", "tools.chaos_gate",
                  "tools.fleet_gate", "tools.trace_gate",
                  "tools.optimize_gate", "tools.population_gate",
-                 "tools.trace_export", "tools.fleet_console"):
+                 "tools.trace_export", "tools.fleet_console",
+                 "version", "core.clock", "core.errors", "core.events",
+                 "core.media_map", "core.request_setup",
+                 "core.player_interface", "core.loader", "core.session",
+                 "core.wrapper", "core.abr", "engine.cache", "engine.cdn",
+                 "engine.stats", "engine.cdn_agent", "engine.scheduler",
+                 "engine.transport", "engine.mesh", "engine.p2p_agent",
+                 "engine.tracker", "engine.netfaults", "engine.net",
+                 "player.manifest", "player.sim", "testing.mock_cdn",
+                 "testing.fixtures", "testing.seed_process",
+                 "testing.swarm", "tools.control", "tools.twin_gate",
+                 "tools.control_gate"):
         assert f"hlsjs_p2p_wrapper_tpu_torch.{name}" in names.split()
